@@ -1,0 +1,129 @@
+"""Rotated BEV overlap / IoU (torch counterpart of glenet_tpu/ops/iou3d.py).
+
+The intersection of two convex quads is the convex hull of the 16 pairwise
+edge-edge intersection points and the corners of each quad lying inside the
+other (24 candidates with validity masks).  Candidates are sorted by angle
+around the valid-point centroid, invalid tail slots are replaced by the
+first vertex (duplicates add zero), and the shoelace sum gives the area.
+Layout: (candidate, N) structure-of-arrays, as in the JAX package.
+"""
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-8
+_INSIDE_EPS = 1e-6
+
+
+def box_to_bev_corners(boxes):
+    """(..., 7) -> (..., 4, 2) BEV corners in CCW order."""
+    template = torch.tensor([[1, 1], [-1, 1], [-1, -1], [1, -1]],
+                            dtype=boxes.dtype, device=boxes.device) / 2.0
+    corners = boxes[..., None, 3:5] * template                 # (..., 4, 2)
+    cosa = torch.cos(boxes[..., 6])[..., None]
+    sina = torch.sin(boxes[..., 6])[..., None]
+    x = corners[..., 0] * cosa - corners[..., 1] * sina
+    y = corners[..., 0] * sina + corners[..., 1] * cosa
+    return torch.stack([x, y], dim=-1) + boxes[..., None, 0:2]
+
+
+def _overlap_soa(ax, ay, bx, by):
+    """Overlap areas of N quad pairs; ax, ay, bx, by: (4, N) CCW corners."""
+    ax1, ay1 = torch.roll(ax, -1, 0), torch.roll(ay, -1, 0)
+    bx1, by1 = torch.roll(bx, -1, 0), torch.roll(by, -1, 0)
+    cand_x, cand_y, cand_v = [], [], []
+
+    # 16 edge-edge intersections
+    for i in range(4):
+        rx = ax1[i] - ax[i]
+        ry = ay1[i] - ay[i]
+        for j in range(4):
+            sx = bx1[j] - bx[j]
+            sy = by1[j] - by[j]
+            denom = rx * sy - ry * sx
+            qpx = bx[j] - ax[i]
+            qpy = by[j] - ay[i]
+            dsafe = torch.where(denom.abs() < _EPS, _EPS, denom)
+            t = (qpx * sy - qpy * sx) / dsafe
+            u = (qpx * ry - qpy * rx) / dsafe
+            cand_x.append(ax[i] + t * rx)
+            cand_y.append(ay[i] + t * ry)
+            cand_v.append((denom.abs() > _EPS) & (t >= 0.0) & (t <= 1.0)
+                          & (u >= 0.0) & (u <= 1.0))
+
+    def inside(px, py, qx, qy, qx1, qy1):
+        ins = None
+        for e in range(4):
+            ok = ((qx1[e] - qx[e]) * (py - qy[e])
+                  - (qy1[e] - qy[e]) * (px - qx[e])) >= -_INSIDE_EPS
+            ins = ok if ins is None else ins & ok
+        return ins
+
+    for i in range(4):
+        cand_x.append(ax[i])
+        cand_y.append(ay[i])
+        cand_v.append(inside(ax[i], ay[i], bx, by, bx1, by1))
+    for j in range(4):
+        cand_x.append(bx[j])
+        cand_y.append(by[j])
+        cand_v.append(inside(bx[j], by[j], ax, ay, ax1, ay1))
+
+    px = torch.stack(cand_x)                                    # (24, N)
+    py = torch.stack(cand_y)
+    v = torch.stack(cand_v)
+    vf = v.to(px.dtype)
+    count = vf.sum(0)
+    denom_c = count.clamp_min(1.0)
+    cx = (px * vf).sum(0) / denom_c
+    cy = (py * vf).sum(0) / denom_c
+
+    ang = torch.where(v, torch.atan2(py - cy, px - cx), 1e9)   # invalid last
+    order = torch.sort(ang, dim=0, stable=True).indices
+    px_s = px.gather(0, order)
+    py_s = py.gather(0, order)
+
+    # close the polygon: invalid tail slots -> copy of the first vertex
+    live = torch.arange(px.shape[0], device=px.device,
+                        dtype=count.dtype)[:, None] < count[None]
+    px_s = torch.where(live, px_s, px_s[0][None])
+    py_s = torch.where(live, py_s, py_s[0][None])
+    x_n = torch.roll(px_s, -1, 0)
+    y_n = torch.roll(py_s, -1, 0)
+    area = 0.5 * (px_s * y_n - x_n * py_s).sum(0).abs()
+    return torch.where(count >= 3, area, 0.0)
+
+
+def _pairwise(corners_a, corners_b):
+    """(N, 4, 2) x (M, 4, 2) -> (N, M) overlap areas."""
+    n, m = corners_a.shape[0], corners_b.shape[0]
+
+    def flat(c, a_side):
+        c = c[:, None] if a_side else c[None]
+        return c.expand(n, m, 4).reshape(n * m, 4).T            # (4, N*M)
+
+    return _overlap_soa(flat(corners_a[..., 0], True),
+                        flat(corners_a[..., 1], True),
+                        flat(corners_b[..., 0], False),
+                        flat(corners_b[..., 1], False)).reshape(n, m)
+
+
+def boxes_overlap_bev(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) rotated BEV overlap areas."""
+    return _pairwise(box_to_bev_corners(boxes_a), box_to_bev_corners(boxes_b))
+
+
+def boxes_iou_bev(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) rotated BEV IoU."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = (boxes_a[:, 3] * boxes_a[:, 4])[:, None]
+    area_b = (boxes_b[:, 3] * boxes_b[:, 4])[None, :]
+    return overlap / (area_a + area_b - overlap).clamp_min(1e-6)
+
+
+def boxes_iou_bev_blocked(boxes_a, boxes_b, block_rows: int = 512):
+    """Row-blocked (N, M) rotated BEV IoU: the same result as boxes_iou_bev
+    with the polygon-clipping temporaries bounded to (block_rows, M)."""
+    if boxes_a.shape[0] <= block_rows:
+        return boxes_iou_bev(boxes_a, boxes_b)
+    return torch.cat([boxes_iou_bev(blk, boxes_b)
+                      for blk in boxes_a.split(block_rows)], dim=0)

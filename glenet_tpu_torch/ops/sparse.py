@@ -1,0 +1,309 @@
+"""Sparse 3D convolution primitives, main-path subset (torch counterpart of
+glenet_tpu/ops/sparse.py).
+
+A sparse tensor is (features (B, V, C), ids (B, V) int32, mask (B, V)):
+`ids` are linearized (z, y, x) coordinates, SORTED ascending per sample,
+invalid slots holding the sentinel `n_cells` (so they sort last).
+
+Neighbour tables are x-block tables: linear ids are x-minor, so for each
+(dz, dy) offset group the three x taps hit three CONSECUTIVE ids, which sit
+in consecutive slots of the sorted table.  The table builds resolve the
+sorted query stream of each group with the merge-resolve kernel
+(ops/merge_kernel.py) — always in the kernel-path form of the JAX package:
+raw shifted queries, no sentinel substitution (that would break the
+sortedness); spurious hits at out-of-range taps are masked by `valid_c`.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import merge_kernel
+
+# Compute dtype of the gather + tap contraction (glenet_tpu's
+# GATHER_COMPUTE_DTYPE): bf16 gathers with a bf16 matmul; the result is cast
+# back to the features' dtype.  None keeps full f32 (parity tests).
+GATHER_COMPUTE_DTYPE = torch.bfloat16
+
+
+def _as3(v):
+    return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+def linearize(z, y, x, grid):
+    nx, ny, nz = grid
+    return z * (ny * nx) + y * nx + x
+
+
+def delinearize(ids, grid):
+    nx, ny, nz = grid
+    z = ids // (ny * nx)
+    rem = ids % (ny * nx)
+    return z, rem // nx, rem % nx
+
+
+def out_grid_size(grid, kernel_size, stride, padding):
+    """Output (nx, ny, nz) for a strided sparse conv (conv arithmetic)."""
+    kz, ky, kx = _as3(kernel_size)
+    sz, sy, sx = _as3(stride)
+    pz, py, px = _as3(padding)
+    nx, ny, nz = grid
+    return ((nx + 2 * px - kx) // sx + 1, (ny + 2 * py - ky) // sy + 1,
+            (nz + 2 * pz - kz) // sz + 1)
+
+
+def _group_offsets(lo, device):
+    """(9, 2) (dz, dy) offsets of the x-block groups, dz-major."""
+    r = torch.arange(lo, lo + 3, device=device)
+    dz, dy = torch.meshgrid(r, r, indexing='ij')
+    return torch.stack([dz.reshape(-1), dy.reshape(-1)], dim=1)
+
+
+def _check_grid(max_query, grid):
+    if max_query >= (1 << 28):
+        raise ValueError(f'grid {grid} too large for the x-block tables')
+
+
+def _xblock_hits(d0, d1, d2, valid_c, xok):
+    """Per-tap hit masks and raw-membership ranks, packed into one int32
+    plane: bit d (d = 0..2) is tap d's hit, bits 3/4 the RAW table membership
+    of expected ids base+0 / base+1 (they rank gathered block rows to taps).
+
+    d0/d1/d2: clamp(ids[pos + k] - base, 0, 3) — membership of base + d is
+    any delta == d.  valid_c (..., 9, V) bool; xok: 3 masks (..., 1, V)
+    broadcastable against it.
+    """
+    def member(d):
+        return (d0 == d) | (d1 == d) | (d2 == d)
+
+    m0, m1, m2 = member(0), member(1), member(2)
+    i32 = torch.int32
+    return ((m0 & valid_c & xok[0]).to(i32)
+            | (m1 & valid_c & xok[1]).to(i32) << 1
+            | (m2 & valid_c & xok[2]).to(i32) << 2
+            | m0.to(i32) << 3
+            | m1.to(i32) << 4)
+
+
+def subm_xblock_table_b(ids, mask, grid):
+    """x-block neighbour table of a 3^3 submanifold conv.
+
+    ids/mask (B, V) -> q/tbl (B, 9, V): q the slot of the first table id
+    >= base (clipped into the table), tbl as in _xblock_hits.
+    """
+    nx, ny, nz = grid
+    # the raw shifted queries stay within the bound the JAX kernel path
+    # asserts (its pad value 2^28)
+    _check_grid(nx * ny * nz + ny * nx + nx, grid)
+    v = ids.shape[1]
+    d = _group_offsets(-1, ids.device)                            # (9, 2)
+    shifts = (d[:, 0] * (ny * nx) + d[:, 1] * nx - 1).to(torch.int32)
+    base_raw = ids[:, None, :] + shifts[None, :, None]            # (B,9,V)
+    pos, d0, d1, d2 = merge_kernel.resolve_sorted_queries(
+        ids.contiguous(), base_raw.contiguous())
+    q = pos.clamp(0, v - 1)
+
+    z, y, x = delinearize(torch.where(mask, ids, 0), grid)        # (B, V)
+    tz = z[:, None, :] + d[None, :, 0:1]
+    ty = y[:, None, :] + d[None, :, 1:2]
+    valid_c = (mask[:, None, :]
+               & (tz >= 0) & (tz < nz) & (ty >= 0) & (ty < ny))   # (B,9,V)
+    xok = ((x - 1 >= 0)[:, None], torch.ones_like(mask)[:, None],
+           (x + 1 < nx)[:, None])
+    return q, _xblock_hits(d0, d1, d2, valid_c, xok)
+
+
+def strided_xblock_table_b(in_ids, in_mask, out_ids, out_mask, grid,
+                           stride, padding):
+    """x-block gather table of a strided 3^3 sparse conv: for output site o
+    and (dz, dy) group the three x taps read input ids base + {0, 1, 2},
+    base = linearize(oz*s - p + dz, oy*s - p + dy, ox*s - p).  The raw query
+    stream is monotone in the sorted out_ids (each axis map is affine
+    increasing and cannot carry into the next axis)."""
+    sz, sy, sx = _as3(stride)
+    pz, py, px = _as3(padding)
+    nx, ny, nz = grid
+    _check_grid((nz + 4) * ny * nx, grid)
+    onx, ony, onz = out_grid_size(grid, 3, stride, padding)
+    v_in = in_ids.shape[1]
+
+    oz_r = out_ids // (ony * onx)
+    rem = out_ids % (ony * onx)
+    oy_r, ox_r = rem // onx, rem % onx                            # (B, Vo)
+    d = _group_offsets(0, out_ids.device)                         # (9, 2)
+    iz_r = oz_r[:, None, :] * sz - pz + d[None, :, 0:1]           # (B,9,Vo)
+    iy_r = oy_r[:, None, :] * sy - py + d[None, :, 1:2]
+    ix0_r = ox_r * sx - px                                        # (B, Vo)
+    base_raw = (iz_r * (ny * nx) + iy_r * nx + ix0_r[:, None, :])
+    pos, d0, d1, d2 = merge_kernel.resolve_sorted_queries(
+        in_ids.contiguous(), base_raw.to(torch.int32).contiguous())
+    q = pos.clamp(0, v_in - 1)
+
+    oz = torch.where(out_mask, oz_r, 0)
+    oy = torch.where(out_mask, oy_r, 0)
+    ox = torch.where(out_mask, ox_r, 0)
+    iz = oz[:, None, :] * sz - pz + d[None, :, 0:1]
+    iy = oy[:, None, :] * sy - py + d[None, :, 1:2]
+    ix0 = (ox * sx - px)[:, None]
+    valid_c = (out_mask[:, None, :]
+               & (iz >= 0) & (iz < nz) & (iy >= 0) & (iy < ny))
+    xok = ((ix0 >= 0) & (ix0 < nx), (ix0 + 1 >= 0) & (ix0 + 1 < nx),
+           (ix0 + 2 >= 0) & (ix0 + 2 < nx))
+    return q, _xblock_hits(d0, d1, d2, valid_c, xok)
+
+
+def _gather_dtype(features):
+    if GATHER_COMPUTE_DTYPE is not None and features.dtype == torch.float32:
+        return GATHER_COMPUTE_DTYPE
+    return features.dtype
+
+
+def _take_rows_merged(ext, q):
+    """ext (B, N, C); q (B, ...) row ids in [0, N) -> (B, ..., C): one flat
+    row gather over the batch-merged operand."""
+    b, n, c = ext.shape
+    off = (torch.arange(b, device=q.device) * n).reshape(
+        (b,) + (1,) * (q.dim() - 1))
+    flat = ext.reshape(b * n, c).index_select(0, (q.long() + off).reshape(-1))
+    return flat.reshape(*q.shape, c)
+
+
+def _xblock_per_tap_b(features, q, tbl):
+    """Gather half of the x-block contraction: features (B, V, Cin), q/tbl
+    (B, 9, Vo) -> (B, 9, Vo, 3*Cin) per-tap operand in the gather compute
+    dtype, zeros at tap misses.
+
+    Block row t holds expected id base+d iff t equals the count of present
+    ids among {base, ..., base+d-1} (the table is sorted unique and q is the
+    left insertion point of base), so tap d selects row m0+...+m(d-1).
+    """
+    b, v, cin = features.shape
+    gdtype = _gather_dtype(features)
+    ext = torch.cat([features, features.new_zeros((b, 3, cin))],
+                    dim=1).to(gdtype)
+    ext3 = torch.cat([ext[:, :-2], ext[:, 1:-1], ext[:, 2:]], dim=-1)
+    blocks = _take_rows_merged(ext3, q)                  # (B, 9, Vo, 3*Cin)
+    b0, b1, b2 = blocks.split(cin, dim=-1)
+    hit0 = ((tbl & 1) > 0)[..., None]
+    hit1 = ((tbl & 2) > 0)[..., None]
+    hit2 = ((tbl & 4) > 0)[..., None]
+    m0 = ((tbl & 8) > 0)[..., None]
+    n01 = (((tbl >> 3) & 1) + ((tbl >> 4) & 1))[..., None]
+    zero = torch.zeros((), dtype=gdtype, device=features.device)
+    pt0 = torch.where(hit0, b0, zero)
+    pt1 = torch.where(hit1, torch.where(m0, b1, b0), zero)
+    row2 = torch.where(n01 == 2, b2, torch.where(n01 == 1, b1, b0))
+    pt2 = torch.where(hit2, row2, zero)
+    return torch.cat([pt0, pt1, pt2], dim=-1)
+
+
+def gather_gemm_xblocks_b(features, q, tbl, weights):
+    """Sparse-conv contraction over an x-block table: features (B, V, Cin),
+    q/tbl (B, 9, Vo), weights (27, Cin, Cout) in (dz, dy)-major dx-minor tap
+    order -> (B, Vo, Cout) in the features' dtype.  Forward only."""
+    cin = features.shape[-1]
+    g = q.shape[1]
+    gdtype = _gather_dtype(features)
+    per_tap = _xblock_per_tap_b(features, q, tbl)
+    w = weights.reshape(g, 3 * cin, -1).to(gdtype)
+    return torch.einsum('bgvk,gko->bvo', per_tap, w).to(features.dtype)
+
+
+def strided_output_sites(ids, mask, grid, kernel_size, stride, padding,
+                         out_cap: int):
+    """Active output sites of a strided sparse conv (spconv rule: output o is
+    active iff some input i = o * s - p + k).  Per sample: ids/mask (V,).
+
+    Per dimension only ceil(k/s) outputs can cover an input, so a 3^3
+    stride-2 conv has at most 8 candidates per input.  When actives exceed
+    `out_cap`, sites are dropped by UNIFORM RANK DECIMATION in sorted-id
+    order (keep a site when floor(rank * cap / n) advances).
+
+    Returns out_ids (out_cap,) int32 sorted (sentinel n_out_cells in empty
+    slots) and out_mask (out_cap,) bool.
+    """
+    kz, ky, kx = _as3(kernel_size)
+    sz, sy, sx = _as3(stride)
+    pz, py, px = _as3(padding)
+    onx, ony, onz = out_grid_size(grid, kernel_size, stride, padding)
+    n_out_cells = onx * ony * onz
+    dev = ids.device
+
+    z, y, x = delinearize(torch.where(mask, ids, 0).long(), grid)
+
+    def dim_cands(i, p, s, k, on):
+        base = torch.div(i + p, s, rounding_mode='floor')
+        rem = (i + p) - base * s
+        out = []
+        for dd in range(-(-k // s)):
+            o = base - dd
+            out.append((o, (rem + s * dd < k) & (o >= 0) & (o < on)))
+        return out
+
+    cand = []
+    for oz, vz in dim_cands(z, pz, sz, kz, onz):
+        for oy, vy in dim_cands(y, py, sy, ky, ony):
+            for ox, vx in dim_cands(x, px, sx, kx, onx):
+                ok = mask & vz & vy & vx
+                cand.append(torch.where(ok, oz * (ony * onx) + oy * onx + ox,
+                                        n_out_cells))
+    srt = torch.sort(torch.stack(cand).reshape(-1)).values
+    first = torch.ones_like(srt, dtype=torch.bool)
+    first[1:] = srt[1:] != srt[:-1]
+    first &= srt < n_out_cells
+    rank = torch.cumsum(first.long(), 0) - 1
+    n_active = (rank[-1] + 1).clamp_min(0)
+    # f32 is exact for rank < 2^24 and ratio == 1.0 when n <= cap
+    ratio = out_cap / torch.maximum(
+        n_active, torch.tensor(out_cap, device=dev)).to(torch.float32)
+    pos = torch.floor(rank.to(torch.float32) * ratio).long()
+    pos = pos.clamp(0, out_cap - 1)
+    prev = torch.floor((rank - 1).to(torch.float32) * ratio).long()
+    keep = first & ((rank == 0) | (pos > prev))
+    # kept sites have unique slots; the rest go to the dump slot out_cap
+    out_ids = torch.full((out_cap + 1,), n_out_cells, dtype=torch.int64,
+                         device=dev)
+    out_ids[torch.where(keep, pos, out_cap)] = torch.where(keep, srt,
+                                                           n_out_cells)
+    out_ids = out_ids[:out_cap].to(torch.int32)
+    return out_ids, out_ids < n_out_cells
+
+
+# Per-level dilation multipliers of the voxel budget (glenet_tpu's measured
+# KITTI-scale active-site growth at levels 2/3/4, plus margin).
+LEVEL_CAP_MULTIPLIERS = (1.0, 3.3, 3.8, 2.1)
+
+
+def level_caps(max_voxels: int):
+    """Static active-site budgets for backbone levels 1..4 (strides
+    1/2/4/8)."""
+    return tuple(int(m * max_voxels) for m in LEVEL_CAP_MULTIPLIERS)
+
+
+def to_dense_expand(features, ids, mask, grid, out_dtype=None):
+    """Batched sorted-sparse rows -> dense canvases.  Forward only.
+
+    Args: features (B, V, C); ids (B, V) sorted (n_cells sentinel in invalid
+    slots); mask (B, V); grid (nx, ny, nz).
+    Returns: dense (B, nz, ny, nx, C) in out_dtype (features.dtype if None),
+    occ (B, nz, ny, nx) bool.
+
+    The JAX package expands the row table through an occupancy cumsum to
+    avoid a slow TPU row scatter; on the GPU one row scatter into a canvas
+    with a dump row is the direct form: valid ids are unique, invalid rows
+    all land in the dump row, which is cut off.
+    """
+    nx, ny, nz = grid
+    n_cells = nz * ny * nx
+    b, v, c = features.shape
+    dt = out_dtype or features.dtype
+    flat = (torch.where(mask, ids, n_cells).long()
+            + torch.arange(b, device=ids.device)[:, None] * (n_cells + 1))
+    flat = flat.reshape(-1)
+    dense = features.new_zeros((b * (n_cells + 1), c), dtype=dt)
+    rows = torch.where(mask[..., None], features, 0).to(dt)
+    dense[flat] = rows.reshape(-1, c)
+    occ = torch.zeros(b * (n_cells + 1), dtype=torch.bool, device=ids.device)
+    occ[flat] = True
+    dense = dense.reshape(b, n_cells + 1, c)[:, :n_cells]
+    occ = occ.reshape(b, n_cells + 1)[:, :n_cells]
+    return dense.reshape(b, nz, ny, nx, c), occ.reshape(b, nz, ny, nx)

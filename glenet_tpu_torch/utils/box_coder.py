@@ -1,0 +1,31 @@
+"""Box coder (torch counterpart of glenet_tpu/utils/box_coder.py
+ResidualCoder, decode only): xyz residuals normalized by the anchor BEV
+diagonal / dz, log-ratio dims, heading as a delta."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualCoder:
+    code_size: int = 7
+
+    def decode(self, box_encodings, anchors):
+        """box_encodings: (..., 7 + C), anchors: (..., 7 + C) -> boxes."""
+        xa, ya, za, dxa, dya, dza, ra = anchors[..., :7].unbind(-1)
+        xt, yt, zt, dxt, dyt, dzt, rt = box_encodings[..., :7].unbind(-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        extras = box_encodings[..., 7:] + anchors[..., 7:]
+        return torch.cat([torch.stack([
+            xt * diagonal + xa, yt * diagonal + ya, zt * dza + za,
+            torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza,
+            rt + ra], dim=-1), extras], dim=-1)
+
+
+def build_box_coder(name: str, **kwargs):
+    if name != 'ResidualCoder' or kwargs:
+        raise NotImplementedError(f'box coder {name} {kwargs} is not ported '
+                                  f'yet')
+    return ResidualCoder()
