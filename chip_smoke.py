@@ -7,14 +7,21 @@ Phases, each of which exits non-zero on failure:
   1. set-up: the card's name and power limit, torch / CUDA versions, and the
      build of every CUDA kernel of the port (one nvcc per source, all
      started together);
-  2. kernel check: every kernel equals its plain PyTorch version on
-     adversarial cases and on the (ids, queries) pairs captured from one
-     full-width predict (a warm-up); kernel, plain and library times;
-  3. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
+  2. full width, the main path: configs/kitti_models/GLENet_VR.yaml, one
+     warm-up predict that captures the (ids, queries) of its merge-resolve
+     calls, then 3 requests of B = 2 synthetic KITTI-like scenes of 32768
+     points (random seeded weights, default dtypes), launches counted from
+     0 over those requests;
+  3. kernel check: every kernel equals its plain PyTorch version on
+     adversarial cases (with the merge-resolve kernel's count of tiles on
+     its wide-window path) and on the captured calls; per call the
+     kernel's device time (torch.profiler), back-to-back, host and cold-L2
+     times, the plain version's time, and torch.searchsorted's device and
+     back-to-back times.  It runs after the main path because a
+     torch.profiler session leaves host overhead behind in the process,
+     which slows every later predict;
+  4. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
      weights and points, f32 on both sides with TF32 off;
-  4. full width: configs/kitti_models/GLENet_VR.yaml predict on 3 requests
-     of B = 2 synthetic KITTI-like scenes of 32768 points (random seeded
-     weights, default dtypes), launches counted from 0 over those requests;
   5. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
@@ -22,16 +29,12 @@ Needs one CUDA device and the repository checkout around this file.
 from __future__ import annotations
 
 import json
-import math
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12          # H100 SXM CUDA-core rate, no tensor cores
 N_REQUESTS, BATCH, N_POINTS = 3, 2, 32768
 
 # Toy two-stage GLENet-VR topology (MeanVFE -> VoxelBackBone8x ->
@@ -103,29 +106,6 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def card_line():
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
-    return out.splitlines()[0]
-
-
-def cuda_time_ms(fn, iters=20):
-    """Mean device time of fn() over `iters` back-to-back calls."""
-    import torch
-    for _ in range(3):
-        fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
-
-
 def tiny_batch(seed, b=2, n_points=1024):
     import numpy as np
     x0, y0, z0, x1, y1, z1 = TINY_RANGE
@@ -142,6 +122,7 @@ def phase_setup(kernels):
     import torch
 
     from glenet_tpu_torch.ops import cuda_lib
+    from glenet_tpu_torch.utils.cuda_timing import card_line
     line = card_line()
     print(f'[setup] card: {line}')
     print(f'[setup] torch {torch.__version__}, CUDA {torch.version.cuda}, '
@@ -164,81 +145,98 @@ def adversarial_merge_cases():
     def srt(t, dim=-1):
         return torch.sort(t, dim=dim).values.to(torch.int32)
 
+    def rand(lo, hi, shape):
+        return srt(torch.randint(lo, hi, shape, generator=g))
+
     cases = {}
-    ids = srt(torch.randint(0, 5000, (2, 700), generator=g))
-    cases['random'] = (ids, srt(torch.randint(-10, 5100, (2, 9, 900),
-                                              generator=g)))
+    ids = rand(0, 5000, (2, 700))
+    cases['random'] = (ids, rand(-10, 5100, (2, 9, 900)))
     cases['all_sentinel'] = (torch.full((2, 512), 1000, dtype=torch.int32),
-                             srt(torch.randint(0, 1001, (2, 3, 600),
-                                               generator=g)))
-    ids = srt(torch.randint(10_000, 20_000, (1, 4000), generator=g))
-    cases['below_table'] = (ids, srt(torch.randint(0, 12_000, (1, 9, 3000),
-                                                   generator=g)))
-    ids = srt(torch.randint(0, 90_000_000, (2, 5000), generator=g))
-    cases['negative_raw'] = (ids, srt(torch.randint(
-        -2_000_000, 90_000_100, (2, 9, 5000), generator=g)))
+                             rand(0, 1001, (2, 3, 600)))
+    ids = rand(10_000, 20_000, (1, 4000))
+    cases['below_table'] = (ids, rand(0, 12_000, (1, 9, 3000)))
+    ids = rand(0, 90_000_000, (2, 5000))
+    cases['negative_raw'] = (ids, rand(-2_000_000, 90_000_100, (2, 9, 5000)))
     v = (1 << 20) - 1
-    ids = srt(torch.randint(0, 1 << 26, (1, v), generator=g))
-    cases['v_near_2^20'] = (ids, srt(torch.randint(-5, (1 << 26) + 5,
-                                                   (1, 9, 200_000),
-                                                   generator=g)))
+    ids = rand(0, 1 << 26, (1, v))
+    cases['v_near_2^20'] = (ids, rand(-5, (1 << 26) + 5, (1, 9, 200_000)))
+    # windows far wider than the kernel's shared buffer
+    ids = rand(0, 1 << 26, (2, 1_000_000))
+    cases['wide_windows'] = (ids, rand(-5, (1 << 26) + 5, (2, 3, 3000)))
+    # ragged last tile (Vq not a multiple of the kernel's tile)
+    ids = rand(0, 20_000, (2, 5000))
+    cases['ragged_vq'] = (ids, rand(-3, 20_003, (2, 9, 5001)))
+    cases['vq_1'] = (rand(0, 5000, (2, 700)), rand(-10, 5010, (2, 9, 1)))
+    cases['v_1'] = (torch.tensor([[40], [7]], dtype=torch.int32),
+                    rand(0, 50, (2, 3, 3000)))
+    ids = rand(0, 1000, (2, 3000))
+    eq = torch.stack([ids[:, 1500], ids[:, 1500] + 1, ids[:, 0] - 5,
+                      ids[:, -1] + 7], dim=1)                     # (2, 4)
+    cases['equal_queries'] = (ids, eq[:, :, None].expand(2, 4, 4100)
+                              .contiguous())
+    n_cells = 1_000_000
+    ids = torch.cat([rand(0, n_cells, (2, 10_000)),
+                     torch.full((2, 30_000), n_cells, dtype=torch.int32)], 1)
+    cases['sentinel_runs'] = (ids, rand(-2, n_cells + 6, (2, 9, 40_000)))
+    ids = rand(0, 50_000, (2, 8000))
+    cases['past_table'] = (ids, rand(50_000, 1 << 30, (2, 9, 6000)))
+    cases['below_all'] = (ids, rand(-(1 << 30), 0, (2, 9, 6000)))
+    ids = rand(0, 200_000, (1, 50_000))
+    cases['b1_g1'] = (ids, rand(-5, 200_005, (1, 1, 60_000)))
     return cases
 
 
-def merge_bound(ids, queries):
-    """Least time for the merge-resolve function on these inputs: each input
-    read once and the 4 int32 outputs written once over the memory rate,
-    against ~log2(V)+3 integer compares per query over the CUDA-core rate."""
-    n_q = queries.numel()
-    nbytes = ids.numel() * 4 + n_q * 4 + 4 * n_q * 4
-    ops = n_q * (math.ceil(math.log2(ids.shape[1] + 1)) + 3)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops else 'operations'
+def max_abs_err(got, ref):
+    return max(int((a.long() - b.long()).abs().max()) for a, b in
+               zip(got, ref))
 
 
 def phase_merge_check(captured):
     """Kernel == plain on adversarial and captured cases; times."""
-    import torch
-
+    from glenet_tpu_torch.bench_merge import CALL_NAMES, fmt, measure_call
     from glenet_tpu_torch.ops import merge_kernel as mk
-    max_err = 0
+    from glenet_tpu_torch.utils import cuda_timing as ct
+    max_err, n_wide, n_global = 0, 0, 0
     for name, (ids, q) in adversarial_merge_cases().items():
         ids, q = ids.cuda(), q.cuda()
-        got = mk.resolve_sorted_queries(ids, q)
-        ref = mk.resolve_sorted_queries_plain(ids, q)
-        torch.cuda.synchronize()
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  zip(got, ref))
+        got, wide, glob = mk.resolve_sorted_queries_counted(ids, q)
+        err = max_abs_err(got, mk.resolve_sorted_queries_plain(ids, q))
         print(f'[kernel] merge_resolve {name}: ids {tuple(ids.shape)} '
-              f'queries {tuple(q.shape)} max_abs_err {err}')
+              f'queries {tuple(q.shape)} max_abs_err {err}, tiles on the '
+              f'wide-window path {wide} (query groups from global memory '
+              f'{glob})')
         check(err == 0, f'merge_resolve differs from its plain version on '
                         f'{name}')
         max_err = max(max_err, err)
+        n_wide, n_global = n_wide + wide, n_global + glob
+    check(n_wide > 0 and n_global > 0,
+          'the adversarial cases missed a path of the kernel')
     check(len(captured) == 4, f'expected 4 table builds per predict, saw '
                               f'{len(captured)}')
-    tot = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0}
+    keys = ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
+            'library_ms', 'library_device_ms', 'bound_ms')
+    tot = dict.fromkeys(keys, 0.0)
     bound_by = set()
-    for i, (ids, q) in enumerate(captured):
-        got = mk.resolve_sorted_queries(ids, q)
-        ref = mk.resolve_sorted_queries_plain(ids, q)
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  zip(got, ref))
-        check(err == 0, f'merge_resolve differs on captured call {i}')
-        max_err = max(max_err, err)
-        q2 = q.reshape(q.shape[0], -1)
-        ms = cuda_time_ms(lambda: mk.resolve_sorted_queries(ids, q))
-        plain = cuda_time_ms(lambda: mk.resolve_sorted_queries_plain(ids, q))
-        lib = cuda_time_ms(lambda: torch.searchsorted(ids, q2))
-        bound, by = merge_bound(ids, q)
-        bound_by.add(by)
-        print(f'[kernel] merge_resolve call {i}: ids {tuple(ids.shape)} '
-              f'queries {tuple(q.shape)} kernel {ms:.4f} ms, plain '
-              f'{plain:.4f} ms, torch.searchsorted (pos only) {lib:.4f} ms, '
-              f'bound {bound:.4f} ms ({by})')
-        for k, t in zip(('ms', 'plain_ms', 'library_ms', 'bound_ms'),
-                        (ms, plain, lib, bound)):
-            tot[k] += t
+    for name, (ids, q) in zip(CALL_NAMES, captured):
+        got, wide, glob = mk.resolve_sorted_queries_counted(ids, q)
+        err = max_abs_err(got, mk.resolve_sorted_queries_plain(ids, q))
+        check(err == 0, f'merge_resolve differs on captured call {name}')
+        r = measure_call(ids, q)
+        r['plain_ms'] = ct.event_ms(
+            lambda: mk.resolve_sorted_queries_plain(ids, q))
+        bound_by.add(r['bound_by'])
+        print(f'[kernel] merge_resolve {name}: ids {tuple(ids.shape)} '
+              f'queries {tuple(q.shape)} max_abs_err {err}, wide tiles '
+              f'{wide} (global groups {glob}); kernel device '
+              f'{fmt(r["device_ms"])} ms, back-to-back {fmt(r["ms"])}, '
+              f'host {fmt(r["host_ms"])}, cold {fmt(r["cold_ms"])}; '
+              f'plain {fmt(r["plain_ms"])}; '
+              f'torch.searchsorted (pos only) device '
+              f'{fmt(r["library_device_ms"])}, back-to-back '
+              f'{fmt(r["library_ms"])}; bound {r["bound_ms"]:.4f} '
+              f'({r["bound_by"]})')
+        for k in keys:
+            tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r[k]
     return {'max_abs_err': max_err, 'bound_by': '/'.join(sorted(bound_by)),
             **tot}
 
@@ -306,39 +304,16 @@ def prepare_full_width():
     """GLENet_VR.yaml at full width on the card: seeded detector, the
     requests' scenes, and one warm-up predict that captures the inputs of
     the four merge-resolve calls."""
-    import numpy as np
-    import torch
-
+    from glenet_tpu_torch.bench_merge import capture_merge_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
-    from glenet_tpu_torch.utils.synthetic import make_scene, seeded_detector
+    from glenet_tpu_torch.utils.synthetic import scene_batches, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     det = seeded_detector(cfg, 'cuda', SEED)
-    rng = np.random.RandomState(SEED)
-    batches = []
-    for _ in range(N_REQUESTS + 1):
-        pts = torch.from_numpy(np.stack([make_scene(rng, N_POINTS)
-                                         for _ in range(BATCH)])).cuda()
-        batches.append({'points': pts,
-                        'points_mask': torch.ones(pts.shape[:2],
-                                                  dtype=torch.bool,
-                                                  device='cuda')})
-    captured = []
-    real = mk.resolve_sorted_queries
-
-    def recorder(ids, queries):
-        captured.append((ids.clone(), queries.clone()))
-        return real(ids, queries)
-
-    mk.resolve_sorted_queries = recorder
-    try:
-        t0 = time.perf_counter()
-        det.predict(batches[0])
-        torch.cuda.synchronize()
-        print(f'[kernel] warm-up full-width predict '
-              f'{1e3 * (time.perf_counter() - t0):.1f} ms')
-    finally:
-        mk.resolve_sorted_queries = real
+    batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
+    t0 = time.perf_counter()
+    captured = capture_merge_calls(det, batches[0])
+    print(f'[kernel] warm-up full-width predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     return det, batches[1:], captured
 
 
@@ -416,9 +391,9 @@ def main():
     try:
         card = phase_setup(['merge_resolve'])
         det, batches, captured = prepare_full_width()
+        launches = phase_full_width(det, batches)
         merge = phase_merge_check(captured)
         phase_gpu_vs_cpu()
-        launches = phase_full_width(det, batches)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -430,7 +405,9 @@ def main():
         'launches': launches, 'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
-        'library_ms': merge['library_ms']}]
+        'library_ms': merge['library_ms'], 'device_ms': merge['device_ms'],
+        'library_device_ms': merge['library_device_ms'],
+        'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms']}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls)')
     print(card)

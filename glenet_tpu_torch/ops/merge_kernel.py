@@ -7,14 +7,19 @@ runs in the hand-written Hopper kernel `csrc/merge_resolve.cu`; on CPU
 tensors in `resolve_sorted_queries_plain`, its plain PyTorch version.
 
 What bounds it on the H100: bytes.  Per query the kernel reads 4 B and
-writes 16 B, and the table reads of the binary search mostly hit the 50 MB
-L2 (a level's table is at most ~0.6 MB per sample).  A full-width GLENet-VR
-predict issues ~8.2 M queries over its four table builds, ~165 MB, which is
-~0.05 ms at 3.35 TB/s (an estimate from the code; chip_smoke.py measures
-it).  The design does nothing clever about it yet: one thread per query, a
-lower-bound binary search, three bounds-checked successor reads, all index
-arithmetic in 64 bits (the raw shifted queries may be negative or lie above
-the sentinel).  Walking the sorted queries as a merge is later work.
+writes 16 B; a full-width GLENet-VR predict issues ~8.2 M queries over its
+four table builds, ~165 MB, ~0.05 ms at 3.35 TB/s.  A binary search per
+query from scratch is bound by latency instead (a chain of ~17 dependent L2
+loads), so the kernel uses that each [b, g] query row is sorted: a block
+owns a tile of 1024 consecutive queries, bounds the tile's table window with
+one warp-wide search, stages it in shared memory, each warp narrows it to
+its own 128 queries, and each lane runs its 4 searches branch-free in
+lockstep there.  Tiles whose window is wider than the shared buffer resolve
+per warp, exactly, from a per-warp buffer or from global memory
+(`resolve_sorted_queries_counted` counts them).  The wrapper is kept lean,
+since at these sizes the host's cost per call is of the kernel's order: the
+C function is resolved once, the four outputs are one allocation, and the
+stream is read without entering a device context.
 
 Contract (same as the JAX function), per q = queries[b, g, j]:
     pos = left insertion index of q into ids[b]          (in [0, V])
@@ -35,10 +40,10 @@ _POS_BITS = 20
 LAUNCHES = 0
 
 _SIGNATURES = {
-    'merge_resolve': ([ctypes.c_void_p] * 6
-                      + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
-                      ctypes.c_int),
+    'merge_resolve': ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
+                      + [ctypes.c_void_p] * 2, ctypes.c_int),
 }
+_launch = None      # the C function, resolved at the first launch
 
 
 def _check(ids, queries):
@@ -76,6 +81,40 @@ def resolve_sorted_queries_plain(ids, queries):
     return tuple(outs)
 
 
+def _load():
+    global _launch
+    _launch = cuda_lib.load('merge_resolve', _SIGNATURES).merge_resolve
+    return _launch
+
+
+def _resolve_cuda(ids, queries, stats_ptr=None):
+    """Launch the kernel on checked CUDA tensors; returns the four views of
+    one (4, B, G, Vq) output."""
+    global LAUNCHES
+    if not ids.is_cuda:
+        raise ValueError(f'unsupported device {ids.device}')
+    if not (ids.is_contiguous() and queries.is_contiguous()):
+        raise ValueError('ids and queries must be contiguous')
+    fn = _launch or _load()
+    b, v = ids.shape
+    _, g, vq = queries.shape
+    out = ids.new_empty((4, b, g, vq))       # int32, on ids' device
+    dev = ids.get_device()
+    # the raw handle: torch.cuda.current_stream() builds a Stream object,
+    # several microseconds of host time per call
+    args = (ids.data_ptr(), queries.data_ptr(), out.data_ptr(), b, g, v, vq,
+            stats_ptr, torch._C._cuda_getCurrentRawStream(dev))
+    if dev == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f'merge_resolve launch failed: CUDA error {err}')
+    LAUNCHES += 1
+    return out.unbind(0)
+
+
 def resolve_sorted_queries(ids, queries):
     """Positions + successor deltas of sorted queries in sorted tables.
 
@@ -84,30 +123,25 @@ def resolve_sorted_queries(ids, queries):
             the end is fine), V < 2^20.
         queries: (B, G, Vq) int32, each [b, g] row sorted ascending.
     Returns:
-        (pos, d0, d1, d2): each (B, G, Vq) int32.
+        (pos, d0, d1, d2): each (B, G, Vq) int32, contiguous.
 
     CUDA tensors go to the kernel (or raise); CPU tensors to the plain
     version.
     """
-    global LAUNCHES
     _check(ids, queries)
     if ids.device.type == 'cpu':
         return resolve_sorted_queries_plain(ids, queries)
-    if ids.device.type != 'cuda':
-        raise ValueError(f'unsupported device {ids.device}')
-    if not (ids.is_contiguous() and queries.is_contiguous()):
-        raise ValueError('ids and queries must be contiguous')
-    lib = cuda_lib.load('merge_resolve', _SIGNATURES)
-    b, v = ids.shape
-    _, g, vq = queries.shape
-    outs = [torch.empty((b, g, vq), dtype=torch.int32, device=ids.device)
-            for _ in range(4)]
-    with torch.cuda.device(ids.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.merge_resolve(ids.data_ptr(), queries.data_ptr(),
-                                *(o.data_ptr() for o in outs),
-                                b, v, g * vq, stream)
-    if err != 0:
-        raise RuntimeError(f'merge_resolve launch failed: CUDA error {err}')
-    LAUNCHES += 1
-    return tuple(outs)
+    return _resolve_cuda(ids, queries)
+
+
+def resolve_sorted_queries_counted(ids, queries):
+    """resolve_sorted_queries on CUDA tensors, with two counts of the
+    kernel's slow paths: tiles whose table window was wider than its shared
+    buffer, and groups of 128 queries in them resolved from global memory.
+    Returns ((pos, d0, d1, d2), wide_tiles, global_groups); synchronises to
+    read the counts."""
+    _check(ids, queries)
+    stats = torch.zeros(2, dtype=torch.int32, device=ids.device)
+    outs = _resolve_cuda(ids, queries, stats.data_ptr())
+    wide, glob = stats.tolist()
+    return outs, wide, glob

@@ -15,15 +15,14 @@ Prints the card's name and power limit beside the numbers.
 """
 from __future__ import annotations
 
-import subprocess
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from .config import cfg_from_yaml_file
-from .utils.synthetic import make_scene, seeded_detector
+from .utils.cuda_timing import card_line
+from .utils.synthetic import scene_batches, seeded_detector
 
 ROOT = Path(__file__).resolve().parent.parent
 STAGES = ('backbone_3d', 'backbone_2d', 'dense_head', 'roi_head')
@@ -68,21 +67,11 @@ def _stage_times(det, batch):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('profile_predict: no CUDA device')
-    card = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    card = card_line()
     print(f'card: {card}')
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     det = seeded_detector(cfg, 'cuda', 0)
-    rng = np.random.RandomState(0)
-    batches = []
-    for _ in range(REQUESTS + 1):
-        pts = torch.from_numpy(np.stack([make_scene(rng) for _ in range(2)]))
-        batches.append({'points': pts.cuda(),
-                        'points_mask': torch.ones(pts.shape[:2],
-                                                  dtype=torch.bool,
-                                                  device='cuda')})
+    batches = scene_batches(REQUESTS + 1)
     det.predict(batches[0])
     torch.cuda.synchronize()
 

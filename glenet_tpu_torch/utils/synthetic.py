@@ -32,6 +32,20 @@ def make_scene(rng, n_points=N_POINTS):
     return pts
 
 
+def scene_batches(n, seed=0, batch=2, device='cuda'):
+    """`n` predict requests of `batch` scenes each, drawn in order from one
+    RandomState(seed): {'points', 'points_mask'} on `device`."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        pts = torch.from_numpy(np.stack([make_scene(rng)
+                                         for _ in range(batch)])).to(device)
+        out.append({'points': pts,
+                    'points_mask': torch.ones(pts.shape[:2], dtype=torch.bool,
+                                              device=device)})
+    return out
+
+
 def seeded_detector(cfg, device, seed):
     """Detector with weights drawn from `seed`, BN statistics included (so
     BN is not an identity)."""

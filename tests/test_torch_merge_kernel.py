@@ -44,11 +44,64 @@ def _below_table(seed):
     return ids, q
 
 
+def _sorted(r, lo, hi, shape):
+    return np.sort(r.randint(lo, hi, size=shape), axis=-1).astype(np.int32)
+
+
+# The cases below are those chip_smoke.py holds the CUDA kernel to: table
+# windows wider than its shared buffer, ragged and single-query rows, a
+# tiny table, constant rows, runs of sentinels, queries all past or all
+# below the table, one row.  Values stay below 2^26 (the sort path's range),
+# and the tiny table has 2 slots, the fewest the sort path takes.
+def _wide_windows(seed):
+    r = np.random.RandomState(seed)
+    return (_sorted(r, 0, 1 << 26, (1_000_000,)),
+            _sorted(r, -5, (1 << 26) + 5, (3, 3000)))
+
+
+def _equal_queries(seed):
+    ids = _sorted(np.random.RandomState(seed), 0, 1000, (3000,))
+    vals = np.array([ids[1500], ids[1500] + 1, ids[0] - 5, ids[-1] + 7])
+    return ids, np.repeat(vals[:, None], 1100, axis=1).astype(np.int32)
+
+
+def _sentinel_runs(seed):
+    r = np.random.RandomState(seed)
+    n_cells = 100_000
+    ids = np.concatenate([_sorted(r, 0, n_cells, (300,)),
+                          np.full((2000,), n_cells, np.int32)])
+    return ids, _sorted(r, -2, n_cells + 6, (9, 2500))
+
+
 CASES = {
     'random': lambda s: _case(np.random.RandomState(s), 64, 40 + s, 3, 64,
                               480),
     'all_sentinel': _all_sentinel,
     'below_table': _below_table,
+    'wide_windows': _wide_windows,
+    'ragged_vq': lambda s: (_sorted(np.random.RandomState(s), 0, 20_000,
+                                    (700,)),
+                            _sorted(np.random.RandomState(s + 9), -3, 20_003,
+                                    (3, 5001))),
+    'vq_1': lambda s: (_sorted(np.random.RandomState(s), 0, 5000, (700,)),
+                       _sorted(np.random.RandomState(s + 9), -10, 5010,
+                               (9, 1))),
+    'v_2': lambda s: (np.array([40 + s, 41 + s], np.int32),
+                      _sorted(np.random.RandomState(s), 0, 90, (3, 300))),
+    'equal_queries': _equal_queries,
+    'sentinel_runs': _sentinel_runs,
+    'past_table': lambda s: (_sorted(np.random.RandomState(s), 0, 50_000,
+                                     (800,)),
+                             _sorted(np.random.RandomState(s + 9), 50_000,
+                                     1 << 26, (9, 600))),
+    'below_all': lambda s: (_sorted(np.random.RandomState(s), 0, 50_000,
+                                    (800,)),
+                            _sorted(np.random.RandomState(s + 9), -(1 << 26),
+                                    0, (9, 600))),
+    'b1_g1': lambda s: (_sorted(np.random.RandomState(s), 0, 200_000,
+                                (5000,)),
+                        _sorted(np.random.RandomState(s + 9), -5, 200_005,
+                                (1, 6000))),
 }
 
 
@@ -86,6 +139,8 @@ def test_wrapper_checks_inputs():
     with pytest.raises(ValueError):
         tmk.resolve_sorted_queries(
             torch.zeros((1, 1 << 20), dtype=torch.int32), q)
+    with pytest.raises(ValueError, match='unsupported device'):
+        tmk.resolve_sorted_queries_counted(ids, q)
     before = tmk.LAUNCHES
     tmk.resolve_sorted_queries(ids, q)
     assert tmk.LAUNCHES == before, 'the CPU path launches no kernel'
