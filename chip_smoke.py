@@ -12,17 +12,27 @@ Phases, each of which exits non-zero on failure:
      calls, then 3 requests of B = 2 synthetic KITTI-like scenes of 32768
      points (random seeded weights, default dtypes), launches counted from
      0 over those requests;
-  3. kernel check: every kernel equals its plain PyTorch version on
+  3. full width, the train step: the same detector trained with
+     adam_onecycle over a full run's schedule (80 epochs x 928 iterations),
+     B = BATCH_SIZE_PER_GPU = 4 synthetic training scenes with Car gt boxes
+     and label variances, the train voxel budget; one warm-up step that
+     captures its merge-resolve calls, then 3 timed steps, launches counted
+     from 0 over those steps.  Per step: ms, every loss term, grad_norm,
+     launches (4), peak memory; checks finite losses, changed parameters
+     and BN running stats, and the LR / b1 of the one-cycle schedule;
+  4. kernel check: every kernel equals its plain PyTorch version on
      adversarial cases (with the merge-resolve kernel's count of tiles on
-     its wide-window path) and on the captured calls; per call the
-     kernel's device time (torch.profiler), back-to-back, host and cold-L2
-     times, the plain version's time, and torch.searchsorted's device and
-     back-to-back times.  It runs after the main path because a
-     torch.profiler session leaves host overhead behind in the process,
-     which slows every later predict;
-  4. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
-     weights and points, f32 on both sides with TF32 off;
-  5. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+     its wide-window path) and on the captured calls of the predict and of
+     the train step; per call the kernel's device time (torch.profiler),
+     back-to-back, host and cold-L2 times, the plain version's time, and
+     torch.searchsorted's device and back-to-back times.  It runs after the
+     main paths because a torch.profiler session leaves host overhead
+     behind in the process, which slows every later step;
+  5. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
+     weights and points, f32 on both sides with TF32 off: a predict, and a
+     train step with fixed RoI targets and DP_RATIO 0 (loss terms,
+     gradients, BN running stats);
+  6. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -36,6 +46,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_REQUESTS, BATCH, N_POINTS = 3, 2, 32768
+TRAIN_STEPS = 3
 
 # Toy two-stage GLENet-VR topology (MeanVFE -> VoxelBackBone8x ->
 # BaseBEVBackbone -> AnchorHeadSingle -> VoxelRCNNKLLabelIoUHead), the
@@ -72,21 +83,35 @@ TINY_CFG = {
                 'feature_map_stride': 8, 'matched_threshold': 0.6,
                 'unmatched_threshold': 0.45}],
             'TARGET_ASSIGNER_CONFIG': {'BOX_CODER': 'ResidualCoder'},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+                'code_weights': [1.0] * 7}},
         },
         'ROI_HEAD': {
             'NAME': 'VoxelRCNNKLLabelIoUHead', 'CLASS_AGNOSTIC': True,
             'SHARED_FC': [32, 32], 'CLS_FC': [32], 'REG_FC': [32],
             'DP_RATIO': 0.3,
-            'NMS_CONFIG': {'TEST': {
-                'NMS_TYPE': 'nms_gpu', 'NMS_PRE_MAXSIZE': 256,
-                'NMS_POST_MAXSIZE': 32, 'NMS_THRESH': 0.7,
-                'SCORE_THRESH': 0.0}},
+            'NMS_CONFIG': {
+                'TRAIN': {'NMS_TYPE': 'nms_gpu', 'NMS_PRE_MAXSIZE': 512,
+                          'NMS_POST_MAXSIZE': 64, 'NMS_THRESH': 0.8},
+                'TEST': {'NMS_TYPE': 'nms_gpu', 'NMS_PRE_MAXSIZE': 256,
+                         'NMS_POST_MAXSIZE': 32, 'NMS_THRESH': 0.7,
+                         'SCORE_THRESH': 0.0}},
             'ROI_GRID_POOL': {
                 'FEATURES_SOURCE': ['x_conv2', 'x_conv3', 'x_conv4'],
                 'GRID_SIZE': 4,
                 'POOL_LAYERS': {'x_conv2': {'MLPS': [[16, 16]]},
                                 'x_conv3': {'MLPS': [[16, 16]]},
                                 'x_conv4': {'MLPS': [[16, 16]]}}},
+            'TARGET_CONFIG': {
+                'BOX_CODER': 'ResidualCoder', 'ROI_PER_IMAGE': 32,
+                'FG_RATIO': 0.5, 'SAMPLE_ROI_BY_EACH_CLASS': True,
+                'CLS_SCORE_TYPE': 'roi_iou', 'CLS_FG_THRESH': 0.75,
+                'CLS_BG_THRESH': 0.25, 'CLS_BG_THRESH_LO': 0.1,
+                'HARD_BG_RATIO': 0.8, 'REG_FG_THRESH': 0.55},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'rcnn_cls_weight': 1.0, 'rcnn_reg_weight': 1.0,
+                'rcnn_corner_weight': 1.0, 'code_weights': [1.0] * 7}},
         },
         'POST_PROCESSING': {
             'SCORE_THRESH': 0.1,
@@ -94,6 +119,10 @@ TINY_CFG = {
                            'NMS_TYPE': 'new_nms_gpu', 'NMS_THRESH': 0.1,
                            'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 32}},
     },
+    'OPTIMIZATION': {
+        'BATCH_SIZE_PER_GPU': 2, 'NUM_EPOCHS': 1, 'OPTIMIZER': 'adam_onecycle',
+        'LR': 0.003, 'WEIGHT_DECAY': 0.01, 'MOMS': [0.95, 0.85],
+        'PCT_START': 0.4, 'DIV_FACTOR': 10, 'GRAD_NORM_CLIP': 10},
 }
 
 
@@ -191,11 +220,47 @@ def max_abs_err(got, ref):
                zip(got, ref))
 
 
-def phase_merge_check(captured):
-    """Kernel == plain on adversarial and captured cases; times."""
+def check_captured(captured, what):
+    """Kernel == plain on the 4 captured calls of one predict or train step;
+    their summed times."""
     from glenet_tpu_torch.bench_merge import CALL_NAMES, fmt, measure_call
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.utils import cuda_timing as ct
+    check(len(captured) == 4, f'expected 4 table builds per {what}, saw '
+                              f'{len(captured)}')
+    keys = ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
+            'library_ms', 'library_device_ms', 'bound_ms')
+    tot = dict.fromkeys(keys, 0.0)
+    bound_by = set()
+    for name, (ids, q) in zip(CALL_NAMES, captured):
+        got, wide, glob = mk.resolve_sorted_queries_counted(ids, q)
+        err = max_abs_err(got, mk.resolve_sorted_queries_plain(ids, q))
+        check(err == 0, f'merge_resolve differs on captured {what} call '
+                        f'{name}')
+        r = measure_call(ids, q)
+        r['plain_ms'] = ct.event_ms(
+            lambda: mk.resolve_sorted_queries_plain(ids, q))
+        bound_by.add(r['bound_by'])
+        print(f'[kernel] merge_resolve {what} {name}: ids '
+              f'{tuple(ids.shape)} queries {tuple(q.shape)} max_abs_err '
+              f'{err}, wide tiles {wide} (global groups {glob}); kernel '
+              f'device {fmt(r["device_ms"])} ms, back-to-back '
+              f'{fmt(r["ms"])}, host {fmt(r["host_ms"])}, cold '
+              f'{fmt(r["cold_ms"])}; plain {fmt(r["plain_ms"])}; '
+              f'torch.searchsorted (pos only) device '
+              f'{fmt(r["library_device_ms"])}, back-to-back '
+              f'{fmt(r["library_ms"])}; bound {r["bound_ms"]:.4f} '
+              f'({r["bound_by"]})')
+        for k in keys:
+            tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r[k]
+    print(f'[kernel] merge_resolve per {what} (4 calls): ' + ', '.join(
+        f'{k} {fmt(v)}' for k, v in tot.items()))
+    return {'bound_by': '/'.join(sorted(bound_by)), **tot}
+
+
+def phase_merge_check(captured, captured_train):
+    """Kernel == plain on adversarial and captured cases; times."""
+    from glenet_tpu_torch.ops import merge_kernel as mk
     max_err, n_wide, n_global = 0, 0, 0
     for name, (ids, q) in adversarial_merge_cases().items():
         ids, q = ids.cuda(), q.cuda()
@@ -211,34 +276,8 @@ def phase_merge_check(captured):
         n_wide, n_global = n_wide + wide, n_global + glob
     check(n_wide > 0 and n_global > 0,
           'the adversarial cases missed a path of the kernel')
-    check(len(captured) == 4, f'expected 4 table builds per predict, saw '
-                              f'{len(captured)}')
-    keys = ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
-            'library_ms', 'library_device_ms', 'bound_ms')
-    tot = dict.fromkeys(keys, 0.0)
-    bound_by = set()
-    for name, (ids, q) in zip(CALL_NAMES, captured):
-        got, wide, glob = mk.resolve_sorted_queries_counted(ids, q)
-        err = max_abs_err(got, mk.resolve_sorted_queries_plain(ids, q))
-        check(err == 0, f'merge_resolve differs on captured call {name}')
-        r = measure_call(ids, q)
-        r['plain_ms'] = ct.event_ms(
-            lambda: mk.resolve_sorted_queries_plain(ids, q))
-        bound_by.add(r['bound_by'])
-        print(f'[kernel] merge_resolve {name}: ids {tuple(ids.shape)} '
-              f'queries {tuple(q.shape)} max_abs_err {err}, wide tiles '
-              f'{wide} (global groups {glob}); kernel device '
-              f'{fmt(r["device_ms"])} ms, back-to-back {fmt(r["ms"])}, '
-              f'host {fmt(r["host_ms"])}, cold {fmt(r["cold_ms"])}; '
-              f'plain {fmt(r["plain_ms"])}; '
-              f'torch.searchsorted (pos only) device '
-              f'{fmt(r["library_device_ms"])}, back-to-back '
-              f'{fmt(r["library_ms"])}; bound {r["bound_ms"]:.4f} '
-              f'({r["bound_by"]})')
-        for k in keys:
-            tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r[k]
-    return {'max_abs_err': max_err, 'bound_by': '/'.join(sorted(bound_by)),
-            **tot}
+    return {'max_abs_err': max_err, **check_captured(captured, 'predict'),
+            'train': check_captured(captured_train, 'train step')}
 
 
 def phase_gpu_vs_cpu():
@@ -300,21 +339,160 @@ def phase_gpu_vs_cpu():
           f'{n_valid} valid final boxes')
 
 
+def tiny_train_batch(cfg):
+    """The toy training batch: tiny_batch's points, gt boxes 0.15 m off the
+    first 4 valid proposals of each sample of a CPU predict (so the RoI
+    targets hold foreground), label variances in [0.02, 0.3), and fixed RoI
+    targets sampled once on the CPU."""
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.utils.synthetic import seeded_detector
+    pts = torch.from_numpy(tiny_batch(SEED + 7))
+    b = pts.shape[0]
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool)
+    det = seeded_detector(cfg, 'cpu', SEED + 3)
+    with torch.no_grad():
+        prop = det.net(pts, mask)['proposals']
+    gt = torch.zeros((b, 8, 8))
+    gt_mask = torch.zeros((b, 8), dtype=torch.bool)
+    for i in range(b):
+        idx = torch.nonzero(prop['roi_valid'][i]).flatten()[:4]
+        gt[i, :len(idx), :7] = prop['rois'][i, idx]
+        gt[i, :len(idx), 0] += 0.15
+        gt[i, :len(idx), 7] = 1
+        gt_mask[i, :len(idx)] = True
+    unc = np.random.RandomState(SEED + 11).uniform(0.02, 0.3, (b, 8, 7))
+    batch = {'points': pts, 'points_mask': mask, 'gt_boxes': gt,
+             'gt_mask': gt_mask,
+             'gt_uncertainty': torch.from_numpy(unc.astype(np.float32))}
+    with torch.no_grad():
+        out = det.net(pts, mask, train=True, gt_boxes=gt, gt_mask=gt_mask,
+                      gt_uncertainty=batch['gt_uncertainty'],
+                      generator=torch.Generator().manual_seed(SEED))
+    batch['roi_targets'] = out['roi_targets']
+    return batch
+
+
+def phase_gpu_vs_cpu_train():
+    """One toy train step (fixed RoI targets, DP_RATIO 0) on the card and
+    on the port's CPU path."""
+    import copy
+
+    import torch
+
+    from glenet_tpu_torch.config import Cfg
+    from glenet_tpu_torch.models import spconv_backbone
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.train import optim, state as st
+    from glenet_tpu_torch.utils.synthetic import seeded_detector
+    raw = copy.deepcopy(TINY_CFG)
+    raw['MODEL']['ROI_HEAD']['DP_RATIO'] = 0.0
+    cfg = Cfg(raw)
+    saved = (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    sparse.GATHER_COMPUTE_DTYPE = None
+    spconv_backbone.DENSE_MXU_DTYPE = None
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        batch = tiny_train_batch(cfg)
+        n_fg = int(batch['roi_targets']['reg_valid_mask'].sum())
+        check(n_fg > 0, 'the toy RoI targets hold no foreground')
+        runs = {}
+        for dev in ('cpu', 'cuda'):
+            det = seeded_detector(cfg, dev, SEED + 3)
+            tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
+            state = st.create_train_state(det, tx)
+            bt = {k: (v.to(dev) if torch.is_tensor(v)
+                      else {kk: vv.to(dev) for kk, vv in v.items()})
+                  for k, v in batch.items()}
+            state, metrics = st.make_train_step(det, tx)(state, bt)
+            runs[dev] = (metrics, det.net, tx)
+    finally:
+        (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    (mc, nc, tx), (mg, ng, _) = runs['cpu'], runs['cuda']
+    # f32 on both devices, TF32 off.  Loss terms rtol 1e-4.  Gradients:
+    # atomics in the backward of the row gathers and the corner gathers
+    # (index_add_ / scatter-add) and the strided convs, and cuDNN's
+    # convolution backward, sum in another order: per parameter max |diff|
+    # <= 1e-3 * max |grad| + 1e-6.  BN running stats rtol 1e-4 / atol 1e-5.
+    # Parameters after one Adam step: each element moves by about
+    # lr * sign(grad), so an element whose gradient is at rounding level may
+    # move either way: max |diff| <= 2 lr + 1e-6.
+    for k, v in mc.items():
+        err = abs(float(mg[k].cpu()) - float(v))
+        check(err <= 1e-4 * abs(float(v)) + 1e-6,
+              f'GPU and CPU differ in {k}: {float(mg[k])} vs {float(v)}')
+    print('[gpu-vs-cpu] train step loss terms: ' + ', '.join(
+        f'{k} {float(v):.6f}' for k, v in sorted(mc.items())))
+    worst = 0.0
+    gpu_params = dict(ng.named_parameters())
+    for name, p in nc.named_parameters():
+        g_c = p.grad if p.grad is not None else torch.zeros_like(p)
+        pg = gpu_params[name]
+        g_g = (pg.grad if pg.grad is not None else torch.zeros_like(pg)).cpu()
+        err = float((g_c - g_g).abs().max())
+        tol = 1e-3 * float(g_c.abs().max()) + 1e-6
+        check(err <= tol, f'GPU and CPU gradients differ in {name}: '
+                          f'{err:.3e} > {tol:.3e}')
+        worst = max(worst, err / tol)
+        step_err = float((p.detach() - pg.detach().cpu()).abs().max())
+        lr = tx.hyperparams(0)[0]
+        check(step_err <= 2 * lr + 1e-6,
+              f'GPU and CPU parameters differ after the step in {name}')
+    gpu_bufs = dict(ng.named_buffers())
+    for name, buf in nc.named_buffers():
+        if name.endswith(('running_mean', 'running_var')):
+            check(torch.allclose(buf, gpu_bufs[name].cpu(), rtol=1e-4,
+                                 atol=1e-5),
+                  f'GPU and CPU BN running stats differ in {name}')
+    print(f'[gpu-vs-cpu] tiny train step: {n_fg} foreground RoIs; loss '
+          f'terms within rtol 1e-4, every gradient within its tolerance '
+          f'(worst at {worst:.2f} of it), BN running stats and the '
+          f'parameters after adam_onecycle agree')
+
+
 def prepare_full_width():
     """GLENet_VR.yaml at full width on the card: seeded detector, the
     requests' scenes, and one warm-up predict that captures the inputs of
     the four merge-resolve calls."""
-    from glenet_tpu_torch.bench_merge import capture_merge_calls
+    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.utils.synthetic import scene_batches, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     det = seeded_detector(cfg, 'cuda', SEED)
     batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
     t0 = time.perf_counter()
-    captured = capture_merge_calls(det, batches[0])
+    captured = capture_calls(lambda: det.predict(batches[0]))[0]
     print(f'[kernel] warm-up full-width predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
-    return det, batches[1:], captured
+    return cfg, det, batches[1:], captured
+
+
+def watch_sites(det, sites):
+    """Record the active sites of each backbone level of every forward in
+    `sites`; returns the hook's handle."""
+    def record(_mod, _inp, out):
+        ms = out['multi_scale']
+        sites.update({
+            'x_conv1': ms['x_conv1']['mask'].sum(1),
+            'x_conv2': ms['x_conv2']['mask'].sum(1),
+            'x_conv3': ms['x_conv3']['mask'].sum(1),
+            'x_conv4': ms['x_conv4']['occ'].flatten(1).sum(1)})
+
+    return det.net.backbone_3d.register_forward_hook(record)
+
+
+def sites_line(sites, caps):
+    """'x_conv1 [n, ...]/cap, ...': active sites per sample against the
+    level caps of the sparse levels."""
+    return ', '.join(
+        f'{k} {sites[k].tolist()}' + (f'/{caps[i]}' if i < 3 else '')
+        for i, k in enumerate(('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')))
 
 
 def phase_full_width(det, batches):
@@ -327,18 +505,10 @@ def phase_full_width(det, batches):
     caps = sparse.level_caps(det.max_voxels_test)
     sites = {}
 
-    def record_sites(_mod, _inp, out):
-        ms = out['multi_scale']
-        sites.update({
-            'x_conv1': ms['x_conv1']['mask'].sum(1),
-            'x_conv2': ms['x_conv2']['mask'].sum(1),
-            'x_conv3': ms['x_conv3']['mask'].sum(1),
-            'x_conv4': ms['x_conv4']['occ'].flatten(1).sum(1)})
-
     def record_proposals(_mod, _inp, out):
         sites['proposals'] = out['proposals']['roi_valid'].sum(1)
 
-    hooks = [det.net.backbone_3d.register_forward_hook(record_sites),
+    hooks = [watch_sites(det, sites),
              det.net.register_forward_hook(record_proposals)]
     times, per_request = [], []
     mk.LAUNCHES = 0
@@ -363,10 +533,7 @@ def phase_full_width(det, batches):
             check(bool(torch.isfinite(pred[k]).all()), f'{k} not finite')
         check(n_launch == 4, f'request {r}: {n_launch} merge-resolve '
                              f'launches, expected 4')
-        lvl = ', '.join(
-            f'{k} {st[k].tolist()}' + (f'/{caps[i]}' if i < 3 else '')
-            for i, k in enumerate(('x_conv1', 'x_conv2', 'x_conv3',
-                                   'x_conv4')))
+        lvl = sites_line(st, caps)
         print(f'[full] request {r}: {times[r]:.1f} ms; active sites {lvl}; '
               f'valid proposals {st["proposals"].tolist()}; valid final '
               f'boxes {pred["final_valid"].sum(1).tolist()}; '
@@ -375,6 +542,108 @@ def phase_full_width(det, batches):
     print(f'[full] GLENet-VR predict B={BATCH} x {N_POINTS} points: '
           f'mean {sum(times) / len(times):.1f} ms over {len(times)} requests')
     return launches
+
+
+def onecycle_expected(opt_cfg, n_total, count):
+    """(lr, b1) of the update after `count` updates, written out from the
+    fastai OneCycle schedule: cosine from LR / DIV_FACTOR up to LR and b1
+    from MOMS[0] down to MOMS[1] over PCT_START of the steps, then back."""
+    import math
+    lr_max, div = float(opt_cfg.LR), float(opt_cfg.DIV_FACTOR)
+    m0, m1 = (float(m) for m in opt_cfg.MOMS)
+    split = int(n_total * float(opt_cfg.PCT_START))
+
+    def cos(a, b, pct):
+        return b + (a - b) / 2 * (math.cos(math.pi * pct) + 1)
+
+    if count < split:
+        pct = count / split
+        return cos(lr_max / div, lr_max, pct), cos(m0, m1, pct)
+    pct = min((count - split) / (n_total - split), 1.0)
+    return cos(lr_max, lr_max / div / 1e4, pct), cos(m1, m0, pct)
+
+
+def phase_train(cfg, det):
+    """The train step at full width: a warm-up step that captures the
+    merge-resolve calls, then TRAIN_STEPS timed steps with the launches
+    counted from 0 just before and read just after."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.profile_train import build_training, total_steps
+    from glenet_tpu_torch.utils.synthetic import train_batches
+    opt_cfg = cfg.OPTIMIZATION
+    caps = sparse.level_caps(det.max_voxels_train)
+    b = int(opt_cfg.BATCH_SIZE_PER_GPU)
+    n_total = total_steps(opt_cfg)
+    tx, state, train_step = build_training(cfg, det)
+    batches = train_batches(TRAIN_STEPS + 1, SEED + 1, b)
+    n_gt = batches[0]['gt_mask'].sum(1).tolist()
+    t0 = time.perf_counter()
+    captured, (state, metrics) = capture_calls(
+        lambda: train_step(state, batches[0]))
+    print(f'[train] GLENet-VR train step, B={b} x {N_POINTS} points, train '
+          f'voxel budget {det.max_voxels_train}, gt boxes {n_gt}, '
+          f'adam_onecycle total_steps {n_total} ({opt_cfg.NUM_EPOCHS} epochs x '
+          f'{n_total // int(opt_cfg.NUM_EPOCHS)} iterations); warm-up step '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms, loss '
+          f'{float(metrics["loss"]):.4f}')
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    times, sites = [], {}
+    hook = watch_sites(det, sites)
+    mk.LAUNCHES = 0
+    for i, batch in enumerate(batches[1:]):
+        before = mk.LAUNCHES
+        count = state.opt_state['count']
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n_launch = mk.LAUNCHES - before
+        peak = torch.cuda.max_memory_allocated()
+        vals = {k: float(v) for k, v in metrics.items()}
+        for k, v in vals.items():
+            check(math.isfinite(v), f'train step {i}: {k} = {v}')
+        check(n_launch == 4, f'train step {i}: {n_launch} merge-resolve '
+                             f'launches, expected 4')
+        lr, b1 = state.opt_state['hyperparams']
+        lr_x, b1_x = onecycle_expected(opt_cfg, n_total, count)
+        check(abs(lr - lr_x) <= 1e-9 * lr_x and abs(b1 - b1_x) <= 1e-9,
+              f'train step {i}: lr {lr}, b1 {b1}; the schedule gives '
+              f'{lr_x}, {b1_x}')
+        print(f'[train] step {i}: {times[-1]:.1f} ms; ' + ', '.join(
+            f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+            + f'; lr {lr:.6e}, b1 {b1:.6f} (update {count + 1}); '
+              f'active sites {sites_line(sites, caps)}; merge_resolve '
+              f'launches {n_launch}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+    launches = mk.LAUNCHES
+    hook.remove()
+    # adam_onecycle moves every parameter except one that is zero with zero
+    # gradients (weight decay keeps it at zero)
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'parameters unchanged by {TRAIN_STEPS} steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'BN running stats unchanged by {TRAIN_STEPS} steps: '
+                    f'{same}')
+    print(f'[train] {TRAIN_STEPS} steps: mean {sum(times) / len(times):.1f} '
+          f'ms; {len(params) - len(still)} of {len(params)} parameter '
+          f'tensors changed (unchanged, zero with zero gradients: {still}), '
+          f'all {len(stats)} BN running-stat tensors changed; lr and b1 on '
+          f'the one-cycle schedule')
+    return launches, captured
 
 
 def main():
@@ -390,26 +659,38 @@ def main():
     t_start = time.perf_counter()
     try:
         card = phase_setup(['merge_resolve'])
-        det, batches, captured = prepare_full_width()
+        cfg, det, batches, captured = prepare_full_width()
         launches = phase_full_width(det, batches)
-        merge = phase_merge_check(captured)
+        launches_train, captured_train = phase_train(cfg, det)
+        merge = phase_merge_check(captured, captured_train)
         phase_gpu_vs_cpu()
+        phase_gpu_vs_cpu_train()
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
         return 1
+    train = merge['train']
     kernels = [{
         'name': 'merge_resolve', 'route': 'cuda',
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
-        'launches': launches, 'max_abs_err': merge['max_abs_err'],
+        'launches': launches + launches_train,
+        'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
         'library_ms': merge['library_ms'], 'device_ms': merge['device_ms'],
         'library_device_ms': merge['library_device_ms'],
-        'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms']}]
+        'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms'],
+        'launches_predict': launches, 'launches_train': launches_train,
+        'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
+        'train_plain_ms': train['plain_ms'],
+        'train_bound_ms': train['bound_ms'],
+        'train_bound_by': train['bound_by'],
+        'train_library_ms': train['library_ms']}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
-          f's; kernel times are per predict (sum of its 4 calls)')
+          f's; kernel times are per predict (sum of its 4 calls), train_* '
+          f'per train step (sum of its 4 calls); launches are counted over '
+          f'the {N_REQUESTS} predicts and the {TRAIN_STEPS} train steps')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -33,9 +33,9 @@ INT32_OPS_PER_S = 67e12         # H100 SXM CUDA-core rate, no tensor cores
 CALL_NAMES = ('subm L1', 'conv2_down', 'subm L2', 'conv3_down')
 
 
-def capture_merge_calls(det, batch):
-    """Run one predict; return copies of the (ids, queries) of each
-    merge-resolve call, in call order."""
+def capture_calls(fn):
+    """Run fn(); return (copies of the (ids, queries) of each merge-resolve
+    call it made, in call order, fn's result)."""
     captured = []
     real = mk.resolve_sorted_queries
 
@@ -45,11 +45,11 @@ def capture_merge_calls(det, batch):
 
     mk.resolve_sorted_queries = recorder
     try:
-        det.predict(batch)
+        out = fn()
         torch.cuda.synchronize()
     finally:
         mk.resolve_sorted_queries = real
-    return captured
+    return captured, out
 
 
 def merge_bound(ids, queries):
@@ -101,7 +101,8 @@ def main():
     card = ct.card_line()
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     det = seeded_detector(cfg, 'cuda', 0)
-    calls = capture_merge_calls(det, scene_batches(1)[0])
+    batch = scene_batches(1)[0]
+    calls = capture_calls(lambda: det.predict(batch))[0]
     rows = []
     for name, (ids, q) in zip(CALL_NAMES, calls):
         r = {'call': name, 'ids': list(ids.shape), 'queries': list(q.shape),

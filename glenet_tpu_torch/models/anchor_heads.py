@@ -1,13 +1,14 @@
-"""Anchor-based dense head AnchorHeadSingle and its decode (torch
-counterpart of glenet_tpu/models/anchor_heads.py)."""
+"""Anchor-based dense head AnchorHeadSingle, its decode and its losses
+(torch counterpart of glenet_tpu/models/anchor_heads.py)."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..utils import common
+from ..utils import common, losses
 
 
 class AnchorHeadSingle(nn.Module):
@@ -66,3 +67,55 @@ def decode_predictions(out, flat_anchors, box_coder, dir_offset=0.78539,
         boxes = torch.cat([boxes[..., :6], heading[..., None], boxes[..., 7:]],
                           dim=-1)
     return {'batch_cls_preds': flat['cls_preds'], 'batch_box_preds': boxes}
+
+
+def cls_loss(cls_preds, box_cls_labels, num_class):
+    """Focal classification loss, summed over anchors and classes over the
+    batch size (before cls_weight).  cls_preds (B, N, num_class);
+    box_cls_labels (B, N) int: -1 ignored, 0 background."""
+    batch_size = cls_preds.shape[0]
+    positives = box_cls_labels > 0
+    cls_weights = ((box_cls_labels == 0) | positives).to(torch.float32)
+    cls_weights = cls_weights / positives.sum(dim=1, keepdim=True).clamp_min(1)
+    labels = torch.where(box_cls_labels >= 0, box_cls_labels, 0)
+    if num_class == 1:
+        labels = torch.where(positives, 1, labels)
+    one_hot = F.one_hot(labels.long(), num_class + 1)[..., 1:].to(
+        cls_preds.dtype)
+    return losses.sigmoid_focal_loss(cls_preds, one_hot,
+                                     cls_weights).sum() / batch_size
+
+
+def get_direction_targets(anchors, box_reg_targets, dir_offset, num_bins):
+    """(B, N) int64 direction-bin targets of the gt headings."""
+    rot_gt = box_reg_targets[..., 6] + anchors[..., 6]
+    offset_rot = common.limit_period(rot_gt - dir_offset, 0, 2 * math.pi)
+    dir_cls = torch.floor(offset_rot / (2 * math.pi / num_bins)).long()
+    return dir_cls.clamp(0, num_bins - 1)
+
+
+def dir_loss(dir_cls_preds, dir_targets, positives, num_bins):
+    """Direction-bin cross entropy over positives, normalised per sample by
+    their count, over the batch size."""
+    batch_size = dir_cls_preds.shape[0]
+    weights = positives.to(torch.float32)
+    weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1.0)
+    one_hot = F.one_hot(dir_targets, num_bins).to(dir_cls_preds.dtype)
+    return losses.weighted_cross_entropy(dir_cls_preds, one_hot,
+                                         weights).sum() / batch_size
+
+
+def reg_loss_smooth_l1(box_preds, box_reg_targets, box_cls_labels,
+                       code_weights=None):
+    """Sin-difference smooth-L1 regression loss over positives, normalised
+    per sample by their count, over the batch size."""
+    batch_size = box_preds.shape[0]
+    positives = box_cls_labels > 0
+    reg_weights = positives.to(torch.float32)
+    reg_weights = reg_weights / positives.sum(
+        dim=1, keepdim=True).to(torch.float32).clamp_min(1.0)
+    preds_sin, targets_sin = losses.add_sin_difference(box_preds,
+                                                       box_reg_targets)
+    return losses.weighted_smooth_l1(preds_sin, targets_sin, reg_weights,
+                                     code_weights=code_weights
+                                     ).sum() / batch_size

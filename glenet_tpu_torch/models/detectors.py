@@ -1,13 +1,16 @@
-"""Detector composition for the GLENet-VR predict path (torch counterpart of
+"""Detector composition for GLENet-VR (torch counterpart of
 glenet_tpu/models/detectors.py).
 
   - `DetectorNet` (nn.Module) holds the neural slots and runs the forward
     from raw padded points: voxelize -> MeanVFE -> VoxelBackBone8x ->
     HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS
-    -> VoxelRCNNHead.  Only this VoxelRCNN / anchor-head topology is
-    wired; every other family raises NotImplementedError.
+    -> (train: RoI target sampling) -> VoxelRCNNHead.  Only this
+    VoxelRCNN / anchor-head topology is wired; every other family raises
+    NotImplementedError.  Train mode runs at the train voxel budget with
+    NMS_CONFIG.TRAIN; eval mode at the test budget with NMS_CONFIG.TEST.
   - `Detector` owns the static state (anchors, box coder, configs) and
-    exposes `predict`: decode + variance-voting NMS into fixed slots.
+    exposes `predict` (decode + variance-voting NMS into fixed slots) and
+    `loss_fn` (train forward, anchor targets and every loss term).
 
 `build_detector(cfg, device=None)` puts the model on the GPU unless the
 caller passes device='cpu'; without a GPU it raises.
@@ -24,7 +27,8 @@ from ..ops import nms as nms_ops
 from ..ops import voxelize as vox_ops
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
-from . import anchor_heads, anchors
+from . import anchor_heads, anchors, target_assigner
+from . import roi_heads as roi_lib
 from .bev_backbone import BaseBEVBackbone
 from .roi_heads import VoxelRCNNHead, decode_rcnn_boxes
 from .spconv_backbone import build_backbone_3d
@@ -40,8 +44,9 @@ class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN / anchor-head detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
-                 max_voxels: int, max_points_per_voxel: int, num_class: int,
-                 anchor_set, box_coder, num_point_features: int = 4):
+                 max_voxels_train: int, max_voxels_test: int,
+                 max_points_per_voxel: int, num_class: int, anchor_set,
+                 box_coder, num_point_features: int = 4):
         super().__init__()
         mcfg = Cfg(model_cfg)
         _require(mcfg.get('NAME') == 'VoxelRCNN', f"MODEL {mcfg.get('NAME')}")
@@ -53,23 +58,31 @@ class DetectorNet(nn.Module):
         head_cfg = mcfg.DENSE_HEAD
         _require(head_cfg.NAME == 'AnchorHeadSingle',
                  f'DENSE_HEAD {head_cfg.NAME}')
+        ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
+        assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
+        _require(assigner != 'ATSSTargetAssigner', assigner)
+        _require(not ta_cfg.get('MATCH_HEIGHT', False), 'MATCH_HEIGHT')
         roi_cfg = mcfg.ROI_HEAD
         _require(roi_cfg.NAME == 'VoxelRCNNKLLabelIoUHead',
                  f'ROI_HEAD {roi_cfg.NAME}')
+        score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
+            'CLS_SCORE_TYPE', 'roi_iou')
+        _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
         for absent in ('PFE', 'POINT_HEAD'):
             _require(absent not in mcfg, absent)
 
         self.model_cfg = mcfg
         self.grid_size, self.voxel_size = tuple(grid_size), tuple(voxel_size)
         self.pc_range = tuple(pc_range)
-        self.max_voxels = max_voxels
+        self.max_voxels_train = max_voxels_train
+        self.max_voxels_test = max_voxels_test
         self.max_points_per_voxel = max_points_per_voxel
         self.anchor_set = anchor_set
         self.box_coder = box_coder
 
         self.vfe = MeanVFE()
         self.backbone_3d = build_backbone_3d(mcfg.BACKBONE_3D, grid_size,
-                                             max_voxels, num_point_features)
+                                             num_point_features)
         bb = mcfg.BACKBONE_2D
         self.backbone_2d = BaseBEVBackbone(
             in_channels=self.backbone_3d.num_bev_features,
@@ -95,19 +108,26 @@ class DetectorNet(nn.Module):
                              torch.from_numpy(anchor_set.flat_anchors),
                              persistent=False)
 
-    def voxelize(self, points, points_mask):
+    def voxelize(self, points, points_mask, max_voxels):
         outs = [vox_ops.voxelize(points[i], points_mask[i], self.voxel_size,
                                  self.pc_range, self.grid_size,
-                                 self.max_voxels, self.max_points_per_voxel)
+                                 max_voxels, self.max_points_per_voxel)
                 for i in range(points.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
-    def forward(self, points, points_mask, train: bool = False):
+    def forward(self, points, points_mask, train: bool = False,
+                gt_boxes=None, gt_mask=None, gt_uncertainty=None,
+                generator=None, roi_targets=None):
         """points (B, P, C), points_mask (B, P) -> dict with dense_head,
-        proposals and rcnn outputs (eval only)."""
-        if train:
-            raise NotImplementedError('the train step is not ported yet')
-        vox = self.voxelize(points, points_mask)
+        proposals and rcnn outputs, plus roi_targets in train mode.
+
+        Train mode needs gt_boxes (B, M, 8), gt_mask (B, M) and optionally
+        gt_uncertainty (B, M, 7); `generator` feeds the RoI sampling and
+        dropout draws.  Given `roi_targets` (a dict as out['roi_targets']),
+        train mode skips proposals and sampling and refines those rois.
+        """
+        max_voxels = self.max_voxels_train if train else self.max_voxels_test
+        vox = self.voxelize(points, points_mask, max_voxels)
         feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
         sp_out = self.backbone_3d(feats, vox['voxel_coords'],
                                   vox['voxel_mask'], train)
@@ -115,22 +135,63 @@ class DetectorNet(nn.Module):
         out = {'vox': vox, 'backbone_3d': sp_out,
                'dense_head': self.dense_head(spatial_2d, train)}
 
+        if roi_targets is None or not train:
+            # proposals carry no gradient, as in the reference's no_grad
+            # proposal layer
+            with torch.no_grad():
+                out['proposals'] = self._proposals(out['dense_head'], train)
+        if train:
+            if roi_targets is None:
+                prop = out['proposals']
+                roi_targets = self._sample_roi_targets(
+                    prop['rois'], prop['roi_scores'], prop['roi_labels'],
+                    gt_boxes, gt_mask, gt_uncertainty, generator)
+            out['roi_targets'] = roi_targets
+            roi_in = roi_targets['rois']
+        else:
+            roi_in = out['proposals']['rois']
+        out['rcnn'] = self.roi_head(roi_in, sp_out['multi_scale'], train,
+                                    generator)
+        out['rcnn']['rois'] = roi_in
+        return out
+
+    def _proposals(self, dense_head_out, train):
         decoded = anchor_heads.decode_predictions(
-            out['dense_head'], self.flat_anchors, self.box_coder,
+            dense_head_out, self.flat_anchors, self.box_coder,
             dir_offset=self.dir_offset,
             dir_limit_offset=self.dir_limit_offset,
             num_dir_bins=self.num_dir_bins)
         cls_scores = torch.sigmoid(decoded['batch_cls_preds'])
         best_scores = cls_scores.amax(dim=-1)
         best_labels = cls_scores.argmax(dim=-1) + 1
-        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG.TEST
+        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
+            'TRAIN' if train else 'TEST']
         rois, roi_scores, roi_labels, roi_valid = self._nms_proposals(
             decoded['batch_box_preds'], best_scores, best_labels, nms_cfg)
-        out['proposals'] = {'rois': rois, 'roi_scores': roi_scores,
-                            'roi_labels': roi_labels, 'roi_valid': roi_valid}
-        out['rcnn'] = self.roi_head(rois, sp_out['multi_scale'], train)
-        out['rcnn']['rois'] = rois
-        return out
+        return {'rois': rois, 'roi_scores': roi_scores,
+                'roi_labels': roi_labels, 'roi_valid': roi_valid}
+
+    @torch.no_grad()
+    def _sample_roi_targets(self, rois, roi_scores, roi_labels, gt_boxes,
+                            gt_mask, gt_uncertainty, generator):
+        """Train-time fg/bg roi subsampling and canonical-frame gt targets,
+        per sample, draws from `generator`; carries no gradient."""
+        tcfg = self.model_cfg.ROI_HEAD.TARGET_CONFIG
+        if gt_uncertainty is None:
+            gt_uncertainty = gt_boxes.new_ones((*gt_boxes.shape[:2], 7))
+        r = int(tcfg.ROI_PER_IMAGE)
+        per_sample = []
+        for i in range(rois.shape[0]):
+            draws = roi_lib.draw_roi_sampling(rois.shape[1], r, generator,
+                                              rois.device)
+            t = roi_lib.sample_rois_single(
+                rois[i], roi_scores[i], roi_labels[i], gt_boxes[i],
+                gt_mask[i], gt_uncertainty[i], tcfg, *draws)
+            t['gt_of_rois_ct'] = roi_lib.canonical_gt_of_rois(
+                t['rois'], t['gt_of_rois_src'])
+            per_sample.append(t)
+        return {k: torch.stack([t[k] for t in per_sample])
+                for k in per_sample[0]}
 
     def _nms_proposals(self, boxes, scores, labels, nms_cfg):
         """Per-sample fixed-slot BEV NMS over decoded stage-1 boxes ->
@@ -149,7 +210,8 @@ class DetectorNet(nn.Module):
 
 
 class Detector:
-    """Static-state wrapper: build from a reference-style config, predict."""
+    """Static-state wrapper: build from a reference-style config; predict
+    and the training loss."""
 
     def __init__(self, model_cfg, data_cfg, num_class, device):
         self.model_cfg = model_cfg
@@ -164,7 +226,10 @@ class Detector:
                                                    self.voxel_size)
         self.max_points_per_voxel = int(vox_cfg.get('MAX_POINTS_PER_VOXEL', 1))
         mv = vox_cfg.get('MAX_NUMBER_OF_VOXELS', 1)
-        # predict runs with the test voxel budget
+        # training runs with the train voxel budget, predict with the test
+        # budget (KITTI: 16000 / 40000); the parameters are shared
+        self.max_voxels_train = int(mv['train'] if isinstance(mv, dict)
+                                    else mv)
         self.max_voxels_test = int(mv['test'] if isinstance(mv, dict) else mv)
 
         head_cfg = model_cfg.DENSE_HEAD
@@ -174,10 +239,16 @@ class Detector:
             **ta_cfg.get('BOX_CODER_CONFIG', {}))
         self.anchor_set = anchors.generate_anchors(
             head_cfg.ANCHOR_GENERATOR_CONFIG, self.grid_size, self.pc_range)
+        # predict-only configs may leave the loss weights out
+        self.loss_weights = (head_cfg.get('LOSS_CONFIG', {}) or {}).get(
+            'LOSS_WEIGHTS', {})
+        self.code_weights = list(self.loss_weights.get('code_weights',
+                                                       [1.0] * 7))
         self.net = DetectorNet(
             model_cfg, self.grid_size, self.voxel_size, self.pc_range,
-            self.max_voxels_test, self.max_points_per_voxel, num_class,
-            self.anchor_set, self.box_coder).to(self.device).eval()
+            self.max_voxels_train, self.max_voxels_test,
+            self.max_points_per_voxel,
+            num_class, self.anchor_set, self.box_coder).to(self.device).eval()
 
     @torch.no_grad()
     def predict(self, batch):
@@ -185,6 +256,76 @@ class Detector:
         device.  Returns fixed-shape final_boxes (B, K, 7), final_scores
         (B, K), final_labels (B, K), final_valid (B, K)."""
         return self.finalize(self.net(batch['points'], batch['points_mask']))
+
+    def loss_fn(self, batch, generator=None):
+        """Train forward and loss.  batch: points, points_mask, gt_boxes
+        (B, M, 8), gt_mask (B, M), gt_uncertainty (B, M, 7), and optionally
+        roi_targets (fixed RoI targets instead of sampling).  Returns
+        (total loss, metrics); the BN running stats update in place."""
+        out = self.net(batch['points'], batch['points_mask'], train=True,
+                       gt_boxes=batch['gt_boxes'], gt_mask=batch['gt_mask'],
+                       gt_uncertainty=batch.get('gt_uncertainty'),
+                       generator=generator,
+                       roi_targets=batch.get('roi_targets'))
+        return self.compute_loss(out, batch)
+
+    def compute_loss(self, full_out, batch):
+        """Anchor-head losses (focal cls, sin-difference smooth-L1, direction
+        bins) and the RCNN losses -> (total, metrics)."""
+        with torch.no_grad():
+            per_sample = [target_assigner.assign_targets(
+                self.anchor_set, gb, gm, gu, self.box_coder)
+                for gb, gm, gu in zip(batch['gt_boxes'], batch['gt_mask'],
+                                      batch['gt_uncertainty'])]
+        targets = target_assigner.TargetDict(
+            *(torch.stack(t) for t in zip(*per_sample)))
+        flat = anchor_heads._flatten_preds(full_out['dense_head'])
+        lw = self.loss_weights
+        metrics = {}
+        c_loss = anchor_heads.cls_loss(
+            flat['cls_preds'], targets.box_cls_labels,
+            self.num_class) * lw['cls_weight']
+        r_loss = anchor_heads.reg_loss_smooth_l1(
+            flat['box_preds'], targets.box_reg_targets,
+            targets.box_cls_labels,
+            code_weights=self.code_weights) * lw['loc_weight']
+        metrics['loss_cls'] = c_loss
+        metrics['loss_loc'] = r_loss
+        total = c_loss + r_loss
+        if self.net.num_dir_bins > 0 and 'dir_cls_preds' in flat:
+            b = flat['box_preds'].shape[0]
+            anc = self.net.flat_anchors[None].expand(
+                b, *self.net.flat_anchors.shape)
+            dir_t = anchor_heads.get_direction_targets(
+                anc, targets.box_reg_targets, self.net.dir_offset,
+                self.net.num_dir_bins)
+            d_loss = anchor_heads.dir_loss(
+                flat['dir_cls_preds'], dir_t, targets.box_cls_labels > 0,
+                self.net.num_dir_bins) * lw['dir_weight']
+            metrics['loss_dir'] = d_loss
+            total = total + d_loss
+        rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
+        total = total + rcnn_total
+        metrics.update(rcnn_metrics)
+        metrics['loss'] = total
+        return total, metrics
+
+    def _rcnn_loss(self, full_out):
+        """BCE cls on the IoU labels, KL-label reg loss and corner loss."""
+        rcnn = full_out['rcnn']
+        rt = full_out['roi_targets']
+        roi_lw = self.model_cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
+        c_loss = roi_lib.rcnn_cls_loss(rcnn['rcnn_cls'], rt['rcnn_cls_labels'])
+        c_loss = c_loss * roi_lw.get('rcnn_cls_weight',
+                                     roi_lw.get('rcnn_iou_weight', 1.0))
+        r_loss, parts = roi_lib.rcnn_reg_loss(
+            rcnn['rcnn_reg'], rcnn['rcnn_reg_std'], rt['rois'],
+            rt['gt_of_rois_ct'], rt['gt_of_rois_src'], rt['gt_unc_of_rois'],
+            rt['reg_valid_mask'], self.box_coder, roi_lw,
+            corner_weight=roi_lw.get('rcnn_corner_weight', 1.0),
+            code_weights=list(roi_lw.get('code_weights', [1.0] * 7)))
+        return c_loss + r_loss, {'rcnn_loss_cls': c_loss,
+                                 'rcnn_loss_reg': r_loss, **parts}
 
     def finalize(self, full_out):
         """DetectorNet outputs -> predict's fixed-slot final boxes."""

@@ -1,20 +1,159 @@
-"""RoI refinement for the GLENet-VR predict path (torch counterpart of the
-corner-mode, eval-mode part of glenet_tpu/models/roi_heads.py).
+"""RoI stage of GLENet-VR (torch counterpart of the corner-mode part of
+glenet_tpu/models/roi_heads.py): train-time RoI target sampling, the
+corner-pooling VoxelRCNNHead with its KL-label branches, and the RCNN
+losses.
 
 Each of the G^3 grid points of a roi aggregates the 8 ENCLOSING voxel
 corners of each feature level: per corner h = mlp_in(feat) + mlp_pos(rel);
 pooled = max over corners; mlp_out.  Corners come from a searchsorted lookup
 on the sorted ids of sparse levels and from direct index math on dense
 levels.
+
+Random draws (RoI sampling, dropout) come from an explicit
+torch.Generator, and the sampler takes its draws as tensors, so a test can
+feed it the JAX package's draws.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils import common
+from ..ops import iou3d
+from ..utils import common, losses
 from .layers import MaskedBatchNorm
+
+_BIG = 1e9
+# exclusive upper bound of the integer draws of the bg picks
+RANDINT_HIGH = 1_000_000
+
+
+# ---------------------------------------------------------------------------
+# RoI target sampling (per sample, train only)
+# ---------------------------------------------------------------------------
+
+def draw_roi_sampling(n: int, r: int, generator=None, device=None):
+    """The random draws of one sample's sample_rois_single: u_fg (n,)
+    uniform in [0, 1), r_hard and r_easy (r,) integers in [0, 1e6)."""
+    kw = dict(generator=generator, device=device)
+    return (torch.rand((n,), **kw),
+            torch.randint(0, RANDINT_HIGH, (r,), **kw),
+            torch.randint(0, RANDINT_HIGH, (r,), **kw))
+
+
+def sample_rois_single(rois, roi_scores, roi_labels, gt_boxes, gt_mask,
+                       gt_unc, cfg, u_fg, r_hard, r_easy):
+    """Subsample ROI_PER_IMAGE rois with the fg / hard-bg / easy-bg ratios
+    of TARGET_CONFIG (ProposalTargetLayer semantics), static shapes.
+
+    rois (N, 7), roi_scores (N,), roi_labels (N,), gt_boxes (M, 8) with the
+    class id last, gt_mask (M,), gt_unc (M, 7); the draws u_fg (N,), r_hard
+    (R,), r_easy (R,) from draw_roi_sampling.  Returns a dict of rois
+    (R, 7), gt_of_rois_src (R, 8), roi_ious, roi_labels, roi_scores,
+    gt_unc_of_rois (R, 7), reg_valid_mask (R,) int32, rcnn_cls_labels (R,).
+    """
+    r = int(cfg.ROI_PER_IMAGE)
+    fg_per_image = int(round(cfg.FG_RATIO * r))
+    reg_fg_thresh = float(cfg.REG_FG_THRESH)
+    cls_fg_thresh = float(cfg.CLS_FG_THRESH)
+    cls_bg_thresh = float(cfg.CLS_BG_THRESH)
+    cls_bg_lo = float(cfg.CLS_BG_THRESH_LO)
+    hard_bg_ratio = float(cfg.HARD_BG_RATIO)
+    fg_thresh = min(reg_fg_thresh, cls_fg_thresh)
+    dev = rois.device
+
+    # same-class max IoU (SAMPLE_ROI_BY_EACH_CLASS)
+    iou = iou3d.boxes_iou3d(rois[:, :7], gt_boxes[:, :7])         # (N, M)
+    same_cls = roi_labels[:, None] == gt_boxes[None, :, 7].to(torch.int32)
+    iou = torch.where(same_cls & gt_mask[None, :], iou, -1.0)
+    max_iou_raw, gt_assign = iou.max(dim=1)
+    max_iou = max_iou_raw.clamp_min(0.0)
+
+    fg = max_iou >= fg_thresh
+    easy_bg = max_iou < cls_bg_lo
+    hard_bg = (max_iou < reg_fg_thresh) & (max_iou >= cls_bg_lo)
+
+    # a random permutation of fg's True entries (stable: ties by index)
+    fg_idx = torch.argsort(torch.where(fg, u_fg, _BIG),
+                           stable=True)[:fg_per_image]
+    n_fg_avail = fg.sum()
+    n_hard = hard_bg.sum()
+    n_easy = easy_bg.sum()
+    n_fg = n_fg_avail.clamp_max(fg_per_image)
+    n_bg = r - n_fg
+
+    # bg: hard_num = min(n_bg * ratio, avail), easy fills the rest; when one
+    # pool is empty the other fills everything (with replacement)
+    hard_want = torch.where(n_easy > 0,
+                            torch.minimum((n_bg * hard_bg_ratio).long(),
+                                          n_hard),
+                            n_bg)
+    hard_want = torch.where(n_hard > 0, hard_want, 0)
+
+    def pick_with_replacement(mask, draws):
+        avail = mask.sum().clamp_min(1)
+        idx_sorted = torch.argsort((~mask).to(torch.int32), stable=True)
+        return idx_sorted[draws % avail]
+
+    hard_idx = pick_with_replacement(hard_bg, r_hard)
+    easy_idx = pick_with_replacement(easy_bg, r_easy)
+
+    # [fg x n_fg, hard x hard_want, easy x the rest]
+    slots = torch.arange(r, device=dev)
+    take_fg = slots < n_fg
+    take_hard = (slots >= n_fg) & (slots < n_fg + hard_want)
+    sel = torch.where(take_fg, fg_idx[slots.clamp(0, fg_per_image - 1)],
+                      torch.where(take_hard, hard_idx, easy_idx))
+    # nothing available at all: the top-score rois, cyclically
+    any_pool = (n_fg_avail + n_hard + n_easy) > 0
+    sel = torch.where(any_pool, sel, slots % rois.shape[0])
+
+    out_iou = max_iou[sel]
+    gt_sel = gt_assign[sel]
+    # CLS_SCORE_TYPE roi_iou: soft labels
+    fg_m = out_iou > cls_fg_thresh
+    interval = ~fg_m & ~(out_iou < cls_bg_thresh)
+    cls_labels = torch.where(
+        interval, (out_iou - cls_bg_thresh) / (cls_fg_thresh - cls_bg_thresh),
+        fg_m.to(torch.float32))
+    return {
+        'rois': rois[sel], 'gt_of_rois_src': gt_boxes[gt_sel],
+        'roi_ious': out_iou, 'roi_labels': roi_labels[sel],
+        'roi_scores': roi_scores[sel], 'gt_unc_of_rois': gt_unc[gt_sel],
+        'reg_valid_mask': (out_iou > reg_fg_thresh).to(torch.int32),
+        'rcnn_cls_labels': cls_labels,
+    }
+
+
+def canonical_gt_of_rois(rois, gt_of_rois_src):
+    """Gt boxes in the roi's canonical frame, heading flipped into
+    [-pi/2, pi/2].  rois (R, 7), gt_of_rois_src (R, 8) -> (R, 7)."""
+    roi_ry = rois[:, 6] % (2 * math.pi)
+    gt = gt_of_rois_src[:, :7]
+    shifted = gt[:, 0:3] - rois[:, 0:3]
+    local = common.rotate_points_along_z(shifted[:, None, :], -roi_ry)[:, 0]
+    heading = (gt[:, 6] - roi_ry) % (2 * math.pi)
+    opposite = (heading > math.pi * 0.5) & (heading < math.pi * 1.5)
+    heading = torch.where(opposite, (heading + math.pi) % (2 * math.pi),
+                          heading)
+    heading = torch.where(heading > math.pi, heading - 2 * math.pi, heading)
+    heading = heading.clamp(-math.pi / 2, math.pi / 2)
+    return torch.cat([local, gt[:, 3:6], heading[:, None]], dim=1)
+
+
+def dropout(x, p: float, generator=None):
+    """Inverted dropout with the JAX package's semantics (keep with
+    probability 1 - p, scale kept values by 1 / (1 - p)); draws from
+    `generator`."""
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# RoI grid pooling and the head
+# ---------------------------------------------------------------------------
 
 _CORNER_OFFS = [[i, j, k] for i in (0, 1) for j in (0, 1) for k in (0, 1)]
 
@@ -115,7 +254,8 @@ class CornerAggregation(nn.Module):
 class VoxelRCNNHead(nn.Module):
     """RoI refinement head (VoxelRCNNKLLabelIoUHead), corner pooling, with
     the KL-label branches (reg_std and the variance -> confidence scalar).
-    Eval only: no dropout.
+    In train mode every BatchNorm uses batch moments and DP_RATIO dropout
+    follows the first FC of each stack.
 
     level_channels: channels of each FEATURES_SOURCE level.
     """
@@ -130,6 +270,7 @@ class VoxelRCNNHead(nn.Module):
         self.voxel_size, self.pc_range = tuple(voxel_size), tuple(pc_range)
         self.sources = list(pool_cfg.FEATURES_SOURCE)
         self.grid = int(pool_cfg.GRID_SIZE)
+        self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
         c_pooled = 0
         for src in self.sources:
             mid, out = pool_cfg.POOL_LAYERS[src]['MLPS'][0]
@@ -165,17 +306,18 @@ class VoxelRCNNHead(nn.Module):
             nn.init.normal_(lin.weight, std=0.0001)
             nn.init.zeros_(lin.bias)
 
-    def _fc_stack(self, x, stack, train):
-        for lin, bn in self.fc_names[stack]:
+    def _fc_stack(self, x, stack, train, generator):
+        for i, (lin, bn) in enumerate(self.fc_names[stack]):
             x = F.relu(getattr(self, bn)(getattr(self, lin)(x),
                                          use_running_average=not train))
+            if i == 0 and train and self.dp_ratio > 0:
+                x = dropout(x, self.dp_ratio, generator)
         return x
 
-    def forward(self, rois, multi_scale, train: bool = False):
+    def forward(self, rois, multi_scale, train: bool = False,
+                generator=None):
         """rois (B, R, 7) -> rcnn_cls (B*R, 1), rcnn_reg (B*R, C),
-        rcnn_reg_std (B*R, C)."""
-        if train:
-            raise NotImplementedError('the train step is not ported yet')
+        rcnn_reg_std (B*R, C).  `generator` feeds the dropout draws."""
         g = self.grid
         b, r = rois.shape[:2]
         grid_pts = roi_grid_points(rois.reshape(b * r, -1), g)
@@ -194,15 +336,18 @@ class VoxelRCNNHead(nn.Module):
                     grid_pts, level['features'], level['occ'], level['grid'],
                     level['stride'], self.voxel_size, self.pc_range)
             pooled.append(getattr(self, f'pool_{src}')(
-                cf.reshape(q, 8, -1), rel.reshape(q, 8, 3), cv.reshape(q, 8)))
+                cf.reshape(q, 8, -1), rel.reshape(q, 8, 3), cv.reshape(q, 8),
+                train))
         feats = torch.cat(pooled, dim=-1).reshape(b * r, -1)
 
-        shared = self._fc_stack(feats, 'shared', train)
-        ori_cls = self.cls_pred(self._fc_stack(shared, 'cls_fc', train))
-        reg_feat = self._fc_stack(shared, 'reg_fc', train)
+        shared = self._fc_stack(feats, 'shared', train, generator)
+        ori_cls = self.cls_pred(self._fc_stack(shared, 'cls_fc', train,
+                                               generator))
+        reg_feat = self._fc_stack(shared, 'reg_fc', train, generator)
         reg_std = self.reg_std(reg_feat)
-        h = F.relu(self.std_bn0(reg_std))
-        h = F.relu(self.std_bn1(self.std_fc1(h)))
+        ra = not train
+        h = F.relu(self.std_bn0(reg_std, use_running_average=ra))
+        h = F.relu(self.std_bn1(self.std_fc1(h), use_running_average=ra))
         p = torch.sigmoid(ori_cls) * torch.sigmoid(self.std_fc2(h))
         return {'rcnn_cls': torch.log((p + 1e-6) / (1 - p + 1e-6)),
                 'rcnn_reg': self.reg_pred(reg_feat), 'rcnn_reg_std': reg_std}
@@ -220,3 +365,58 @@ def decode_rcnn_boxes(rois, rcnn_reg, box_coder):
     rotated = torch.cat([rotated[:, :3] + flat_rois[:, :3], rotated[:, 3:]],
                         dim=1)
     return rotated.reshape(b, r, -1)
+
+
+def rcnn_cls_loss(rcnn_cls, rcnn_cls_labels):
+    """BCE on the IoU-derived soft labels, mean over labels >= 0."""
+    logits = rcnn_cls.reshape(-1)
+    labels = rcnn_cls_labels.reshape(-1)
+    loss = losses.sigmoid_bce_with_logits(logits, labels)
+    valid = (labels >= 0).to(torch.float32)
+    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
+                  gt_of_rois_src, gt_unc_of_rois, reg_valid_mask, box_coder,
+                  loss_weights, corner_weight=1.0, code_weights=None):
+    """KL-label regression loss over fg rois plus the corner loss, both
+    normalised by the fg count.  Per fg roi and code dim, s the predicted
+    log variance (clamped >= -50) and t = log(label variance + 1e-10):
+        exp(-s) * smoothL1 + exp(t - s) - 0.5 * (t - s)
+    reported as the terms src, square and log."""
+    b, r = rois.shape[:2]
+    n = b * r
+    flat_rois = rois.reshape(n, -1)[:, :box_coder.code_size]
+    zeros3 = torch.zeros_like(flat_rois[:, :3])
+    rois_anchor = torch.cat([zeros3, flat_rois[:, 3:6],
+                             torch.zeros_like(flat_rois[:, 6:7]),
+                             flat_rois[:, 7:]], dim=1)
+    reg_targets = box_coder.encode(gt_of_rois_ct.reshape(n, -1)[:, :7],
+                                   rois_anchor)
+    fg = reg_valid_mask.reshape(n) > 0
+    fg_sum = fg.sum().clamp_min(1).to(torch.float32)
+    rcnn_reg = rcnn_reg.reshape(n, -1)
+
+    l1 = losses.weighted_smooth_l1(rcnn_reg[None], reg_targets[None],
+                                   code_weights=code_weights)[0]
+    w = loss_weights['rcnn_reg_weight']
+    fgf = fg[:, None].to(torch.float32)
+    s = rcnn_reg_std.reshape(n, -1).clamp_min(-50.0)
+    t = torch.log(gt_unc_of_rois.reshape(n, -1) + 1e-10)
+    src = (torch.exp(-s) * l1 * fgf).sum() / fg_sum * w
+    square = (torch.exp(t - s) * fgf).sum() / fg_sum * w
+    log_t = (-0.5 * (t - s) * fgf).sum() / fg_sum * w
+    reg_loss = src + square + log_t
+    metrics = {'rcnn_loss_reg_src': src, 'rcnn_loss_reg_square': square,
+               'rcnn_loss_reg_log': log_t}
+
+    # corner loss of the decoded global boxes on fg rois
+    local_anchor = torch.cat([zeros3, flat_rois[:, 3:]], dim=1)
+    dec = box_coder.decode(rcnn_reg, local_anchor)
+    dec = common.rotate_points_along_z(dec[:, None, :], flat_rois[:, 6])[:, 0]
+    dec = torch.cat([dec[:, 0:3] + flat_rois[:, 0:3], dec[:, 3:]], dim=1)
+    corner = losses.corner_loss_lidar(
+        dec[:, :7], gt_of_rois_src.reshape(n, -1)[:, :7])
+    corner = (corner * fg).sum() / fg_sum * corner_weight
+    metrics['rcnn_loss_corner'] = corner
+    return reg_loss + corner, metrics

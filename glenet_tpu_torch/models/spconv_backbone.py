@@ -9,7 +9,10 @@ ops/sparse.py (torch counterpart of glenet_tpu/models/spconv_backbone.py):
 then HeightCompression to BEV (z folded into channels, z-outer).
 
 The dense levels keep NCDHW tensors and expose channels-last views, the
-JAX package's layout, in `multi_scale`.
+JAX package's layout, in `multi_scale`.  The level caps follow the voxel
+budget of each call (the slot count of its input), so one set of
+parameters serves the train budget and the test budget, as the JAX
+package's two nets share theirs.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ def _sparse_kernel(k_vol, cin, cout):
 
 
 class SubMConvBN(nn.Module):
-    """Submanifold sparse conv + BN + ReLU over an x-block (q, tbl) table."""
+    """Submanifold sparse conv + BN + ReLU over an x-block (q, tbl) table,
+    with the gather-only backward."""
 
     def __init__(self, cin: int, features: int):
         super().__init__()
@@ -45,7 +49,8 @@ class SubMConvBN(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
 
     def forward(self, feats, nbr, mask, train: bool = False):
-        out = sparse.gather_gemm_xblocks_b(feats, nbr[0], nbr[1], self.kernel)
+        out = sparse.subm_gather_gemm_xblocks_b(feats, nbr[0], nbr[1],
+                                                self.kernel)
         out = self.MaskedBatchNorm_0(out, mask=mask,
                                      use_running_average=not train)
         return torch.where(mask[..., None], F.relu(out), 0.0)
@@ -54,17 +59,18 @@ class SubMConvBN(nn.Module):
 class SparseConvBN(nn.Module):
     """Strided 3^3 sparse conv + BN + ReLU (changes the active-site table)."""
 
-    def __init__(self, cin: int, features: int, stride, padding,
-                 out_cap: int):
+    def __init__(self, cin: int, features: int, stride, padding):
         super().__init__()
         self.kernel = _sparse_kernel(27, cin, features)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
-        self.stride, self.padding, self.out_cap = stride, padding, out_cap
+        self.stride, self.padding = stride, padding
 
-    def forward(self, feats, ids, mask, grid, train: bool = False):
-        """Returns (out_feats, out_ids, out_mask, out_grid)."""
+    def forward(self, feats, ids, mask, grid, out_cap: int,
+                train: bool = False):
+        """Returns (out_feats, out_ids, out_mask, out_grid); at most
+        `out_cap` output sites."""
         sites = [sparse.strided_output_sites(
-            ids[i], mask[i], grid, 3, self.stride, self.padding, self.out_cap)
+            ids[i], mask[i], grid, 3, self.stride, self.padding, out_cap)
             for i in range(ids.shape[0])]
         out_ids = torch.stack([s[0] for s in sites])
         out_mask = torch.stack([s[1] for s in sites])
@@ -116,20 +122,18 @@ class VoxelBackBone8x(nn.Module):
     """grid_size: (nx, ny, nz) raw voxel grid; the sparse z becomes nz + 1.
     Levels 1-2 and conv3_down run sparse, the rest dense (dense_from=3)."""
 
-    def __init__(self, grid_size, max_voxels: int, in_channels: int = 4):
+    def __init__(self, grid_size, in_channels: int = 4):
         super().__init__()
         self.grid_size = tuple(grid_size)
-        self.max_voxels = max_voxels
         c1, c2, c3, c4 = CHANNELS
         subm_per_block, out_channels = SUBM_PER_BLOCK, OUT_CHANNELS
-        caps = sparse.level_caps(max_voxels)
         self.conv_input = SubMConvBN(in_channels, c1)
         self.conv1_0 = SubMConvBN(c1, c1)
-        self.conv2_down = SparseConvBN(c1, c2, 2, 1, out_cap=caps[1])
+        self.conv2_down = SparseConvBN(c1, c2, 2, 1)
         self.conv2 = [f'conv2_{j}' for j in range(subm_per_block[0])]
         for name in self.conv2:
             setattr(self, name, SubMConvBN(c2, c2))
-        self.conv3_down = SparseConvBN(c2, c3, 2, 1, out_cap=caps[2])
+        self.conv3_down = SparseConvBN(c2, c3, 2, 1)
         self.conv3 = [f'conv3_{j}' for j in range(subm_per_block[1])]
         for name in self.conv3:
             setattr(self, name, DenseConvBN(c3, c3))
@@ -155,7 +159,8 @@ class VoxelBackBone8x(nn.Module):
 
     def forward(self, feats, coords, mask, train: bool = False):
         """feats (B, V, C), coords (B, V, 3) as (z, y, x) sorted by linear id
-        within each sample, mask (B, V).
+        within each sample, mask (B, V); V is the voxel budget, which sets
+        the level caps.
 
         Returns dict: bev_features (B, ny8, nx8, C_bev) (a channels-last
         view), multi_scale {x_conv1..4} for the RoI stack.
@@ -165,6 +170,7 @@ class VoxelBackBone8x(nn.Module):
         ids = torch.where(
             mask, coords[..., 0] * (ny * nx) + coords[..., 1] * nx
             + coords[..., 2], nx * ny * nz).to(torch.int32)
+        caps = sparse.level_caps(feats.shape[1])
         ms = {}
 
         nbr1 = sparse.subm_xblock_table_b(ids, mask, grid1)
@@ -173,14 +179,16 @@ class VoxelBackBone8x(nn.Module):
         ms['x_conv1'] = {'kind': 'sparse', 'features': x, 'ids': ids,
                          'mask': mask, 'grid': grid1, 'stride': 1}
 
-        x, ids2, mask2, grid2 = self.conv2_down(x, ids, mask, grid1, train)
+        x, ids2, mask2, grid2 = self.conv2_down(x, ids, mask, grid1, caps[1],
+                                                train)
         nbr2 = sparse.subm_xblock_table_b(ids2, mask2, grid2)
         for name in self.conv2:
             x = getattr(self, name)(x, nbr2, mask2, train)
         ms['x_conv2'] = {'kind': 'sparse', 'features': x, 'ids': ids2,
                          'mask': mask2, 'grid': grid2, 'stride': 2}
 
-        x, ids3, mask3, grid3 = self.conv3_down(x, ids2, mask2, grid2, train)
+        x, ids3, mask3, grid3 = self.conv3_down(x, ids2, mask2, grid2,
+                                                caps[2], train)
         xd, occ = sparse.to_dense_expand(x, ids3, mask3, grid3,
                                          DENSE_MXU_DTYPE)
         xd = xd.permute(0, 4, 1, 2, 3).contiguous()          # NCDHW
@@ -207,8 +215,8 @@ class VoxelBackBone8x(nn.Module):
                 'num_bev_features': nz5 * c}
 
 
-def build_backbone_3d(bb3d_cfg, grid_size, max_voxels, in_channels=4):
+def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4):
     if bb3d_cfg.NAME == 'VoxelBackBone8x':
         return VoxelBackBone8x(grid_size=tuple(grid_size),
-                               max_voxels=max_voxels, in_channels=in_channels)
+                               in_channels=in_channels)
     raise NotImplementedError(f'BACKBONE_3D {bb3d_cfg.NAME} is not ported yet')

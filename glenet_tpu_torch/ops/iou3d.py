@@ -1,4 +1,5 @@
-"""Rotated BEV overlap / IoU (torch counterpart of glenet_tpu/ops/iou3d.py).
+"""Rotated BEV overlap, BEV IoU and 3D IoU (torch counterpart of
+glenet_tpu/ops/iou3d.py).
 
 The intersection of two convex quads is the convex hull of the 16 pairwise
 edge-edge intersection points and the corners of each quad lying inside the
@@ -127,3 +128,19 @@ def boxes_iou_bev_blocked(boxes_a, boxes_b, block_rows: int = 512):
         return boxes_iou_bev(boxes_a, boxes_b)
     return torch.cat([boxes_iou_bev(blk, boxes_b)
                       for blk in boxes_a.split(block_rows)], dim=0)
+
+
+def boxes_iou3d(boxes_a, boxes_b):
+    """(N, 7) x (M, 7) -> (N, M) 3D IoU: rotated BEV overlap times the
+    z-extent overlap, over the union of the volumes."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    overlap_h = (torch.minimum(a_max, b_max)
+                 - torch.maximum(a_min, b_min)).clamp_min(0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / (vol_a + vol_b - overlap_3d).clamp_min(1e-6)

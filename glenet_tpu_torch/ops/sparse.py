@@ -20,8 +20,9 @@ import torch
 from . import merge_kernel
 
 # Compute dtype of the gather + tap contraction (glenet_tpu's
-# GATHER_COMPUTE_DTYPE): bf16 gathers with a bf16 matmul; the result is cast
-# back to the features' dtype.  None keeps full f32 (parity tests).
+# GATHER_COMPUTE_DTYPE): bf16 gathers and bf16 operands, contracted with an
+# f32 result (_contract) that is cast back to the features' dtype.  None
+# keeps full f32 (parity tests).
 GATHER_COMPUTE_DTYPE = torch.bfloat16
 
 
@@ -196,16 +197,73 @@ def _xblock_per_tap_b(features, q, tbl):
     return torch.cat([pt0, pt1, pt2], dim=-1)
 
 
+def _contract(equation, a, b):
+    """einsum of two gather-dtype operands with an f32 result, as the JAX
+    package's preferred_element_type=float32: products of bf16 values are
+    exact in f32 (and in TF32), so only the summation order differs."""
+    return torch.einsum(equation, a.float(), b.float())
+
+
 def gather_gemm_xblocks_b(features, q, tbl, weights):
     """Sparse-conv contraction over an x-block table: features (B, V, Cin),
     q/tbl (B, 9, Vo), weights (27, Cin, Cout) in (dz, dy)-major dx-minor tap
-    order -> (B, Vo, Cout) in the features' dtype.  Forward only."""
+    order -> (B, Vo, Cout) in the features' dtype.  Autograd differentiates
+    the row gathers into index_add_ scatters (the strided convs keep that,
+    as the JAX package keeps default AD there)."""
     cin = features.shape[-1]
     g = q.shape[1]
     gdtype = _gather_dtype(features)
     per_tap = _xblock_per_tap_b(features, q, tbl)
     w = weights.reshape(g, 3 * cin, -1).to(gdtype)
-    return torch.einsum('bgvk,gko->bvo', per_tap, w).to(features.dtype)
+    return _contract('bgvk,gko->bvo', per_tap, w).to(features.dtype)
+
+
+def flip_tap_weights(weights):
+    """Transpose-conv weights of a (K, Cin, Cout) tap-major kernel: tap k ->
+    K-1-k (the offset negated in the row-major centred tap order), channel
+    axes swapped -> (K, Cout, Cin)."""
+    return weights.flip(0).transpose(1, 2)
+
+
+class _SubmGatherGemm(torch.autograd.Function):
+    """gather_gemm_xblocks_b of a SUBMANIFOLD conv with a gather-only
+    backward (the JAX package's custom VJP).  In and out sites are the same
+    table, so the transpose conv runs over the same (q, tbl) with the taps
+    flipped: output row o reads input i = o + off_t exactly when input row i
+    reads o = i + off_flip(t), and both hits mean "both sites active".
+
+        d_features = gather_gemm_xblocks_b(g, q, tbl, flip_tap_weights(W))
+        d_weights  = per_tap(features)^T @ g
+
+    Two gather passes and no scatter; the saved q and tbl mean the backward
+    builds no table and launches no merge-resolve kernel."""
+
+    @staticmethod
+    def forward(ctx, features, q, tbl, weights):
+        ctx.save_for_backward(features, q, tbl, weights)
+        return gather_gemm_xblocks_b(features, q, tbl, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, q, tbl, weights = ctx.saved_tensors
+        cin = features.shape[-1]
+        d_features = d_weights = None
+        if ctx.needs_input_grad[0]:
+            d_features = gather_gemm_xblocks_b(
+                g.to(features.dtype), q, tbl, flip_tap_weights(weights))
+        if ctx.needs_input_grad[3]:
+            per_tap = _xblock_per_tap_b(features, q, tbl)   # (B, 9, V, 3Cin)
+            d_weights = _contract('bgvk,bvo->gko', per_tap,
+                                  g.to(per_tap.dtype))
+            d_weights = d_weights.reshape(q.shape[1] * 3, cin, -1).to(
+                weights.dtype)
+        return d_features, None, None, d_weights
+
+
+def subm_gather_gemm_xblocks_b(features, q, tbl, weights):
+    """gather_gemm_xblocks_b for a submanifold conv (in and out sites share
+    the table), with the gather-only backward of _SubmGatherGemm."""
+    return _SubmGatherGemm.apply(features, q, tbl, weights)
 
 
 def strided_output_sites(ids, mask, grid, kernel_size, stride, padding,
@@ -252,9 +310,11 @@ def strided_output_sites(ids, mask, grid, kernel_size, stride, padding,
     first &= srt < n_out_cells
     rank = torch.cumsum(first.long(), 0) - 1
     n_active = (rank[-1] + 1).clamp_min(0)
-    # f32 is exact for rank < 2^24 and ratio == 1.0 when n <= cap
-    ratio = out_cap / torch.maximum(
-        n_active, torch.tensor(out_cap, device=dev)).to(torch.float32)
+    # f32 is exact for rank < 2^24 and ratio == 1.0 when n <= cap.  A true
+    # f32 division, as the JAX package's: `out_cap / tensor` would multiply
+    # by the reciprocal, which rounds differently and moves sites
+    cap = torch.tensor(out_cap, dtype=torch.float32, device=dev)
+    ratio = cap / torch.maximum(n_active.to(torch.float32), cap)
     pos = torch.floor(rank.to(torch.float32) * ratio).long()
     pos = pos.clamp(0, out_cap - 1)
     prev = torch.floor((rank - 1).to(torch.float32) * ratio).long()
@@ -280,7 +340,7 @@ def level_caps(max_voxels: int):
 
 
 def to_dense_expand(features, ids, mask, grid, out_dtype=None):
-    """Batched sorted-sparse rows -> dense canvases.  Forward only.
+    """Batched sorted-sparse rows -> dense canvases.
 
     Args: features (B, V, C); ids (B, V) sorted (n_cells sentinel in invalid
     slots); mask (B, V); grid (nx, ny, nz).
@@ -290,7 +350,10 @@ def to_dense_expand(features, ids, mask, grid, out_dtype=None):
     The JAX package expands the row table through an occupancy cumsum to
     avoid a slow TPU row scatter; on the GPU one row scatter into a canvas
     with a dump row is the direct form: valid ids are unique, invalid rows
-    all land in the dump row, which is cut off.
+    all land in the dump row, which is cut off.  Its autograd is the JAX
+    package's custom VJP: a gather of the canvas gradient at each row's
+    cell, zero at masked rows (they read the cut-off dump row and are
+    zeroed by the `where`).
     """
     nx, ny, nz = grid
     n_cells = nz * ny * nx

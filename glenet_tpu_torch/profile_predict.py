@@ -5,10 +5,11 @@
 configs/kitti_models/GLENet_VR.yaml at full width, seeded random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (utils/synthetic.py), one
 warm-up predict, then:
-  1. per-stage wall times of 3 requests, with a device synchronise at every
-     stage boundary (so the stages add up to more than an unsynchronised
-     predict);
-  2. a torch.profiler window over 3 requests without those synchronises:
+  1. the wall time of 3 requests as a caller sees it (a device synchronise
+     after each request only);
+  2. per-stage wall times of the same 3 requests, with a device synchronise
+     at every stage boundary (so the stages add up to more than 1.);
+  3. a torch.profiler window over 3 requests without those synchronises:
      the device busy share (summed device time of the kernels over the
      window's wall time) and the top 30 device operators.
 Prints the card's name and power limit beside the numbers.
@@ -74,6 +75,15 @@ def main():
     batches = scene_batches(REQUESTS + 1)
     det.predict(batches[0])
     torch.cuda.synchronize()
+
+    times = []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        det.predict(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print('predict wall times (ms): ' + ' / '.join(f'{t:.2f}' for t in times)
+          + f', mean {sum(times) / len(times):.2f}')
 
     totals = {}
     for batch in batches[1:]:

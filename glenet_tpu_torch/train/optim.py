@@ -1,0 +1,124 @@
+"""adam_onecycle (torch counterpart of glenet_tpu/train/optim.py).
+
+The reference's fastai-style OneCycle:
+  - lr: cosine anneal lr_max / div_factor -> lr_max over pct_start of the
+    steps, then lr_max -> (lr_max / div_factor) / 1e4;
+  - Adam b1 ("momentum"): moms[0] -> moms[1], then back; b2 = 0.99;
+  - decoupled weight decay, added to the Adam update before the LR scale;
+  - a global grad-norm clip first.
+
+The update is written out rather than taken from torch.optim so that it is
+optax's chain term for term: clip_by_global_norm scales the gradients by
+max_norm / norm when norm >= max_norm (torch's clip_grad_norm_ divides by
+norm + 1e-6 instead), scale_by_adam divides the bias-corrected first moment
+by sqrt(bias-corrected second moment) + 1e-8, add_decayed_weights adds
+wd * param, and the LR scales the sum.  The schedules are evaluated at the
+count of updates made so far, as optax.inject_hyperparams does.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+ADAM_B2 = 0.99
+ADAM_EPS = 1e-8
+
+
+def annealing_cos(start: float, end: float, pct: float) -> float:
+    return end + (start - end) / 2.0 * (math.cos(math.pi * pct) + 1.0)
+
+
+def _one_cycle(first: float, peak: float, last: float, total_steps: int,
+               pct_start: float):
+    """Cosine from `first` to `peak` over pct_start of the steps, then from
+    `peak` to `last`."""
+    split = int(total_steps * pct_start)
+
+    def schedule(step):
+        if step < split:
+            return annealing_cos(first, peak,
+                                 min(max(step / max(split, 1), 0.0), 1.0))
+        pct = min(max((step - split) / max(total_steps - split, 1), 0.0), 1.0)
+        return annealing_cos(peak, last, pct)
+
+    return schedule
+
+
+def onecycle_lr_schedule(lr_max: float, total_steps: int, div_factor: float,
+                         pct_start: float):
+    low_lr = lr_max / div_factor
+    return _one_cycle(low_lr, lr_max, low_lr / 1e4, total_steps, pct_start)
+
+
+def onecycle_mom_schedule(moms, total_steps: int, pct_start: float):
+    return _one_cycle(moms[0], moms[1], moms[0], total_steps, pct_start)
+
+
+def global_norm(tensors):
+    """L2 norm over all the tensors, as one f32 scalar tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class AdamOneCycle:
+    """Clip, Adam with the step's b1, decoupled decay, LR.  State: the first
+    and second moments of each parameter, the update count and the (lr, b1)
+    of the last update."""
+
+    def __init__(self, lr_schedule, b1_schedule, weight_decay: float,
+                 max_norm: float):
+        self.lr_schedule, self.b1_schedule = lr_schedule, b1_schedule
+        self.weight_decay, self.max_norm = weight_decay, max_norm
+
+    def init(self, params):
+        return {'count': 0,
+                'mu': [torch.zeros_like(p) for p in params],
+                'nu': [torch.zeros_like(p) for p in params]}
+
+    def hyperparams(self, count: int):
+        """(lr, b1) of the update made after `count` updates."""
+        return self.lr_schedule(count), self.b1_schedule(count)
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        """Update `params` in place from `grads`; returns the global norm of
+        the gradients before the clip."""
+        norm = global_norm(grads)
+        if self.max_norm > 0:
+            scale = torch.where(norm < self.max_norm, 1.0,
+                                self.max_norm / norm)
+            grads = torch._foreach_mul(grads, scale)
+        lr, b1 = self.hyperparams(state['count'])
+        state['hyperparams'] = (lr, b1)
+        state['count'] += 1
+        t = state['count']
+        mu, nu = state['mu'], state['nu']
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - b1)
+        torch._foreach_mul_(nu, ADAM_B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - ADAM_B2)
+        mu_hat = torch._foreach_div(mu, 1.0 - b1 ** t)
+        nu_hat = torch._foreach_div(nu, 1.0 - ADAM_B2 ** t)
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, ADAM_EPS)
+        upd = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, upd, alpha=-lr)
+        return norm
+
+
+def build_optimizer(opt_cfg, total_steps: int):
+    """From the reference OPTIMIZATION block -> (optimizer, lr schedule).
+    Only adam_onecycle, the optimizer of GLENet-VR, is ported."""
+    name = opt_cfg.OPTIMIZER
+    if name != 'adam_onecycle':
+        raise NotImplementedError(f'optimizer {name} is not ported yet')
+    lr = float(opt_cfg.LR)
+    pct = float(opt_cfg.PCT_START)
+    lr_sched = onecycle_lr_schedule(lr, total_steps,
+                                    float(opt_cfg.DIV_FACTOR), pct)
+    mom_sched = onecycle_mom_schedule(tuple(opt_cfg.MOMS), total_steps, pct)
+    return AdamOneCycle(lr_sched, mom_sched,
+                        float(opt_cfg.get('WEIGHT_DECAY', 0.0)),
+                        float(opt_cfg.get('GRAD_NORM_CLIP', 0.0))), lr_sched

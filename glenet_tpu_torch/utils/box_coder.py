@@ -1,6 +1,6 @@
 """Box coder (torch counterpart of glenet_tpu/utils/box_coder.py
-ResidualCoder, decode only): xyz residuals normalized by the anchor BEV
-diagonal / dz, log-ratio dims, heading as a delta."""
+ResidualCoder): xyz residuals normalized by the anchor BEV diagonal / dz,
+log-ratio dims, heading as a delta."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +11,21 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ResidualCoder:
     code_size: int = 7
+
+    def encode(self, boxes, anchors):
+        """boxes, anchors: (..., 7 + C) -> (..., 7 + C) residuals; sizes are
+        clamped at 1e-5 before the log ratios."""
+        def split(b):
+            return (*b[..., :3].unbind(-1),
+                    *b[..., 3:6].clamp_min(1e-5).unbind(-1), b[..., 6])
+
+        xa, ya, za, dxa, dya, dza, ra = split(anchors)
+        xg, yg, zg, dxg, dyg, dzg, rg = split(boxes)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        return torch.cat([torch.stack([
+            (xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
+            torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+            rg - ra], dim=-1), boxes[..., 7:] - anchors[..., 7:]], dim=-1)
 
     def decode(self, box_encodings, anchors):
         """box_encodings: (..., 7 + C), anchors: (..., 7 + C) -> boxes."""

@@ -61,6 +61,28 @@ def _convert(module, leaf, value):
     raise KeyError(f'no rule for leaf {leaf!r} of {type(module).__name__}')
 
 
+def convert_leaf(net: nn.Module, collection: str, path, value):
+    """One JAX leaf at `path` (a tuple of names) of `collection` -> (port
+    state key, array in the port's layout).  The layout rules are
+    permutations and reshapes, so they map a gradient tree as they map the
+    variables."""
+    *mods, leaf = path
+    try:
+        module = net.get_submodule('.'.join(mods))
+    except AttributeError as e:
+        raise KeyError(f'JAX leaf {collection}/{"/".join(path)} has no port '
+                       f'module') from e
+    name, arr = _convert(module, leaf, np.asarray(value))
+    return '.'.join([*mods, name]), arr.copy(order='C')
+
+
+def jax_tree_to_port(net: nn.Module, tree: dict, collection: str = 'params'):
+    """A JAX tree of one collection (e.g. a gradient tree, params only) ->
+    {port key: numpy array in the port's layout}."""
+    return dict(convert_leaf(net, collection, path, value)
+                for path, value in _leaves(tree))
+
+
 def load_jax_variables(net: nn.Module, variables: dict) -> None:
     """Copy JAX variables into `net` (a DetectorNet or any port module whose
     attribute paths follow the JAX variable paths)."""
@@ -68,27 +90,19 @@ def load_jax_variables(net: nn.Module, variables: dict) -> None:
     targets.update(net.named_buffers())
     persistent = set(net.state_dict())
     unset = {k for k in targets if k in persistent}
+    for collection in variables:
+        if collection not in ('params', 'batch_stats'):
+            raise KeyError(f'unknown JAX collection {collection!r}')
     for collection in ('params', 'batch_stats'):
-        for path, value in _leaves(variables.get(collection, {})):
-            *mods, leaf = path
-            try:
-                module = net.get_submodule('.'.join(mods))
-            except AttributeError as e:
-                raise KeyError(f'JAX leaf {collection}/{"/".join(path)} has '
-                               f'no port module') from e
-            name, arr = _convert(module, leaf, value)
-            key = '.'.join([*mods, name])
+        for key, arr in jax_tree_to_port(
+                net, variables.get(collection, {}), collection).items():
             t = targets[key]
-            arr = arr.copy(order='C')
             if tuple(arr.shape) != tuple(t.shape):
                 raise ValueError(f'{key}: JAX shape {arr.shape} vs port '
                                  f'{tuple(t.shape)}')
             with torch.no_grad():
                 t.copy_(torch.from_numpy(arr).to(t.dtype))
             unset.discard(key)
-    for collection in variables:
-        if collection not in ('params', 'batch_stats'):
-            raise KeyError(f'unknown JAX collection {collection!r}')
     if unset:
         raise KeyError(f'port parameters not set by the JAX variables: '
                        f'{sorted(unset)}')

@@ -55,6 +55,25 @@ def test_other_families_raise():
         build_detector(cfg, device='cpu')
 
 
+@pytest.mark.parametrize('section,key,value', [
+    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'MATCH_HEIGHT', True),
+    ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'cls')])
+def test_unported_options_raise(section, key, value):
+    """Options of the ported modules that no GLENet-VR config sets are
+    refused, not computed some other way."""
+    import torch_parity as tp
+
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = tp.to_port_cfg(tp.tiny_twostage_cfg())
+    node = cfg.MODEL
+    for part in section.split('.'):
+        node = node[part]
+    node[key] = value
+    with pytest.raises(NotImplementedError, match=key):
+        build_detector(cfg, device='cpu')
+
+
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
     """A tensor that is not on the CPU goes to the kernel or raises."""
     from glenet_tpu_torch.ops import merge_kernel as mk

@@ -126,6 +126,25 @@ def test_strided_output_sites(out_cap):
             np.testing.assert_array_equal(t.numpy(), np.asarray(r))
 
 
+@pytest.mark.parametrize('seed,out_cap', [(0, 944), (1, 611), (2, 1351)])
+def test_strided_output_sites_decimation_rounding(seed, out_cap):
+    """Decimation past out_cap at budgets where the keep rule's f32
+    ratio out_cap / n_active must be a true division: a product with the
+    reciprocal rounds differently at these caps and drops a site more."""
+    grid, n_cells = (32, 32, 25), 32 * 32 * 25
+    rng = np.random.RandomState(seed)
+    ids = np.full(512, n_cells, np.int32)
+    ids[:448] = np.sort(rng.choice(n_cells, 448, replace=False))
+    mask = ids < n_cells
+    ref = jax.jit(lambda i, m: jsp.strided_output_sites(
+        i, m, grid, 3, 2, 1, out_cap))(ids, mask)
+    got = tsp.strided_output_sites(torch.from_numpy(ids),
+                                   torch.from_numpy(mask), grid, 3, 2, 1,
+                                   out_cap)
+    for r, t in zip(ref, got):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(r))
+
+
 def test_to_dense_expand():
     ids, mask, feats = _tables(4)
     dense_j, occ_j = jax.jit(lambda f, i, m: jsp.to_dense_expand(
