@@ -20,7 +20,22 @@ Phases, each of which exits non-zero on failure:
      from 0 over those steps.  Per step: ms, every loss term, grad_norm,
      launches (4), peak memory; checks finite losses, changed parameters
      and BN running stats, and the LR / b1 of the one-cycle schedule;
-  4. kernel check: every kernel equals its plain PyTorch version on
+  4. the CLIs, [cli]: a synthetic tree in KITTI's layout (16 train and 4
+     val frames of 120k points over 360 degrees, 10-18 labelled cars each,
+     KITTI's calibration, road planes) through the port's
+     create_kitti_infos, with label variances written into its infos and
+     gt database; then `python -m glenet_tpu_torch.tools.train` in process
+     on GLENet_VR.yaml at full width, B = 4, 2 epochs x 2 steps, and a
+     resume for a third epoch with --bn_refresh 2; then
+     `glenet_tpu_torch.tools.test` on the newest checkpoint over the val
+     frames.  Checks 3 checkpoints, the resumed step, a bit-exact reload,
+     finite losses, 4 merge-resolve launches per train step and per
+     predict, result.pkl and every Car_3d/*_R40 AP key, and the host
+     library built from native/host_ops.cpp against its numpy versions on
+     the tree.  Prints data ms and step ms per step (against the in-memory
+     train steps of phase 3), peak memory, s/frame and the evaluation's
+     own time;
+  5. kernel check: every kernel equals its plain PyTorch version on
      adversarial cases (with the merge-resolve kernel's count of tiles on
      its wide-window path) and on the captured calls of the predict and of
      the train step; per call the kernel's device time (torch.profiler),
@@ -28,11 +43,11 @@ Phases, each of which exits non-zero on failure:
      torch.searchsorted's device and back-to-back times.  It runs after the
      main paths because a torch.profiler session leaves host overhead
      behind in the process, which slows every later step;
-  5. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
+  6. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
      weights and points, f32 on both sides with TF32 off: a predict, and a
      train step with fixed RoI targets and DP_RATIO 0 (loss terms,
      gradients, BN running stats);
-  6. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+  7. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -47,6 +62,9 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_REQUESTS, BATCH, N_POINTS = 3, 2, 32768
 TRAIN_STEPS = 3
+# the CLI phase's synthetic KITTI-layout tree and batch
+CLI_TRAIN, CLI_VAL, CLI_POINTS, CLI_BATCH = 16, 4, 120_000, 4
+KITTI_VAL_FRAMES = 3769
 
 # Toy two-stage GLENet-VR topology (MeanVFE -> VoxelBackBone8x ->
 # BaseBEVBackbone -> AnchorHeadSingle -> VoxelRCNNKLLabelIoUHead), the
@@ -643,7 +661,320 @@ def phase_train(cfg, det):
           f'tensors changed (unchanged, zero with zero gradients: {still}), '
           f'all {len(stats)} BN running-stat tensors changed; lr and b1 on '
           f'the one-cycle schedule')
-    return launches, captured
+    return launches, captured, times
+
+
+def count_launches(obj, attr, counts):
+    """Shadow obj.attr (a train-step factory or a predict method) so that
+    each call it makes appends its merge-resolve launches to `counts`;
+    returns an undo function."""
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    real = getattr(obj, attr)
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            before = mk.LAUNCHES
+            out = fn(*args, **kwargs)
+            counts.append(mk.LAUNCHES - before)
+            return out
+        return call
+
+    if attr == 'make_train_step':
+        setattr(obj, attr, lambda *a, **k: counted(real(*a, **k)))
+    else:
+        setattr(obj, attr, counted(real))
+    return lambda: setattr(obj, attr, real)
+
+
+def time_calls(obj, attr, totals, key):
+    """Shadow obj.attr so that the host seconds of its calls add up in
+    totals[key] and their number in totals[key + ' n']; returns an undo
+    function."""
+    raw = vars(obj)[attr]                 # a staticmethod stays one
+    real = getattr(obj, attr)
+
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real(*args, **kwargs)
+        finally:
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+            totals[key + ' n'] = totals.get(key + ' n', 0) + 1
+
+    setattr(obj, attr,
+            staticmethod(call) if isinstance(raw, staticmethod) else call)
+    return lambda: setattr(obj, attr, raw)
+
+
+def synthetic_detections(gt_annos, rng, n_false=20):
+    """Detections for KITTI annos: each labelled object jittered by one of
+    several offsets (IoU levels), and `n_false` false positives per frame,
+    all with random scores."""
+    import numpy as np
+    dts = []
+    for g in gt_annos:
+        keep = g['name'] != 'DontCare'
+        n, k = int(keep.sum()), int(keep.sum()) + n_false
+        sigma = rng.choice([0.05, 0.2, 0.5], n)[:, None]
+        loc = np.concatenate([g['location'][keep] + rng.normal(0, 1, (n, 3))
+                              * sigma,
+                              np.stack([rng.uniform(-20, 20, n_false),
+                                        np.full(n_false, 1.6),
+                                        rng.uniform(5, 70, n_false)], 1)])
+        dims = np.concatenate([g['dimensions'][keep],
+                               np.tile([3.9, 1.56, 1.6], (n_false, 1))])
+        ry = np.concatenate([g['rotation_y'][keep] + rng.normal(0, 0.1, n),
+                             rng.uniform(-np.pi, np.pi, n_false)])
+        x1 = rng.uniform(0, 1100, n_false)
+        y1 = rng.uniform(150, 250, n_false)
+        bbox = np.concatenate([g['bbox'][keep] + rng.normal(0, 4, (n, 4)),
+                               np.stack([x1, y1, x1 + 60, y1 + 45], 1)])
+        dts.append({'name': np.array(['Car'] * k), 'bbox': bbox,
+                    'location': loc, 'dimensions': dims, 'rotation_y': ry,
+                    'alpha': ry + rng.normal(0, 0.1, k),
+                    'truncated': np.zeros(k), 'occluded': np.zeros(k),
+                    'score': rng.uniform(0, 1, k)})
+    return dts
+
+
+def phase_eval(root, cfg):
+    """The KITTI evaluation on the card: against its CPU run on the tree's
+    20 labelled frames with synthetic detections, then timed at the size of
+    KITTI's val split (3769 frames, the 20 repeated), in parts: clean_data
+    (host), the rotated BEV / 3D overlaps (card), and the rest (the
+    matcher's two stages per cell on the card, the curves)."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.eval import kitti_eval as ke
+    gt = []
+    for split in ('train', 'val'):
+        with open(root / f'kitti_infos_{split}.pkl', 'rb') as f:
+            gt += [info['annos'] for info in pickle.load(f)]
+    dt = synthetic_detections(gt, np.random.RandomState(SEED))
+    (s_gpu, r_gpu), (s_cpu, r_cpu) = (
+        ke.get_official_eval_result(gt, dt, cfg.CLASS_NAMES, device=d)
+        for d in ('cuda', 'cpu'))
+    err = max(abs(r_gpu[k] - r_cpu[k]) for k in r_cpu)
+    check(set(r_gpu) == set(r_cpu) and err <= 1e-3 and s_gpu == s_cpu,
+          f'KITTI evaluation differs between the card and the CPU ({err})')
+    moderate = r_gpu['Car_3d/moderate_R40']
+    check(0 < moderate < 100, f'Car_3d/moderate_R40 {moderate}')
+    print(f'[eval] KITTI evaluation of {len(gt)} frames with synthetic '
+          f'detections: card equals CPU (every AP within {err:.1e}, result '
+          f'strings equal), Car_3d/moderate_R40 {moderate:.2f}')
+
+    reps = -(-KITTI_VAL_FRAMES // len(gt))
+    gt, dt = (gt * reps)[:KITTI_VAL_FRAMES], (dt * reps)[:KITTI_VAL_FRAMES]
+    times = {}
+    for name, fn in (
+            ('clean_data', lambda: [ke.clean_data(g, d, 0, diff)
+                                    for _ in range(6) for diff in range(3)
+                                    for g, d in zip(gt, dt)]),
+            ('overlaps', lambda: [ke.frame_overlaps(gt, dt, m, 'cuda')
+                                  for m in range(3)]),
+            ('evaluation', lambda: ke.get_official_eval_result(
+                gt, dt, cfg.CLASS_NAMES, device='cuda'))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    rest = times['evaluation'] - times['overlaps'] - times['clean_data']
+    n_gt = sum(len(a['name']) for a in gt)
+    n_dt = sum(len(a['name']) for a in dt)
+    print(f'[eval] KITTI evaluation at the size of the val split, '
+          f'{len(gt)} frames ({n_gt} labels, {n_dt} detections): '
+          f'{times["evaluation"]:.3f} s = clean_data for the 18 cells '
+          f'{times["clean_data"]:.3f} s (host) + rotated overlaps of the 3 '
+          f'metrics {times["overlaps"]:.3f} s (card) + the matcher\'s 2 '
+          f'stages x 18 cells and the curves {rest:.3f} s')
+
+
+def check_host_library(root):
+    """The host library is the one built from native/host_ops.cpp, and it
+    equals its numpy versions on the tree's boxes and points."""
+    import pickle
+
+    import numpy as np
+
+    from glenet_tpu_torch.ops import host_ops
+    lib = host_ops.load()
+    check(host_ops.SOURCE == ROOT / 'native' / 'host_ops.cpp'
+          and lib._name == str(host_ops.library_path()),
+          f'host library {lib._name} is not the one built from '
+          f'{host_ops.SOURCE}')
+    with open(root / 'kitti_infos_train.pkl', 'rb') as f:
+        infos = pickle.load(f)
+    boxes = np.concatenate([i['annos']['gt_boxes_lidar'] for i in infos])
+    n_pts, t_lib, t_np, n_inside = 0, 0.0, 0.0, 0
+    for info in infos[:4]:
+        pts = np.fromfile(str(root / 'training/velodyne' /
+                              f"{info['point_cloud']['lidar_idx']}.bin"),
+                          np.float32).reshape(-1, 4)
+        t0 = time.perf_counter()
+        got = host_ops.points_in_rboxes(pts, boxes)
+        t1 = time.perf_counter()
+        ref = host_ops.points_in_rboxes_plain(pts, boxes)
+        t_lib, t_np = t_lib + t1 - t0, t_np + time.perf_counter() - t1
+        check(np.array_equal(got, ref), 'points_in_rboxes differs from its '
+                                        'numpy version')
+        n_pts, n_inside = n_pts + len(pts), n_inside + int(got.sum())
+    rng = np.random.RandomState(SEED)
+    many = np.concatenate([boxes, boxes + rng.uniform(-3, 3, boxes.shape)
+                           * [1, 1, 0, 0, 0, 0, 1]]).astype(np.float32)
+    got = host_ops.rbox_collision(many, many)
+    check(np.array_equal(got, host_ops.rbox_collision_plain(many, many)),
+          'rbox_collision differs from its numpy version')
+    print(f'[cli] host library {Path(lib._name).name} (built from '
+          f'native/host_ops.cpp): points_in_rboxes equals numpy on '
+          f'{n_pts} points x {len(boxes)} boxes ({n_inside} inside; '
+          f'{1e3 * t_lib:.1f} ms against numpy {1e3 * t_np:.1f} ms); '
+          f'rbox_collision equals numpy on {len(many)}^2 pairs '
+          f'({int(got.sum())} overlapping)')
+
+
+def phase_cli(in_memory_ms):
+    """The train and test CLIs end to end on a synthetic KITTI-layout tree
+    at full width; merge-resolve launches counted from 0 just before and
+    read just after."""
+    import math
+    import pickle
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets import augmentor
+    from glenet_tpu_torch.datasets.kitti_dataset import (KittiDataset,
+                                                         create_kitti_infos)
+    from glenet_tpu_torch.models.detectors import Detector, build_detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import checkpoint as ck
+    from glenet_tpu_torch.train import state as state_lib
+    from glenet_tpu_torch.utils import synthetic
+    cfg_file = str(ROOT / 'configs/kitti_models/GLENet_VR.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    with tempfile.TemporaryDirectory(prefix='glenet_cli_') as tmp:
+        root, out = Path(tmp) / 'kitti', Path(tmp) / 'out'
+        t0 = time.perf_counter()
+        synthetic.write_kitti_tree(root, CLI_TRAIN, CLI_VAL, seed=SEED,
+                                   n_points=CLI_POINTS)
+        t1 = time.perf_counter()
+        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
+        synthetic.add_label_variances(root, seed=SEED)
+        t2 = time.perf_counter()
+        with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+            n_db = len(pickle.load(f)['Car'])
+        print(f'[cli] synthetic KITTI tree: {CLI_TRAIN} train + {CLI_VAL} val '
+              f'frames of {CLI_POINTS} points written in {t1 - t0:.1f} s; '
+              f'create_kitti_infos and label variances {t2 - t1:.1f} s, '
+              f'{n_db} Car objects in the gt database')
+        check_host_library(root)
+
+        common = ['--cfg_file', cfg_file, '--data_path', str(root),
+                  '--output_dir', str(out), '--batch_size', str(CLI_BATCH),
+                  '--max_steps_per_epoch', '2']
+        step_launches, predict_launches, data = [], [], {}
+        undo = [count_launches(state_lib, 'make_train_step', step_launches),
+                count_launches(Detector, 'predict', predict_launches)]
+        timers = [time_calls(KittiDataset, '__getitem__', data, 'items'),
+                  time_calls(augmentor.DataAugmentor, '__call__', data,
+                             'augment'),
+                  time_calls(augmentor.DataBaseSampler, '__call__', data,
+                             'gt_sampling'),
+                  time_calls(KittiDataset, 'collate_batch', data, 'collate'),
+                  time_calls(train_cli, 'to_device', data, 'copy')]
+        mk.LAUNCHES = 0
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            first = train_cli.main(common + ['--epochs', '2'])
+            resumed = train_cli.main(common + ['--epochs', '3',
+                                               '--bn_refresh', '2'])
+            peak = torch.cuda.max_memory_allocated()
+            for u in timers:
+                u()
+            results = test_cli.main(common[:8])
+        finally:
+            for u in undo + timers:
+                u()
+        launches = mk.LAUNCHES
+
+        ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
+        check(ckpts == [f'checkpoint_epoch_{e}.pth' for e in range(3)],
+              f'checkpoints written: {ckpts}')
+        check(first['start_step'] == 0 and resumed['start_step'] == 4,
+              f'the resumed run started at step {resumed["start_step"]}')
+        steps = first['steps'] + resumed['steps']
+        check([r['it'] for r in steps] == list(range(1, 7)),
+              f'steps {[r["it"] for r in steps]}')
+        for r in steps:
+            bad = [k for k, v in r.items() if isinstance(v, float)
+                   and not math.isfinite(v)]
+            check(not bad, f'CLI step {r["it"]}: not finite: {bad}')
+        check(step_launches == [4] * 6, f'merge-resolve launches per CLI '
+                                        f'train step: {step_launches}')
+        # parameters and BN stats loaded from the first run's last
+        # checkpoint equal those it saved
+        fresh = build_detector(cfg, device='cuda')
+        fresh.net.load_state_dict(ck.load_checkpoint(
+            out / 'ckpt' / 'checkpoint_epoch_1.pth')['model_state'])
+        saved = first['detector'].net.state_dict()
+        diff = [k for k, v in fresh.net.state_dict().items()
+                if not torch.equal(v, saved[k])]
+        check(not diff, f'reloaded tensors differ: {diff[:5]}')
+        for r in steps:
+            print(f'[cli] train step {r["it"]} (epoch {r["epoch"]}): data '
+                  f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+                  f'{r["loss"]:.4f}, rcnn_loss_reg {r["rcnn_loss_reg"]:.4f}, '
+                  f'grad_norm {r["grad_norm"]:.3f}, lr {r["lr"]:.3e}')
+        warm = [r for r in steps if r['it'] not in (1, 5)]
+        data_ms = sum(r['data_ms'] for r in warm) / len(warm)
+        step_ms = sum(r['step_ms'] for r in warm) / len(warm)
+        mem_ms = sum(in_memory_ms) / len(in_memory_ms)
+        print(f'[cli] train through the CLI, B={CLI_BATCH}: 3 checkpoints, '
+              f'resumed at step {resumed["start_step"]}, reload bit-exact '
+              f'({len(saved)} tensors), merge_resolve launches per step '
+              f'{step_launches}; mean over the steps after each run\'s first: '
+              f'data {data_ms:.1f} ms, step {step_ms:.1f} ms against the '
+              f'in-memory train step {mem_ms:.1f} ms (phase [train]); '
+              f'max_memory_allocated {peak / 2**30:.2f} GiB')
+        n = data['collate n']
+        ms = {k: 1e3 * data[k] / n for k in ('items', 'augment', 'gt_sampling',
+                                              'collate', 'copy')}
+        print(f'[cli] data per batch of {CLI_BATCH}, host ms (mean over {n} '
+              f'batches of the train split, 2 of them the BN refresh\'s): '
+              f'items {ms["items"]:.1f} = gt sampling {ms["gt_sampling"]:.1f}'
+              f' + world flip / rotation / scaling '
+              f'{ms["augment"] - ms["gt_sampling"]:.1f} + loading, FOV crop, '
+              f'range masks and padding {ms["items"] - ms["augment"]:.1f}; '
+              f'collation {ms["collate"]:.1f}; copy to the card '
+              f'{ms["copy"]:.1f}')
+
+        (path, res), = results.items()
+        result_pkl = out / 'eval' / 'epoch_2' / 'result.pkl'
+        check(path.endswith('checkpoint_epoch_2.pth') and result_pkl.exists(),
+              f'test CLI evaluated {path}; result.pkl missing')
+        check(res['frames'] == CLI_VAL, f'{res["frames"]} frames evaluated')
+        keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
+        check(all(k in res['ap'] and np.isfinite(res['ap'][k]) for k in keys),
+              f'AP keys missing: {sorted(res["ap"])}')
+        check(predict_launches == [4] * math.ceil(CLI_VAL / CLI_BATCH),
+              f'merge-resolve launches per CLI predict: {predict_launches}')
+        print(f'[cli] test CLI on {Path(path).name}: {res["frames"]} val '
+              f'frames, {res["sec_per_frame"]:.4f} s/frame (predicts and '
+              f'prediction dicts), KITTI evaluation {res["eval_sec"]:.3f} s '
+              f'(overlaps and matcher on the card); merge_resolve launches '
+              f'per predict {predict_launches}; result.pkl written; '
+              + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+              + ' (random weights: only the keys are checked)')
+        phase_eval(root, cfg)
+    return launches
 
 
 def main():
@@ -661,7 +992,8 @@ def main():
         card = phase_setup(['merge_resolve'])
         cfg, det, batches, captured = prepare_full_width()
         launches = phase_full_width(det, batches)
-        launches_train, captured_train = phase_train(cfg, det)
+        launches_train, captured_train, train_ms = phase_train(cfg, det)
+        launches_cli = phase_cli(train_ms)
         merge = phase_merge_check(captured, captured_train)
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
@@ -674,7 +1006,7 @@ def main():
         'name': 'merge_resolve', 'route': 'cuda',
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
-        'launches': launches + launches_train,
+        'launches': launches + launches_train + launches_cli,
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -682,6 +1014,7 @@ def main():
         'library_device_ms': merge['library_device_ms'],
         'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms'],
         'launches_predict': launches, 'launches_train': launches_train,
+        'launches_cli': launches_cli,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -690,7 +1023,8 @@ def main():
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
-          f'the {N_REQUESTS} predicts and the {TRAIN_STEPS} train steps')
+          f'the {N_REQUESTS} predicts, the {TRAIN_STEPS} train steps and the '
+          f'CLI phase (6 train steps, 2 BN-refresh forwards, 1 predict)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

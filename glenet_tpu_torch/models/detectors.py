@@ -378,10 +378,6 @@ class Detector:
 def build_detector(cfg, device=None):
     """cfg: full config with CLASS_NAMES / DATA_CONFIG / MODEL.  The model
     goes to `device`; by default the GPU, and without one this raises."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError('no CUDA device: pass device="cpu" to run the '
-                               'port on the CPU')
-        device = 'cuda'
     return Detector(cfg.MODEL, cfg.DATA_CONFIG,
-                    num_class=len(cfg.CLASS_NAMES), device=device)
+                    num_class=len(cfg.CLASS_NAMES),
+                    device=common.resolve_device(device))

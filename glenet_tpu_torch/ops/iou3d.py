@@ -10,6 +10,7 @@ Layout: (candidate, N) structure-of-arrays, as in the JAX package.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-8
@@ -144,3 +145,12 @@ def boxes_iou3d(boxes_a, boxes_b):
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
     return overlap_3d / (vol_a + vol_b - overlap_3d).clamp_min(1e-6)
+
+
+def boxes_bev_iou_np(boxes_a, boxes_b):
+    """Rotated BEV IoU of host boxes, numpy in and out: (N, 7) x (M, 7) ->
+    (N, M), computed in f32 on the CPU (the data pipeline's collision test
+    stays on the host)."""
+    a = torch.from_numpy(np.ascontiguousarray(boxes_a, np.float32))
+    b = torch.from_numpy(np.ascontiguousarray(boxes_b, np.float32))
+    return boxes_iou_bev(a, b).numpy()

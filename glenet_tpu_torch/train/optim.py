@@ -1,6 +1,8 @@
-"""adam_onecycle (torch counterpart of glenet_tpu/train/optim.py).
+"""The optimizers of `build_optimizer` (torch counterpart of
+glenet_tpu/train/optim.py): adam_onecycle, adam and sgd, each behind the
+same global-norm clip.
 
-The reference's fastai-style OneCycle:
+adam_onecycle is the reference's fastai-style OneCycle:
   - lr: cosine anneal lr_max / div_factor -> lr_max over pct_start of the
     steps, then lr_max -> (lr_max / div_factor) / 1e4;
   - Adam b1 ("momentum"): moms[0] -> moms[1], then back; b2 = 0.99;
@@ -14,11 +16,17 @@ norm + 1e-6 instead), scale_by_adam divides the bias-corrected first moment
 by sqrt(bias-corrected second moment) + 1e-8, add_decayed_weights adds
 wd * param, and the LR scales the sum.  The schedules are evaluated at the
 count of updates made so far, as optax.inject_hyperparams does.
+
+adam is optax.adamw (b1 0.9, b2 0.999, eps 1e-8, decoupled decay added to
+the Adam update before the LR scale); sgd is optax's add_decayed_weights
+then sgd with momentum (the decay joins the gradient before the momentum
+trace).  Both run at a constant LR.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 ADAM_B2 = 0.99
@@ -60,6 +68,22 @@ def global_norm(tensors):
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+def clip_by_global_norm(grads, max_norm: float):
+    """-> (grads, each t / norm * max_norm when norm >= max_norm, as optax
+    rounds it; the norm before the clip); no clip when max_norm <= 0."""
+    norm = global_norm(grads)
+    if max_norm > 0:
+        keep = norm < max_norm
+        grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(keep, 1.0, max_norm))
+    return grads, norm
+
+
+def bias_correction(decay: float, count: int) -> float:
+    """1 - decay ** count in float32, as optax computes it."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
+
+
 class AdamOneCycle:
     """Clip, Adam with the step's b1, decoupled decay, LR.  State: the first
     and second moments of each parameter, the update count and the (lr, b1)
@@ -83,11 +107,7 @@ class AdamOneCycle:
     def update(self, params, grads, state):
         """Update `params` in place from `grads`; returns the global norm of
         the gradients before the clip."""
-        norm = global_norm(grads)
-        if self.max_norm > 0:
-            scale = torch.where(norm < self.max_norm, 1.0,
-                                self.max_norm / norm)
-            grads = torch._foreach_mul(grads, scale)
+        grads, norm = clip_by_global_norm(grads, self.max_norm)
         lr, b1 = self.hyperparams(state['count'])
         state['hyperparams'] = (lr, b1)
         state['count'] += 1
@@ -108,17 +128,81 @@ class AdamOneCycle:
         return norm
 
 
+class Adam:
+    """optax.adamw at a constant LR behind the clip.  State: the moments,
+    the update count."""
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, lr: float, weight_decay: float, max_norm: float):
+        self.lr, self.weight_decay, self.max_norm = lr, weight_decay, max_norm
+
+    def init(self, params):
+        return {'count': 0,
+                'mu': [torch.zeros_like(p) for p in params],
+                'nu': [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        grads, norm = clip_by_global_norm(grads, self.max_norm)
+        state['count'] += 1
+        t = state['count']
+        mu, nu = state['mu'], state['nu']
+        torch._foreach_mul_(mu, self.B1)
+        torch._foreach_add_(mu, grads, alpha=1.0 - self.B1)
+        torch._foreach_mul_(nu, self.B2)
+        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - self.B2)
+        mu_hat = torch._foreach_div(mu, bias_correction(self.B1, t))
+        nu_hat = torch._foreach_div(nu, bias_correction(self.B2, t))
+        denom = torch._foreach_sqrt(nu_hat)
+        torch._foreach_add_(denom, self.EPS)
+        upd = torch._foreach_div(mu_hat, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, params, alpha=self.weight_decay)
+        torch._foreach_add_(params, upd, alpha=-self.lr)
+        return norm
+
+
+class SGD:
+    """optax's add_decayed_weights then sgd with momentum, at a constant LR,
+    behind the clip.  State: the momentum trace, the update count.  The
+    decay and the trace are each one multiply-add, as XLA fuses them."""
+
+    def __init__(self, lr: float, momentum: float, weight_decay: float,
+                 max_norm: float):
+        self.lr, self.momentum = lr, momentum
+        self.weight_decay, self.max_norm = weight_decay, max_norm
+
+    def init(self, params):
+        return {'count': 0, 'trace': [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        grads, norm = clip_by_global_norm(grads, self.max_norm)
+        state['count'] += 1
+        if self.weight_decay:
+            grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
+        trace = torch._foreach_add(grads, state['trace'], alpha=self.momentum)
+        state['trace'] = trace
+        torch._foreach_add_(params, trace, alpha=-self.lr)
+        return norm
+
+
 def build_optimizer(opt_cfg, total_steps: int):
-    """From the reference OPTIMIZATION block -> (optimizer, lr schedule).
-    Only adam_onecycle, the optimizer of GLENet-VR, is ported."""
+    """From the reference OPTIMIZATION block -> (optimizer, lr schedule)."""
     name = opt_cfg.OPTIMIZER
-    if name != 'adam_onecycle':
-        raise NotImplementedError(f'optimizer {name} is not ported yet')
     lr = float(opt_cfg.LR)
-    pct = float(opt_cfg.PCT_START)
-    lr_sched = onecycle_lr_schedule(lr, total_steps,
-                                    float(opt_cfg.DIV_FACTOR), pct)
-    mom_sched = onecycle_mom_schedule(tuple(opt_cfg.MOMS), total_steps, pct)
-    return AdamOneCycle(lr_sched, mom_sched,
-                        float(opt_cfg.get('WEIGHT_DECAY', 0.0)),
-                        float(opt_cfg.get('GRAD_NORM_CLIP', 0.0))), lr_sched
+    wd = float(opt_cfg.get('WEIGHT_DECAY', 0.0))
+    clip = float(opt_cfg.get('GRAD_NORM_CLIP', 0.0))
+    if name == 'adam_onecycle':
+        pct = float(opt_cfg.PCT_START)
+        lr_sched = onecycle_lr_schedule(lr, total_steps,
+                                        float(opt_cfg.DIV_FACTOR), pct)
+        mom_sched = onecycle_mom_schedule(tuple(opt_cfg.MOMS), total_steps,
+                                          pct)
+        return AdamOneCycle(lr_sched, mom_sched, wd, clip), lr_sched
+    if name == 'adam':
+        return Adam(lr, wd, clip), lambda step: lr
+    if name == 'sgd':
+        return SGD(lr, float(opt_cfg.get('MOMENTUM', 0.9)), wd,
+                   clip), lambda step: lr
+    raise NotImplementedError(f'optimizer {name} is not ported yet')

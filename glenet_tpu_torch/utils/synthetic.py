@@ -3,11 +3,15 @@
 checkpoint and no KITTI data are in the repository."""
 from __future__ import annotations
 
+import pickle
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from ..models.detectors import build_detector
 from ..models.layers import MaskedBatchNorm
+from . import box_utils, calibration_kitti, common
 
 N_POINTS = 32768
 MAX_GT_PER_SCENE = 128      # KITTI's gt slots per scene
@@ -103,3 +107,134 @@ def seeded_detector(cfg, device, seed):
         det = build_detector(cfg, device=device)
         det.net.load_state_dict(state)
     return det
+
+
+# ---------------------------------------------------------------------------
+# a synthetic data tree in KITTI's layout
+# ---------------------------------------------------------------------------
+
+# the calibration of KITTI's raw drives of 2011-09-26 (P0..P3, R0_rect,
+# Tr_velo_to_cam, Tr_imu_to_velo), as the dataset's calib files hold it
+KITTI_CALIB = """P0: 7.215377e+02 0 6.095593e+02 0 0 7.215377e+02 1.728540e+02 0 0 0 1 0
+P1: 7.215377e+02 0 6.095593e+02 -3.875744e+02 0 7.215377e+02 1.728540e+02 0 0 0 1 0
+P2: 7.215377e+02 0 6.095593e+02 4.485728e+01 0 7.215377e+02 1.728540e+02 2.163791e-01 0 0 1 2.745884e-03
+P3: 7.215377e+02 0 6.095593e+02 -3.395242e+02 0 7.215377e+02 1.728540e+02 2.199936e+00 0 0 1 2.729905e-03
+R0_rect: 9.999239e-01 9.837760e-03 -7.445048e-03 -9.869795e-03 9.999421e-01 -4.278459e-03 7.402527e-03 4.351614e-03 9.999631e-01
+Tr_velo_to_cam: 7.533745e-03 -9.999714e-01 -6.166020e-04 -4.069766e-03 1.480249e-02 7.280733e-04 -9.998902e-01 -7.631618e-02 9.998621e-01 7.523790e-03 1.480755e-02 -2.717806e-01
+Tr_imu_to_velo: 9.999976e-01 7.553071e-04 -2.035826e-03 -8.086759e-01 -7.854027e-04 9.998898e-01 -1.482298e-02 3.195559e-01 2.024406e-03 1.482454e-02 9.998881e-01 -7.997231e-01
+"""
+GROUND_Z = -1.73            # lidar height above the road
+IMAGE_SHAPE = (375, 1242)
+FOV_HALF_ANGLE = np.radians(35.0)
+
+
+def _place_cars(rng, n, x_range, y_half):
+    """n non-overlapping Car boxes (lidar frame, bottoms on the ground)
+    inside the camera's field of view."""
+    boxes = []
+    while len(boxes) < n:
+        x = rng.uniform(*x_range)
+        y_max = min(y_half, x * np.tan(FOV_HALF_ANGLE) - 1.5)
+        if y_max <= 0:
+            continue
+        y = rng.uniform(-y_max, y_max)
+        if any(np.hypot(x - b[0], y - b[1]) < 5.5 for b in boxes):
+            continue
+        l, w, h = (rng.uniform(3.4, 4.6), rng.uniform(1.5, 1.9),
+                   rng.uniform(1.4, 1.8))
+        boxes.append([x, y, GROUND_Z + h / 2, l, w, h,
+                      rng.uniform(-np.pi, np.pi)])
+    return np.array(boxes, np.float32).reshape(-1, 7)
+
+
+def _frame_points(rng, boxes, n_points, ground_radius):
+    """n_points over 360 degrees: points inside each car, then ground and
+    clutter out to ground_radius."""
+    parts = []
+    for b in boxes:
+        k = rng.randint(300, 1500)
+        local = rng.uniform(-0.5, 0.5, (k, 3)) * b[3:6]
+        xyz = common.rotate_points_along_z_np(local, np.array([b[6]]))
+        parts.append(np.concatenate([xyz + b[:3],
+                                     rng.uniform(0, 1, (k, 1))], 1))
+    n_rest = max(n_points - sum(len(p) for p in parts), 0)
+    theta = rng.uniform(-np.pi, np.pi, n_rest)
+    r = np.sqrt(rng.uniform(4.0, ground_radius ** 2, n_rest))
+    z = np.where(rng.uniform(0, 1, n_rest) < 0.8,
+                 GROUND_Z + rng.normal(0, 0.03, n_rest),
+                 rng.uniform(GROUND_Z, 1.0, n_rest))
+    parts.append(np.stack([r * np.cos(theta), r * np.sin(theta), z,
+                           rng.uniform(0, 1, n_rest)], 1))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
+                     cars=(10, 18), x_range=(6.0, 55.0), y_half=30.0,
+                     ground_radius=70.0):
+    """A synthetic data tree in KITTI's layout under `root` (training/
+    {velodyne, label_2, calib, planes}, ImageSets/{train, val}.txt): frames
+    of `n_points` lidar points over 360 degrees, between cars[0] and
+    cars[1] labelled Car boxes in the camera's view plus one DontCare
+    region, KITTI's calibration and a flat road plane.  Returns `root`."""
+    root = Path(root)
+    for sub in ('velodyne', 'label_2', 'calib', 'planes'):
+        (root / 'training' / sub).mkdir(parents=True, exist_ok=True)
+    (root / 'ImageSets').mkdir(exist_ok=True)
+    rng = np.random.RandomState(seed)
+    ids = [f'{i:06d}' for i in range(n_train + n_val)]
+    for fid in ids:
+        calib_file = root / 'training/calib' / f'{fid}.txt'
+        calib_file.write_text(KITTI_CALIB)
+        calib = calibration_kitti.Calibration(str(calib_file))
+        boxes = _place_cars(rng, rng.randint(cars[0], cars[1] + 1), x_range,
+                            y_half)
+        pts = _frame_points(rng, boxes, n_points, ground_radius)
+        cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
+        img = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib,
+                                                           IMAGE_SHAPE)
+        alpha = -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6]
+        lines = [f'Car 0.00 0 {alpha[i]:.2f} {img[i, 0]:.2f} {img[i, 1]:.2f} '
+                 f'{img[i, 2]:.2f} {img[i, 3]:.2f} {cam[i, 4]:.2f} '
+                 f'{cam[i, 5]:.2f} {cam[i, 3]:.2f} {cam[i, 0]:.2f} '
+                 f'{cam[i, 1]:.2f} {cam[i, 2]:.2f} {cam[i, 6]:.2f}'
+                 for i in range(len(boxes))]
+        u = rng.uniform(0, IMAGE_SHAPE[1] - 60)
+        lines.append(f'DontCare -1 -1 -10 {u:.2f} 170.00 {u + 50:.2f} '
+                     f'200.00 -1 -1 -1 -1000 -1000 -1000 -10')
+        pts.tofile(str(root / 'training/velodyne' / f'{fid}.bin'))
+        (root / 'training/label_2' / f'{fid}.txt').write_text(
+            '\n'.join(lines) + '\n')
+        (root / 'training/planes' / f'{fid}.txt').write_text(
+            '# Plane\nWidth 4\nHeight 1\n0 -1 0 1.65\n')
+    (root / 'ImageSets/train.txt').write_text('\n'.join(ids[:n_train]) + '\n')
+    (root / 'ImageSets/val.txt').write_text('\n'.join(ids[n_train:]) + '\n')
+    return root
+
+
+def add_label_variances(root, seed=0, car_class='Car'):
+    """Write a label variance in [0.01, 0.2) per box coordinate into the
+    infos (annos['uncertainty'], -1 for other classes) and the Car entries
+    of the gt database of `root`, in the form the CVAE's uncertainty
+    injection gives them, so the KL loss sees positive variances."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    variances = {}
+    for name in ('kitti_infos_train.pkl', 'kitti_infos_val.pkl'):
+        with open(root / name, 'rb') as f:
+            infos = pickle.load(f)
+        for info in infos:
+            annos = info['annos']
+            unc = np.full((len(annos['name']), 7), -1.0)
+            for i, n in enumerate(annos['name']):
+                if n == car_class:
+                    unc[i] = rng.uniform(0.01, 0.2, 7)
+                    variances[(info['image']['image_idx'], i)] = unc[i]
+            annos['uncertainty'] = unc
+        with open(root / name, 'wb') as f:
+            pickle.dump(infos, f)
+    with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+        db_infos = pickle.load(f)
+    for info in db_infos.get(car_class, []):
+        info['uncertainty'] = variances[(info['image_idx'], info['gt_idx'])]
+    with open(root / 'kitti_dbinfos_train.pkl', 'wb') as f:
+        pickle.dump(db_infos, f)

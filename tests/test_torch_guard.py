@@ -1,5 +1,7 @@
 """Guards of the port: glenet_tpu_torch and chip_smoke.py import neither
-JAX nor glenet_tpu, and the port never quietly defaults to the CPU."""
+JAX nor glenet_tpu, the port never quietly defaults to the CPU, and what
+is not ported yet (augmentations, datasets, camera items, CLI flags)
+raises NotImplementedError naming itself."""
 import subprocess
 import sys
 from pathlib import Path
@@ -84,3 +86,72 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
                         lambda *a: pytest.fail('fell back to the plain path'))
     with pytest.raises(ValueError, match='unsupported device'):
         mk.resolve_sorted_queries(ids, q)
+
+
+@pytest.mark.parametrize('cli', ['train', 'test'])
+def test_clis_need_a_card(cli, tmp_path):
+    """The train and test CLIs run on the GPU unless --device cpu is
+    given; importing them runs nothing."""
+    import importlib
+    mod = importlib.import_module(f'glenet_tpu_torch.tools.{cli}')
+    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+            '--output_dir', str(tmp_path)]
+    if torch.cuda.is_available():
+        assert mod.parse_config(argv)[0].device == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            mod.main(argv)
+    assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize('flag', ['--coordinator_address', '--num_processes',
+                                  '--process_id', '--workers'])
+def test_train_cli_refuses_multi_host_flags(flag, tmp_path):
+    from glenet_tpu_torch.tools import train
+    value = 'localhost:1234' if flag == '--coordinator_address' else '2'
+    with pytest.raises(NotImplementedError, match=flag):
+        train.main(['--cfg_file',
+                    str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+                    '--output_dir', str(tmp_path), '--device', 'cpu',
+                    flag, value])
+
+
+@pytest.mark.parametrize('name', ['random_image_flip', 'noise_per_object',
+                                  'random_world_translation',
+                                  'random_local_rotation',
+                                  'random_local_pyramid_aug'])
+def test_unported_augmentations_raise(name, tmp_path):
+    from glenet_tpu_torch.config import Cfg
+    from glenet_tpu_torch.datasets.augmentor import DataAugmentor
+    cfg = Cfg({'DISABLE_AUG_LIST': ['placeholder'],
+               'AUG_CONFIG_LIST': [{'NAME': name},
+                                   {'NAME': 'random_world_flip',
+                                    'ALONG_AXIS_LIST': ['x']}]})
+    with pytest.raises(NotImplementedError, match=name):
+        DataAugmentor(tmp_path, cfg, ['Car'])
+    # a disabled name is skipped, as in the JAX package
+    cfg.DISABLE_AUG_LIST = [name]
+    assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 1
+
+
+@pytest.mark.parametrize('name', ['WaymoDataset', 'NuScenesDataset',
+                                  'LyftDataset', 'PandasetDataset'])
+def test_unported_datasets_raise(name):
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets import build_dataset
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    cfg.DATA_CONFIG.DATASET = name
+    with pytest.raises(NotImplementedError, match=name):
+        build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False)
+
+
+@pytest.mark.parametrize('item', ['images', 'depth_maps', 'calib_matricies',
+                                  'gt_boxes2d'])
+def test_camera_items_raise(item, tmp_path):
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets.kitti_dataset import KittiDataset
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    cfg.DATA_CONFIG.GET_ITEM_LIST = ['points', item]
+    with pytest.raises(NotImplementedError, match=item):
+        KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
+                     root_path=tmp_path)

@@ -358,7 +358,7 @@ def test_adam_onecycle_three_steps():
 
 def test_optimizer_refuses_others():
     cfg = tp.to_port_cfg(tp.tiny_twostage_cfg()).OPTIMIZATION
-    cfg.OPTIMIZER = 'sgd'
+    cfg.OPTIMIZER = 'adam_cosine'
     with pytest.raises(NotImplementedError):
         toptim.build_optimizer(cfg, 10)
 
