@@ -35,7 +35,24 @@ Phases, each of which exits non-zero on failure:
      the tree.  Prints data ms and step ms per step (against the in-memory
      train steps of phase 3), peak memory, s/frame and the evaluation's
      own time;
-  5. kernel check: every kernel equals its plain PyTorch version on
+  5. the label-uncertainty generator, [cvae]: (a) configs/cvae/exp_gen.yaml
+     at full width (B = 64 crops of 512 points, LATENT_DIM 8) on a
+     synthetic gt database of KITTI's train-split size (14357 Car + 1297
+     Van crops), fold 0 of 10: one warm-up and 20 timed train steps (data
+     ms split into crop loads / occlusion / the rest of the item,
+     collation, copy; step ms; loss terms; grad_norm; lr / b1; peak
+     memory), then one prediction pass over the val fold, and the
+     projected wall time of the whole 10-fold run; (b) end to end on the
+     [cli] tree: `glenet_tpu_torch.tools.cvae_train --folds 2 --passes 30
+     --epochs 2 --inject` in process, the variance map and the _wconf
+     infos checked, GLENet-VR trained on them through the train CLI (1
+     epoch x 2 steps, B = 4, launches counted from 0 over it), and the
+     analysis (in process and through `tools.cvae_analysis`) of fold 0's
+     passes; (c) one Waymo train step and prediction pass
+     (configs/cvae/waymo_exp_gen.yaml, 5-dim crops); (d) the card against
+     the CPU: one train step (loss terms, gradients, BN stats, parameters
+     after adam_onecycle) and one `sample`, same weights and eps;
+  6. kernel check: every kernel equals its plain PyTorch version on
      adversarial cases (with the merge-resolve kernel's count of tiles on
      its wide-window path) and on the captured calls of the predict and of
      the train step; per call the kernel's device time (torch.profiler),
@@ -43,11 +60,11 @@ Phases, each of which exits non-zero on failure:
      torch.searchsorted's device and back-to-back times.  It runs after the
      main paths because a torch.profiler session leaves host overhead
      behind in the process, which slows every later step;
-  6. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
+  7. GPU against CPU: the toy two-stage GLENet-VR topology, same seeded
      weights and points, f32 on both sides with TF32 off: a predict, and a
      train step with fixed RoI targets and DP_RATIO 0 (loss terms,
      gradients, BN running stats);
-  7. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+  8. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -55,6 +72,7 @@ from __future__ import annotations
 
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -65,6 +83,11 @@ TRAIN_STEPS = 3
 # the CLI phase's synthetic KITTI-layout tree and batch
 CLI_TRAIN, CLI_VAL, CLI_POINTS, CLI_BATCH = 16, 4, 120_000, 4
 KITTI_VAL_FRAMES = 3769
+# the CVAE phase: KITTI's train-split gt database as OpenPCDet counts it
+# (Car and Van, both taken with ENABLE_SIMILAR_TYPE), fold 0 of 10
+CVAE_CARS, CVAE_VANS, CVAE_FOLDS, CVAE_PASSES = 14357, 1297, 10, 30
+CVAE_STEPS = 20
+WAYMO_CROPS = 640
 
 # Toy two-stage GLENet-VR topology (MeanVFE -> VoxelBackBone8x ->
 # BaseBEVBackbone -> AnchorHeadSingle -> VoxelRCNNKLLabelIoUHead), the
@@ -686,20 +709,27 @@ def count_launches(obj, attr, counts):
     return lambda: setattr(obj, attr, real)
 
 
+_TIMED = []                               # inner seconds of the open calls
+
+
 def time_calls(obj, attr, totals, key):
-    """Shadow obj.attr so that the host seconds of its calls add up in
-    totals[key] and their number in totals[key + ' n']; returns an undo
-    function."""
+    """Shadow obj.attr so that totals[key] adds the host seconds of its
+    calls, less those of other shadowed calls made inside them, and
+    totals[key + ' n'] counts them; returns an undo function."""
     raw = vars(obj)[attr]                 # a staticmethod stays one
     real = getattr(obj, attr)
 
     def call(*args, **kwargs):
+        _TIMED.append(0.0)
         t0 = time.perf_counter()
         try:
             return real(*args, **kwargs)
         finally:
-            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            totals[key] = totals.get(key, 0.0) + dt - _TIMED.pop()
             totals[key + ' n'] = totals.get(key + ' n', 0) + 1
+            if _TIMED:
+                _TIMED[-1] += dt
 
     setattr(obj, attr,
             staticmethod(call) if isinstance(raw, staticmethod) else call)
@@ -836,13 +866,13 @@ def check_host_library(root):
           f'({int(got.sum())} overlapping)')
 
 
-def phase_cli(in_memory_ms):
+def phase_cli(in_memory_ms, tmp):
     """The train and test CLIs end to end on a synthetic KITTI-layout tree
-    at full width; merge-resolve launches counted from 0 just before and
-    read just after."""
+    at full width, written under `tmp`; merge-resolve launches counted from
+    0 just before and read just after.  Returns the launches and the
+    tree's root."""
     import math
     import pickle
-    import tempfile
 
     import numpy as np
     import torch
@@ -860,120 +890,567 @@ def phase_cli(in_memory_ms):
     from glenet_tpu_torch.utils import synthetic
     cfg_file = str(ROOT / 'configs/kitti_models/GLENet_VR.yaml')
     cfg = cfg_from_yaml_file(cfg_file)
-    with tempfile.TemporaryDirectory(prefix='glenet_cli_') as tmp:
-        root, out = Path(tmp) / 'kitti', Path(tmp) / 'out'
+    root, out = tmp / 'kitti', tmp / 'out'
+    t0 = time.perf_counter()
+    synthetic.write_kitti_tree(root, CLI_TRAIN, CLI_VAL, seed=SEED,
+                               n_points=CLI_POINTS)
+    t1 = time.perf_counter()
+    create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
+    synthetic.add_label_variances(root, seed=SEED)
+    t2 = time.perf_counter()
+    with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+        n_db = len(pickle.load(f)['Car'])
+    print(f'[cli] synthetic KITTI tree: {CLI_TRAIN} train + {CLI_VAL} val '
+          f'frames of {CLI_POINTS} points written in {t1 - t0:.1f} s; '
+          f'create_kitti_infos and label variances {t2 - t1:.1f} s, '
+          f'{n_db} Car objects in the gt database')
+    check_host_library(root)
+
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(CLI_BATCH),
+              '--max_steps_per_epoch', '2']
+    step_launches, predict_launches, data = [], [], {}
+    undo = [count_launches(state_lib, 'make_train_step', step_launches),
+            count_launches(Detector, 'predict', predict_launches)]
+    timers = [time_calls(KittiDataset, '__getitem__', data, 'items'),
+              time_calls(augmentor.DataAugmentor, '__call__', data,
+                         'augment'),
+              time_calls(augmentor.DataBaseSampler, '__call__', data,
+                         'gt_sampling'),
+              time_calls(KittiDataset, 'collate_batch', data, 'collate'),
+              time_calls(train_cli, 'to_device', data, 'copy')]
+    mk.LAUNCHES = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        first = train_cli.main(common + ['--epochs', '2'])
+        resumed = train_cli.main(common + ['--epochs', '3',
+                                           '--bn_refresh', '2'])
+        peak = torch.cuda.max_memory_allocated()
+        for u in timers:
+            u()
+        results = test_cli.main(common[:8])
+    finally:
+        for u in undo + timers:
+            u()
+    launches = mk.LAUNCHES
+
+    ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
+    check(ckpts == [f'checkpoint_epoch_{e}.pth' for e in range(3)],
+          f'checkpoints written: {ckpts}')
+    check(first['start_step'] == 0 and resumed['start_step'] == 4,
+          f'the resumed run started at step {resumed["start_step"]}')
+    steps = first['steps'] + resumed['steps']
+    check([r['it'] for r in steps] == list(range(1, 7)),
+          f'steps {[r["it"] for r in steps]}')
+    for r in steps:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'CLI step {r["it"]}: not finite: {bad}')
+    check(step_launches == [4] * 6, f'merge-resolve launches per CLI '
+                                    f'train step: {step_launches}')
+    # parameters and BN stats loaded from the first run's last
+    # checkpoint equal those it saved
+    fresh = build_detector(cfg, device='cuda')
+    fresh.net.load_state_dict(ck.load_checkpoint(
+        out / 'ckpt' / 'checkpoint_epoch_1.pth')['model_state'])
+    saved = first['detector'].net.state_dict()
+    diff = [k for k, v in fresh.net.state_dict().items()
+            if not torch.equal(v, saved[k])]
+    check(not diff, f'reloaded tensors differ: {diff[:5]}')
+    for r in steps:
+        print(f'[cli] train step {r["it"]} (epoch {r["epoch"]}): data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, rcnn_loss_reg {r["rcnn_loss_reg"]:.4f}, '
+              f'grad_norm {r["grad_norm"]:.3f}, lr {r["lr"]:.3e}')
+    warm = [r for r in steps if r['it'] not in (1, 5)]
+    data_ms = sum(r['data_ms'] for r in warm) / len(warm)
+    step_ms = sum(r['step_ms'] for r in warm) / len(warm)
+    mem_ms = sum(in_memory_ms) / len(in_memory_ms)
+    print(f'[cli] train through the CLI, B={CLI_BATCH}: 3 checkpoints, '
+          f'resumed at step {resumed["start_step"]}, reload bit-exact '
+          f'({len(saved)} tensors), merge_resolve launches per step '
+          f'{step_launches}; mean over the steps after each run\'s first: '
+          f'data {data_ms:.1f} ms, step {step_ms:.1f} ms against the '
+          f'in-memory train step {mem_ms:.1f} ms (phase [train]); '
+          f'max_memory_allocated {peak / 2**30:.2f} GiB')
+    n = data['collate n']
+    ms = {k: 1e3 * data[k] / n for k in ('items', 'augment', 'gt_sampling',
+                                          'collate', 'copy')}
+    print(f'[cli] data per batch of {CLI_BATCH}, host ms (mean over {n} '
+          f'batches of the train split, 2 of them the BN refresh\'s): '
+          f'items {ms["items"] + ms["augment"] + ms["gt_sampling"]:.1f} = '
+          f'gt sampling {ms["gt_sampling"]:.1f} + world flip / rotation / '
+          f'scaling {ms["augment"]:.1f} + loading, FOV crop, range masks '
+          f'and padding {ms["items"]:.1f}; '
+          f'collation {ms["collate"]:.1f}; copy to the card '
+          f'{ms["copy"]:.1f}')
+
+    (path, res), = results.items()
+    result_pkl = out / 'eval' / 'epoch_2' / 'result.pkl'
+    check(path.endswith('checkpoint_epoch_2.pth') and result_pkl.exists(),
+          f'test CLI evaluated {path}; result.pkl missing')
+    check(res['frames'] == CLI_VAL, f'{res["frames"]} frames evaluated')
+    keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
+    check(all(k in res['ap'] and np.isfinite(res['ap'][k]) for k in keys),
+          f'AP keys missing: {sorted(res["ap"])}')
+    check(predict_launches == [4] * math.ceil(CLI_VAL / CLI_BATCH),
+          f'merge-resolve launches per CLI predict: {predict_launches}')
+    print(f'[cli] test CLI on {Path(path).name}: {res["frames"]} val '
+          f'frames, {res["sec_per_frame"]:.4f} s/frame (predicts and '
+          f'prediction dicts), KITTI evaluation {res["eval_sec"]:.3f} s '
+          f'(overlaps and matcher on the card); merge_resolve launches '
+          f'per predict {predict_launches}; result.pkl written; '
+          + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + ' (random weights: only the keys are checked)')
+    phase_eval(root, cfg)
+    return launches, root
+
+
+CVAE_DATA_PARTS = {'_load_points': 'load', 'occlude_aug': 'occlusion',
+                   '__getitem__': 'rest', 'collate': 'collate'}
+
+
+def cvae_batch_ms(parts, n_batches):
+    """Host ms per batch of each timed part of the crop dataset."""
+    return {k: 1e3 * parts.get(k, 0.0) / n_batches
+            for k in CVAE_DATA_PARTS.values()}
+
+
+def phase_cvae_full(tmp):
+    """configs/cvae/exp_gen.yaml at full width on a synthetic gt database
+    of KITTI's train-split size, fold 0 of 10: a warm-up and CVAE_STEPS
+    timed train steps, one prediction pass over the val fold, and the
+    projected wall time of the whole K-fold run.  Returns (cfg, the
+    warm-up batch) for the GPU-against-CPU check."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import Cfg, cfg_from_yaml_file
+    from glenet_tpu_torch.cvae import dataset as cds
+    from glenet_tpu_torch.cvae import pipeline
+    from glenet_tpu_torch.train import optim
+    from glenet_tpu_torch.utils import synthetic
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/cvae/exp_gen.yaml'))
+    root = tmp / 'cvae_crops'
+    t0 = time.perf_counter()
+    db = synthetic.write_crop_database(root, CVAE_CARS, CVAE_VANS, seed=SEED)
+    n_pts = np.array([i['num_points_in_gt'] for v in db.values() for i in v])
+    data_cfg = Cfg(dict(cfg.DATA_CONFIG, FOLD_IDX=0, NUM_FOLDS=CVAE_FOLDS))
+    train_ds = cds.KittiGtDataset(data_cfg, training=True, root_path=root)
+    val_ds = cds.KittiGtDataset(data_cfg, training=False, root_path=root)
+    train_ds.rng = np.random.RandomState(SEED)
+    val_ds.rng = np.random.RandomState(SEED + 1)
+    print(f'[cvae] synthetic gt database: {len(db["Car"])} Car + '
+          f'{len(db["Van"])} Van crops written in '
+          f'{time.perf_counter() - t0:.1f} s, points per crop median '
+          f'{int(np.median(n_pts))}, mean {n_pts.mean():.0f}, '
+          f'{(n_pts > 1000).mean():.3f} of them above 1000; fold 0 of '
+          f'{CVAE_FOLDS}: train {len(train_ds)} '
+          f'({len(train_ds.dense_gt_infos)} dense donors), val '
+          f'{len(val_ds)}')
+
+    opt = cfg.OPTIMIZATION
+    b, epochs = int(opt.BATCH_SIZE_PER_GPU), int(opt.NUM_EPOCHS)
+    steps_per_epoch = len(train_ds) // b
+    gen = pipeline.build_generator(cfg.MODEL, 'cuda', seed=SEED)
+    tx, _ = optim.build_optimizer(opt, steps_per_epoch * epochs)
+    opt_state = tx.init(list(gen.parameters()))
+    step = pipeline.make_cvae_train_step(gen, cfg.MODEL, tx)
+    generator = torch.Generator(device='cuda').manual_seed(SEED)
+    anneal = min(1 / epochs, 1.0)         # the first epoch's KL weight
+    train_ds.linear_anneal = anneal
+    batches = train_ds.iter_batches(b, seed=SEED * 10000)
+    parts = {}
+    undo = [time_calls(cds.KittiGtDataset, a, parts, k)
+            for a, k in CVAE_DATA_PARTS.items()]
+    try:
         t0 = time.perf_counter()
-        synthetic.write_kitti_tree(root, CLI_TRAIN, CLI_VAL, seed=SEED,
-                                   n_points=CLI_POINTS)
-        t1 = time.perf_counter()
-        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
-        synthetic.add_label_variances(root, seed=SEED)
-        t2 = time.perf_counter()
-        with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
-            n_db = len(pickle.load(f)['Car'])
-        print(f'[cli] synthetic KITTI tree: {CLI_TRAIN} train + {CLI_VAL} val '
-              f'frames of {CLI_POINTS} points written in {t1 - t0:.1f} s; '
-              f'create_kitti_infos and label variances {t2 - t1:.1f} s, '
-              f'{n_db} Car objects in the gt database')
-        check_host_library(root)
-
-        common = ['--cfg_file', cfg_file, '--data_path', str(root),
-                  '--output_dir', str(out), '--batch_size', str(CLI_BATCH),
-                  '--max_steps_per_epoch', '2']
-        step_launches, predict_launches, data = [], [], {}
-        undo = [count_launches(state_lib, 'make_train_step', step_launches),
-                count_launches(Detector, 'predict', predict_launches)]
-        timers = [time_calls(KittiDataset, '__getitem__', data, 'items'),
-                  time_calls(augmentor.DataAugmentor, '__call__', data,
-                             'augment'),
-                  time_calls(augmentor.DataBaseSampler, '__call__', data,
-                             'gt_sampling'),
-                  time_calls(KittiDataset, 'collate_batch', data, 'collate'),
-                  time_calls(train_cli, 'to_device', data, 'copy')]
-        mk.LAUNCHES = 0
-        try:
+        first = next(batches)
+        step(opt_state, pipeline.to_device(first, 'cuda'), generator, anneal)
+        torch.cuda.synchronize()
+        print(f'[cvae] B={b} x {first["points"].shape[1]} points x '
+              f'{first["points"].shape[2]} features, LATENT_DIM '
+              f'{cfg.MODEL.LATENT_DIM}, '
+              f'{sum(p.numel() for p in gen.parameters())} parameters; '
+              f'adam_onecycle over {epochs} epochs x {steps_per_epoch} '
+              f'steps; warm-up batch and step '
+              f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+        params = {n: p.detach().clone() for n, p in gen.named_parameters()}
+        stats = {n: t.clone() for n, t in gen.named_buffers()}
+        parts.clear()
+        recs = []
+        for i in range(CVAE_STEPS):
+            count = opt_state['count']
+            t0 = time.perf_counter()
+            batch = next(batches)
+            t1 = time.perf_counter()
+            tb = pipeline.to_device(batch, 'cuda')
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
             torch.cuda.reset_peak_memory_stats()
-            first = train_cli.main(common + ['--epochs', '2'])
-            resumed = train_cli.main(common + ['--epochs', '3',
-                                               '--bn_refresh', '2'])
-            peak = torch.cuda.max_memory_allocated()
-            for u in timers:
-                u()
-            results = test_cli.main(common[:8])
-        finally:
-            for u in undo + timers:
-                u()
-        launches = mk.LAUNCHES
+            metrics = step(opt_state, tb, generator, anneal)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            vals = {k: float(v) for k, v in metrics.items()}
+            for k, v in vals.items():
+                check(math.isfinite(v), f'CVAE step {i}: {k} = {v}')
+            lr, b1 = opt_state['hyperparams']
+            recs.append((1e3 * (t1 - t0), 1e3 * (t2 - t1), 1e3 * (t3 - t2)))
+            print(f'[cvae] step {i}: data {recs[-1][0]:.1f} ms, copy '
+                  f'{recs[-1][1]:.2f} ms, step {recs[-1][2]:.2f} ms; '
+                  + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+                  + f'; lr {lr:.6e}, b1 {b1:.6f} (update {count + 1}); '
+                    f'max_memory_allocated '
+                    f'{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB')
+        ms = cvae_batch_ms(parts, CVAE_STEPS)
+        n_occ = parts.get('occlusion n', 0)
+        moved = [n for n, p in gen.named_parameters()
+                 if not torch.equal(p.detach(), params[n])]
+        check(len(moved) == len(params),
+              f'CVAE parameters unchanged by {CVAE_STEPS} steps: '
+              f'{sorted(set(params) - set(moved))}')
+        bufs = dict(gen.named_buffers())
+        same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+        check(not same, f'CVAE BN running stats unchanged: {same}')
+        data_ms = sum(r[0] for r in recs) / len(recs)
+        copy_ms = sum(r[1] for r in recs) / len(recs)
+        step_ms = sum(r[2] for r in recs) / len(recs)
+        print(f'[cvae] {CVAE_STEPS} steps: mean data {data_ms:.1f} ms per '
+              f'batch of {b} (host: crop loads {ms["load"]:.1f}, occlusion '
+              f'{ms["occlusion"]:.1f} over {n_occ / CVAE_STEPS:.1f} crops '
+              f'(range views, convex hulls, calib and plane files), the '
+              f'rest of the item {ms["rest"]:.1f}, collation '
+              f'{ms["collate"]:.1f}), copy {copy_ms:.2f} ms, step '
+              f'{step_ms:.2f} ms; all {len(params)} parameter tensors and '
+              f'{len(stats)} BN stat tensors changed')
 
-        ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
-        check(ckpts == [f'checkpoint_epoch_{e}.pth' for e in range(3)],
-              f'checkpoints written: {ckpts}')
-        check(first['start_step'] == 0 and resumed['start_step'] == 4,
-              f'the resumed run started at step {resumed["start_step"]}')
-        steps = first['steps'] + resumed['steps']
-        check([r['it'] for r in steps] == list(range(1, 7)),
-              f'steps {[r["it"] for r in steps]}')
-        for r in steps:
-            bad = [k for k, v in r.items() if isinstance(v, float)
-                   and not math.isfinite(v)]
-            check(not bad, f'CLI step {r["it"]}: not finite: {bad}')
-        check(step_launches == [4] * 6, f'merge-resolve launches per CLI '
-                                        f'train step: {step_launches}')
-        # parameters and BN stats loaded from the first run's last
-        # checkpoint equal those it saved
-        fresh = build_detector(cfg, device='cuda')
-        fresh.net.load_state_dict(ck.load_checkpoint(
-            out / 'ckpt' / 'checkpoint_epoch_1.pth')['model_state'])
-        saved = first['detector'].net.state_dict()
-        diff = [k for k, v in fresh.net.state_dict().items()
-                if not torch.equal(v, saved[k])]
-        check(not diff, f'reloaded tensors differ: {diff[:5]}')
-        for r in steps:
-            print(f'[cli] train step {r["it"]} (epoch {r["epoch"]}): data '
-                  f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
-                  f'{r["loss"]:.4f}, rcnn_loss_reg {r["rcnn_loss_reg"]:.4f}, '
-                  f'grad_norm {r["grad_norm"]:.3f}, lr {r["lr"]:.3e}')
-        warm = [r for r in steps if r['it'] not in (1, 5)]
-        data_ms = sum(r['data_ms'] for r in warm) / len(warm)
-        step_ms = sum(r['step_ms'] for r in warm) / len(warm)
-        mem_ms = sum(in_memory_ms) / len(in_memory_ms)
-        print(f'[cli] train through the CLI, B={CLI_BATCH}: 3 checkpoints, '
-              f'resumed at step {resumed["start_step"]}, reload bit-exact '
-              f'({len(saved)} tensors), merge_resolve launches per step '
-              f'{step_launches}; mean over the steps after each run\'s first: '
-              f'data {data_ms:.1f} ms, step {step_ms:.1f} ms against the '
-              f'in-memory train step {mem_ms:.1f} ms (phase [train]); '
-              f'max_memory_allocated {peak / 2**30:.2f} GiB')
-        n = data['collate n']
-        ms = {k: 1e3 * data[k] / n for k in ('items', 'augment', 'gt_sampling',
-                                              'collate', 'copy')}
-        print(f'[cli] data per batch of {CLI_BATCH}, host ms (mean over {n} '
-              f'batches of the train split, 2 of them the BN refresh\'s): '
-              f'items {ms["items"]:.1f} = gt sampling {ms["gt_sampling"]:.1f}'
-              f' + world flip / rotation / scaling '
-              f'{ms["augment"] - ms["gt_sampling"]:.1f} + loading, FOV crop, '
-              f'range masks and padding {ms["items"] - ms["augment"]:.1f}; '
-              f'collation {ms["collate"]:.1f}; copy to the card '
-              f'{ms["copy"]:.1f}')
+        parts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        per_pass = pipeline.predict_samples(gen, val_ds, cfg.MODEL,
+                                            n_passes=1, batch_size=b,
+                                            seed=SEED)
+        pass_s = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    preds = np.stack([v['pred_box'] for v in per_pass[0].values()])
+    check(preds.shape == (len(val_ds), 7) and np.isfinite(preds).all(),
+          f'prediction pass: {preds.shape}, finite {np.isfinite(preds).all()}')
+    n_val_batches = math.ceil(len(val_ds) / b)
+    pms = cvae_batch_ms(parts, 1)
+    print(f'[cvae] prediction pass over the val fold: {len(val_ds)} crops, '
+          f'{n_val_batches} batches, {1e3 * pass_s:.1f} ms (host: crop loads '
+          f'{pms["load"]:.1f} ms, items {pms["rest"]:.1f} ms, collation '
+          f'{pms["collate"]:.1f} ms; the rest, copies and samples on the '
+          f'card, {1e3 * pass_s - sum(pms.values()):.1f} ms)')
+    per_step = data_ms + copy_ms + step_ms
+    train_s = CVAE_FOLDS * epochs * steps_per_epoch * per_step / 1e3
+    passes_s = CVAE_FOLDS * CVAE_PASSES * pass_s
+    print(f'[cvae] projection, not a measurement: the whole {CVAE_FOLDS}-fold '
+          f'run at these times would take {CVAE_FOLDS} folds x {epochs} '
+          f'epochs x {steps_per_epoch} steps x {per_step:.1f} ms = '
+          f'{train_s / 3600:.2f} h of training (data '
+          f'{data_ms / per_step:.3f} of it) + '
+          f'{CVAE_FOLDS} x {CVAE_PASSES} passes x {pass_s:.2f} s = '
+          f'{passes_s / 3600:.2f} h of prediction, '
+          f'{(train_s + passes_s) / 3600:.2f} h in all; cut in this run: '
+          f'{CVAE_STEPS} of the steps, 1 of the passes, 1 of the folds')
+    return cfg, first
 
-        (path, res), = results.items()
-        result_pkl = out / 'eval' / 'epoch_2' / 'result.pkl'
-        check(path.endswith('checkpoint_epoch_2.pth') and result_pkl.exists(),
-              f'test CLI evaluated {path}; result.pkl missing')
-        check(res['frames'] == CLI_VAL, f'{res["frames"]} frames evaluated')
-        keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
-        check(all(k in res['ap'] and np.isfinite(res['ap'][k]) for k in keys),
-              f'AP keys missing: {sorted(res["ap"])}')
-        check(predict_launches == [4] * math.ceil(CLI_VAL / CLI_BATCH),
-              f'merge-resolve launches per CLI predict: {predict_launches}')
-        print(f'[cli] test CLI on {Path(path).name}: {res["frames"]} val '
-              f'frames, {res["sec_per_frame"]:.4f} s/frame (predicts and '
-              f'prediction dicts), KITTI evaluation {res["eval_sec"]:.3f} s '
-              f'(overlaps and matcher on the card); merge_resolve launches '
-              f'per predict {predict_launches}; result.pkl written; '
-              + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
-              + ' (random weights: only the keys are checked)')
-        phase_eval(root, cfg)
+
+def phase_cvae_cli(root, tmp):
+    """The CVAE CLI end to end on the [cli] tree, GLENet-VR trained through
+    the train CLI on the infos it writes, and the analysis of fold 0's
+    passes.  Merge-resolve launches counted from 0 just before the
+    detector training and read just after; returns them."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.cvae import analysis, pipeline
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import cvae_analysis, cvae_train
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import state as state_lib
+    out = tmp / 'cvae_out'
+    captured = []
+    real_predict = pipeline.predict_samples
+
+    def predict(*args, **kwargs):
+        captured.append(real_predict(*args, **kwargs))
+        return captured[-1]
+
+    pipeline.predict_samples = predict
+    t0 = time.perf_counter()
+    try:
+        unc = cvae_train.main([
+            '--cfg_file', str(ROOT / 'configs/cvae/exp_gen.yaml'),
+            '--data_path', str(root), '--folds', '2', '--passes',
+            str(CVAE_PASSES), '--epochs', '2', '--output_dir', str(out),
+            '--inject'])
+    finally:
+        pipeline.predict_samples = real_predict
+    cli_s = time.perf_counter() - t0
+    with open(out / 'un_v4.pkl', 'rb') as f:
+        saved = pickle.load(f)
+    with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+        cars = pickle.load(f)['Car']
+    keys = [f"{i['image_idx']}_{i['gt_idx']}" for i in cars]
+    check(set(saved) == set(unc) and set(keys) <= set(saved),
+          f'un_v4.pkl misses {len(set(keys) - set(saved))} Car crops')
+    vecs = np.stack([saved[k] for k in keys])
+    check(vecs.shape == (len(keys), 7) and np.isfinite(vecs).all()
+          and (vecs >= 0).all(), 'un_v4.pkl holds a negative or non-finite '
+                                 'variance')
+    with open(root / 'kitti_infos_train_wconf.pkl', 'rb') as f:
+        wconf = pickle.load(f)
+    n_other = 0
+    for info in wconf:
+        annos = info['annos']
+        u, car = annos['uncertainty'], annos['name'] == 'Car'
+        check(u.shape == (len(car), 7) and (u[car] >= 0).all()
+              and (u[~car] == -1).all(),
+              f'frame {info["image"]["image_idx"]}: bad uncertainty rows')
+        n_other += int((~car).sum())
+    check(n_other > 0, 'the _wconf infos hold no object of another class')
+    print(f'[cvae] cvae_train --folds 2 --passes {CVAE_PASSES} --epochs 2 '
+          f'--inject on the [cli] tree: {cli_s:.1f} s; un_v4.pkl covers all '
+          f'{len(keys)} Car crops (variance per dim, mean '
+          + ', '.join(f'{v:.4f}' for v in vecs.mean(0))
+          + f'); kitti_infos_train_wconf.pkl: {len(wconf)} frames, '
+            f'{n_other} rows of other classes at -1')
+
+    step_launches, seen = [], []
+    undo = count_launches(state_lib, 'make_train_step', step_launches)
+    real_copy = train_cli.to_device
+
+    def copy(batch, device):
+        seen.append(batch)
+        return real_copy(batch, device)
+
+    train_cli.to_device = copy
+    mk.LAUNCHES = 0
+    try:
+        run = train_cli.main([
+            '--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+            '--data_path', str(root), '--output_dir', str(tmp / 'vr_wconf'),
+            '--batch_size', str(CLI_BATCH), '--epochs', '1',
+            '--max_steps_per_epoch', '2', '--set',
+            'DATA_CONFIG.INFO_PATH.train', 'kitti_infos_train_wconf.pkl',
+            'DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST:0.DB_INFO_PATH',
+            'kitti_dbinfos_train_wconf.pkl'])
+    finally:
+        undo()
+        train_cli.to_device = real_copy
+    launches = mk.LAUNCHES
+    check(len(run['steps']) == 2 and step_launches == [4, 4],
+          f'detector steps on the _wconf infos: {len(run["steps"])}, '
+          f'merge-resolve launches {step_launches}')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'detector step {r["it"]} on the _wconf infos: not '
+                       f'finite: {bad}')
+    known = {tuple(np.float32(v)) for v in saved.values()}
+    rows = [tuple(u) for b in seen for u, m in zip(
+        b['gt_uncertainty'].reshape(-1, 7), b['gt_mask'].reshape(-1)) if m]
+    check(rows and all(r in known for r in rows),
+          'a gt box of the detector batches carries a variance not in '
+          'un_v4.pkl')
+    print(f'[cvae] GLENet-VR through the train CLI on the _wconf infos '
+          f'(--set DATA_CONFIG.INFO_PATH.train, ...AUG_CONFIG_LIST:0.'
+          f'DB_INFO_PATH), B={CLI_BATCH}: ' + ', '.join(
+              f'step {r["it"]} {r["step_ms"]:.1f} ms loss {r["loss"]:.4f} '
+              f'rcnn_loss_reg {r["rcnn_loss_reg"]:.4f}' for r in run['steps'])
+          + f'; {len(rows)} gt boxes, each with a variance from un_v4.pkl; '
+            f'merge_resolve launches per step {step_launches}')
+
+    fold0 = captured[0]
+    check(len(fold0) == CVAE_PASSES, f'{len(fold0)} passes in fold 0')
+    t0 = time.perf_counter()
+    report = analysis.analyze(fold0)
+    t1 = time.perf_counter()
+    path = tmp / 'fold0_passes.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump(fold0, f)
+    via_cli = cvae_analysis.main([str(path)])
+    check(np.isfinite(report['nll']) and 0 <= report['mean_iou'] <= 1
+          and via_cli == report, f'analysis of fold 0: {report}, through '
+                                 f'the CLI {via_cli}')
+    print(f'[cvae] analysis of fold 0 ({CVAE_PASSES} passes, IoUs on the '
+          f'card, {1e3 * (t1 - t0):.1f} ms): ' + json.dumps(report)
+          + '; tools.cvae_analysis gives the same report')
+    return launches
+
+
+def phase_cvae_waymo(tmp):
+    """One train step and one prediction pass of the Waymo configuration
+    on a small synthetic database of 5-feature crops."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import Cfg, cfg_from_yaml_file
+    from glenet_tpu_torch.cvae import dataset as cds
+    from glenet_tpu_torch.cvae import pipeline
+    from glenet_tpu_torch.train import optim
+    from glenet_tpu_torch.utils import synthetic
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/cvae/waymo_exp_gen.yaml'))
+    root = tmp / 'waymo_crops'
+    synthetic.write_crop_database(root, WAYMO_CROPS, seed=SEED + 2,
+                                  waymo=True)
+    data_cfg = Cfg(dict(cfg.DATA_CONFIG, FOLD_IDX=0))
+    train_ds = cds.WaymoGtDataset(data_cfg, training=True, root_path=root)
+    val_ds = cds.WaymoGtDataset(data_cfg, training=False, root_path=root)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    gen = pipeline.build_generator(cfg.MODEL, 'cuda', seed=SEED)
+    tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
+    opt_state = tx.init(list(gen.parameters()))
+    batch = next(train_ds.iter_batches(b, seed=SEED))
+    check(batch['points'].shape == (b, 512, 5), f'Waymo batch '
+                                                f'{batch["points"].shape}')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = pipeline.make_cvae_train_step(gen, cfg.MODEL, tx)(
+        opt_state, pipeline.to_device(batch, 'cuda'),
+        torch.Generator(device='cuda').manual_seed(SEED), 1.0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in vals.values()), f'Waymo step {vals}')
+    per_pass = pipeline.predict_samples(gen, val_ds, cfg.MODEL, n_passes=1,
+                                        batch_size=b, seed=SEED)
+    t2 = time.perf_counter()
+    preds = np.stack([v['pred_box'] for v in per_pass[0].values()])
+    check(preds.shape == (len(val_ds), 7) and np.isfinite(preds).all(),
+          f'Waymo pass {preds.shape}')
+    key = next(iter(per_pass[0]))
+    check('#' in key, f'Waymo key {key}')
+    print(f'[cvae] Waymo (waymo_exp_gen.yaml, 5 features, {WAYMO_CROPS} '
+          f'crops, fold 0 of 5): train step B={b} {1e3 * (t1 - t0):.1f} ms '
+          f'(first call), loss {vals["loss"]:.4f}, grad_norm '
+          f'{vals["grad_norm"]:.3f}; a pass over {len(val_ds)} val crops '
+          f'{1e3 * (t2 - t1):.1f} ms; keys like {key}')
+
+
+def phase_cvae_gpu_vs_cpu(cfg, batch):
+    """One full-width CVAE train step and one `sample` on the card and on
+    the port's CPU path: same seeded weights, the same fixed eps, f32 with
+    TF32 off."""
+    import re
+
+    import torch
+
+    from glenet_tpu_torch.cvae import model as cm
+    from glenet_tpu_torch.cvae import pipeline
+    from glenet_tpu_torch.train import optim
+    b, latent = batch['points'].shape[0], int(cfg.MODEL.LATENT_DIM)
+    eps = torch.randn((b, latent), generator=torch.Generator().manual_seed(
+        SEED + 21))
+    saved = (cm.draw_eps, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    cm.draw_eps = lambda shape, generator, device: eps.to(device)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for dev in ('cpu', 'cuda'):
+            gen = pipeline.build_generator(cfg.MODEL, dev, seed=SEED + 5)
+            with torch.no_grad():
+                sampled = gen.sample(torch.from_numpy(batch['points']).to(dev))
+            tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 1000)
+            opt_state = tx.init(list(gen.parameters()))
+            metrics = pipeline.make_cvae_train_step(gen, cfg.MODEL, tx)(
+                opt_state, pipeline.to_device(batch, dev), None, 0.5)
+            runs[dev] = ({k: float(v) for k, v in metrics.items()}, gen,
+                         sampled.cpu(), tx)
+    finally:
+        (cm.draw_eps, torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    (mc, gc, sc, tx), (mg, gg, sg, _) = runs['cpu'], runs['cuda']
+    # f32 on both devices, sums in another order.  Loss terms rtol 1e-4.
+    # Gradients: max |diff| <= 1e-3 max |grad| + 1e-6 per tensor, except
+    # the biases a batch-moment BN follows (the PointNets' Dense biases,
+    # fc1, fc2, SimPointNetFeat's last BN bias), whose exact gradient is 0
+    # and whose computed one is rounding noise: both below 1e-4 of their
+    # encoder's largest gradient.  BN stats rtol 1e-4 / atol 1e-5.
+    # Parameters after the first Adam step, lr u(c g) with u(x) = x / (|x|
+    # + 1e-8), g the gradient, c the clip factor: 1e-6 |p| + 1e-7 + lr
+    # |u(c_cpu g_cpu) - u(c_gpu g_gpu)|, the gap of the two devices' own
+    # first steps.  Sample: 1e-4 of its largest |value|.
+    for k, v in mc.items():
+        check(abs(mg[k] - v) <= 1e-4 * abs(v) + 1e-6,
+              f'CVAE GPU and CPU differ in {k}: {mg[k]} vs {v}')
+    grads_c = {n: p.grad for n, p in gc.named_parameters()}
+    grads_g = {n: p.grad.cpu() for n, p in gg.named_parameters()}
+    enc_max = {}
+    for n, g in grads_c.items():
+        e = n.split('.')[0]
+        enc_max[e] = max(enc_max.get(e, 0.0), float(g.abs().max()))
+    zero = re.compile(r'(PointNetFeat_0\.Dense_\d|fc1|fc2)\.bias$'
+                      r'|SimPointNetFeat_0\.BatchNorm_2\.bias$')
+    worst, n_zero = 0.0, 0
+    for n, g in grads_c.items():
+        if zero.search(n):
+            n_zero += 1
+            lim = 1e-4 * enc_max[n.split('.')[0]]
+            check(float(g.abs().max()) <= lim
+                  and float(grads_g[n].abs().max()) <= lim,
+                  f'CVAE zero-gradient bias {n} above {lim:.3e}')
+            continue
+        err = float((g - grads_g[n]).abs().max())
+        tol = 1e-3 * float(g.abs().max()) + 1e-6
+        check(err <= tol, f'CVAE GPU and CPU gradients differ in {n}: '
+                          f'{err:.3e} > {tol:.3e}')
+        worst = max(worst, err / tol)
+    check(n_zero == 12, f'{n_zero} zero-gradient biases')
+    bufs_g = dict(gg.named_buffers())
+    for n, t in gc.named_buffers():
+        check(torch.allclose(t, bufs_g[n].cpu(), rtol=1e-4, atol=1e-5),
+              f'CVAE GPU and CPU BN stats differ in {n}')
+    lr = tx.hyperparams(0)[0]
+    max_norm = float(cfg.OPTIMIZATION.GRAD_NORM_CLIP)
+
+    def first_step(g, norm):
+        g = min(1.0, max_norm / norm) * g.double()
+        return g / (g.abs() + 1e-8)
+
+    params_g = dict(gg.named_parameters())
+    for n, p in gc.named_parameters():
+        gap = (first_step(grads_c[n], mc['grad_norm'])
+               - first_step(grads_g[n], mg['grad_norm'])).abs()
+        bound = 1e-6 * p.detach().double().abs() + 1e-7 + lr * gap
+        check(bool(((p.detach() - params_g[n].detach().cpu()).abs()
+                    <= bound).all()),
+              f'CVAE GPU and CPU parameters differ after the step in {n}')
+    s_err = float((sc - sg).abs().max())
+    check(s_err <= 1e-4 * float(sc.abs().max()),
+          f'CVAE sample differs between GPU and CPU: {s_err:.3e}')
+    print(f'[cvae] GPU against CPU, B={b} full width, TF32 off: loss terms '
+          f'within rtol 1e-4 (' + ', '.join(
+              f'{k} {v:.6f}' for k, v in sorted(mc.items()))
+          + f'); gradients within 1e-3 of each tensor\'s largest (worst at '
+            f'{worst:.3f} of it), the 12 zero-gradient biases below 1e-4 '
+            f'of their encoder\'s largest; BN stats rtol 1e-4; parameters '
+            f'after adam_onecycle within 1e-6 |p| + 1e-7 + lr |u(c_cpu '
+            f'g_cpu) - u(c_gpu g_gpu)|; sample max_abs_err {s_err:.3e} '
+            f'(limit 1e-4 of '
+            f'{float(sc.abs().max()):.3f})')
+
+
+def phase_cvae(tmp, cli_root):
+    """[cvae]: (a) full width, (b) the CLI end to end, (c) Waymo, (d) the
+    card against the CPU.  Returns the merge-resolve launches of (b)."""
+    cfg, batch = phase_cvae_full(tmp)
+    launches = phase_cvae_cli(cli_root, tmp)
+    phase_cvae_waymo(tmp)
+    phase_cvae_gpu_vs_cpu(cfg, batch)
     return launches
 
 
@@ -993,7 +1470,9 @@ def main():
         cfg, det, batches, captured = prepare_full_width()
         launches = phase_full_width(det, batches)
         launches_train, captured_train, train_ms = phase_train(cfg, det)
-        launches_cli = phase_cli(train_ms)
+        with tempfile.TemporaryDirectory(prefix='glenet_smoke_') as tmp:
+            launches_cli, cli_root = phase_cli(train_ms, Path(tmp))
+            launches_cvae = phase_cvae(Path(tmp), cli_root)
         merge = phase_merge_check(captured, captured_train)
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
@@ -1006,7 +1485,7 @@ def main():
         'name': 'merge_resolve', 'route': 'cuda',
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
-        'launches': launches + launches_train + launches_cli,
+        'launches': launches + launches_train + launches_cli + launches_cvae,
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -1014,17 +1493,19 @@ def main():
         'library_device_ms': merge['library_device_ms'],
         'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms'],
         'launches_predict': launches, 'launches_train': launches_train,
-        'launches_cli': launches_cli,
+        'launches_cli': launches_cli, 'launches_cvae': launches_cvae,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
         'train_bound_by': train['bound_by'],
-        'train_library_ms': train['library_ms']}]
+        'train_library_ms': train['library_ms'],
+        'train_library_device_ms': train['library_device_ms']}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
-          f'the {N_REQUESTS} predicts, the {TRAIN_STEPS} train steps and the '
-          f'CLI phase (6 train steps, 2 BN-refresh forwards, 1 predict)')
+          f'the {N_REQUESTS} predicts, the {TRAIN_STEPS} train steps, the '
+          f'CLI phase (6 train steps, 2 BN-refresh forwards, 1 predict) '
+          f'and the CVAE phase\'s detector training (2 train steps)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -100,13 +100,19 @@ def _parse_value(v: str):
 
 def cfg_from_list(cfg_list, config: Cfg) -> None:
     """Set config keys via dotted-path list, e.g. MODEL.NAME PointPillar,
-    including the `KEY:INDEX` syntax for one element of a list."""
+    including the `KEY:INDEX` syntax for one element of a list, as the last
+    key or inside the path (DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST:0.
+    DB_INFO_PATH)."""
     if len(cfg_list) % 2:
         raise ValueError('override list must be key/value pairs')
     for full_key, v in zip(cfg_list[0::2], cfg_list[1::2]):
         keys = full_key.split('.')
         d = config
         for subkey in keys[:-1]:
+            key, *rest = subkey.split(':')
+            if subkey not in d and rest and key in d:
+                d = d[key][int(rest[0])]
+                continue
             if subkey not in d:
                 raise KeyError(f'unknown config key: {full_key}')
             d = d[subkey]

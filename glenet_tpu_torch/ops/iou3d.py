@@ -95,6 +95,14 @@ def _overlap_soa(ax, ay, bx, by):
     return torch.where(count >= 3, area, 0.0)
 
 
+def overlap_bev_corners(ca, cb):
+    """Overlap areas of row-aligned CCW quads: (..., 4, 2) x (..., 4, 2) ->
+    (...)."""
+    ca2, cb2 = ca.reshape(-1, 4, 2), cb.reshape(-1, 4, 2)
+    return _overlap_soa(ca2[..., 0].T, ca2[..., 1].T, cb2[..., 0].T,
+                        cb2[..., 1].T).reshape(ca.shape[:-2])
+
+
 def _pairwise(corners_a, corners_b):
     """(N, 4, 2) x (M, 4, 2) -> (N, M) overlap areas."""
     n, m = corners_a.shape[0], corners_b.shape[0]
@@ -144,6 +152,22 @@ def boxes_iou3d(boxes_a, boxes_b):
     overlap_3d = overlap_bev * overlap_h
     vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
     vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / (vol_a + vol_b - overlap_3d).clamp_min(1e-6)
+
+
+def boxes_aligned_iou3d(boxes_a, boxes_b):
+    """3D IoU of row-aligned boxes: (N, 7) x (N, 7) -> (N,)."""
+    overlap_bev = overlap_bev_corners(box_to_bev_corners(boxes_a),
+                                      box_to_bev_corners(boxes_b))
+    a_max = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    a_min = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    b_max = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    b_min = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    overlap_h = (torch.minimum(a_max, b_max)
+                 - torch.maximum(a_min, b_min)).clamp_min(0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
     return overlap_3d / (vol_a + vol_b - overlap_3d).clamp_min(1e-6)
 
 

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 from .config import cfg_from_yaml_file
-from .utils.cuda_timing import card_line
+from .utils.cuda_timing import card_line, profile_window
 from .utils.synthetic import scene_batches, seeded_detector
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -97,19 +97,9 @@ def main():
     for k, v in totals.items():
         print(f'  {k:32s} {v:9.2f}')
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for batch in batches[1:]:
-            det.predict(batch)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_total = sum(e.self_device_time_total for e in events
-                    if e.device_type == cuda) / 1e3
+    feed = iter(batches[1:])
+    wall, dev_total, events = profile_window(
+        lambda: det.predict(next(feed)), REQUESTS)
     print(f'profiled window: {REQUESTS} requests, wall {wall:.1f} ms, '
           f'device kernel time {dev_total:.1f} ms, busy share '
           f'{dev_total / wall:.3f} (card: {card})')

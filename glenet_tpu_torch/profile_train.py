@@ -29,7 +29,7 @@ import torch
 from .config import cfg_from_yaml_file
 from .train import optim
 from .train import state as train_state
-from .utils.cuda_timing import card_line
+from .utils.cuda_timing import card_line, profile_window
 from .utils.synthetic import seeded_detector, train_batches
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -133,19 +133,13 @@ def main():
     print(f'peak device memory {peak / 2**30:.2f} GiB '
           f'(max_memory_allocated)')
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for batch in batches[1 + STEPS:]:
-            state, _ = train_step(state, batch)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    events = prof.key_averages()
-    cuda = torch.autograd.DeviceType.CUDA
-    dev_total = sum(e.self_device_time_total for e in events
-                    if e.device_type == cuda) / 1e3
+    feed = iter(batches[1 + STEPS:])
+
+    def step():
+        nonlocal state
+        state, _ = train_step(state, next(feed))
+
+    wall, dev_total, events = profile_window(step, STEPS)
     print(f'profiled window: {STEPS} steps, wall {wall:.1f} ms, device '
           f'kernel time {dev_total:.1f} ms, busy share '
           f'{dev_total / wall:.3f} (card: {card})')

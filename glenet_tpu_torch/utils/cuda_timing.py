@@ -10,8 +10,10 @@
   larger than the 50 MB L2, so the call finds its inputs in device memory.
   The write takes longer than the host needs to issue the call, so the
   events bracket the kernel alone.
-All return milliseconds per call.  `card_line` gives the card's name and
-power limit, to print beside them.
+All return milliseconds per call.  `profile_window` runs a window of
+calls under torch.profiler and gives its wall time and summed device time,
+whose ratio is the device's busy share.  `card_line` gives the card's name
+and power limit, to print beside them.
 """
 from __future__ import annotations
 
@@ -73,6 +75,26 @@ def device_ms(fn, match, iters=20, warmup=3):
     us = [e.self_device_time_total for e in prof.key_averages()
           if e.device_type == cuda and match in e.key]
     return sum(us) / 1e3 / iters if us else None
+
+
+def profile_window(fn, n):
+    """n calls of fn() under torch.profiler, with no synchronise between
+    them -> (wall ms of the window, summed device ms of its CUDA kernels,
+    the profiler's key_averages())."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = sum(e.self_device_time_total for e in events
+              if e.device_type == cuda) / 1e3
+    return wall, dev, events
 
 
 def cold_ms(fn, iters=10, warmup=2):

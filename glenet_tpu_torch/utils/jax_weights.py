@@ -2,9 +2,10 @@
 
 Takes the JAX package's nested `{'params': ..., 'batch_stats': ...}` dict
 as numpy arrays (e.g. `jax.tree.map(np.asarray, variables)`), so it imports
-no JAX.  The port's modules are named after the JAX variable paths, so each
-leaf `collection/mod/.../name` lands in the torch module at `mod.(...)`,
-converted by that module's type:
+no JAX.  It maps the detector (`DetectorNet`) and the CVAE
+(`cvae.model.CVAEGenerator`).  The port's modules are named after the JAX
+variable paths, so each leaf `collection/mod/.../name` lands in the torch
+module at `mod.(...)`, converted by that module's type:
 
   - nn.Linear:          Dense kernel (in, out) -> weight (out, in)
   - nn.Conv2d:          HWIO kernel -> OIHW weight
@@ -84,8 +85,8 @@ def jax_tree_to_port(net: nn.Module, tree: dict, collection: str = 'params'):
 
 
 def load_jax_variables(net: nn.Module, variables: dict) -> None:
-    """Copy JAX variables into `net` (a DetectorNet or any port module whose
-    attribute paths follow the JAX variable paths)."""
+    """Copy JAX variables into `net` (a DetectorNet, a CVAEGenerator or any
+    port module whose attribute paths follow the JAX variable paths)."""
     targets = dict(net.named_parameters())
     targets.update(net.named_buffers())
     persistent = set(net.state_dict())

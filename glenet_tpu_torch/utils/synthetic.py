@@ -211,6 +211,72 @@ def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
     return root
 
 
+WAYMO_DB_INFO = 'waymo_processed_data_v0_5_0_waymo_dbinfos_train_sampled_1.pkl'
+# (length, width, height) ranges of the crops' boxes, metres
+CROP_SIZES = {'Car': ((3.4, 4.6), (1.5, 1.9), (1.4, 1.8)),
+              'Van': ((4.5, 5.5), (1.8, 2.1), (1.9, 2.4)),
+              'Vehicle': ((4.2, 5.2), (1.8, 2.3), (1.5, 1.9))}
+CROPS_PER_FRAME = 4
+
+
+def write_crop_database(root, n_car, n_van=0, seed=0, waymo=False):
+    """A synthetic gt database under `root` in the layout
+    create_groundtruth_database writes, for the CVAE's crop datasets:
+    gt_database/<frame>_<name>_<i>.bin crops stored relative to their box
+    centre, kitti_dbinfos_train.pkl ({name: [{'path', 'image_idx',
+    'gt_idx', 'box3d_lidar', 'num_points_in_gt', 'name'}]}), and
+    training/{calib, planes}/<frame>.txt per frame of CROPS_PER_FRAME
+    objects, which the occlusion augmentation reads.  Boxes sit on the road
+    in the camera's view; point counts per crop are log-normal (median 100,
+    about 6% above 1000), so dense donors exist.  That distribution is
+    assumed, not fitted to KITTI's num_points_in_gt: host costs that depend
+    on crop sizes (the occlusion's, the reads') hold only for it.  With
+    waymo=True: n_car 'Vehicle' crops of 5 features (intensity, elongation)
+    keyed by 'sequence_name' / 'sample_idx', in WAYMO_DB_INFO.  Returns the
+    database dict."""
+    root = Path(root)
+    (root / 'gt_database').mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    names = ['Vehicle'] * n_car if waymo else ['Car'] * n_car + ['Van'] * n_van
+    names = [names[i] for i in rng.permutation(len(names))]
+    n_feat = 5 if waymo else 4
+    db = {}
+    for k, name in enumerate(names):
+        frame, gt_idx = divmod(k, CROPS_PER_FRAME)
+        if gt_idx == 0 and not waymo:
+            for sub, text in (('calib', KITTI_CALIB),
+                              ('planes', '# Plane\nWidth 4\nHeight 1\n'
+                                         '0 -1 0 1.65\n')):
+                path = root / 'training' / sub / f'{frame:06d}.txt'
+                path.parent.mkdir(parents=True, exist_ok=True)
+                path.write_text(text)
+        x = rng.uniform(5.0, 60.0)
+        y = rng.uniform(-1, 1) * x * np.tan(FOV_HALF_ANGLE)
+        dims = [rng.uniform(*r) for r in CROP_SIZES[name]]
+        box = np.array([x, y, GROUND_Z + dims[2] / 2, *dims,
+                        rng.uniform(-np.pi, np.pi)], np.float32)
+        n = int(np.clip(rng.lognormal(np.log(100.0), 1.5), 1, 20000))
+        local = rng.uniform(-0.5, 0.5, (n, 3)) * box[3:6]
+        pts = np.concatenate([
+            common.rotate_points_along_z_np(local, np.array([box[6]])),
+            rng.uniform(0, 1, (n, n_feat - 3))], 1).astype(np.float32)
+        fid = f'{frame:06d}'
+        rel = f'gt_database/{fid}_{name}_{gt_idx}.bin'
+        pts.tofile(str(root / rel))
+        info = {'name': name, 'path': rel, 'gt_idx': gt_idx,
+                'box3d_lidar': box, 'num_points_in_gt': n}
+        if waymo:
+            info.update(sequence_name=f'seq_{frame // 8:04d}',
+                        sample_idx=frame % 8)
+        else:
+            info['image_idx'] = fid
+        db.setdefault(name, []).append(info)
+    with open(root / (WAYMO_DB_INFO if waymo else 'kitti_dbinfos_train.pkl'),
+              'wb') as f:
+        pickle.dump(db, f)
+    return db
+
+
 def add_label_variances(root, seed=0, car_class='Car'):
     """Write a label variance in [0.01, 0.2) per box coordinate into the
     infos (annos['uncertainty'], -1 for other classes) and the Car entries

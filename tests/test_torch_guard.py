@@ -1,11 +1,14 @@
 """Guards of the port: glenet_tpu_torch and chip_smoke.py import neither
-JAX nor glenet_tpu, the port never quietly defaults to the CPU, and what
+JAX nor glenet_tpu nor scikit-learn (the machine with the card has none of
+them), the port never quietly defaults to the CPU, and what
 is not ported yet (augmentations, datasets, camera items, CLI flags)
 raises NotImplementedError naming itself."""
+import pickle
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 pytest.importorskip('jax')
@@ -23,7 +26,7 @@ for m in pkgutil.walk_packages(glenet_tpu_torch.__path__, 'glenet_tpu_torch.'):
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
-                                    'glenet_tpu'))
+                                    'glenet_tpu', 'sklearn'))
 print('BAD', bad)
 """
 
@@ -102,6 +105,46 @@ def test_clis_need_a_card(cli, tmp_path):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             mod.main(argv)
     assert not any(tmp_path.iterdir())
+
+
+def _cvae_entry_points(tmp_path):
+    """name -> a call of each CVAE entry point with its default device."""
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.cvae import analysis, pipeline
+    from glenet_tpu_torch.tools import cvae_analysis, cvae_train
+    cfg_file = str(ROOT / 'configs/cvae/exp_gen.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    box = np.zeros(7, np.float32)
+    passes = [{'0_0': {'pred_box': box, 'gt_box': box}}]
+    path = tmp_path / 'passes.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump(passes, f)
+    return {
+        'build_generator': lambda: pipeline.build_generator(cfg.MODEL),
+        'train_cvae': lambda: pipeline.train_cvae(cfg, dataset=None),
+        'run_kfold_pipeline': lambda: pipeline.run_kfold_pipeline(
+            cfg, tmp_path, output_dir=tmp_path / 'out'),
+        'analyze': lambda: analysis.analyze(passes),
+        'cvae_train': lambda: cvae_train.main(
+            ['--cfg_file', cfg_file, '--data_path', str(tmp_path),
+             '--output_dir', str(tmp_path / 'out')]),
+        'cvae_analysis': lambda: cvae_analysis.main([str(path)]),
+    }
+
+
+@pytest.mark.parametrize('name', ['build_generator', 'train_cvae',
+                                  'run_kfold_pipeline', 'analyze',
+                                  'cvae_train', 'cvae_analysis'])
+def test_cvae_entry_points_need_a_card(name, tmp_path):
+    """The CVAE's builders, pipeline, analysis and CLIs run on the GPU
+    unless given the CPU; without a card they raise before they read or
+    write anything."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: nothing to refuse')
+    call = _cvae_entry_points(tmp_path)[name]
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        call()
+    assert not (tmp_path / 'out').exists()
 
 
 @pytest.mark.parametrize('flag', ['--coordinator_address', '--num_processes',
