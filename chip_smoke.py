@@ -64,7 +64,20 @@ Phases, each of which exits non-zero on failure:
      weights and points, f32 on both sides with TF32 off: a predict, and a
      train step with fixed RoI targets and DP_RATIO 0 (loss terms,
      gradients, BN running stats);
-  8. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+  8. trained weights into the port, [weights] (the launches of (a), (b)
+     and (d) are counted from 0 just before each and read just after):
+     (a) configs/kitti_models/GLENet_VR_vq.yaml (voxel-query RoI pooling)
+     at full width with a synthetic reference (pcdet) state dict converted
+     by the port's converter, which must consume every key: 3 predicts at
+     B = 2 and 3 train steps at B = 4 (ms, peak memory, 4 merge-resolve
+     launches per call), the host syncs of one more train step, and the
+     vq pooling's ms per level against corner pooling on the same RoIs and
+     levels; (b) voxel_rcnn_car.yaml (plain Voxel R-CNN): one predict and
+     one train step; (c) after phase 7, the card against the CPU on the toy
+     config in vq mode, as phase 7; (d) a reference .pth through
+     `glenet_tpu_torch.tools.convert_weights`, then `tools.test --ckpt` on
+     the [cli] tree, in process;
+  9. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -321,7 +334,7 @@ def phase_merge_check(captured, captured_train):
             'train': check_captured(captured_train, 'train step')}
 
 
-def phase_gpu_vs_cpu():
+def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
     """Tiny two-stage topology on the card and on the port's CPU path."""
     import torch
 
@@ -329,7 +342,7 @@ def phase_gpu_vs_cpu():
     from glenet_tpu_torch.models import spconv_backbone
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.utils.synthetic import seeded_detector
-    cfg = Cfg(TINY_CFG)
+    cfg = Cfg(raw)
     saved = (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
              torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
@@ -372,11 +385,11 @@ def phase_gpu_vs_cpu():
     for name, a, b, rtol, atol in close:
         err = float((a - b.cpu()).abs().max())
         ok = torch.allclose(a, b.cpu().to(a.dtype), rtol=rtol, atol=atol)
-        print(f'[gpu-vs-cpu] {name}: max_abs_err {err:.3e} '
+        print(f'[{tag}] {name}: max_abs_err {err:.3e} '
               f'(rtol {rtol}, atol {atol})')
         check(ok, f'GPU and CPU differ in {name}')
     n_valid = int(pc['final_valid'].sum())
-    print(f'[gpu-vs-cpu] tiny two-stage predict: integer outputs equal, '
+    print(f'[{tag}] tiny two-stage predict: integer outputs equal, '
           f'{n_valid} valid final boxes')
 
 
@@ -415,7 +428,7 @@ def tiny_train_batch(cfg):
     return batch
 
 
-def phase_gpu_vs_cpu_train():
+def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu'):
     """One toy train step (fixed RoI targets, DP_RATIO 0) on the card and
     on the port's CPU path."""
     import copy
@@ -427,7 +440,7 @@ def phase_gpu_vs_cpu_train():
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.train import optim, state as st
     from glenet_tpu_torch.utils.synthetic import seeded_detector
-    raw = copy.deepcopy(TINY_CFG)
+    raw = copy.deepcopy(raw)
     raw['MODEL']['ROI_HEAD']['DP_RATIO'] = 0.0
     cfg = Cfg(raw)
     saved = (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
@@ -468,7 +481,7 @@ def phase_gpu_vs_cpu_train():
         err = abs(float(mg[k].cpu()) - float(v))
         check(err <= 1e-4 * abs(float(v)) + 1e-6,
               f'GPU and CPU differ in {k}: {float(mg[k])} vs {float(v)}')
-    print('[gpu-vs-cpu] train step loss terms: ' + ', '.join(
+    print(f'[{tag}] train step loss terms: ' + ', '.join(
         f'{k} {float(v):.6f}' for k, v in sorted(mc.items())))
     worst = 0.0
     gpu_params = dict(ng.named_parameters())
@@ -491,7 +504,7 @@ def phase_gpu_vs_cpu_train():
             check(torch.allclose(buf, gpu_bufs[name].cpu(), rtol=1e-4,
                                  atol=1e-5),
                   f'GPU and CPU BN running stats differ in {name}')
-    print(f'[gpu-vs-cpu] tiny train step: {n_fg} foreground RoIs; loss '
+    print(f'[{tag}] tiny train step: {n_fg} foreground RoIs; loss '
           f'terms within rtol 1e-4, every gradient within its tolerance '
           f'(worst at {worst:.2f} of it), BN running stats and the '
           f'parameters after adam_onecycle agree')
@@ -1454,6 +1467,288 @@ def phase_cvae(tmp, cli_root):
     return launches
 
 
+def vq_raw_cfg(raw):
+    """A copy of the raw config dict in POOL_MODE voxel_query with the
+    pool-layer settings of the repository's vq tests (4^3 query range, 0.8 m
+    radius, 16 samples, max pooling)."""
+    import copy
+    raw = copy.deepcopy(raw)
+    pool = raw['MODEL']['ROI_HEAD']['ROI_GRID_POOL']
+    pool['POOL_MODE'] = 'voxel_query'
+    for lay in pool['POOL_LAYERS'].values():
+        lay.update(QUERY_RANGES=[[4, 4, 4]], POOL_RADIUS=[0.8], NSAMPLE=[16],
+                   POOL_METHOD='max_pool')
+    return raw
+
+
+def convert_synthetic(cfg, seed):
+    """A detector on the card with the weights of a synthetic reference
+    state dict converted by the port's converter; checks that every key was
+    consumed.  Returns (detector, number of keys)."""
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils import jax_weights, synthetic
+    from glenet_tpu_torch.utils import weight_converter as wc
+    sd = {k: v.numpy() for k, v in
+          synthetic.pcdet_state_dict(cfg, seed=seed).items()}
+    det = build_detector(cfg, device='cuda')
+    merged, report = wc.convert_full_model(
+        cfg, sd, jax_weights.port_to_jax_variables(det.net))
+    check(report['unconsumed'] == [] and report['converted'][-1] ==
+          'roi_head', f'converter report {report}')
+    jax_weights.load_jax_variables(det.net, merged)
+    return det, len(sd)
+
+
+def time_pooling(det, batch):
+    """Per level of FEATURES_SOURCE: ms of the detector's voxel-query
+    pooling against a corner-pooling head on the same RoIs and levels (one
+    predict's proposals and backbone levels; CUDA events, no grad), and the
+    taps each vq level scans."""
+    import torch
+
+    from glenet_tpu_torch.config import Cfg
+    from glenet_tpu_torch.models import roi_heads
+    from glenet_tpu_torch.utils import cuda_timing as ct
+    net = det.net
+    seen = {}
+    hook = net.backbone_3d.register_forward_hook(
+        lambda _m, _i, out: seen.update(ms=out['multi_scale']))
+    with torch.no_grad():
+        rois = net(batch['points'], batch['points_mask'])['proposals']['rois']
+    hook.remove()
+    head = net.roi_head
+    raw = dict(det.model_cfg.ROI_HEAD)
+    raw['ROI_GRID_POOL'] = dict(raw['ROI_GRID_POOL'], POOL_MODE='corner')
+    corner = roi_heads.VoxelRCNNHead(
+        Cfg(raw), det.voxel_size, det.pc_range,
+        net.backbone_3d.level_channels).cuda().eval()
+    b, r = rois.shape[:2]
+    g = head.grid
+    pts = roi_heads.roi_grid_points(rois.reshape(b * r, -1), g).reshape(
+        b, r * g ** 3, 3)
+    out = {}
+    with torch.no_grad():
+        for src in head.sources:
+            lvl = seen['ms'][src]
+            vs = tuple(float(v) * lvl['stride'] for v in det.voxel_size)
+            taps = len(getattr(head, f'pool_{src}').consts(
+                vs, det.pc_range[:3], 'cuda')[0])
+            out[src] = (ct.event_ms(lambda: head.pool_level(src, pts, lvl),
+                                    iters=10, warmup=2),
+                        ct.event_ms(lambda: corner.pool_level(src, pts, lvl),
+                                    iters=10, warmup=2), taps)
+    return pts.shape[1] * b, out
+
+
+def phase_weights_vq(tmp):
+    """GLENet_VR_vq.yaml at full width with converted synthetic reference
+    weights: N_REQUESTS predicts at B = 2 and TRAIN_STEPS train steps at
+    B = 4, launches counted from 0 just before and read just after each;
+    host syncs of one more train step; vq against corner pooling per
+    level.  Returns the launches."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_cvae import _syncs
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import scene_batches, train_batches
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
+                                        'GLENet_VR_vq.yaml'))
+    t0 = time.perf_counter()
+    det, n_keys = convert_synthetic(cfg, SEED + 30)
+    print(f'[weights] GLENet_VR_vq.yaml: synthetic reference state dict of '
+          f'{n_keys} tensors converted by the port\'s converter, every key '
+          f'consumed, loaded in {time.perf_counter() - t0:.2f} s')
+    batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
+    with torch.no_grad():
+        det.predict(batches[0])                                # warm-up
+    launches = 0
+    p_times, per_call = [], []
+    mk.LAUNCHES = 0
+    for batch in batches[1:]:
+        before = mk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = det.predict(batch)
+        torch.cuda.synchronize()
+        p_times.append(1e3 * (time.perf_counter() - t0))
+        per_call.append((pred, mk.LAUNCHES - before,
+                         torch.cuda.max_memory_allocated()))
+    launches += mk.LAUNCHES
+    k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for i, (pred, n, mem) in enumerate(per_call):
+        check(tuple(pred['final_boxes'].shape) == (BATCH, k, 7)
+              and bool(torch.isfinite(pred['final_boxes']).all())
+              and bool(torch.isfinite(pred['final_scores']).all()),
+              f'vq predict {i}: outputs not finite or of the wrong shape')
+        check(n == 4, f'vq predict {i}: {n} merge-resolve launches')
+        print(f'[weights] vq predict {i}: {p_times[i]:.1f} ms; valid final '
+              f'boxes {pred["final_valid"].sum(1).tolist()}; merge_resolve '
+              f'launches {n}; max_memory_allocated {mem / 2**30:.2f} GiB')
+    q, pools = time_pooling(det, batches[1])
+    for src, (vq_ms, corner_ms, taps) in pools.items():
+        print(f'[weights] pooling {src}, Q = {q} grid points (one predict\'s '
+              f'proposals): voxel_query {vq_ms:.3f} ms ({taps} taps, '
+              f'NSAMPLE 16) against corner {corner_ms:.3f} ms')
+
+    tx, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = train_batches(TRAIN_STEPS + 2, SEED + 1, b)
+    state, _ = train_step(state, tbatches[0])                  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    mk.LAUNCHES = 0
+    for i, batch in enumerate(tbatches[1:TRAIN_STEPS + 1]):
+        before = mk.LAUNCHES
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES - before
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f'vq train step {i}: {vals}')
+        check(n == 4, f'vq train step {i}: {n} merge-resolve launches')
+        print(f'[weights] vq train step {i}, B={b}: {times[-1]:.1f} ms; loss '
+              f'{vals["loss"]:.4f}, rcnn_loss_reg {vals["rcnn_loss_reg"]:.4f}'
+              f', grad_norm {vals["grad_norm"]:.3f}; merge_resolve launches '
+              f'{n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    launches += mk.LAUNCHES
+    syncs = _syncs(lambda: train_step(state, tbatches[-1]))
+    bn = sum(v for k, v in syncs.items() if k.startswith('layers.py'))
+    print(f'[weights] vq train step: {sum(syncs.values())} host syncs, '
+          f'{bn} of them MaskedBatchNorm\'s count tensor (' + ', '.join(
+              f'{k} x{v}' for k, v in syncs.most_common()) + ')')
+    print(f'[weights] GLENet_VR_vq.yaml means: predict B={BATCH} '
+          f'{sum(p_times) / len(p_times):.1f} ms over {len(p_times)} calls, '
+          f'train step B={b} {sum(times) / len(times):.1f} ms over '
+          f'{len(times)} steps')
+    return launches
+
+
+def phase_weights_plain():
+    """voxel_rcnn_car.yaml (plain Voxel R-CNN) at full width, seeded
+    weights: one predict at B = 2 and one train step at B = 4, launches
+    counted from 0 just before and read just after each."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import (scene_batches,
+                                                  seeded_detector,
+                                                  train_batches)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
+                                        'voxel_rcnn_car.yaml'))
+    det = seeded_detector(cfg, 'cuda', SEED + 40)
+    check(not det.net.roi_head.kl_label, 'voxel_rcnn_car.yaml built a KL head')
+    batch = scene_batches(1, SEED + 2, BATCH)[0]
+    mk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = det.predict(batch)
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    n_predict = mk.LAUNCHES
+    check(n_predict == 4 and bool(torch.isfinite(pred['final_boxes']).all())
+          and bool(torch.isfinite(pred['final_scores']).all()),
+          f'plain predict: {n_predict} launches or outputs not finite')
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatch = train_batches(1, SEED + 3, b)[0]
+    mk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, tbatch)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    n_step = mk.LAUNCHES
+    vals = {k: float(v) for k, v in metrics.items()}
+    check(n_step == 4 and all(math.isfinite(v) for v in vals.values())
+          and 'rcnn_loss_reg_src' not in vals,
+          f'plain train step: {n_step} launches, {vals}')
+    print(f'[weights] voxel_rcnn_car.yaml (plain head, nms_gpu): predict '
+          f'B={BATCH} {predict_ms:.1f} ms (first call), valid final boxes '
+          f'{pred["final_valid"].sum(1).tolist()}, merge_resolve launches '
+          f'{n_predict}; train step B={b} '
+          f'{step_ms:.1f} ms (first call), loss {vals["loss"]:.4f}, smooth-L1 '
+          f'rcnn_loss_reg {vals["rcnn_loss_reg"]:.4f}, merge_resolve launches '
+          f'{n_step}')
+    return n_predict + n_step
+
+
+def phase_weights_cli(cli_root, tmp):
+    """A synthetic reference .pth of GLENet_VR_vq.yaml through the
+    convert_weights CLI, then `tools.test --ckpt` on the [cli] tree, in
+    process; launches counted from 0 just before and read just after."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.models.detectors import Detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import convert_weights
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.utils import synthetic
+    cfg_file = str(ROOT / 'configs/kitti_models/GLENet_VR_vq.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    pth, out = tmp / 'pcdet_glenet_vr.pth', tmp / 'weights_out'
+    torch.save({'model_state': synthetic.pcdet_state_dict(cfg, SEED + 50),
+                'epoch': 80}, pth)
+    t0 = time.perf_counter()
+    path, report = convert_weights.main([
+        '--cfg_file', cfg_file, '--torch_ckpt', str(pth),
+        '--output_dir', str(out / 'ckpt')])
+    t1 = time.perf_counter()
+    check(report['unconsumed'] == [] and Path(path).name ==
+          'checkpoint_epoch_80.pth', f'convert_weights: {path}, {report}')
+    predicts = []
+    undo = count_launches(Detector, 'predict', predicts)
+    mk.LAUNCHES = 0
+    try:
+        results = test_cli.main(['--cfg_file', cfg_file, '--data_path',
+                                 str(cli_root), '--ckpt', path,
+                                 '--output_dir', str(out), '--batch_size',
+                                 str(CLI_BATCH)])
+    finally:
+        undo()
+    launches = mk.LAUNCHES
+    (_, res), = results.items()
+    keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
+    check(res['frames'] == CLI_VAL and predicts == [4] * math.ceil(
+        CLI_VAL / CLI_BATCH) and all(np.isfinite(res['ap'][k]) for k in keys),
+        f'test --ckpt: {res["frames"]} frames, launches {predicts}')
+    print(f'[weights] convert_weights ({len(report["converted"])} subtrees, '
+          f'every key consumed) {t1 - t0:.2f} s -> {Path(path).name}; test '
+          f'--ckpt on the [cli] tree: {res["frames"]} val frames, '
+          f'{res["sec_per_frame"]:.4f} s/frame, merge_resolve launches per '
+          f'predict {predicts}; ' + ', '.join(
+              f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + ' (synthetic weights: only the keys are checked)')
+    return launches
+
+
+def phase_weights(tmp, cli_root):
+    """[weights]: GLENet_VR_vq.yaml with converted reference weights at
+    full width, plain Voxel R-CNN, GPU against CPU in vq mode on the toy
+    config, and convert_weights -> test --ckpt.  Returns the launches."""
+    launches = phase_weights_vq(tmp)
+    launches += phase_weights_plain()
+    launches += phase_weights_cli(cli_root, tmp)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1473,9 +1768,13 @@ def main():
         with tempfile.TemporaryDirectory(prefix='glenet_smoke_') as tmp:
             launches_cli, cli_root = phase_cli(train_ms, Path(tmp))
             launches_cvae = phase_cvae(Path(tmp), cli_root)
+            launches_weights = phase_weights(Path(tmp), cli_root)
         merge = phase_merge_check(captured, captured_train)
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
+        vq = vq_raw_cfg(TINY_CFG)
+        phase_gpu_vs_cpu(vq, 'weights] [gpu-vs-cpu vq')
+        phase_gpu_vs_cpu_train(vq, 'weights] [gpu-vs-cpu vq')
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -1485,7 +1784,8 @@ def main():
         'name': 'merge_resolve', 'route': 'cuda',
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
-        'launches': launches + launches_train + launches_cli + launches_cvae,
+        'launches': (launches + launches_train + launches_cli + launches_cvae
+                     + launches_weights),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -1494,6 +1794,7 @@ def main():
         'cold_ms': merge['cold_ms'], 'host_ms': merge['host_ms'],
         'launches_predict': launches, 'launches_train': launches_train,
         'launches_cli': launches_cli, 'launches_cvae': launches_cvae,
+        'launches_weights': launches_weights,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -1504,8 +1805,11 @@ def main():
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
           f'the {N_REQUESTS} predicts, the {TRAIN_STEPS} train steps, the '
-          f'CLI phase (6 train steps, 2 BN-refresh forwards, 1 predict) '
-          f'and the CVAE phase\'s detector training (2 train steps)')
+          f'CLI phase (6 train steps, 2 BN-refresh forwards, 1 predict), '
+          f'the CVAE phase\'s detector training (2 train steps) and the '
+          f'weights phase ({N_REQUESTS} vq predicts, {TRAIN_STEPS} vq train '
+          f'steps, 1 plain predict, 1 plain train step, 1 predict of test '
+          f'--ckpt)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -63,7 +63,7 @@ class DetectorNet(nn.Module):
         _require(assigner != 'ATSSTargetAssigner', assigner)
         _require(not ta_cfg.get('MATCH_HEIGHT', False), 'MATCH_HEIGHT')
         roi_cfg = mcfg.ROI_HEAD
-        _require(roi_cfg.NAME == 'VoxelRCNNKLLabelIoUHead',
+        _require(roi_cfg.NAME in ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
                  f'ROI_HEAD {roi_cfg.NAME}')
         score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
             'CLS_SCORE_TYPE', 'roi_iou')
@@ -103,7 +103,8 @@ class DetectorNet(nn.Module):
         self.roi_head = VoxelRCNNHead(
             roi_cfg, voxel_size, pc_range,
             level_channels=self.backbone_3d.level_channels,
-            code_size=box_coder.code_size)
+            code_size=box_coder.code_size,
+            kl_label='KLLabel' in roi_cfg.NAME)
         self.register_buffer('flat_anchors',
                              torch.from_numpy(anchor_set.flat_anchors),
                              persistent=False)
@@ -311,7 +312,8 @@ class Detector:
         return total, metrics
 
     def _rcnn_loss(self, full_out):
-        """BCE cls on the IoU labels, KL-label reg loss and corner loss."""
+        """BCE cls on the IoU labels, KL-label (or, for the plain head,
+        smooth-L1) reg loss and corner loss."""
         rcnn = full_out['rcnn']
         rt = full_out['roi_targets']
         roi_lw = self.model_cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
@@ -319,7 +321,7 @@ class Detector:
         c_loss = c_loss * roi_lw.get('rcnn_cls_weight',
                                      roi_lw.get('rcnn_iou_weight', 1.0))
         r_loss, parts = roi_lib.rcnn_reg_loss(
-            rcnn['rcnn_reg'], rcnn['rcnn_reg_std'], rt['rois'],
+            rcnn['rcnn_reg'], rcnn.get('rcnn_reg_std'), rt['rois'],
             rt['gt_of_rois_ct'], rt['gt_of_rois_src'], rt['gt_unc_of_rois'],
             rt['reg_valid_mask'], self.box_coder, roi_lw,
             corner_weight=roi_lw.get('rcnn_corner_weight', 1.0),
@@ -336,18 +338,26 @@ class Detector:
         best_scores = torch.sigmoid(rcnn['rcnn_cls']).reshape(b, r)
         best_scores = torch.where(full_out['proposals']['roi_valid'],
                                   best_scores, 0.0)
+        # the plain head predicts no variance: voting then weighs by 1
+        std_all = rcnn.get('rcnn_reg_std',
+                           torch.zeros_like(rcnn['rcnn_reg']))
         return self._final_nms(boxes_all[..., :7], best_scores,
                                full_out['proposals']['roi_labels'],
-                               rcnn['rcnn_reg_std'].reshape(b, r, -1))
+                               std_all.reshape(b, r, -1))
 
     def _final_nms(self, boxes_all, best_scores, best_labels, std_all):
-        """Single-class variance-voting final NMS per sample."""
+        """Single-class final NMS per sample: variance voting
+        (new_nms_gpu / variance_voting, std_all (B, R, 7) the predicted log
+        variances) or greedy BEV NMS (nms_gpu) on the scores at or above
+        SCORE_THRESH."""
         post = self.model_cfg.POST_PROCESSING
         nms_cfg = post.NMS_CONFIG
         _require(not nms_cfg.get('MULTI_CLASSES_NMS', False),
                  'multi-class final NMS')
-        _require(nms_cfg.NMS_TYPE in ('new_nms_gpu', 'variance_voting'),
+        _require(nms_cfg.NMS_TYPE in ('new_nms_gpu', 'variance_voting',
+                                      'nms_gpu'),
                  f'final NMS_TYPE {nms_cfg.NMS_TYPE}')
+        use_voting = nms_cfg.NMS_TYPE != 'nms_gpu'
         pre_max = int(nms_cfg.NMS_PRE_MAXSIZE)
         post_max = int(nms_cfg.NMS_POST_MAXSIZE)
         thresh = float(nms_cfg.NMS_THRESH)
@@ -356,14 +366,25 @@ class Detector:
         res = []
         for i in range(boxes_all.shape[0]):
             boxes_s = boxes_all[i]
-            boxes_wrapped = torch.cat([
-                boxes_s[:, :6],
-                common.limit_period(boxes_s[:, 6:7], 0.5, 2 * math.pi)], dim=1)
-            vote = nms_ops.variance_voting_nms(
-                boxes_wrapped, best_scores[i], torch.exp(std_all[i, :, :7]),
-                thresh, pre_max=pre_max, post_max=post_max,
-                score_threshold=score_thresh)
-            idx, valid, final_boxes, final_scores = vote
+            if use_voting:
+                boxes_wrapped = torch.cat([
+                    boxes_s[:, :6],
+                    common.limit_period(boxes_s[:, 6:7], 0.5, 2 * math.pi)],
+                    dim=1)
+                idx, valid, final_boxes, final_scores = \
+                    nms_ops.variance_voting_nms(
+                        boxes_wrapped, best_scores[i],
+                        torch.exp(std_all[i, :, :7]), thresh,
+                        pre_max=pre_max, post_max=post_max,
+                        score_threshold=score_thresh)
+            else:
+                masked = torch.where(best_scores[i] >= score_thresh,
+                                     best_scores[i], 0.0)
+                idx, valid = nms_ops.nms_bev(
+                    boxes_s, masked, thresh, pre_max=pre_max,
+                    post_max=post_max, score_threshold=score_thresh)
+                final_boxes = boxes_s[idx]
+                final_scores = torch.where(valid, best_scores[i][idx], 0.0)
             final_labels = torch.where(valid, best_labels[i][idx], 0)
             if post_score_thresh > 0:
                 keep = final_scores > post_score_thresh

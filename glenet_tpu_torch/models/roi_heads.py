@@ -1,13 +1,17 @@
-"""RoI stage of GLENet-VR (torch counterpart of the corner-mode part of
-glenet_tpu/models/roi_heads.py): train-time RoI target sampling, the
-corner-pooling VoxelRCNNHead with its KL-label branches, and the RCNN
-losses.
+"""RoI stage of GLENet-VR and Voxel R-CNN (torch counterpart of the
+VoxelRCNN part of glenet_tpu/models/roi_heads.py): train-time RoI target
+sampling, VoxelRCNNHead with or without its KL-label branches, and the
+RCNN losses.
 
-Each of the G^3 grid points of a roi aggregates the 8 ENCLOSING voxel
-corners of each feature level: per corner h = mlp_in(feat) + mlp_pos(rel);
-pooled = max over corners; mlp_out.  Corners come from a searchsorted lookup
-on the sorted ids of sparse levels and from direct index math on dense
-levels.
+POOL_MODE picks how each of the G^3 grid points of a roi pools a feature
+level:
+  - 'corner' (default): the 8 ENCLOSING voxel corners; per corner
+    h = mlp_in(feat) + mlp_pos(rel); pooled = max over corners; mlp_out.
+    Corners come from a searchsorted lookup on the sorted ids of sparse
+    levels and from direct index math on dense levels.
+  - 'voxel_query': the reference's NeighborVoxelSAModuleMSG, the first
+    NSAMPLE active voxels in scan order within POOL_RADIUS of the grid
+    point (voxel_query_select), so reference checkpoints convert exactly.
 
 Random draws (RoI sampling, dropout) come from an explicit
 torch.Generator, and the sampler takes its draws as tensors, so a test can
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -251,31 +256,219 @@ class CornerAggregation(nn.Module):
                                   use_running_average=ra))
 
 
+def ball_taps(query_range, radius, voxel_size_lvl):
+    """Static scan-ordered (dz, dy, dx) taps that can contain a neighbour
+    within `radius` of a query point anywhere in its cell: the reference
+    voxel_query kernel scans dz (outer) / dy / dx (inner) over
+    +-query_range and accepts neighbours whose CENTRE lies within the
+    metric radius; a tap at cell offset d can hold one only if
+    max(0, |d| - 0.5) * vs is within the ball per axis.  Returns (T, 3)
+    int32 in the kernel's scan order (a numpy array: the pooling caches
+    its device copy)."""
+    zr, yr, xr = (int(v) for v in query_range)
+    vx, vy, vz = (float(v) for v in voxel_size_lvl)
+    taps = []
+    for dz in range(-zr, zr + 1):
+        mz = max(0.0, abs(dz) - 0.5) * vz
+        for dy in range(-yr, yr + 1):
+            my = max(0.0, abs(dy) - 0.5) * vy
+            for dx in range(-xr, xr + 1):
+                mx = max(0.0, abs(dx) - 0.5) * vx
+                if mx * mx + my * my + mz * mz <= radius * radius + 1e-6:
+                    taps.append((dz, dy, dx))
+    return np.asarray(taps, np.int32)
+
+
+def voxel_query_select(query_xyz, v2p, taps, grid, vs, origin, radius,
+                       nsample: int):
+    """The first `nsample` active neighbours in scan order within the
+    metric ball of each query, batched (reference voxel_query semantics,
+    unfilled slots replicate the first hit).
+
+    query_xyz (B, Q, 3) metric grid points; v2p (B, n_cells) int32, the
+    active slot of each cell or -1; taps (T, 3) int32 from ball_taps on the
+    queries' device; grid (nx, ny, nz); vs (3,) f32 metric voxel size of
+    the level; origin (3,) f32, pc_range[:3].  Returns slots (B, Q,
+    nsample) int64 (0 where the ball is empty), centres (B, Q, nsample, 3)
+    of the selected voxels and empty (B, Q) bool.
+    """
+    nx, ny, nz = grid
+    b, q = query_xyz.shape[:2]
+    t = taps.shape[0]
+    cells = torch.floor((query_xyz - origin) / vs).to(torch.int32)
+    cells = cells.reshape(b, q, 1, 3)
+    tx = cells[..., 0] + taps[:, 2]                           # (B, Q, T)
+    ty = cells[..., 1] + taps[:, 1]
+    tz = cells[..., 2] + taps[:, 0]
+    in_rng = ((tz >= 0) & (tz < nz) & (ty >= 0) & (ty < ny)
+              & (tx >= 0) & (tx < nx))
+    # one int32 row gather over the batch: sample i's table starts at
+    # i * v2p.stride(0) of v2p's storage (v2p may be a sliced view)
+    row0 = torch.arange(b, dtype=torch.int32, device=v2p.device) \
+        * v2p.stride(0)
+    tid = torch.where(in_rng, tz * (ny * nx) + ty * nx + tx, 0) \
+        + row0.reshape(b, 1, 1)
+    flat = v2p.as_strided(((b - 1) * v2p.stride(0) + v2p.shape[1],), (1,))
+    slot = flat.index_select(0, tid.reshape(-1)).reshape(tid.shape)
+    del tid
+    d2 = None
+    for c, axis in ((tx, 0), (ty, 1), (tz, 2)):
+        d = ((c.to(torch.float32) + 0.5) * vs[axis] + origin[axis]
+             - query_xyz[..., axis:axis + 1])
+        d2 = d * d if d2 is None else d2 + d * d
+    valid = in_rng & (slot >= 0) & (d2 <= radius * radius)
+    del d2, in_rng, tx, ty, tz
+    # the valid taps in scan order first, then the others in scan order:
+    # distinct keys, so the order is that of the reference's stable top_k
+    tap_idx = torch.arange(t, dtype=torch.int32, device=query_xyz.device)
+    keys = torch.where(valid, tap_idx, t + tap_idx)
+    k = min(nsample, t)
+    top, sel = torch.topk(keys, k, dim=-1, largest=False, sorted=True)
+    ok = top < t
+    s16 = torch.gather(slot, 2, sel).long()
+    if k < nsample:       # coarse levels can have fewer taps than slots
+        pad = nsample - k
+        ok = F.pad(ok, (0, pad), value=False)
+        sel = F.pad(sel, (0, pad))
+        s16 = F.pad(s16, (0, pad))
+    cen = ((cells + taps[sel][..., [2, 1, 0]]).to(torch.float32) + 0.5) \
+        * vs + origin                                         # (B,Q,ns,3)
+    empty = ~ok[..., 0]
+    s16 = torch.where(ok, s16, s16[..., :1])
+    cen = torch.where(ok[..., None], cen, cen[..., :1, :])
+    s16 = torch.where(empty[..., None], 0, s16)
+    return s16, cen, empty
+
+
+class VoxelQueryPool(nn.Module):
+    """Per-level RoI pooling of the reference (NeighborVoxelSAModuleMSG):
+    mlp_in (linear + BN over the active voxels) -> the first NSAMPLE
+    neighbours of voxel_query_select -> mlp_pos on (neighbour centre - grid
+    point) -> relu(sum) -> max or avg over the neighbours -> mlp_out.  The
+    BNs over the grouped tensors are UNMASKED (the reference normalises
+    over every grouped slot, empty balls included); every BN has torch's
+    default eps 1e-5."""
+
+    def __init__(self, cin: int, mlp_mid: int, mlp_out: int, query_range,
+                 radius: float, nsample: int, pool_method: str):
+        super().__init__()
+        self.mlp_in = nn.Linear(cin, mlp_mid, bias=False)
+        self.bn_in = MaskedBatchNorm(mlp_mid, eps=1e-5)
+        self.mlp_pos = nn.Linear(3, mlp_mid, bias=False)
+        self.bn_pos = MaskedBatchNorm(mlp_mid, eps=1e-5)
+        self.mlp_out = nn.Linear(mlp_mid, mlp_out, bias=False)
+        self.bn_out = MaskedBatchNorm(mlp_out, eps=1e-5)
+        self.query_range = tuple(int(v) for v in query_range)
+        self.radius, self.nsample = float(radius), int(nsample)
+        self.pool_method = pool_method
+        # (level voxel size, origin, device) -> the taps, voxel size and
+        # origin on the device, built once (no host copy per call)
+        self._consts = {}
+
+    def consts(self, vs, origin, device):
+        key = (vs, origin, str(device))
+        if key not in self._consts:
+            self._consts[key] = tuple(
+                torch.as_tensor(a, device=device) for a in (
+                    ball_taps(self.query_range, self.radius, vs),
+                    np.asarray(vs, np.float32),
+                    np.asarray(origin, np.float32)))
+        return self._consts[key]
+
+    def forward(self, feats, active_mask, v2p, grid_pts, grid, vs, origin,
+                train: bool = False):
+        """feats (B, N, C) active-voxel features, active_mask (B, N), v2p
+        (B, n_cells) int32 slot or -1, grid_pts (B, Q, 3); the level's grid,
+        metric voxel size vs and origin (tuples of floats).  Returns
+        (B, Q, mlp_out)."""
+        ra = not train
+        b, n, _ = feats.shape
+        h = self.bn_in(self.mlp_in(feats), mask=active_mask,
+                       use_running_average=ra)
+        dev = grid_pts.device
+        taps, vs_t, origin_t = self.consts(vs, origin, dev)
+        s16, cen, empty = voxel_query_select(
+            grid_pts, v2p, taps, grid, vs_t, origin_t, self.radius,
+            self.nsample)
+        off = (torch.arange(b, device=dev) * n).reshape(b, 1, 1)
+        # index_select: its backward is an index_add_, where advanced
+        # indexing's sorts the indices first (~47 ms per level and train
+        # step at full width on an H100)
+        grouped = h.reshape(b * n, -1).index_select(
+            0, (s16 + off).reshape(-1)).reshape(*s16.shape, -1)  # (B,Q,ns,mid)
+        grouped = torch.where(empty[..., None, None], 0.0, grouped)
+        rel = torch.where(empty[..., None, None], 0.0,
+                          cen - grid_pts[:, :, None, :])
+        p = self.bn_pos(self.mlp_pos(rel), use_running_average=ra)
+        g = F.relu(grouped + p)
+        pooled = g.mean(dim=2) if self.pool_method == 'avg_pool' \
+            else g.amax(dim=2)
+        return F.relu(self.bn_out(self.mlp_out(pooled),
+                                  use_running_average=ra))
+
+
+def level_slot_table(level):
+    """(features (B, N, C), active mask (B, N), v2p (B, n_cells) int32) of
+    one backbone level for voxel_query pooling: a sparse level scatters
+    each active slot's index to its cell; a dense level's slots are its
+    cells, z-major (cell z * ny * nx + y * nx + x), active where occupied."""
+    nx, ny, nz = level['grid']
+    n_cells = nx * ny * nz
+    if level['kind'] == 'sparse':
+        feats, mask, ids = level['features'], level['mask'], level['ids']
+        b, v = ids.shape
+        v2p = torch.full((b, n_cells + 1), -1, dtype=torch.int32,
+                         device=ids.device)
+        v2p.scatter_(1, torch.where(mask, ids, n_cells).long(),
+                     torch.arange(v, dtype=torch.int32,
+                                  device=ids.device).expand(b, v))
+        return feats, mask, v2p[:, :n_cells]
+    dense = level['features']                   # (B, D, H, W, C), a view
+    b = dense.shape[0]
+    mask = level['occ'].reshape(b, n_cells)
+    cells = torch.arange(n_cells, dtype=torch.int32, device=dense.device)
+    return (dense.reshape(b, n_cells, dense.shape[-1]), mask,
+            torch.where(mask, cells, -1))
+
+
+POOL_MODES = ('corner', 'voxel_query')
+
+
 class VoxelRCNNHead(nn.Module):
-    """RoI refinement head (VoxelRCNNKLLabelIoUHead), corner pooling, with
-    the KL-label branches (reg_std and the variance -> confidence scalar).
-    In train mode every BatchNorm uses batch moments and DP_RATIO dropout
+    """RoI refinement head: VoxelRCNNKLLabelIoUHead (kl_label, with the
+    reg_std and variance -> confidence branches) or the plain
+    VoxelRCNNHead (rcnn_cls is the raw logit), with either POOL_MODE.  In
+    train mode every BatchNorm uses batch moments and DP_RATIO dropout
     follows the first FC of each stack.
 
     level_channels: channels of each FEATURES_SOURCE level.
     """
 
     def __init__(self, model_cfg, voxel_size, pc_range, level_channels: dict,
-                 code_size: int = 7):
+                 code_size: int = 7, kl_label: bool = True):
         super().__init__()
         pool_cfg = model_cfg.ROI_GRID_POOL
-        if str(pool_cfg.get('POOL_MODE', 'corner')) != 'corner':
-            raise NotImplementedError('voxel_query RoI pooling is not ported '
-                                      'yet')
+        self.pool_mode = str(pool_cfg.get('POOL_MODE', 'corner'))
+        if self.pool_mode not in POOL_MODES:
+            raise NotImplementedError(
+                f'POOL_MODE {self.pool_mode} is not ported yet')
         self.voxel_size, self.pc_range = tuple(voxel_size), tuple(pc_range)
         self.sources = list(pool_cfg.FEATURES_SOURCE)
         self.grid = int(pool_cfg.GRID_SIZE)
         self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
+        self.kl_label = kl_label
         c_pooled = 0
         for src in self.sources:
-            mid, out = pool_cfg.POOL_LAYERS[src]['MLPS'][0]
-            setattr(self, f'pool_{src}',
-                    CornerAggregation(level_channels[src], mid, out))
+            lay = pool_cfg.POOL_LAYERS[src]
+            mid, out = lay['MLPS'][0]
+            if self.pool_mode == 'voxel_query':
+                pool = VoxelQueryPool(
+                    level_channels[src], mid, out, lay['QUERY_RANGES'][0],
+                    float(lay['POOL_RADIUS'][0]), int(lay['NSAMPLE'][0]),
+                    str(lay.get('POOL_METHOD', 'max_pool')))
+            else:
+                pool = CornerAggregation(level_channels[src], mid, out)
+            setattr(self, f'pool_{src}', pool)
             c_pooled += out
         c = c_pooled * self.grid ** 3
         self.fc_names = {}
@@ -296,6 +489,8 @@ class VoxelRCNNHead(nn.Module):
         self.cls_pred = nn.Linear(c_cls, 1)
         self.reg_pred = nn.Linear(c_reg, code_size)
         nn.init.normal_(self.reg_pred.weight, std=0.001)
+        if not kl_label:
+            return
         # variance -> confidence: BN - ReLU - FC(64) - BN - ReLU - FC(1)
         self.reg_std = nn.Linear(c_reg, code_size)
         self.std_bn0 = MaskedBatchNorm(code_size, eps=1e-5)
@@ -314,36 +509,48 @@ class VoxelRCNNHead(nn.Module):
                 x = dropout(x, self.dp_ratio, generator)
         return x
 
+    def pool_level(self, src, grid_pts, level, train: bool = False):
+        """Pool one FEATURES_SOURCE level at grid_pts (B, Q, 3) -> (B * Q,
+        C_out)."""
+        pool = getattr(self, f'pool_{src}')
+        b, q = grid_pts.shape[:2]
+        if self.pool_mode == 'voxel_query':
+            feats, mask, v2p = level_slot_table(level)
+            vs = tuple(float(v) * level['stride'] for v in self.voxel_size)
+            out = pool(feats, mask, v2p, grid_pts, level['grid'], vs,
+                       self.pc_range[:3], train)
+            return out.reshape(b * q, -1)
+        if level['kind'] == 'sparse':
+            cf, rel, cv = gather_corners_sparse(
+                grid_pts, level['features'], level['ids'], level['mask'],
+                level['grid'], level['stride'], self.voxel_size,
+                self.pc_range)
+        else:
+            cf, rel, cv = gather_corners_dense(
+                grid_pts, level['features'], level['occ'], level['grid'],
+                level['stride'], self.voxel_size, self.pc_range)
+        return pool(cf.reshape(b * q, 8, -1), rel.reshape(b * q, 8, 3),
+                    cv.reshape(b * q, 8), train)
+
     def forward(self, rois, multi_scale, train: bool = False,
                 generator=None):
-        """rois (B, R, 7) -> rcnn_cls (B*R, 1), rcnn_reg (B*R, C),
-        rcnn_reg_std (B*R, C).  `generator` feeds the dropout draws."""
+        """rois (B, R, 7) -> rcnn_cls (B*R, 1), rcnn_reg (B*R, C) and, with
+        kl_label, rcnn_reg_std (B*R, C).  `generator` feeds the dropout
+        draws."""
         g = self.grid
         b, r = rois.shape[:2]
         grid_pts = roi_grid_points(rois.reshape(b * r, -1), g)
         grid_pts = grid_pts.reshape(b, r * g ** 3, 3)
-        q = b * r * g ** 3
-        pooled = []
-        for src in self.sources:
-            level = multi_scale[src]
-            if level['kind'] == 'sparse':
-                cf, rel, cv = gather_corners_sparse(
-                    grid_pts, level['features'], level['ids'], level['mask'],
-                    level['grid'], level['stride'], self.voxel_size,
-                    self.pc_range)
-            else:
-                cf, rel, cv = gather_corners_dense(
-                    grid_pts, level['features'], level['occ'], level['grid'],
-                    level['stride'], self.voxel_size, self.pc_range)
-            pooled.append(getattr(self, f'pool_{src}')(
-                cf.reshape(q, 8, -1), rel.reshape(q, 8, 3), cv.reshape(q, 8),
-                train))
+        pooled = [self.pool_level(src, grid_pts, multi_scale[src], train)
+                  for src in self.sources]
         feats = torch.cat(pooled, dim=-1).reshape(b * r, -1)
 
         shared = self._fc_stack(feats, 'shared', train, generator)
         ori_cls = self.cls_pred(self._fc_stack(shared, 'cls_fc', train,
                                                generator))
         reg_feat = self._fc_stack(shared, 'reg_fc', train, generator)
+        if not self.kl_label:
+            return {'rcnn_cls': ori_cls, 'rcnn_reg': self.reg_pred(reg_feat)}
         reg_std = self.reg_std(reg_feat)
         ra = not train
         h = F.relu(self.std_bn0(reg_std, use_running_average=ra))
@@ -379,11 +586,13 @@ def rcnn_cls_loss(rcnn_cls, rcnn_cls_labels):
 def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
                   gt_of_rois_src, gt_unc_of_rois, reg_valid_mask, box_coder,
                   loss_weights, corner_weight=1.0, code_weights=None):
-    """KL-label regression loss over fg rois plus the corner loss, both
-    normalised by the fg count.  Per fg roi and code dim, s the predicted
-    log variance (clamped >= -50) and t = log(label variance + 1e-10):
+    """Regression loss over fg rois plus the corner loss, both normalised
+    by the fg count.  With rcnn_reg_std (the KL-label head), per fg roi and
+    code dim, s the predicted log variance (clamped >= -50) and t =
+    log(label variance + 1e-10):
         exp(-s) * smoothL1 + exp(t - s) - 0.5 * (t - s)
-    reported as the terms src, square and log."""
+    reported as the terms src, square and log; with rcnn_reg_std None (the
+    plain head), the weighted smooth-L1 alone."""
     b, r = rois.shape[:2]
     n = b * r
     flat_rois = rois.reshape(n, -1)[:, :box_coder.code_size]
@@ -401,14 +610,18 @@ def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
                                    code_weights=code_weights)[0]
     w = loss_weights['rcnn_reg_weight']
     fgf = fg[:, None].to(torch.float32)
-    s = rcnn_reg_std.reshape(n, -1).clamp_min(-50.0)
-    t = torch.log(gt_unc_of_rois.reshape(n, -1) + 1e-10)
-    src = (torch.exp(-s) * l1 * fgf).sum() / fg_sum * w
-    square = (torch.exp(t - s) * fgf).sum() / fg_sum * w
-    log_t = (-0.5 * (t - s) * fgf).sum() / fg_sum * w
-    reg_loss = src + square + log_t
-    metrics = {'rcnn_loss_reg_src': src, 'rcnn_loss_reg_square': square,
-               'rcnn_loss_reg_log': log_t}
+    if rcnn_reg_std is None:
+        reg_loss = (l1 * fgf).sum() / fg_sum * w
+        metrics = {}
+    else:
+        s = rcnn_reg_std.reshape(n, -1).clamp_min(-50.0)
+        t = torch.log(gt_unc_of_rois.reshape(n, -1) + 1e-10)
+        src = (torch.exp(-s) * l1 * fgf).sum() / fg_sum * w
+        square = (torch.exp(t - s) * fgf).sum() / fg_sum * w
+        log_t = (-0.5 * (t - s) * fgf).sum() / fg_sum * w
+        reg_loss = src + square + log_t
+        metrics = {'rcnn_loss_reg_src': src, 'rcnn_loss_reg_square': square,
+                   'rcnn_loss_reg_log': log_t}
 
     # corner loss of the decoded global boxes on fg rois
     local_anchor = torch.cat([zeros3, flat_rois[:, 3:]], dim=1)

@@ -1,8 +1,9 @@
 """Where the time of a full-width GLENet-VR train step goes, on one GPU.
 
-    python3 -m glenet_tpu_torch.profile_train
+    python3 -m glenet_tpu_torch.profile_train [--cfg_file CFG]
 
-configs/kitti_models/GLENet_VR.yaml at full width, seeded random weights,
+configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. GLENet_VR_vq.yaml for
+the voxel-query RoI pooling) at full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
 points with Car gt boxes at their clusters (utils/synthetic.py), the train
 voxel budget, adam_onecycle over the schedule of a full run (`total_steps`).
@@ -20,6 +21,7 @@ Prints the card's name and power limit beside the numbers.
 """
 from __future__ import annotations
 
+import argparse
 import math
 import time
 from pathlib import Path
@@ -103,17 +105,21 @@ def stage_times(det, tx, state, train_step, batch):
     return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
-def main():
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--cfg_file', type=str, default=str(
+        ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('profile_train: no CUDA device')
     card = card_line()
     print(f'card: {card}')
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    cfg = cfg_from_yaml_file(args.cfg_file)
     det = seeded_detector(cfg, 'cuda', 0)
     tx, state, train_step = build_training(cfg, det)
     batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     batches = train_batches(1 + 2 * STEPS, seed=0, batch=batch_size)
-    print(f'GLENet-VR train step, B={batch_size}, train voxel budget '
+    print(f'{cfg.TAG} train step, B={batch_size}, train voxel budget '
           f'{det.max_voxels_train}, total_steps '
           f'{total_steps(cfg.OPTIMIZATION)}')
     state, _ = train_step(state, batches[0])

@@ -5,7 +5,10 @@ tools/test.py:
         [--eval_all] [--device cpu] ...
 
 Evaluates one checkpoint (--ckpt, else the newest in --ckpt_dir or
-<output_dir>/ckpt) or, with --eval_all, every checkpoint of the directory
+<output_dir>/ckpt; --ckpt also takes a glenet_tpu `.msgpack`, whose
+parameters and BN statistics train/jax_checkpoint.py reads, and
+tools.convert_weights turns a reference `.pth` into a port checkpoint) or,
+with --eval_all, every checkpoint of the directory
 as it appears (polling every 30 s, at most --max_waiting_mins without a new
 one).  Per checkpoint: batched predicts on the device, prediction dicts,
 recall telemetry (3D IoU on the device), `result.pkl` and the KITTI AP
@@ -137,6 +140,7 @@ def main(argv=None):
     from ..datasets import build_dataset
     from ..models.detectors import build_detector
     from ..train import checkpoint as ckpt_lib
+    from ..train import jax_checkpoint
     from ..utils.common import create_logger
 
     output_dir = Path(args.output_dir or f'output/{cfg.TAG}/{args.extra_tag}')
@@ -147,10 +151,17 @@ def main(argv=None):
     detector = build_detector(cfg, device=device)
     dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
                             logger=logger)
+    # the JAX CLI draws an example batch to initialise its train state;
+    # drawing it here too keeps the dataset's subsampling draws in step
+    next(dataset.iter_batches(batch_size, shuffle=False, drop_last=False))
 
     def run_one(ckpt_path):
-        ck = ckpt_lib.load_checkpoint(ckpt_path)
-        detector.net.load_state_dict(ck['model_state'])
+        if str(ckpt_path).endswith('.msgpack'):
+            ck = jax_checkpoint.load_checkpoint(ckpt_path)
+            jax_checkpoint.load_variables(detector.net, ck)
+        else:
+            ck = ckpt_lib.load_checkpoint(ckpt_path)
+            detector.net.load_state_dict(ck['model_state'])
         logger.info(f'evaluating {ckpt_path} (epoch {ck["epoch"]})')
         return eval_one_epoch(
             cfg, detector, dataset, logger, batch_size,

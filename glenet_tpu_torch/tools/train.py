@@ -4,7 +4,9 @@ tools/train.py:
     python -m glenet_tpu_torch.tools.train --cfg_file CFG [--device cpu] ...
 
 Config and overrides, dataset, detector and optimizer, auto-resume from the
-newest checkpoint in <output_dir>/ckpt, the epoch loop with per-step
+newest checkpoint in <output_dir>/ckpt (a glenet_tpu `.msgpack`, given or
+found there, raises NotImplementedError: its optimizer state is not
+mapped into the port), the epoch loop with per-step
 telemetry (data ms: `iter_batches` until the batch is on the device; step
 ms: the train step until its results are on the host), a checkpoint per
 epoch (pruned to --max_ckpt_save_num), then optionally the BN-statistics
@@ -102,6 +104,7 @@ def main(argv=None):
     from ..datasets import build_dataset
     from ..models.detectors import build_detector
     from ..train import checkpoint as ckpt_lib
+    from ..train import jax_checkpoint
     from ..train import optim as optim_lib
     from ..train import state as state_lib
     from ..utils.common import create_logger
@@ -109,6 +112,14 @@ def main(argv=None):
 
     output_dir = Path(args.output_dir or f'output/{cfg.TAG}/{args.extra_tag}')
     ckpt_dir = output_dir / 'ckpt'
+    latest = (args.ckpt or ckpt_lib.find_latest_checkpoint(ckpt_dir)
+              or ckpt_lib.find_latest_checkpoint(ckpt_dir,
+                                                 jax_checkpoint.PATTERN))
+    if latest and str(latest).endswith('.msgpack'):
+        raise NotImplementedError(
+            f'resuming from {latest}: mapping the optimizer state of a '
+            f'glenet_tpu checkpoint into the port is not ported yet (its '
+            f'weights load into tools.test --ckpt)')
     output_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(output_dir / 'train.log')
 
@@ -123,13 +134,16 @@ def main(argv=None):
 
     detector = build_detector(cfg, device=device)
     tx, lr_sched = optim_lib.build_optimizer(cfg.OPTIMIZATION, total_steps)
+    # the JAX CLI draws an example batch to initialise its train state;
+    # drawing it here too keeps the dataset's and the augmentor's random
+    # streams in step with it
+    next(dataset.iter_batches(batch_size, seed=0))
     ts = state_lib.create_train_state(detector, tx)
     train_step = state_lib.make_train_step(detector, tx)
     logger.info(f'device {device}, batch {batch_size}, {steps_per_epoch} '
                 f'steps/epoch, {num_epochs} epochs')
 
     start_epoch = 0
-    latest = args.ckpt or ckpt_lib.find_latest_checkpoint(ckpt_dir)
     if latest:
         logger.info(f'resuming from {latest}')
         ck = ckpt_lib.load_checkpoint(latest)

@@ -58,8 +58,9 @@ def save_checkpoint(state_dict, ckpt_dir, epoch: int,
     return str(path)
 
 
-def find_latest_checkpoint(ckpt_dir):
-    ckpts = glob.glob(str(Path(ckpt_dir) / PATTERN))
+def find_latest_checkpoint(ckpt_dir, pattern=PATTERN):
+    """The file matching `pattern` of the newest epoch, or None."""
+    ckpts = glob.glob(str(Path(ckpt_dir) / pattern))
     return max(ckpts, key=_epoch_of) if ckpts else None
 
 

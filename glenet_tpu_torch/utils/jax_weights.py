@@ -19,7 +19,8 @@ module at `mod.(...)`, converted by that module's type:
                         running_mean / running_var
 
 It raises on any leaf it does not consume and on any port parameter or
-buffer it does not set.
+buffer it does not set.  `port_to_jax_variables` applies the rules the
+other way, the port's net as a JAX variables tree.
 """
 from __future__ import annotations
 
@@ -82,6 +83,49 @@ def jax_tree_to_port(net: nn.Module, tree: dict, collection: str = 'params'):
     {port key: numpy array in the port's layout}."""
     return dict(convert_leaf(net, collection, path, value)
                 for path, value in _leaves(tree))
+
+
+_BN_LEAVES = {v: ('params' if k in ('scale', 'bias') else 'batch_stats', k)
+              for k, v in _BN_NAMES.items()}
+
+
+def _export(module, name, value):
+    """The inverse of _convert: (collection, JAX leaf name, array in the
+    JAX layout) for one port tensor."""
+    if isinstance(module, MaskedBatchNorm) and name in _BN_LEAVES:
+        return (*_BN_LEAVES[name], value)
+    if isinstance(module, nn.Linear):
+        return ('params', 'kernel', value.T) if name == 'weight' \
+            else ('params', 'bias', value)
+    if isinstance(module, nn.ConvTranspose2d) and name == 'weight':
+        return 'params', 'kernel', value.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if isinstance(module, nn.Conv2d):
+        return ('params', 'kernel', value.transpose(2, 3, 1, 0)) \
+            if name == 'weight' else ('params', 'bias', value)
+    if isinstance(module, DenseConvBN) and name == 'weight':
+        cout, cin = value.shape[:2]
+        return ('params', 'kernel',
+                value.transpose(2, 3, 4, 1, 0).reshape(-1, cin, cout))
+    if isinstance(module, (SubMConvBN, SparseConvBN)) and name == 'kernel':
+        return 'params', 'kernel', value
+    raise KeyError(f'no rule for {name!r} of {type(module).__name__}')
+
+
+def port_to_jax_variables(net: nn.Module) -> dict:
+    """The port's parameters and BN statistics as a glenet_tpu variables
+    tree of numpy arrays ({'params', 'batch_stats'}, JAX layouts), the
+    inverse of load_jax_variables: the template a reference checkpoint is
+    converted into (utils/weight_converter.convert_full_model)."""
+    out = {'params': {}, 'batch_stats': {}}
+    for key, t in net.state_dict().items():
+        *mods, name = key.split('.')
+        coll, leaf, arr = _export(net.get_submodule('.'.join(mods)), name,
+                                  t.detach().cpu().numpy())
+        node = out[coll]
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return out
 
 
 def load_jax_variables(net: nn.Module, variables: dict) -> None:

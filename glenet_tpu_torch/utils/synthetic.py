@@ -110,6 +110,150 @@ def seeded_detector(cfg, device, seed):
 
 
 # ---------------------------------------------------------------------------
+# a reference (pcdet) checkpoint of random tensors
+# ---------------------------------------------------------------------------
+
+# VoxelBackBone8x: (name, cin, cout, kernel (kz, ky, kx)) of each spconv
+# layer in the reference's module order; each is followed by a BatchNorm1d
+_PCDET_BACKBONE = (
+    ('conv_input.0', 'in', 16, (3, 3, 3)), ('conv1.0.0', 16, 16, (3, 3, 3)),
+    ('conv2.0.0', 16, 32, (3, 3, 3)), ('conv2.1.0', 32, 32, (3, 3, 3)),
+    ('conv2.2.0', 32, 32, (3, 3, 3)), ('conv3.0.0', 32, 64, (3, 3, 3)),
+    ('conv3.1.0', 64, 64, (3, 3, 3)), ('conv3.2.0', 64, 64, (3, 3, 3)),
+    ('conv4.0.0', 64, 64, (3, 3, 3)), ('conv4.1.0', 64, 64, (3, 3, 3)),
+    ('conv4.2.0', 64, 64, (3, 3, 3)), ('conv_out.0', 64, 128, (3, 1, 1)))
+
+
+def pcdet_state_dict(cfg, seed=0, num_point_features=4):
+    """A state dict of random tensors under the key names and layouts of
+    the reference (OpenPCDet) VoxelRCNN family for `cfg`: MeanVFE (no
+    parameters), VoxelBackBone8x (spconv 2.x weights (O, kz, ky, kx, I);
+    conv{L}.{block}.{0 conv, 1 BN}), BaseBEVBackbone (blocks.{i} = ZeroPad,
+    Conv, BN, ReLU, then Conv, BN, ReLU per layer; deblocks.{i} =
+    ConvTranspose2d (I, O, k, k), BN, ReLU), AnchorHeadSingle (1x1 conv_cls
+    / conv_box / conv_dir_cls with biases), and the VoxelRCNN roi head:
+    roi_grid_pool_layers.{k} NeighborVoxelSAModuleMSG (mlps_in.0 Conv1d +
+    BN1d, mlps_pos.0 Conv2d 1x1 + BN2d, mlps_out.0 Conv1d + BN1d), the
+    shared_fc_layer / cls_fc_layers / reg_fc_layers stacks of Linear, BN1d,
+    ReLU (and Dropout after every Linear but the last when DP_RATIO > 0),
+    cls_pred_layer, reg_pred_layer and, for VoxelRCNNKLLabelIoUHead,
+    reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2.
+    Every BN comes with running stats and num_batches_tracked.  Weights ~
+    N(0, 1/fan_in), biases and running means ~ N(0, 0.1), BN scales and
+    running variances ~ U(0.5, 1.5).  Returns {key: CPU tensor}."""
+    from ..ops import sparse
+    from ..ops import voxelize as vox_ops
+    rng = np.random.RandomState(seed)
+    mcfg = cfg.MODEL
+    sd = {}
+
+    def weight(key, shape, fan_in):
+        sd[key] = rng.randn(*shape) / np.sqrt(fan_in)
+
+    def bias(key, n):
+        sd[key] = rng.randn(n) * 0.1
+
+    def bn(prefix, n):
+        sd[f'{prefix}.weight'] = rng.uniform(0.5, 1.5, n)
+        bias(f'{prefix}.bias', n)
+        bias(f'{prefix}.running_mean', n)
+        sd[f'{prefix}.running_var'] = rng.uniform(0.5, 1.5, n)
+        sd[f'{prefix}.num_batches_tracked'] = np.array(1000, np.int64)
+
+    for name, cin, cout, k in _PCDET_BACKBONE:
+        cin = num_point_features if cin == 'in' else cin
+        weight(f'backbone_3d.{name}.weight', (cout, *k, cin),
+               cin * int(np.prod(k)))
+        bn(f'backbone_3d.{name.rsplit(".", 1)[0]}.1', cout)
+
+    # the BEV depth after conv_out, as the reference's dense() gives it
+    proc = {p.NAME: p for p in cfg.DATA_CONFIG.DATA_PROCESSOR}
+    grid = vox_ops.compute_grid_size(
+        cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+        proc['transform_points_to_voxels'].VOXEL_SIZE)
+    g = (grid[0], grid[1], grid[2] + 1)
+    for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, (0, 1, 1)),
+                    ((3, 1, 1), (2, 1, 1), 0)):
+        g = sparse.out_grid_size(g, k, s, p)
+    c_in = g[2] * 128
+
+    bb = mcfg.BACKBONE_2D
+    for i, (n, f) in enumerate(zip(bb.LAYER_NUMS, bb.NUM_FILTERS)):
+        weight(f'backbone_2d.blocks.{i}.1.weight', (f, c_in, 3, 3), c_in * 9)
+        bn(f'backbone_2d.blocks.{i}.2', f)
+        for j in range(n):
+            weight(f'backbone_2d.blocks.{i}.{4 + 3 * j}.weight',
+                   (f, f, 3, 3), f * 9)
+            bn(f'backbone_2d.blocks.{i}.{5 + 3 * j}', f)
+        up, s = bb.NUM_UPSAMPLE_FILTERS[i], bb.UPSAMPLE_STRIDES[i]
+        weight(f'backbone_2d.deblocks.{i}.0.weight', (f, up, s, s), f * s * s)
+        bn(f'backbone_2d.deblocks.{i}.1', up)
+        c_in = f
+    c_bev = sum(bb.NUM_UPSAMPLE_FILTERS)
+
+    head = mcfg.DENSE_HEAD
+    n_anchors = sum(len(a['anchor_sizes']) * len(a['anchor_rotations'])
+                    * len(a['anchor_bottom_heights'])
+                    for a in head.ANCHOR_GENERATOR_CONFIG)
+    outs = {'conv_cls': len(cfg.CLASS_NAMES), 'conv_box': 7}
+    if head.get('USE_DIRECTION_CLASSIFIER', False):
+        outs['conv_dir_cls'] = head.NUM_DIR_BINS
+    for name, per_anchor in outs.items():
+        weight(f'dense_head.{name}.weight', (n_anchors * per_anchor, c_bev,
+                                             1, 1), c_bev)
+        bias(f'dense_head.{name}.bias', n_anchors * per_anchor)
+
+    roi = mcfg.ROI_HEAD
+    pool = roi.ROI_GRID_POOL
+    channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64}
+    c_pooled = 0
+    for k, src in enumerate(pool.FEATURES_SOURCE):
+        mid, out = pool.POOL_LAYERS[src]['MLPS'][0]
+        base = f'roi_head.roi_grid_pool_layers.{k}'
+        weight(f'{base}.mlps_in.0.0.weight', (mid, channels[src], 1),
+               channels[src])
+        bn(f'{base}.mlps_in.0.1', mid)
+        weight(f'{base}.mlps_pos.0.0.weight', (mid, 3, 1, 1), 3)
+        bn(f'{base}.mlps_pos.0.1', mid)
+        weight(f'{base}.mlps_out.0.0.weight', (out, mid, 1), mid)
+        bn(f'{base}.mlps_out.0.1', out)
+        c_pooled += out
+
+    def fc_layers(name, sizes, c):
+        seq = 0
+        for i, s in enumerate(sizes):
+            weight(f'roi_head.{name}.{seq}.weight', (s, c), c)
+            bn(f'roi_head.{name}.{seq + 1}', s)
+            c = s
+            seq += 4 if roi.get('DP_RATIO', 0) > 0 and i < len(sizes) - 1 \
+                else 3
+        return c
+
+    c_shared = fc_layers('shared_fc_layer', roi.SHARED_FC,
+                         c_pooled * int(pool.GRID_SIZE) ** 3)
+    for name, sizes, pred, n_out in (('cls_fc_layers', roi.CLS_FC,
+                                      'cls_pred_layer', 1),
+                                     ('reg_fc_layers', roi.REG_FC,
+                                      'reg_pred_layer', 7)):
+        c = fc_layers(name, sizes, c_shared)
+        weight(f'roi_head.{pred}.weight', (n_out, c), c)
+        bias(f'roi_head.{pred}.bias', n_out)
+    if 'KLLabel' in roi.NAME:
+        c = roi.REG_FC[-1]
+        weight('roi_head.reg_std_layer.weight', (7, c), c)
+        bias('roi_head.reg_std_layer.bias', 7)
+        bn('roi_head.reg_std_bn', 7)
+        weight('roi_head.reg_std_fc1.weight', (64, 7), 7)
+        bias('roi_head.reg_std_fc1.bias', 64)
+        bn('roi_head.reg_std_bn1', 64)
+        weight('roi_head.reg_std_fc2.weight', (1, 64), 64)
+        bias('roi_head.reg_std_fc2.bias', 1)
+    return {k: torch.from_numpy(np.asarray(
+        v, np.int64 if k.endswith('num_batches_tracked') else np.float32))
+        for k, v in sd.items()}
+
+
+# ---------------------------------------------------------------------------
 # a synthetic data tree in KITTI's layout
 # ---------------------------------------------------------------------------
 

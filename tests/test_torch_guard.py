@@ -62,7 +62,8 @@ def test_other_families_raise():
 
 @pytest.mark.parametrize('section,key,value', [
     ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'MATCH_HEIGHT', True),
-    ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'cls')])
+    ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'cls'),
+    ('ROI_HEAD.ROI_GRID_POOL', 'POOL_MODE', 'ball_query')])
 def test_unported_options_raise(section, key, value):
     """Options of the ported modules that no GLENet-VR config sets are
     refused, not computed some other way."""
@@ -198,3 +199,94 @@ def test_camera_items_raise(item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
                      root_path=tmp_path)
+
+
+@pytest.mark.parametrize('section,name', [
+    ('VFE', 'PillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
+    ('BACKBONE_3D', 'VoxelBackBone8xCiassd'), ('BACKBONE_2D', 'SSFA'),
+    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PVRCNNHead')])
+def test_converter_refuses_other_families(section, name):
+    """The port's converter of reference checkpoints covers the VoxelRCNN
+    family only; any other module raises naming itself, before it reads a
+    key."""
+    import torch_parity as tp
+
+    from glenet_tpu_torch.utils import weight_converter as wc
+    cfg = tp.to_port_cfg(tp.tiny_twostage_cfg())
+    cfg.MODEL[section].NAME = name
+    with pytest.raises(NotImplementedError, match=name):
+        wc.convert_full_model(cfg, {}, {'params': {}})
+
+
+@pytest.mark.parametrize('how', ['--ckpt', 'auto-resume'])
+def test_train_cli_refuses_msgpack(how, tmp_path):
+    """Resuming training from a glenet_tpu checkpoint needs its optimizer
+    state mapped, which is not ported: the train CLI raises, naming it,
+    before it writes anything."""
+    from glenet_tpu_torch.tools import train
+    ckpt_dir = tmp_path / 'out' / 'ckpt'
+    ckpt_dir.mkdir(parents=True)
+    msgpack_path = ckpt_dir / 'checkpoint_epoch_3.msgpack'
+    msgpack_path.write_bytes(b'\x80')
+    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+            '--output_dir', str(tmp_path / 'out'), '--device', 'cpu']
+    if how == '--ckpt':
+        argv += ['--ckpt', str(msgpack_path)]
+    with pytest.raises(NotImplementedError, match='optimizer state'):
+        train.main(argv)
+    assert sorted(p.name for p in (tmp_path / 'out').iterdir()) == ['ckpt']
+
+
+def _weights_entry_points(tmp_path):
+    """name -> a call of each entry point of the weights slice with its
+    default device."""
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.tools import convert_weights
+    from glenet_tpu_torch.train import jax_checkpoint
+    cfg_file = str(ROOT / 'configs/kitti_models/GLENet_VR_vq.yaml')
+    pth = tmp_path / 'missing.pth'
+    return {
+        'convert_weights': lambda: convert_weights.main(
+            ['--cfg_file', cfg_file, '--torch_ckpt', str(pth),
+             '--output_dir', str(tmp_path / 'out')]),
+        'build_detector_from_checkpoint':
+            lambda: jax_checkpoint.build_detector_from_checkpoint(
+                cfg_from_yaml_file(cfg_file), tmp_path / 'x.msgpack'),
+    }
+
+
+@pytest.mark.parametrize('name', ['convert_weights',
+                                  'build_detector_from_checkpoint'])
+def test_weights_entry_points_need_a_card(name, tmp_path):
+    """The converter CLI and the glenet_tpu checkpoint loader build the
+    detector on the GPU unless given the CPU; without a card they raise
+    before they read or write anything."""
+    call = _weights_entry_points(tmp_path)[name]
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: nothing to refuse')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        call()
+    assert not (tmp_path / 'out').exists()
+
+
+@pytest.mark.parametrize('module', ['utils.weight_converter',
+                                    'train.jax_checkpoint',
+                                    'tools.convert_weights'])
+def test_weights_modules_in_import_probe(module):
+    """The weights slice's modules are among those the import probe of
+    test_port_imports_no_jax walks, and import no JAX package themselves."""
+    import ast
+    import pkgutil
+
+    import glenet_tpu_torch
+    names = {m.name for m in pkgutil.walk_packages(glenet_tpu_torch.__path__,
+                                                   'glenet_tpu_torch.')}
+    assert f'glenet_tpu_torch.{module}' in names
+    src = (ROOT / 'glenet_tpu_torch' / (module.replace('.', '/') + '.py'))
+    imported = set()
+    for node in ast.walk(ast.parse(src.read_text())):
+        if isinstance(node, ast.Import):
+            imported |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            imported.add(node.module.split('.')[0])
+    assert not imported & {'jax', 'flax', 'glenet_tpu', 'msgpack'}

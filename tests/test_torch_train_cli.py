@@ -117,6 +117,69 @@ def test_train_resume_and_test(tree, tmp_path):
     assert set(res['recall']) == {0.3, 0.5, 0.7}
 
 
+def test_first_train_batch_matches_jax_cli(tree, tmp_path, monkeypatch):
+    """The first batch the port's train CLI trains on equals the JAX CLI's
+    on the same tree and seed: both draw the example batch first (which
+    initialises the JAX train state), and that moves the dataset's and the
+    augmentor's random streams."""
+    from glenet_tpu.config import cfg_from_yaml_file
+    from glenet_tpu.datasets import build_dataset
+
+    from glenet_tpu_torch.train import state as state_lib
+    _, cfg_path = tree
+    cfg = cfg_from_yaml_file(str(cfg_path))
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    ds = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True,
+                       seed=0)
+    example = next(ds.iter_batches(b, seed=0))
+    ref = next(ds.iter_batches(b, seed=0))     # epoch 0's first batch
+    seen = []
+    real = state_lib.make_train_step
+
+    def make_train_step(detector, tx):
+        step = real(detector, tx)
+
+        def capture(ts, batch):
+            seen.append({k: v.numpy() for k, v in batch.items()})
+            return step(ts, batch)
+        return capture
+
+    monkeypatch.setattr(state_lib, 'make_train_step', make_train_step)
+    _train(cfg_path, tmp_path / 'out', '--epochs', '1',
+           '--max_steps_per_epoch', '1')
+    assert len(seen) == 1
+    assert not np.array_equal(seen[0]['points'], example['points'])
+    arrays = {k: v for k, v in ref.items() if isinstance(v, np.ndarray)}
+    assert set(seen[0]) == set(arrays)
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(seen[0][k], v, err_msg=k)
+
+
+def test_test_cli_draws_the_example_batch(tree, tmp_path, monkeypatch):
+    """The port's test CLI draws the JAX CLI's example batch (in order, no
+    padding dropped) before its evaluation, so the test split's
+    subsampling of scenes above MAX_POINTS_PER_SCENE takes the same number
+    of draws.  Both packages seed that split's stream from the OS, so the
+    batches themselves cannot be compared."""
+    from glenet_tpu_torch.datasets.kitti_dataset import KittiDataset
+    from glenet_tpu_torch.tools import test as test_cli
+    _, cfg_path = tree
+    out = tmp_path / 'out'
+    _train(cfg_path, out, '--epochs', '1', '--max_steps_per_epoch', '1')
+    calls = []
+    real = KittiDataset.iter_batches
+
+    def iter_batches(self, batch_size, **kw):
+        calls.append((self.training, kw))
+        return real(self, batch_size, **kw)
+
+    monkeypatch.setattr(KittiDataset, 'iter_batches', iter_batches)
+    test_cli.main(['--cfg_file', str(cfg_path), '--output_dir', str(out),
+                   '--device', 'cpu'])
+    order = {'shuffle': False, 'drop_last': False}
+    assert calls == [(False, order), (False, order)]
+
+
 def test_synthetic_tree(tree):
     """The fixture tree: every car labelled, inside the camera's view and
     the toy range, with its label variances in the infos and the gt
