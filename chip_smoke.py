@@ -54,9 +54,10 @@ Phases, each of which exits non-zero on failure:
      after adam_onecycle) and one `sample`, same weights and eps;
   6. kernel check: every kernel equals its plain PyTorch version on
      adversarial cases (with the merge-resolve kernel's count of tiles on
-     its wide-window path) and on the captured calls of the predict and of
-     the train step; per call the kernel's device time (torch.profiler),
-     back-to-back, host and cold-L2 times, the plain version's time, and
+     its wide-window path) and on the captured calls of the predict, of
+     the train step and of a full-width GLENet-C predict; per call the
+     kernel's device time (torch.profiler), back-to-back, host and cold-L2
+     times, the plain version's time, and
      torch.searchsorted's device and back-to-back times.  It runs after the
      main paths because a torch.profiler session leaves host overhead
      behind in the process, which slows every later step;
@@ -77,7 +78,22 @@ Phases, each of which exits non-zero on failure:
      config in vq mode, as phase 7; (d) a reference .pth through
      `glenet_tpu_torch.tools.convert_weights`, then `tools.test --ckpt` on
      the [cli] tree, in process;
-  9. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+  9. the paper's single-stage detectors, [single] (launches counted from 0
+     just before and read just after each call): (a) GLENet_S.yaml and
+     GLENet_C.yaml at full width with seeded weights, each a warm-up
+     predict (GLENet-C's captures its merge-resolve calls for phase 6),
+     3 predicts at B = 2 at the published thresholds and 3 at zero
+     thresholds (every NMS_PRE_MAXSIZE candidate live; random weights keep
+     no box at the published ones), then 3 train steps at B = 4 as phase
+     3 (losses finite, parameters and BN stats moved, the one-cycle
+     schedule); (b) second.yaml (3 classes): one predict, one train step;
+     (c) after phase 7, the card against the CPU on the toy topology as
+     GLENet-C at zero thresholds: a predict (voxels, final labels and
+     valid flags equal; BEV map, dense-head outputs, final boxes and
+     scores within phase 7's tolerances) and a train step (as phase 7);
+     (d) a synthetic reference GLENet-C .pth through convert_weights, then
+     `tools.test --ckpt` on the [cli] tree;
+ 10. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -312,7 +328,7 @@ def check_captured(captured, what):
     return {'bound_by': '/'.join(sorted(bound_by)), **tot}
 
 
-def phase_merge_check(captured, captured_train):
+def phase_merge_check(captured, captured_train, captured_single):
     """Kernel == plain on adversarial and captured cases; times."""
     from glenet_tpu_torch.ops import merge_kernel as mk
     max_err, n_wide, n_global = 0, 0, 0
@@ -331,7 +347,8 @@ def phase_merge_check(captured, captured_train):
     check(n_wide > 0 and n_global > 0,
           'the adversarial cases missed a path of the kernel')
     return {'max_abs_err': max_err, **check_captured(captured, 'predict'),
-            'train': check_captured(captured_train, 'train step')}
+            'train': check_captured(captured_train, 'train step'),
+            'single': check_captured(captured_single, 'GLENet-C predict')}
 
 
 def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
@@ -369,19 +386,24 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
     # features rtol 1e-3 / atol 1e-4, final boxes and scores atol 1e-3
     exact = [('voxel_coords', fc['vox']['voxel_coords'],
               fg['vox']['voxel_coords']),
-             ('roi_valid', fc['proposals']['roi_valid'],
-              fg['proposals']['roi_valid']),
              ('final_valid', pc['final_valid'], pg['final_valid']),
              ('final_labels', pc['final_labels'], pg['final_labels'])]
+    if 'proposals' in fc:
+        exact.append(('roi_valid', fc['proposals']['roi_valid'],
+                      fg['proposals']['roi_valid']))
     for name, a, b in exact:
         check(torch.equal(a, b.cpu()), f'GPU and CPU differ in {name}')
     close = [('bev_features', fc['backbone_3d']['bev_features'],
               fg['backbone_3d']['bev_features'], 1e-3, 1e-4),
-             ('rcnn_reg', fc['rcnn']['rcnn_reg'], fg['rcnn']['rcnn_reg'],
-              1e-3, 1e-4),
              ('final_boxes', pc['final_boxes'], pg['final_boxes'], 0, 1e-3),
              ('final_scores', pc['final_scores'], pg['final_scores'], 0,
               1e-3)]
+    if 'rcnn' in fc:
+        close.append(('rcnn_reg', fc['rcnn']['rcnn_reg'],
+                      fg['rcnn']['rcnn_reg'], 1e-3, 1e-4))
+    else:
+        close += [(k, fc['dense_head'][k], fg['dense_head'][k], 1e-3, 1e-4)
+                  for k in sorted(fc['dense_head'])]
     for name, a, b, rtol, atol in close:
         err = float((a - b.cpu()).abs().max())
         ok = torch.allclose(a, b.cpu().to(a.dtype), rtol=rtol, atol=atol)
@@ -389,7 +411,7 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
               f'(rtol {rtol}, atol {atol})')
         check(ok, f'GPU and CPU differ in {name}')
     n_valid = int(pc['final_valid'].sum())
-    print(f'[{tag}] tiny two-stage predict: integer outputs equal, '
+    print(f'[{tag}] tiny {cfg.MODEL.NAME} predict: integer outputs equal, '
           f'{n_valid} valid final boxes')
 
 
@@ -428,9 +450,10 @@ def tiny_train_batch(cfg):
     return batch
 
 
-def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu'):
-    """One toy train step (fixed RoI targets, DP_RATIO 0) on the card and
-    on the port's CPU path."""
+def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
+                           make_batch=tiny_train_batch):
+    """One toy train step (in two-stage configs fixed RoI targets and
+    DP_RATIO 0) on the card and on the port's CPU path."""
     import copy
 
     import torch
@@ -441,7 +464,8 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu'):
     from glenet_tpu_torch.train import optim, state as st
     from glenet_tpu_torch.utils.synthetic import seeded_detector
     raw = copy.deepcopy(raw)
-    raw['MODEL']['ROI_HEAD']['DP_RATIO'] = 0.0
+    if 'ROI_HEAD' in raw['MODEL']:
+        raw['MODEL']['ROI_HEAD']['DP_RATIO'] = 0.0
     cfg = Cfg(raw)
     saved = (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
              torch.backends.cudnn.allow_tf32,
@@ -451,9 +475,10 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu'):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        batch = tiny_train_batch(cfg)
-        n_fg = int(batch['roi_targets']['reg_valid_mask'].sum())
-        check(n_fg > 0, 'the toy RoI targets hold no foreground')
+        batch = make_batch(cfg)
+        n_fg = int(batch['roi_targets']['reg_valid_mask'].sum()
+                   if 'roi_targets' in batch else batch['gt_mask'].sum())
+        check(n_fg > 0, 'the toy targets hold no foreground')
         runs = {}
         for dev in ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
@@ -504,8 +529,9 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu'):
             check(torch.allclose(buf, gpu_bufs[name].cpu(), rtol=1e-4,
                                  atol=1e-5),
                   f'GPU and CPU BN running stats differ in {name}')
-    print(f'[{tag}] tiny train step: {n_fg} foreground RoIs; loss '
-          f'terms within rtol 1e-4, every gradient within its tolerance '
+    print(f'[{tag}] tiny {cfg.MODEL.NAME} train step: {n_fg} foreground '
+          f'RoIs or gt boxes; loss terms within rtol 1e-4, every gradient '
+          f'within its tolerance '
           f'(worst at {worst:.2f} of it), BN running stats and the '
           f'parameters after adam_onecycle agree')
 
@@ -549,21 +575,25 @@ def sites_line(sites, caps):
         for i, k in enumerate(('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')))
 
 
-def phase_full_width(det, batches):
-    """The main path: N_REQUESTS predicts, merge-resolve launches counted
-    from 0 just before and read just after."""
+def phase_full_width(det, batches, tag='full', label='GLENet-VR',
+                     min_valid=0):
+    """The main path: one predict per batch, merge-resolve launches counted
+    from 0 just before and read just after; each sample must keep at least
+    `min_valid` final boxes."""
     import torch
 
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.ops import sparse
     caps = sparse.level_caps(det.max_voxels_test)
+    k = int(det.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     sites = {}
 
     def record_proposals(_mod, _inp, out):
         sites['proposals'] = out['proposals']['roi_valid'].sum(1)
 
-    hooks = [watch_sites(det, sites),
-             det.net.register_forward_hook(record_proposals)]
+    hooks = [watch_sites(det, sites)]
+    if det.net.roi_head is not None:
+        hooks.append(det.net.register_forward_hook(record_proposals))
     times, per_request = [], []
     mk.LAUNCHES = 0
     for r, batch in enumerate(batches):
@@ -580,20 +610,24 @@ def phase_full_width(det, batches):
     for h in hooks:
         h.remove()
     for r, (pred, n_launch, mem, st) in enumerate(per_request):
-        for k, shape in (('final_boxes', (BATCH, 500, 7)),
-                         ('final_scores', (BATCH, 500))):
-            check(tuple(pred[k].shape) == shape,
-                  f'{k} shape {tuple(pred[k].shape)}')
-            check(bool(torch.isfinite(pred[k]).all()), f'{k} not finite')
-        check(n_launch == 4, f'request {r}: {n_launch} merge-resolve '
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape,
+                  f'{key} shape {tuple(pred[key].shape)}')
+            check(bool(torch.isfinite(pred[key]).all()), f'{key} not finite')
+        check(n_launch == 4, f'{label} request {r}: {n_launch} merge-resolve '
                              f'launches, expected 4')
+        check(int(pred['final_valid'].sum(1).min()) >= min_valid,
+              f'{label} request {r}: fewer than {min_valid} final boxes')
         lvl = sites_line(st, caps)
-        print(f'[full] request {r}: {times[r]:.1f} ms; active sites {lvl}; '
-              f'valid proposals {st["proposals"].tolist()}; valid final '
-              f'boxes {pred["final_valid"].sum(1).tolist()}; '
-              f'merge_resolve launches {n_launch}; max_memory_allocated '
+        prop = (f'valid proposals {st["proposals"].tolist()}; '
+                if 'proposals' in st else '')
+        print(f'[{tag}] {label} request {r}: {times[r]:.1f} ms; active sites '
+              f'{lvl}; {prop}valid final boxes '
+              f'{pred["final_valid"].sum(1).tolist()}; merge_resolve '
+              f'launches {n_launch}; max_memory_allocated '
               f'{mem / 2**30:.2f} GiB')
-    print(f'[full] GLENet-VR predict B={BATCH} x {N_POINTS} points: '
+    print(f'[{tag}] {label} predict B={BATCH} x {N_POINTS} points: '
           f'mean {sum(times) / len(times):.1f} ms over {len(times)} requests')
     return launches
 
@@ -617,7 +651,7 @@ def onecycle_expected(opt_cfg, n_total, count):
     return cos(lr_max, lr_max / div / 1e4, pct), cos(m1, m0, pct)
 
 
-def phase_train(cfg, det):
+def phase_train(cfg, det, tag='train', label='GLENet-VR'):
     """The train step at full width: a warm-up step that captures the
     merge-resolve calls, then TRAIN_STEPS timed steps with the launches
     counted from 0 just before and read just after."""
@@ -640,7 +674,7 @@ def phase_train(cfg, det):
     t0 = time.perf_counter()
     captured, (state, metrics) = capture_calls(
         lambda: train_step(state, batches[0]))
-    print(f'[train] GLENet-VR train step, B={b} x {N_POINTS} points, train '
+    print(f'[{tag}] {label} train step, B={b} x {N_POINTS} points, train '
           f'voxel budget {det.max_voxels_train}, gt boxes {n_gt}, '
           f'adam_onecycle total_steps {n_total} ({opt_cfg.NUM_EPOCHS} epochs x '
           f'{n_total // int(opt_cfg.NUM_EPOCHS)} iterations); warm-up step '
@@ -673,7 +707,7 @@ def phase_train(cfg, det):
         check(abs(lr - lr_x) <= 1e-9 * lr_x and abs(b1 - b1_x) <= 1e-9,
               f'train step {i}: lr {lr}, b1 {b1}; the schedule gives '
               f'{lr_x}, {b1_x}')
-        print(f'[train] step {i}: {times[-1]:.1f} ms; ' + ', '.join(
+        print(f'[{tag}] {label} step {i}: {times[-1]:.1f} ms; ' + ', '.join(
             f'{k} {v:.5f}' for k, v in sorted(vals.items()))
             + f'; lr {lr:.6e}, b1 {b1:.6f} (update {count + 1}); '
               f'active sites {sites_line(sites, caps)}; merge_resolve '
@@ -692,8 +726,9 @@ def phase_train(cfg, det):
     same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
     check(not same, f'BN running stats unchanged by {TRAIN_STEPS} steps: '
                     f'{same}')
-    print(f'[train] {TRAIN_STEPS} steps: mean {sum(times) / len(times):.1f} '
-          f'ms; {len(params) - len(still)} of {len(params)} parameter '
+    print(f'[{tag}] {label} {TRAIN_STEPS} steps: mean '
+          f'{sum(times) / len(times):.1f} ms; {len(params) - len(still)} '
+          f'of {len(params)} parameter '
           f'tensors changed (unchanged, zero with zero gradients: {still}), '
           f'all {len(stats)} BN running-stat tensors changed; lr and b1 on '
           f'the one-cycle schedule')
@@ -1633,10 +1668,11 @@ def phase_weights_vq(tmp):
     return launches
 
 
-def phase_weights_plain():
-    """voxel_rcnn_car.yaml (plain Voxel R-CNN) at full width, seeded
-    weights: one predict at B = 2 and one train step at B = 4, launches
-    counted from 0 just before and read just after each."""
+def predict_and_step(cfg_name, seed):
+    """`cfg_name` at full width, seeded weights: one predict at B = 2 and one
+    train step at B = 4, launches counted from 0 just before and read just
+    after each.  Returns a dict: det, cfg, pred, predict_ms, n_predict,
+    vals (the step's metrics as floats), step_ms, n_step, b."""
     import math
 
     import torch
@@ -1647,10 +1683,8 @@ def phase_weights_plain():
     from glenet_tpu_torch.utils.synthetic import (scene_batches,
                                                   seeded_detector,
                                                   train_batches)
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
-                                        'voxel_rcnn_car.yaml'))
-    det = seeded_detector(cfg, 'cuda', SEED + 40)
-    check(not det.net.roi_head.kl_label, 'voxel_rcnn_car.yaml built a KL head')
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
+    det = seeded_detector(cfg, 'cuda', seed)
     batch = scene_batches(1, SEED + 2, BATCH)[0]
     mk.LAUNCHES = 0
     torch.cuda.synchronize()
@@ -1661,7 +1695,7 @@ def phase_weights_plain():
     n_predict = mk.LAUNCHES
     check(n_predict == 4 and bool(torch.isfinite(pred['final_boxes']).all())
           and bool(torch.isfinite(pred['final_scores']).all()),
-          f'plain predict: {n_predict} launches or outputs not finite')
+          f'{cfg_name} predict: {n_predict} launches or outputs not finite')
     _, state, train_step = build_training(cfg, det)
     b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tbatch = train_batches(1, SEED + 3, b)[0]
@@ -1673,23 +1707,36 @@ def phase_weights_plain():
     step_ms = 1e3 * (time.perf_counter() - t0)
     n_step = mk.LAUNCHES
     vals = {k: float(v) for k, v in metrics.items()}
-    check(n_step == 4 and all(math.isfinite(v) for v in vals.values())
-          and 'rcnn_loss_reg_src' not in vals,
-          f'plain train step: {n_step} launches, {vals}')
+    check(n_step == 4 and all(math.isfinite(v) for v in vals.values()),
+          f'{cfg_name} train step: {n_step} launches, {vals}')
+    return {'det': det, 'cfg': cfg, 'pred': pred, 'predict_ms': predict_ms,
+            'n_predict': n_predict, 'vals': vals, 'step_ms': step_ms,
+            'n_step': n_step, 'b': b}
+
+
+def phase_weights_plain():
+    """voxel_rcnn_car.yaml (plain Voxel R-CNN) at full width, seeded
+    weights: one predict at B = 2 and one train step at B = 4."""
+    r = predict_and_step('voxel_rcnn_car.yaml', SEED + 40)
+    vals = r['vals']
+    check(not r['det'].net.roi_head.kl_label,
+          'voxel_rcnn_car.yaml built a KL head')
+    check('rcnn_loss_reg_src' not in vals, f'plain train step: {vals}')
     print(f'[weights] voxel_rcnn_car.yaml (plain head, nms_gpu): predict '
-          f'B={BATCH} {predict_ms:.1f} ms (first call), valid final boxes '
-          f'{pred["final_valid"].sum(1).tolist()}, merge_resolve launches '
-          f'{n_predict}; train step B={b} '
-          f'{step_ms:.1f} ms (first call), loss {vals["loss"]:.4f}, smooth-L1 '
-          f'rcnn_loss_reg {vals["rcnn_loss_reg"]:.4f}, merge_resolve launches '
-          f'{n_step}')
-    return n_predict + n_step
+          f'B={BATCH} {r["predict_ms"]:.1f} ms (first call), valid final '
+          f'boxes {r["pred"]["final_valid"].sum(1).tolist()}, merge_resolve '
+          f'launches {r["n_predict"]}; train step B={r["b"]} '
+          f'{r["step_ms"]:.1f} ms (first call), loss {vals["loss"]:.4f}, '
+          f'smooth-L1 rcnn_loss_reg {vals["rcnn_loss_reg"]:.4f}, '
+          f'merge_resolve launches {r["n_step"]}')
+    return r['n_predict'] + r['n_step']
 
 
-def phase_weights_cli(cli_root, tmp):
-    """A synthetic reference .pth of GLENet_VR_vq.yaml through the
-    convert_weights CLI, then `tools.test --ckpt` on the [cli] tree, in
-    process; launches counted from 0 just before and read just after."""
+def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
+                      tag='weights', seed=SEED + 50):
+    """A synthetic reference .pth of `cfg_name` through the convert_weights
+    CLI, then `tools.test --ckpt` on the [cli] tree, in process; launches
+    counted from 0 just before and read just after."""
     import math
 
     import numpy as np
@@ -1701,10 +1748,10 @@ def phase_weights_cli(cli_root, tmp):
     from glenet_tpu_torch.tools import convert_weights
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.utils import synthetic
-    cfg_file = str(ROOT / 'configs/kitti_models/GLENet_VR_vq.yaml')
+    cfg_file = str(ROOT / 'configs/kitti_models' / cfg_name)
     cfg = cfg_from_yaml_file(cfg_file)
-    pth, out = tmp / 'pcdet_glenet_vr.pth', tmp / 'weights_out'
-    torch.save({'model_state': synthetic.pcdet_state_dict(cfg, SEED + 50),
+    pth, out = tmp / f'pcdet_{cfg.TAG}.pth', tmp / f'weights_out_{cfg.TAG}'
+    torch.save({'model_state': synthetic.pcdet_state_dict(cfg, seed),
                 'epoch': 80}, pth)
     t0 = time.perf_counter()
     path, report = convert_weights.main([
@@ -1729,9 +1776,10 @@ def phase_weights_cli(cli_root, tmp):
     check(res['frames'] == CLI_VAL and predicts == [4] * math.ceil(
         CLI_VAL / CLI_BATCH) and all(np.isfinite(res['ap'][k]) for k in keys),
         f'test --ckpt: {res["frames"]} frames, launches {predicts}')
-    print(f'[weights] convert_weights ({len(report["converted"])} subtrees, '
-          f'every key consumed) {t1 - t0:.2f} s -> {Path(path).name}; test '
-          f'--ckpt on the [cli] tree: {res["frames"]} val frames, '
+    print(f'[{tag}] {cfg_name}: convert_weights ({len(report["converted"])} '
+          f'subtrees, every key consumed) {t1 - t0:.2f} s -> '
+          f'{Path(path).name}; test --ckpt on the [cli] tree: '
+          f'{res["frames"]} val frames, '
           f'{res["sec_per_frame"]:.4f} s/frame, merge_resolve launches per '
           f'predict {predicts}; ' + ', '.join(
               f'{k} {res["ap"][k]:.2f}' for k in keys)
@@ -1747,6 +1795,126 @@ def phase_weights(tmp, cli_root):
     launches += phase_weights_plain()
     launches += phase_weights_cli(cli_root, tmp)
     return launches
+
+
+SINGLE_CFGS = ('GLENet_S.yaml', 'GLENet_C.yaml')
+
+
+def tiny_single_raw():
+    """The toy topology as GLENet-C (SECONDNet: VoxelBackBone8xCiassd, SSFA,
+    AnchorHeadKLLabelIoU with GLENet_C.yaml's PRE_CLS_THRESH, PRE_IOU_THRESH
+    and POW; variance-voting final NMS) at zero score thresholds, so every
+    candidate is live whatever the weights."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    m = raw['MODEL']
+    del m['ROI_HEAD']
+    m['NAME'] = 'SECONDNet'
+    m['BACKBONE_3D'] = {'NAME': 'VoxelBackBone8xCiassd'}
+    m['BACKBONE_2D'] = {'NAME': 'SSFA'}
+    m['DENSE_HEAD'].update(NAME='AnchorHeadKLLabelIoU', PRE_CLS_THRESH=0.0,
+                           PRE_IOU_THRESH=0.0, POW=4)
+    m['DENSE_HEAD']['TARGET_ASSIGNER_CONFIG']['NAME'] = \
+        'WeightedAxisAlignedTargetAssigner'
+    m['POST_PROCESSING']['SCORE_THRESH'] = 0.0
+    return raw
+
+
+def tiny_single_batch(cfg):
+    """tiny_batch's points, 3 gt boxes per sample within 0.3 m of anchor
+    centres (so they match), label variances in [0.02, 0.3)."""
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    pts = torch.from_numpy(tiny_batch(SEED + 7))
+    b = pts.shape[0]
+    rng = np.random.RandomState(SEED + 12)
+    anchors = build_detector(cfg, device='cpu').anchor_set.anchors
+    centres = anchors[:, :, 0, :3].reshape(-1, 3)
+    gt = np.zeros((b, 8, 8), np.float32)
+    for i in range(b):
+        for j, c in enumerate(rng.choice(len(centres), 3, replace=False)):
+            gt[i, j, :3] = centres[c]
+            gt[i, j, :2] += rng.uniform(-0.3, 0.3, 2)
+            gt[i, j, 3:] = [3.9, 1.6, 1.56, rng.uniform(-1, 1), 1]
+    gt_mask = np.zeros((b, 8), bool)
+    gt_mask[:, :3] = True
+    unc = rng.uniform(0.02, 0.3, (b, 8, 7)).astype(np.float32)
+    return {'points': pts, 'points_mask': torch.ones(pts.shape[:2],
+                                                     dtype=torch.bool),
+            'gt_boxes': torch.from_numpy(gt),
+            'gt_mask': torch.from_numpy(gt_mask),
+            'gt_uncertainty': torch.from_numpy(unc)}
+
+
+def phase_single_full(cfg_name, seed):
+    """[single] (a): `cfg_name` at full width with seeded weights: a warm-up
+    predict that captures the merge-resolve calls, N_REQUESTS predicts at
+    the published thresholds and N_REQUESTS at zero thresholds (every
+    NMS_PRE_MAXSIZE candidate live), then phase_train's steps.  Returns
+    (launches, the captured calls)."""
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.utils.synthetic import scene_batches, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
+    det = seeded_detector(cfg, 'cuda', seed)
+    batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
+    t0 = time.perf_counter()
+    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    print(f'[single] {cfg.TAG}: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    launches = phase_full_width(det, batches[1:], 'single', cfg.TAG)
+    post = det.model_cfg.POST_PROCESSING
+    saved = {k: post[k] for k in ('SCORE_THRESH', 'POST_SCORE_THRESH')
+             if k in post}
+    post.update(dict.fromkeys(saved, 0.0))
+    try:
+        launches += phase_full_width(det, batches[1:], 'single',
+                                     f'{cfg.TAG} at zero thresholds', 1)
+    finally:
+        post.update(saved)
+    launches += phase_train(cfg, det, 'single', cfg.TAG)[0]
+    del det
+    torch.cuda.empty_cache()
+    return launches, captured
+
+
+def phase_single_second():
+    """[single] (b): second.yaml (3 classes, AnchorHeadSingle, nms_gpu):
+    one predict and one train step."""
+    r = predict_and_step('second.yaml', SEED + 70)
+    vals, labels = r['vals'], r['pred']['final_labels']
+    check(r['det'].anchor_set.num_anchors_per_location == 6
+          and int(labels.min()) >= 0 and int(labels.max()) <= 3
+          and 'loc_loss_src' not in vals,
+          f'second.yaml: labels {labels.unique().tolist()}, {vals}')
+    print(f'[single] second.yaml (3 classes, nms_gpu): predict B={BATCH} '
+          f'{r["predict_ms"]:.1f} ms (first call), valid final boxes '
+          f'{r["pred"]["final_valid"].sum(1).tolist()}, labels '
+          f'{labels.unique().tolist()}, merge_resolve launches '
+          f'{r["n_predict"]}; train step B={r["b"]} {r["step_ms"]:.1f} ms '
+          f'(first call), ' + ', '.join(f'{k} {v:.4f}' for k, v in
+                                        sorted(vals.items()))
+          + f', merge_resolve launches {r["n_step"]}')
+    return r['n_predict'] + r['n_step']
+
+
+def phase_single(tmp, cli_root):
+    """[single]: GLENet-S and GLENet-C at full width, plain SECOND, and a
+    synthetic GLENet-C .pth through convert_weights into test --ckpt.
+    Returns (launches, the captured calls of GLENet-C's warm-up
+    predict)."""
+    launches, captured = 0, {}
+    for i, name in enumerate(SINGLE_CFGS):
+        n, captured[name] = phase_single_full(name, SEED + 60 + i)
+        launches += n
+    launches += phase_single_second()
+    launches += phase_weights_cli(cli_root, tmp, 'GLENet_C.yaml', 'single',
+                                  SEED + 80)
+    return launches, captured['GLENet_C.yaml']
 
 
 def main():
@@ -1769,23 +1937,29 @@ def main():
             launches_cli, cli_root = phase_cli(train_ms, Path(tmp))
             launches_cvae = phase_cvae(Path(tmp), cli_root)
             launches_weights = phase_weights(Path(tmp), cli_root)
-        merge = phase_merge_check(captured, captured_train)
+            launches_single, captured_single = phase_single(Path(tmp),
+                                                            cli_root)
+        merge = phase_merge_check(captured, captured_train, captured_single)
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
         phase_gpu_vs_cpu(vq, 'weights] [gpu-vs-cpu vq')
         phase_gpu_vs_cpu_train(vq, 'weights] [gpu-vs-cpu vq')
+        single = tiny_single_raw()
+        phase_gpu_vs_cpu(single, 'single] [gpu-vs-cpu')
+        phase_gpu_vs_cpu_train(single, 'single] [gpu-vs-cpu',
+                               tiny_single_batch)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
         return 1
-    train = merge['train']
+    train, single = merge['train'], merge['single']
     kernels = [{
         'name': 'merge_resolve', 'route': 'cuda',
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
-                     + launches_weights),
+                     + launches_weights + launches_single),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -1795,12 +1969,17 @@ def main():
         'launches_predict': launches, 'launches_train': launches_train,
         'launches_cli': launches_cli, 'launches_cvae': launches_cvae,
         'launches_weights': launches_weights,
+        'launches_single': launches_single,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
         'train_bound_by': train['bound_by'],
         'train_library_ms': train['library_ms'],
-        'train_library_device_ms': train['library_device_ms']}]
+        'train_library_device_ms': train['library_device_ms'],
+        'single_ms': single['ms'], 'single_device_ms': single['device_ms'],
+        'single_plain_ms': single['plain_ms'],
+        'single_bound_ms': single['bound_ms'],
+        'single_library_ms': single['library_ms']}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
@@ -1809,7 +1988,10 @@ def main():
           f'the CVAE phase\'s detector training (2 train steps) and the '
           f'weights phase ({N_REQUESTS} vq predicts, {TRAIN_STEPS} vq train '
           f'steps, 1 plain predict, 1 plain train step, 1 predict of test '
-          f'--ckpt)')
+          f'--ckpt) and the single-stage phase (GLENet-S and GLENet-C: '
+          f'{2 * N_REQUESTS} predicts and {TRAIN_STEPS} train steps each; '
+          f'SECOND: 1 predict, 1 train step; 1 predict of test --ckpt); '
+          f'single_* per GLENet-C predict')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,16 @@
-"""Anchor-based dense head AnchorHeadSingle, its decode and its losses
-(torch counterpart of glenet_tpu/models/anchor_heads.py)."""
+"""Anchor-based dense heads, their decode and their losses (torch
+counterpart of glenet_tpu/models/anchor_heads.py):
+
+  - AnchorHeadSingle: 1x1 cls / box / direction convs;
+  - AnchorHeadKLLabel: AnchorHeadSingle plus a log-variance branch
+    (GLENet-S), an IoU branch (with it GLENet-C's AnchorHeadKLLabelIoU;
+    alone AnchorHeadIoU) and the variance-guided IoU gate
+    (AnchorHeadKLLabelIoUGuide).
+
+The losses: focal classification, direction-bin cross entropy, the
+sin-difference smooth-L1, KL-label and KL regression losses, and the IoU
+branch's smooth-L1 against 2 * IoU3D(pred, gt) - 1.
+"""
 from __future__ import annotations
 
 import math
@@ -8,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import iou3d
 from ..utils import common, losses
 
 
@@ -45,6 +57,78 @@ class AnchorHeadSingle(nn.Module):
         return out
 
 
+class AnchorHeadKLLabel(AnchorHeadSingle):
+    """AnchorHeadSingle plus optional branches, as JAX's flags select them:
+    `with_std_branch` (conv_box_std, the predicted log variance of each
+    code), `with_iou_branch` (conv_iou, one IoU per class) and `with_guide`
+    (std_conv1 / std_conv2: a sigmoid gate on the IoU computed from the
+    log-variance map)."""
+
+    def __init__(self, in_channels: int, num_class: int,
+                 num_anchors_per_location: int, code_size: int = 7,
+                 num_dir_bins: int = 0, with_iou_branch: bool = False,
+                 with_std_branch: bool = True, with_guide: bool = False):
+        super().__init__(in_channels, num_class, num_anchors_per_location,
+                         code_size, num_dir_bins)
+        a = num_anchors_per_location
+
+        def conv(name, cin, cout, std):
+            c = nn.Conv2d(cin, cout, 1)
+            nn.init.normal_(c.weight, std=std)
+            nn.init.zeros_(c.bias)
+            setattr(self, name, c)
+
+        self.with_std_branch = with_std_branch
+        self.with_iou_branch = with_iou_branch
+        self.with_guide = with_guide
+        if with_std_branch:
+            conv('conv_box_std', in_channels, a * code_size, 1e-4)
+        if with_iou_branch:
+            conv('conv_iou', in_channels, a * num_class, 1e-3)
+            if with_guide:
+                conv('std_conv1', a * code_size, 64, 1e-3)
+                conv('std_conv2', 64, 1, 1e-3)
+
+    def forward(self, x, train: bool = False):
+        out = super().forward(x, train)
+        x = x.permute(0, 3, 1, 2)
+        b, _, h, w = x.shape
+
+        def nhwc(t, c):
+            return t.permute(0, 2, 3, 1).reshape(b, h, w, self.a, c)
+
+        std_raw = None
+        if self.with_std_branch:
+            std_raw = self.conv_box_std(x)
+            out['box_std_preds'] = nhwc(std_raw, self.code_size)
+        if self.with_iou_branch:
+            iou = self.conv_iou(x)
+            if self.with_guide:
+                gate = self.std_conv2(F.relu(self.std_conv1(std_raw)))
+                iou = iou * torch.sigmoid(gate)
+            out['iou_preds'] = nhwc(iou, self.num_class)
+        return out
+
+
+def build_dense_head(name, in_channels, num_class, num_anchors_per_location,
+                     code_size, num_dir_bins):
+    """The dense head of DENSE_HEAD.NAME, as JAX's DetectorNet.setup picks
+    it; the names it does not port raise."""
+    args = (in_channels, num_class, num_anchors_per_location, code_size,
+            num_dir_bins)
+    if name == 'AnchorHeadSingle':
+        return AnchorHeadSingle(*args)
+    flags = {'AnchorHeadKLLabel': {}, 'AnchorHeadKL': {},
+             'AnchorHeadKLLabelIoU': {'with_iou_branch': True},
+             'AnchorHeadKLLabelIoUGuide': {'with_iou_branch': True,
+                                           'with_guide': True},
+             'AnchorHeadIoU': {'with_iou_branch': True,
+                               'with_std_branch': False}}
+    if name not in flags:
+        raise NotImplementedError(f'DENSE_HEAD {name} is not ported yet')
+    return AnchorHeadKLLabel(*args, **flags[name])
+
+
 def _flatten_preds(out):
     """(B, H, W, A, C) head outputs -> (B, N, C)."""
     return {k: v.reshape(v.shape[0], -1, v.shape[-1]) for k, v in out.items()}
@@ -53,7 +137,9 @@ def _flatten_preds(out):
 def decode_predictions(out, flat_anchors, box_coder, dir_offset=0.78539,
                        dir_limit_offset=0.0, num_dir_bins=2):
     """Head outputs -> raw cls logits (B, N, num_class) and decoded boxes
-    (B, N, 7), with the direction-bin heading correction."""
+    (B, N, 7), with the direction-bin heading correction, plus the raw log
+    variances (B, N, 7) and IoU outputs (B, N, num_class) of the heads that
+    have them."""
     flat = _flatten_preds(out)
     b = flat['cls_preds'].shape[0]
     anchors = flat_anchors[None].expand(b, *flat_anchors.shape)
@@ -66,7 +152,12 @@ def decode_predictions(out, flat_anchors, box_coder, dir_offset=0.78539,
         heading = dir_rot + dir_offset + period * dir_labels.to(boxes.dtype)
         boxes = torch.cat([boxes[..., :6], heading[..., None], boxes[..., 7:]],
                           dim=-1)
-    return {'batch_cls_preds': flat['cls_preds'], 'batch_box_preds': boxes}
+    result = {'batch_cls_preds': flat['cls_preds'], 'batch_box_preds': boxes}
+    if 'box_std_preds' in flat:
+        result['batch_box_std_preds'] = flat['box_std_preds']
+    if 'iou_preds' in flat:
+        result['batch_iou_preds'] = flat['iou_preds']
+    return result
 
 
 def cls_loss(cls_preds, box_cls_labels, num_class):
@@ -105,17 +196,68 @@ def dir_loss(dir_cls_preds, dir_targets, positives, num_bins):
                                          weights).sum() / batch_size
 
 
+def _positive_weights(box_cls_labels):
+    """(B, N) weights: 1 on positives over their count in the sample."""
+    positives = box_cls_labels > 0
+    return positives.to(torch.float32) / positives.sum(
+        dim=1, keepdim=True).to(torch.float32).clamp_min(1.0)
+
+
 def reg_loss_smooth_l1(box_preds, box_reg_targets, box_cls_labels,
                        code_weights=None):
     """Sin-difference smooth-L1 regression loss over positives, normalised
     per sample by their count, over the batch size."""
     batch_size = box_preds.shape[0]
-    positives = box_cls_labels > 0
-    reg_weights = positives.to(torch.float32)
-    reg_weights = reg_weights / positives.sum(
-        dim=1, keepdim=True).to(torch.float32).clamp_min(1.0)
+    reg_weights = _positive_weights(box_cls_labels)
     preds_sin, targets_sin = losses.add_sin_difference(box_preds,
                                                        box_reg_targets)
     return losses.weighted_smooth_l1(preds_sin, targets_sin, reg_weights,
                                      code_weights=code_weights
                                      ).sum() / batch_size
+
+
+def reg_loss_kl_label(box_preds, box_std_preds, box_reg_targets,
+                      box_cls_labels, label_uncertainty, code_weights=None):
+    """GLENet's KL-label regression loss over positives (weights normalised
+    per sample), over the batch size -> (loss, {loc_loss_src,
+    loc_loss_square, loc_loss_log} over the batch size)."""
+    batch_size = box_preds.shape[0]
+    total, parts = losses.kl_label_reg_loss(
+        box_preds, box_std_preds, box_reg_targets,
+        _positive_weights(box_cls_labels), label_uncertainty,
+        code_weights=code_weights)
+    return total / batch_size, {k: v / batch_size for k, v in parts.items()}
+
+
+def reg_loss_kl(box_preds, box_std_preds, box_reg_targets, box_cls_labels,
+                code_weights=None):
+    """The predicted-variance KL loss without label variances (AnchorHeadKL):
+    exp(-s) * smoothL1 + 0.5 * s * w, over the batch size."""
+    batch_size = box_preds.shape[0]
+    reg_weights = _positive_weights(box_cls_labels)
+    preds_sin, targets_sin = losses.add_sin_difference(box_preds,
+                                                       box_reg_targets)
+    l1 = losses.weighted_smooth_l1(preds_sin, targets_sin, reg_weights,
+                                   code_weights=code_weights)
+    s = box_std_preds
+    return (torch.exp(-s) * l1
+            + 0.5 * s * reg_weights[..., None]).sum() / batch_size
+
+
+def iou_branch_loss(iou_preds, box_preds, box_reg_targets, box_cls_labels,
+                    flat_anchors, box_coder):
+    """The IoU branch's loss: smooth-L1 (beta 1/9) of iou_preds[..., 0]
+    against 2 * IoU3D(decoded pred, decoded gt) - 1, which carries no
+    gradient, over positives (weights normalised per sample), over the
+    batch size."""
+    batch_size = iou_preds.shape[0]
+    reg_weights = _positive_weights(box_cls_labels)
+    anchors = flat_anchors[None].expand(batch_size, *flat_anchors.shape)
+    with torch.no_grad():
+        pred_boxes = box_coder.decode(box_preds, anchors)[..., :7]
+        gt_boxes = box_coder.decode(box_reg_targets, anchors)[..., :7]
+        iou = iou3d.boxes_aligned_iou3d(pred_boxes.reshape(-1, 7),
+                                        gt_boxes.reshape(-1, 7))
+        iou_target = (2.0 * iou - 1.0).reshape(batch_size, -1, 1)
+    return losses.weighted_smooth_l1(iou_preds[..., 0:1], iou_target,
+                                     reg_weights).sum() / batch_size

@@ -1,6 +1,11 @@
-"""Dense 2D BEV backbone (torch counterpart of
-glenet_tpu/models/bev_backbone.py BaseBEVBackbone): multi-level strided conv
-blocks + transpose-conv up-branches, concatenated."""
+"""Dense 2D BEV backbones (torch counterparts of
+glenet_tpu/models/bev_backbone.py):
+
+  - BaseBEVBackbone: multi-level strided conv blocks + transpose-conv
+    up-branches, concatenated;
+  - SSFA: CIA-SSD's spatial-semantic feature aggregation with softmax
+    attention fusion, 128 channels at the input's resolution (GLENet-C).
+"""
 from __future__ import annotations
 
 from typing import Sequence
@@ -58,3 +63,49 @@ class BaseBEVBackbone(nn.Module):
             ups.append(getattr(self, up)(x, train) if up else x)
         out = torch.cat(ups, dim=1) if len(ups) > 1 else ups[0]
         return out.permute(0, 2, 3, 1)
+
+
+class SSFA(nn.Module):
+    """A spatial branch at full resolution (3 convs, 128 channels) and a
+    semantic branch at stride 2 (3 convs, 256); after 1x1 trans blocks the
+    semantic branch is deconvolved back twice (k3 s2 p1 op1): deconv_0
+    adds trans_0's output, deconv_1 stands alone.  conv_0 and conv_1 follow,
+    and their outputs are blended by the softmax over the 1-channel w_0 /
+    w_1 blocks (conv + BN, no ReLU).  Children carry JAX's names."""
+
+    num_bev_features = 128
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        blocks = [('bottom_up_0_0', in_channels, 128, 3, 1),
+                  ('bottom_up_0_1', 128, 128, 3, 1),
+                  ('bottom_up_0_2', 128, 128, 3, 1),
+                  ('bottom_up_1_0', 128, 256, 3, 2),
+                  ('bottom_up_1_1', 256, 256, 3, 1),
+                  ('bottom_up_1_2', 256, 256, 3, 1),
+                  ('trans_0', 128, 128, 1, 1), ('trans_1', 256, 256, 1, 1),
+                  ('conv_0', 128, 128, 3, 1), ('conv_1', 128, 128, 3, 1)]
+        for name, cin, cout, k, s in blocks:
+            setattr(self, name, ConvBlock(cin, cout, k, s, padding=k // 2))
+        for name in ('deconv_0', 'deconv_1'):
+            setattr(self, name, ConvBlock(256, 128, 3, 2, padding=1,
+                                          transpose=True, output_padding=1))
+        for name in ('w_0', 'w_1'):
+            setattr(self, name, ConvBlock(128, 1, 1, 1, use_relu=False))
+
+    def forward(self, x, train: bool = False):
+        """x: (B, H, W, C) (a channels-last view) -> (B, H, W, 128) view;
+        H and W even."""
+        x0 = x.permute(0, 3, 1, 2)
+        for i in range(3):
+            x0 = getattr(self, f'bottom_up_0_{i}')(x0, train)
+        x1 = x0
+        for i in range(3):
+            x1 = getattr(self, f'bottom_up_1_{i}')(x1, train)
+        x0t = self.trans_0(x0, train)
+        x1t = self.trans_1(x1, train)
+        o0 = self.conv_0(self.deconv_0(x1t, train) + x0t, train)
+        o1 = self.conv_1(self.deconv_1(x1t, train), train)
+        w = torch.softmax(torch.cat([self.w_0(o0, train),
+                                     self.w_1(o1, train)], dim=1), dim=1)
+        return (o0 * w[:, 0:1] + o1 * w[:, 1:2]).permute(0, 2, 3, 1)

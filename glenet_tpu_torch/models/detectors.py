@@ -1,16 +1,25 @@
-"""Detector composition for GLENet-VR (torch counterpart of
-glenet_tpu/models/detectors.py).
+"""Detector composition (torch counterpart of glenet_tpu/models/detectors.py)
+for two topologies:
+
+  - VoxelRCNN (GLENet-VR, plain Voxel R-CNN): voxelize -> MeanVFE ->
+    VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone -> anchor head
+    -> proposal NMS -> (train: RoI target sampling) -> VoxelRCNNHead ->
+    final NMS over the refined RoIs;
+  - SECONDNet, single stage (GLENet-S, GLENet-C, plain SECOND): voxelize ->
+    MeanVFE -> VoxelBackBone8x(Ciassd) -> HeightCompression ->
+    BaseBEVBackbone or SSFA -> AnchorHeadSingle or the KL-label family ->
+    final NMS over the dense head's decoded anchors.
+
+Every other family or option raises NotImplementedError naming itself.
 
   - `DetectorNet` (nn.Module) holds the neural slots and runs the forward
-    from raw padded points: voxelize -> MeanVFE -> VoxelBackBone8x ->
-    HeightCompression -> BaseBEVBackbone -> AnchorHeadSingle -> proposal NMS
-    -> (train: RoI target sampling) -> VoxelRCNNHead.  Only this
-    VoxelRCNN / anchor-head topology is wired; every other family raises
-    NotImplementedError.  Train mode runs at the train voxel budget with
-    NMS_CONFIG.TRAIN; eval mode at the test budget with NMS_CONFIG.TEST.
+    from raw padded points.  Train mode runs at the train voxel budget
+    (with NMS_CONFIG.TRAIN proposals in VoxelRCNN); eval mode at the test
+    budget.
   - `Detector` owns the static state (anchors, box coder, configs) and
-    exposes `predict` (decode + variance-voting NMS into fixed slots) and
-    `loss_fn` (train forward, anchor targets and every loss term).
+    exposes `predict` (decode + variance-voting or greedy NMS into fixed
+    slots) and `loss_fn` (train forward, anchor targets and every loss
+    term).
 
 `build_detector(cfg, device=None)` puts the model on the GPU unless the
 caller passes device='cpu'; without a GPU it raises.
@@ -29,7 +38,7 @@ from ..utils import box_coder as box_coder_lib
 from ..utils import common
 from . import anchor_heads, anchors, target_assigner
 from . import roi_heads as roi_lib
-from .bev_backbone import BaseBEVBackbone
+from .bev_backbone import SSFA, BaseBEVBackbone
 from .roi_heads import VoxelRCNNHead, decode_rcnn_boxes
 from .spconv_backbone import build_backbone_3d
 from .vfe import MeanVFE
@@ -41,7 +50,7 @@ def _require(cond, what):
 
 
 class DetectorNet(nn.Module):
-    """Neural slots of the VoxelRCNN / anchor-head detector."""
+    """Neural slots of the VoxelRCNN or single-stage SECONDNet detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -49,25 +58,29 @@ class DetectorNet(nn.Module):
                  box_coder, num_point_features: int = 4):
         super().__init__()
         mcfg = Cfg(model_cfg)
-        _require(mcfg.get('NAME') == 'VoxelRCNN', f"MODEL {mcfg.get('NAME')}")
+        name = mcfg.get('NAME')
+        _require(name in ('VoxelRCNN', 'SECONDNet'), f'MODEL {name}')
+        roi_cfg = mcfg.get('ROI_HEAD')
+        roi_name = None if roi_cfg is None else roi_cfg.NAME
+        _require((name == 'VoxelRCNN') == (roi_cfg is not None),
+                 f'MODEL {name} with ROI_HEAD {roi_name}')
         _require(mcfg.VFE.NAME == 'MeanVFE', f'VFE {mcfg.VFE.NAME}')
         _require(mcfg.MAP_TO_BEV.NAME == 'HeightCompression',
                  f'MAP_TO_BEV {mcfg.MAP_TO_BEV.NAME}')
-        _require(mcfg.BACKBONE_2D.NAME == 'BaseBEVBackbone',
+        _require(mcfg.BACKBONE_2D.NAME in ('BaseBEVBackbone', 'SSFA'),
                  f'BACKBONE_2D {mcfg.BACKBONE_2D.NAME}')
         head_cfg = mcfg.DENSE_HEAD
-        _require(head_cfg.NAME == 'AnchorHeadSingle',
-                 f'DENSE_HEAD {head_cfg.NAME}')
         ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
         assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
-        _require(assigner != 'ATSSTargetAssigner', assigner)
+        _require(assigner in ('AxisAlignedTargetAssigner',
+                              'WeightedAxisAlignedTargetAssigner'), assigner)
         _require(not ta_cfg.get('MATCH_HEIGHT', False), 'MATCH_HEIGHT')
-        roi_cfg = mcfg.ROI_HEAD
-        _require(roi_cfg.NAME in ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
-                 f'ROI_HEAD {roi_cfg.NAME}')
-        score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
-            'CLS_SCORE_TYPE', 'roi_iou')
-        _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
+        if roi_cfg is not None:
+            _require(roi_name in ('VoxelRCNNKLLabelIoUHead',
+                                  'VoxelRCNNHead'), f'ROI_HEAD {roi_name}')
+            score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
+                'CLS_SCORE_TYPE', 'roi_iou')
+            _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
         for absent in ('PFE', 'POINT_HEAD'):
             _require(absent not in mcfg, absent)
 
@@ -84,27 +97,31 @@ class DetectorNet(nn.Module):
         self.backbone_3d = build_backbone_3d(mcfg.BACKBONE_3D, grid_size,
                                              num_point_features)
         bb = mcfg.BACKBONE_2D
-        self.backbone_2d = BaseBEVBackbone(
-            in_channels=self.backbone_3d.num_bev_features,
-            layer_nums=tuple(bb.LAYER_NUMS),
-            layer_strides=tuple(bb.LAYER_STRIDES),
-            num_filters=tuple(bb.NUM_FILTERS),
-            upsample_strides=tuple(bb.get('UPSAMPLE_STRIDES', ())),
-            num_upsample_filters=tuple(bb.get('NUM_UPSAMPLE_FILTERS', ())))
+        if bb.NAME == 'SSFA':
+            self.backbone_2d = SSFA(self.backbone_3d.num_bev_features)
+        else:
+            self.backbone_2d = BaseBEVBackbone(
+                in_channels=self.backbone_3d.num_bev_features,
+                layer_nums=tuple(bb.LAYER_NUMS),
+                layer_strides=tuple(bb.LAYER_STRIDES),
+                num_filters=tuple(bb.NUM_FILTERS),
+                upsample_strides=tuple(bb.get('UPSAMPLE_STRIDES', ())),
+                num_upsample_filters=tuple(bb.get('NUM_UPSAMPLE_FILTERS',
+                                                  ())))
         self.num_dir_bins = (head_cfg.get('NUM_DIR_BINS', 2)
                              if head_cfg.get('USE_DIRECTION_CLASSIFIER', False)
                              else 0)
         self.dir_offset = head_cfg.get('DIR_OFFSET', 0.78539)
         self.dir_limit_offset = head_cfg.get('DIR_LIMIT_OFFSET', 0.0)
-        self.dense_head = anchor_heads.AnchorHeadSingle(
-            self.backbone_2d.num_bev_features, num_class,
+        self.dense_head = anchor_heads.build_dense_head(
+            head_cfg.NAME, self.backbone_2d.num_bev_features, num_class,
             anchor_set.num_anchors_per_location, box_coder.code_size,
             self.num_dir_bins)
-        self.roi_head = VoxelRCNNHead(
+        self.roi_head = None if roi_cfg is None else VoxelRCNNHead(
             roi_cfg, voxel_size, pc_range,
             level_channels=self.backbone_3d.level_channels,
             code_size=box_coder.code_size,
-            kl_label='KLLabel' in roi_cfg.NAME)
+            kl_label='KLLabel' in roi_name)
         self.register_buffer('flat_anchors',
                              torch.from_numpy(anchor_set.flat_anchors),
                              persistent=False)
@@ -119,8 +136,9 @@ class DetectorNet(nn.Module):
     def forward(self, points, points_mask, train: bool = False,
                 gt_boxes=None, gt_mask=None, gt_uncertainty=None,
                 generator=None, roi_targets=None):
-        """points (B, P, C), points_mask (B, P) -> dict with dense_head,
-        proposals and rcnn outputs, plus roi_targets in train mode.
+        """points (B, P, C), points_mask (B, P) -> dict with vox,
+        backbone_3d and dense_head outputs; in VoxelRCNN also proposals and
+        rcnn outputs, plus roi_targets in train mode.
 
         Train mode needs gt_boxes (B, M, 8), gt_mask (B, M) and optionally
         gt_uncertainty (B, M, 7); `generator` feeds the RoI sampling and
@@ -135,6 +153,8 @@ class DetectorNet(nn.Module):
         spatial_2d = self.backbone_2d(sp_out['bev_features'], train)
         out = {'vox': vox, 'backbone_3d': sp_out,
                'dense_head': self.dense_head(spatial_2d, train)}
+        if self.roi_head is None:
+            return out
 
         if roi_targets is None or not train:
             # proposals carry no gradient, as in the reference's no_grad
@@ -245,6 +265,11 @@ class Detector:
             'LOSS_WEIGHTS', {})
         self.code_weights = list(self.loss_weights.get('code_weights',
                                                        [1.0] * 7))
+        # the regression loss and score rules of the dense head, as JAX's
+        # Detector reads them off its name
+        self.use_kl_loss = 'KLLabel' in head_cfg.NAME
+        self.use_kl_nolabel = head_cfg.NAME == 'AnchorHeadKL'
+        self.use_iou_branch = 'IoU' in head_cfg.NAME
         self.net = DetectorNet(
             model_cfg, self.grid_size, self.voxel_size, self.pc_range,
             self.max_voxels_train, self.max_voxels_test,
@@ -271,8 +296,9 @@ class Detector:
         return self.compute_loss(out, batch)
 
     def compute_loss(self, full_out, batch):
-        """Anchor-head losses (focal cls, sin-difference smooth-L1, direction
-        bins) and the RCNN losses -> (total, metrics)."""
+        """Anchor-head losses (focal cls; KL-label, KL or sin-difference
+        smooth-L1 regression; direction bins; the IoU branch) and, in
+        VoxelRCNN, the RCNN losses -> (total, metrics)."""
         with torch.no_grad():
             per_sample = [target_assigner.assign_targets(
                 self.anchor_set, gb, gm, gu, self.box_coder)
@@ -286,10 +312,22 @@ class Detector:
         c_loss = anchor_heads.cls_loss(
             flat['cls_preds'], targets.box_cls_labels,
             self.num_class) * lw['cls_weight']
-        r_loss = anchor_heads.reg_loss_smooth_l1(
-            flat['box_preds'], targets.box_reg_targets,
-            targets.box_cls_labels,
-            code_weights=self.code_weights) * lw['loc_weight']
+        if self.use_kl_loss:
+            r_loss, parts = anchor_heads.reg_loss_kl_label(
+                flat['box_preds'], flat['box_std_preds'],
+                targets.box_reg_targets, targets.box_cls_labels,
+                targets.label_uncertainty, code_weights=self.code_weights)
+            metrics.update({k: v * lw['loc_weight'] for k, v in parts.items()})
+        elif self.use_kl_nolabel:
+            r_loss = anchor_heads.reg_loss_kl(
+                flat['box_preds'], flat['box_std_preds'],
+                targets.box_reg_targets, targets.box_cls_labels,
+                code_weights=self.code_weights)
+        else:
+            r_loss = anchor_heads.reg_loss_smooth_l1(
+                flat['box_preds'], targets.box_reg_targets,
+                targets.box_cls_labels, code_weights=self.code_weights)
+        r_loss = r_loss * lw['loc_weight']
         metrics['loss_cls'] = c_loss
         metrics['loss_loc'] = r_loss
         total = c_loss + r_loss
@@ -305,9 +343,17 @@ class Detector:
                 self.net.num_dir_bins) * lw['dir_weight']
             metrics['loss_dir'] = d_loss
             total = total + d_loss
-        rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
-        total = total + rcnn_total
-        metrics.update(rcnn_metrics)
+        if self.use_iou_branch and 'iou_preds' in flat:
+            i_loss = anchor_heads.iou_branch_loss(
+                flat['iou_preds'], flat['box_preds'],
+                targets.box_reg_targets, targets.box_cls_labels,
+                self.net.flat_anchors, self.box_coder)
+            metrics['loss_iou'] = i_loss
+            total = total + i_loss
+        if 'rcnn' in full_out:
+            rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
+            total = total + rcnn_total
+            metrics.update(rcnn_metrics)
         metrics['loss'] = total
         return total, metrics
 
@@ -331,6 +377,8 @@ class Detector:
 
     def finalize(self, full_out):
         """DetectorNet outputs -> predict's fixed-slot final boxes."""
+        if 'rcnn' not in full_out:
+            return self._finalize_dense(full_out['dense_head'])
         rcnn = full_out['rcnn']
         rois = rcnn['rois']
         b, r = rois.shape[:2]
@@ -345,11 +393,39 @@ class Detector:
                                full_out['proposals']['roi_labels'],
                                std_all.reshape(b, r, -1))
 
+    def _finalize_dense(self, head_out):
+        """Single stage: the decoded anchors' sigmoid scores (for IoU heads
+        zeroed below PRE_CLS_THRESH and times clip((iou + 1) / 2, 0) ** POW,
+        the rectified IoU zeroed below PRE_IOU_THRESH), best class, and
+        the head's log variances (zeros without a variance branch) into
+        the final NMS."""
+        decoded = anchor_heads.decode_predictions(
+            head_out, self.net.flat_anchors, self.box_coder,
+            dir_offset=self.net.dir_offset,
+            dir_limit_offset=self.net.dir_limit_offset,
+            num_dir_bins=self.net.num_dir_bins)
+        scores = torch.sigmoid(decoded['batch_cls_preds'])
+        if self.use_iou_branch and 'batch_iou_preds' in decoded:
+            head_cfg = self.model_cfg.DENSE_HEAD
+            iou = (decoded['batch_iou_preds'] + 1.0) * 0.5
+            scores = torch.where(
+                scores < head_cfg.get('PRE_CLS_THRESH', 0.0), 0.0, scores)
+            iou = torch.where(iou < head_cfg.get('PRE_IOU_THRESH', 0.0), 0.0,
+                              iou)
+            scores = scores * torch.pow(iou.clamp_min(0.0),
+                                        head_cfg.get('POW', 1.0))
+        best_scores, best_labels = scores.max(dim=-1)
+        boxes = decoded['batch_box_preds']
+        std = decoded.get('batch_box_std_preds', torch.zeros_like(boxes))
+        return self._final_nms(boxes[..., :7], best_scores, best_labels + 1,
+                               std)
+
     def _final_nms(self, boxes_all, best_scores, best_labels, std_all):
-        """Single-class final NMS per sample: variance voting
-        (new_nms_gpu / variance_voting, std_all (B, R, 7) the predicted log
-        variances) or greedy BEV NMS (nms_gpu) on the scores at or above
-        SCORE_THRESH."""
+        """Final NMS per sample over each box's best class (the
+        class-agnostic path; MULTI_CLASSES_NMS is not ported): variance
+        voting (new_nms_gpu / variance_voting, std_all (B, R, 7) the
+        predicted log variances) or greedy BEV NMS (nms_gpu) on the scores
+        at or above SCORE_THRESH."""
         post = self.model_cfg.POST_PROCESSING
         nms_cfg = post.NMS_CONFIG
         _require(not nms_cfg.get('MULTI_CLASSES_NMS', False),

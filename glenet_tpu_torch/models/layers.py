@@ -8,6 +8,8 @@ weight bridge (utils/jax_weights.py) maps variables by path.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -75,25 +77,45 @@ class MaskedBatchNorm(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv2D (no bias) + BN + ReLU on NCHW tensors (the JAX block is NHWC;
-    callers here keep the BEV maps channels-first and expose NHWC views).
+    """Conv2D (no bias) + BN (+ ReLU) on NCHW tensors (the JAX block is
+    NHWC; callers here keep the BEV maps channels-first and expose NHWC
+    views).
 
     `transpose` is the stride == kernel deconvolution of the BEV backbones
     (flax ConvTranspose, 'SAME'); the weight bridge flips its kernel into
-    torch's ConvTranspose2d layout."""
+    torch's ConvTranspose2d layout.  With `output_padding` set it is torch's
+    ConvTranspose2d(k, s, padding, output_padding) (SSFA's k3 s2 p1 op1),
+    whose weight sits on the block itself, as JAX's `kernel` leaf does.
+    `use_relu=False` leaves the ReLU out."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int = 3,
-                 stride: int = 1, padding: int = 0, transpose: bool = False):
+                 stride: int = 1, padding: int = 0, transpose: bool = False,
+                 output_padding: int | None = None, use_relu: bool = True):
         super().__init__()
-        if transpose:
+        self.transpose = transpose
+        self.output_padding = output_padding if transpose else None
+        if self.output_padding is not None:
+            self.weight = nn.Parameter(torch.empty(in_ch, features,
+                                                   kernel_size, kernel_size))
+            nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+            self.stride, self.padding = stride, padding
+        elif transpose:
             self.ConvTranspose_0 = nn.ConvTranspose2d(
                 in_ch, features, kernel_size, stride, bias=False)
         else:
             self.Conv_0 = nn.Conv2d(in_ch, features, kernel_size, stride,
                                     padding, bias=False)
-        self.transpose = transpose
+        self.use_relu = use_relu
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, channel_dim=1)
 
     def forward(self, x, train: bool = False):
-        x = self.ConvTranspose_0(x) if self.transpose else self.Conv_0(x)
-        return F.relu(self.MaskedBatchNorm_0(x, use_running_average=not train))
+        if self.output_padding is not None:
+            x = F.conv_transpose2d(x, self.weight, stride=self.stride,
+                                   padding=self.padding,
+                                   output_padding=self.output_padding)
+        elif self.transpose:
+            x = self.ConvTranspose_0(x)
+        else:
+            x = self.Conv_0(x)
+        x = self.MaskedBatchNorm_0(x, use_running_average=not train)
+        return F.relu(x) if self.use_relu else x

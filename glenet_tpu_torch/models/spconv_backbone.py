@@ -2,11 +2,13 @@
 ops/sparse.py (torch counterpart of glenet_tpu/models/spconv_backbone.py):
 
   conv_input SubM(16) -> conv1 [SubM16]
-  -> conv2 [SpConv s2 -> 32, 2 x SubM32]            (sparse)
-  -> conv3 [SpConv s2 -> 64, densify, 2 x SubM64]   (dense from level 3)
-  -> conv4 [Conv s2 pad (0,1,1) -> 64, 2 x SubM64]  (dense)
-  -> conv_out Conv (3,1,1) stride (2,1,1) -> 128    (dense)
+  -> conv2 [SpConv s2 -> 32, n2 x SubM32]            (sparse)
+  -> conv3 [SpConv s2 -> 64, densify, n3 x SubM64]   (dense from level 3)
+  -> conv4 [Conv s2 pad (0,1,1) -> 64, n4 x SubM64]  (dense)
+  -> conv_out Conv (3,1,1) stride (2,1,1) -> C_out   (dense)
 then HeightCompression to BEV (z folded into channels, z-outer).
+VoxelBackBone8x has (n2, n3, n4) = (2, 2, 2) and C_out 128;
+VoxelBackBone8xCiassd (GLENet-C) (2, 3, 3) and 64.
 
 The dense levels keep NCDHW tensors and expose channels-last views, the
 JAX package's layout, in `multi_scale`.  The level caps follow the voxel
@@ -29,10 +31,9 @@ from .layers import MaskedBatchNorm
 # runs in f32 on the conv output).  None keeps the input dtype.
 DENSE_MXU_DTYPE = torch.bfloat16
 
-# VoxelBackBone8x widths (the JAX module's defaults, used by GLENet-VR)
+# widths of the levels (the JAX module's default, used by every ported
+# variant)
 CHANNELS = (16, 32, 64, 64)
-SUBM_PER_BLOCK = (2, 2, 2)
-OUT_CHANNELS = 128
 
 
 def _sparse_kernel(k_vol, cin, cout):
@@ -122,11 +123,11 @@ class VoxelBackBone8x(nn.Module):
     """grid_size: (nx, ny, nz) raw voxel grid; the sparse z becomes nz + 1.
     Levels 1-2 and conv3_down run sparse, the rest dense (dense_from=3)."""
 
-    def __init__(self, grid_size, in_channels: int = 4):
+    def __init__(self, grid_size, in_channels: int = 4,
+                 subm_per_block=(2, 2, 2), out_channels: int = 128):
         super().__init__()
         self.grid_size = tuple(grid_size)
         c1, c2, c3, c4 = CHANNELS
-        subm_per_block, out_channels = SUBM_PER_BLOCK, OUT_CHANNELS
         self.conv_input = SubMConvBN(in_channels, c1)
         self.conv1_0 = SubMConvBN(c1, c1)
         self.conv2_down = SparseConvBN(c1, c2, 2, 1)
@@ -215,8 +216,15 @@ class VoxelBackBone8x(nn.Module):
                 'num_bev_features': nz5 * c}
 
 
+# BACKBONE_3D name -> (subm_per_block, out_channels)
+VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), 128),
+            'VoxelBackBone8xCiassd': ((2, 3, 3), 64)}
+
+
 def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4):
-    if bb3d_cfg.NAME == 'VoxelBackBone8x':
+    if bb3d_cfg.NAME in VARIANTS:
+        subm, out_channels = VARIANTS[bb3d_cfg.NAME]
         return VoxelBackBone8x(grid_size=tuple(grid_size),
-                               in_channels=in_channels)
+                               in_channels=in_channels, subm_per_block=subm,
+                               out_channels=out_channels)
     raise NotImplementedError(f'BACKBONE_3D {bb3d_cfg.NAME} is not ported yet')

@@ -1,18 +1,20 @@
-"""Where the time of a full-width GLENet-VR train step goes, on one GPU.
+"""Where the time of a full-width train step goes, on one GPU.
 
     python3 -m glenet_tpu_torch.profile_train [--cfg_file CFG]
 
-configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. GLENet_VR_vq.yaml for
-the voxel-query RoI pooling) at full width, seeded random weights,
+configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
+voxel-query RoI pooling, or a single-stage GLENet_S.yaml, GLENet_C.yaml,
+second.yaml) at full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
 points with Car gt boxes at their clusters (utils/synthetic.py), the train
 voxel budget, adam_onecycle over the schedule of a full run (`total_steps`).
 One warm-up step, then:
   1. per-stage wall times of 3 steps, with a device synchronise at every
      stage boundary (so the stages add up to more than an unsynchronised
-     step): forward to the dense head, train NMS, RoI sampling, RoI head
-     forward, loss (anchor targets and every loss term), backward,
-     optimizer (clip and adam_onecycle);
+     step): two-stage, forward to the dense head, train NMS, RoI sampling,
+     RoI head forward, loss (anchor targets and every loss term),
+     backward, optimizer (clip and adam_onecycle); single-stage, forward,
+     targets + loss, backward, optimizer;
   2. a torch.profiler window over 3 steps without those synchronises: the
      device busy share (summed device time of the kernels over the window's
      wall time) and the top 30 device operators;
@@ -37,8 +39,6 @@ from .utils.synthetic import seeded_detector, train_batches
 ROOT = Path(__file__).resolve().parent.parent
 KITTI_TRAIN_FRAMES = 3712       # KITTI's train split (ImageSets/train.txt)
 STEPS, TOP = 3, 30
-STAGES = ('forward to the dense head', 'train NMS', 'RoI sampling',
-          'RoI head forward', 'loss', 'backward', 'optimizer')
 
 
 def total_steps(opt_cfg):
@@ -83,11 +83,14 @@ def stage_times(det, tx, state, train_step, batch):
     """One train step with a synchronise at every stage boundary -> (state,
     {stage: ms}, step ms)."""
     marks = []
-    undo = [_wrap(marks, det.net, '_proposals', 'nms>', 'nms<'),
-            _wrap(marks, det.net, '_sample_roi_targets', None, 'sample<'),
-            _wrap(marks, det.net.roi_head, 'forward', 'head>', 'head<'),
-            _wrap(marks, det, 'compute_loss', None, 'loss<'),
+    two_stage = det.net.roi_head is not None
+    undo = [_wrap(marks, det, 'compute_loss', 'loss>', 'loss<'),
             _wrap(marks, tx, 'update', 'backward<', 'update<')]
+    if two_stage:
+        undo += [_wrap(marks, det.net, '_proposals', 'nms>', 'nms<'),
+                 _wrap(marks, det.net, '_sample_roi_targets', None,
+                       'sample<'),
+                 _wrap(marks, det.net.roi_head, 'forward', 'head>', 'head<')]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -98,10 +101,17 @@ def stage_times(det, tx, state, train_step, batch):
         for u in undo:
             u()
     t = dict(marks)
-    spans = dict(zip(STAGES, (
-        t['nms>'] - t0, t['nms<'] - t['nms>'], t['sample<'] - t['nms<'],
-        t['head<'] - t['sample<'], t['loss<'] - t['head<'],
-        t['backward<'] - t['loss<'], t['update<'] - t['backward<'])))
+    if two_stage:
+        spans = {'forward to the dense head': t['nms>'] - t0,
+                 'train NMS': t['nms<'] - t['nms>'],
+                 'RoI sampling': t['sample<'] - t['nms<'],
+                 'RoI head forward': t['head<'] - t['sample<'],
+                 'loss': t['loss<'] - t['head<']}
+    else:
+        spans = {'forward': t['loss>'] - t0,
+                 'targets + loss': t['loss<'] - t['loss>']}
+    spans.update({'backward': t['backward<'] - t['loss<'],
+                  'optimizer': t['update<'] - t['backward<']})
     return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
@@ -125,13 +135,13 @@ def main(argv=None):
     state, _ = train_step(state, batches[0])
     torch.cuda.synchronize()
 
-    totals = dict.fromkeys((*STAGES, 'step (synchronised stages)'), 0.0)
+    totals = {}
     torch.cuda.reset_peak_memory_stats()
     for batch in batches[1:1 + STEPS]:
         state, spans, total = stage_times(det, tx, state, train_step, batch)
+        spans['step (synchronised stages)'] = total
         for k, v in spans.items():
-            totals[k] += v / STEPS
-        totals['step (synchronised stages)'] += total / STEPS
+            totals[k] = totals.get(k, 0.0) + v / STEPS
     peak = torch.cuda.max_memory_allocated()
     print(f'stage wall times, mean of {STEPS} steps (ms):')
     for k, v in totals.items():

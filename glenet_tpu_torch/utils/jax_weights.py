@@ -12,6 +12,10 @@ module at `mod.(...)`, converted by that module's type:
   - nn.ConvTranspose2d: (kH, kW, I, O) kernel -> (I, O, kH, kW), spatially
                         flipped (flax's transpose conv correlates the
                         dilated input with the kernel unflipped)
+  - ConvBlock:          the `kernel` of a block with output_padding (SSFA's
+                        k3 s2 p1 op1 deconvolutions: JAX correlates the
+                        lhs-dilated input with it) -> the block's `weight`,
+                        torch's ConvTranspose2d layout, by the same flip
   - DenseConvBN:        (kz*ky*kx, Cin, Cout), tap = dz*ky*kx + dy*kx + dx
                         -> conv3d weight (Cout, Cin, kz, ky, kx)
   - sparse convs:       (27, Cin, Cout) kernels kept as they are
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.layers import MaskedBatchNorm
+from ..models.layers import ConvBlock, MaskedBatchNorm
 from ..models.spconv_backbone import DenseConvBN, SparseConvBN, SubMConvBN
 
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
@@ -49,7 +53,8 @@ def _convert(module, leaf, value):
         return _BN_NAMES[leaf], value
     if isinstance(module, nn.Linear) and leaf in ('kernel', 'bias'):
         return ('weight', value.T) if leaf == 'kernel' else ('bias', value)
-    if isinstance(module, nn.ConvTranspose2d) and leaf == 'kernel':
+    if isinstance(module, (nn.ConvTranspose2d, ConvBlock)) and \
+            leaf == 'kernel':
         return 'weight', value[::-1, ::-1].transpose(2, 3, 0, 1)
     if isinstance(module, nn.Conv2d) and leaf in ('kernel', 'bias'):
         return (('weight', value.transpose(3, 2, 0, 1)) if leaf == 'kernel'
@@ -97,7 +102,8 @@ def _export(module, name, value):
     if isinstance(module, nn.Linear):
         return ('params', 'kernel', value.T) if name == 'weight' \
             else ('params', 'bias', value)
-    if isinstance(module, nn.ConvTranspose2d) and name == 'weight':
+    if isinstance(module, (nn.ConvTranspose2d, ConvBlock)) and \
+            name == 'weight':
         return 'params', 'kernel', value.transpose(2, 3, 0, 1)[::-1, ::-1]
     if isinstance(module, nn.Conv2d):
         return ('params', 'kernel', value.transpose(2, 3, 1, 0)) \

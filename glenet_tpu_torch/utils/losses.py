@@ -1,7 +1,7 @@
-"""Detection losses of the GLENet-VR train step (torch counterparts of
+"""Detection losses of the train steps (torch counterparts of
 glenet_tpu/utils/losses.py): focal classification, sin-difference smooth-L1
 regression with per-code weights and the NaN-target rule, direction-bin
-cross entropy and the corner loss."""
+cross entropy, the corner loss and GLENet's KL-label regression loss."""
 from __future__ import annotations
 
 import math
@@ -88,3 +88,29 @@ def add_sin_difference(boxes1, boxes2, dim: int = 6):
                       dim=-1),
             torch.cat([boxes2[..., :dim], rad_tg, boxes2[..., dim + 1:]],
                       dim=-1))
+
+
+def kl_label_reg_loss(box_preds, box_std_preds, box_reg_targets, reg_weights,
+                      label_uncertainty, code_weights=None,
+                      beta: float = 1.0 / 9.0):
+    """GLENet's KL regression loss against each label's variance: with the
+    predicted log variance s = max(box_std_preds, -50) and the label's
+    t = log(label_uncertainty + 1e-10), per anchor and code dim
+
+        exp(-s) * smoothL1(sin-difference residual)
+        + exp(t - s) * w - 0.5 * (t - s) * w,
+
+    w the (B, N) anchor weights.  Background anchors carry a variance of 0
+    (t = -23) and weight 0.  Returns (sum of the three parts, {loc_loss_src,
+    loc_loss_square, loc_loss_log}: each part's sum)."""
+    s = box_std_preds.clamp_min(-50.0)
+    t = torch.log(label_uncertainty + 1e-10)
+    preds_sin, targets_sin = add_sin_difference(box_preds, box_reg_targets)
+    l1 = weighted_smooth_l1(preds_sin, targets_sin, reg_weights, beta=beta,
+                            code_weights=code_weights)
+    w = reg_weights[..., None]
+    parts = {'loc_loss_src': (torch.exp(-s) * l1).sum(),
+             'loc_loss_square': (torch.exp(t - s) * w).sum(),
+             'loc_loss_log': (-0.5 * (t - s) * w).sum()}
+    return (parts['loc_loss_src'] + parts['loc_loss_square']
+            + parts['loc_loss_log']), parts

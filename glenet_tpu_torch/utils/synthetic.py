@@ -11,6 +11,7 @@ import torch
 
 from ..models.detectors import build_detector
 from ..models.layers import MaskedBatchNorm
+from ..models.spconv_backbone import VARIANTS
 from . import box_utils, calibration_kitti, common
 
 N_POINTS = 32768
@@ -113,25 +114,34 @@ def seeded_detector(cfg, device, seed):
 # a reference (pcdet) checkpoint of random tensors
 # ---------------------------------------------------------------------------
 
-# VoxelBackBone8x: (name, cin, cout, kernel (kz, ky, kx)) of each spconv
-# layer in the reference's module order; each is followed by a BatchNorm1d
-_PCDET_BACKBONE = (
-    ('conv_input.0', 'in', 16, (3, 3, 3)), ('conv1.0.0', 16, 16, (3, 3, 3)),
-    ('conv2.0.0', 16, 32, (3, 3, 3)), ('conv2.1.0', 32, 32, (3, 3, 3)),
-    ('conv2.2.0', 32, 32, (3, 3, 3)), ('conv3.0.0', 32, 64, (3, 3, 3)),
-    ('conv3.1.0', 64, 64, (3, 3, 3)), ('conv3.2.0', 64, 64, (3, 3, 3)),
-    ('conv4.0.0', 64, 64, (3, 3, 3)), ('conv4.1.0', 64, 64, (3, 3, 3)),
-    ('conv4.2.0', 64, 64, (3, 3, 3)), ('conv_out.0', 64, 128, (3, 1, 1)))
+def _pcdet_backbone(subm_per_block, out_channels):
+    """VoxelBackBone8x(Ciassd): (name, cin, cout, kernel (kz, ky, kx)) of
+    each spconv layer in the reference's module order; each is followed by
+    a BatchNorm1d."""
+    layers = [('conv_input.0', 'in', 16, (3, 3, 3)),
+              ('conv1.0.0', 16, 16, (3, 3, 3))]
+    for lvl, cin, c, n in zip((2, 3, 4), (16, 32, 64), (32, 64, 64),
+                              subm_per_block):
+        layers.append((f'conv{lvl}.0.0', cin, c, (3, 3, 3)))
+        layers += [(f'conv{lvl}.{j}.0', c, c, (3, 3, 3))
+                   for j in range(1, n + 1)]
+    return layers + [('conv_out.0', 64, out_channels, (3, 1, 1))]
 
 
 def pcdet_state_dict(cfg, seed=0, num_point_features=4):
     """A state dict of random tensors under the key names and layouts of
-    the reference (OpenPCDet) VoxelRCNN family for `cfg`: MeanVFE (no
-    parameters), VoxelBackBone8x (spconv 2.x weights (O, kz, ky, kx, I);
-    conv{L}.{block}.{0 conv, 1 BN}), BaseBEVBackbone (blocks.{i} = ZeroPad,
-    Conv, BN, ReLU, then Conv, BN, ReLU per layer; deblocks.{i} =
-    ConvTranspose2d (I, O, k, k), BN, ReLU), AnchorHeadSingle (1x1 conv_cls
-    / conv_box / conv_dir_cls with biases), and the VoxelRCNN roi head:
+    the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN or SECONDNet:
+    MeanVFE (no parameters), VoxelBackBone8x or VoxelBackBone8xCiassd
+    (spconv 2.x weights (O, kz, ky, kx, I); conv{L}.{block}.{0 conv, 1
+    BN}), BaseBEVBackbone (blocks.{i} = ZeroPad, Conv, BN, ReLU, then Conv,
+    BN, ReLU per layer; deblocks.{i} = ConvTranspose2d (I, O, k, k), BN,
+    ReLU) or SSFA (bottom_up_block_0 = ZeroPad then 3 x Conv, BN, ReLU;
+    bottom_up_block_1 = 3 x Conv, BN, ReLU, the first of stride 2; trans_0
+    / trans_1 / conv_0 / conv_1 / w_0 / w_1 = Conv, BN (ReLU);
+    deconv_block_{i} = ConvTranspose2d (256, 128, 3, 3), BN, ReLU; no conv
+    biases), the anchor head (1x1 conv_cls / conv_box / conv_dir_cls with
+    biases, conv_box_std for AnchorHeadKLLabel and conv_iou for
+    AnchorHeadKLLabelIoU), and in VoxelRCNN the roi head:
     roi_grid_pool_layers.{k} NeighborVoxelSAModuleMSG (mlps_in.0 Conv1d +
     BN1d, mlps_pos.0 Conv2d 1x1 + BN2d, mlps_out.0 Conv1d + BN1d), the
     shared_fc_layer / cls_fc_layers / reg_fc_layers stacks of Linear, BN1d,
@@ -160,7 +170,8 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=4):
         sd[f'{prefix}.running_var'] = rng.uniform(0.5, 1.5, n)
         sd[f'{prefix}.num_batches_tracked'] = np.array(1000, np.int64)
 
-    for name, cin, cout, k in _PCDET_BACKBONE:
+    subm, c_out = VARIANTS[mcfg.BACKBONE_3D.NAME]
+    for name, cin, cout, k in _pcdet_backbone(subm, c_out):
         cin = num_point_features if cin == 'in' else cin
         weight(f'backbone_3d.{name}.weight', (cout, *k, cin),
                cin * int(np.prod(k)))
@@ -175,34 +186,65 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=4):
     for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, (0, 1, 1)),
                     ((3, 1, 1), (2, 1, 1), 0)):
         g = sparse.out_grid_size(g, k, s, p)
-    c_in = g[2] * 128
+    c_in = g[2] * c_out
 
     bb = mcfg.BACKBONE_2D
-    for i, (n, f) in enumerate(zip(bb.LAYER_NUMS, bb.NUM_FILTERS)):
-        weight(f'backbone_2d.blocks.{i}.1.weight', (f, c_in, 3, 3), c_in * 9)
-        bn(f'backbone_2d.blocks.{i}.2', f)
-        for j in range(n):
-            weight(f'backbone_2d.blocks.{i}.{4 + 3 * j}.weight',
-                   (f, f, 3, 3), f * 9)
-            bn(f'backbone_2d.blocks.{i}.{5 + 3 * j}', f)
-        up, s = bb.NUM_UPSAMPLE_FILTERS[i], bb.UPSAMPLE_STRIDES[i]
-        weight(f'backbone_2d.deblocks.{i}.0.weight', (f, up, s, s), f * s * s)
-        bn(f'backbone_2d.deblocks.{i}.1', up)
-        c_in = f
-    c_bev = sum(bb.NUM_UPSAMPLE_FILTERS)
+    if bb.NAME == 'SSFA':
+        convs = [(f'bottom_up_block_0.{1 + 3 * i}', f'bottom_up_block_0.'
+                  f'{2 + 3 * i}', c_in if i == 0 else 128, 128, 3)
+                 for i in range(3)]
+        convs += [(f'bottom_up_block_1.{3 * i}', f'bottom_up_block_1.'
+                   f'{3 * i + 1}', 128 if i == 0 else 256, 256, 3)
+                  for i in range(3)]
+        convs += [(f'{name}.0', f'{name}.1', cin, cout, k)
+                  for name, cin, cout, k in (
+                      ('trans_0', 128, 128, 1), ('trans_1', 256, 256, 1),
+                      ('conv_0', 128, 128, 3), ('conv_1', 128, 128, 3),
+                      ('w_0', 128, 1, 1), ('w_1', 128, 1, 1))]
+        for conv, bn_key, cin, cout, k in convs:
+            weight(f'backbone_2d.{conv}.weight', (cout, cin, k, k),
+                   cin * k * k)
+            bn(f'backbone_2d.{bn_key}', cout)
+        for i in (0, 1):
+            weight(f'backbone_2d.deconv_block_{i}.0.weight', (256, 128, 3, 3),
+                   256 * 9)
+            bn(f'backbone_2d.deconv_block_{i}.1', 128)
+        c_bev = 128
+    else:
+        for i, (n, f) in enumerate(zip(bb.LAYER_NUMS, bb.NUM_FILTERS)):
+            weight(f'backbone_2d.blocks.{i}.1.weight', (f, c_in, 3, 3),
+                   c_in * 9)
+            bn(f'backbone_2d.blocks.{i}.2', f)
+            for j in range(n):
+                weight(f'backbone_2d.blocks.{i}.{4 + 3 * j}.weight',
+                       (f, f, 3, 3), f * 9)
+                bn(f'backbone_2d.blocks.{i}.{5 + 3 * j}', f)
+            up, s = bb.NUM_UPSAMPLE_FILTERS[i], bb.UPSAMPLE_STRIDES[i]
+            weight(f'backbone_2d.deblocks.{i}.0.weight', (f, up, s, s),
+                   f * s * s)
+            bn(f'backbone_2d.deblocks.{i}.1', up)
+            c_in = f
+        c_bev = sum(bb.NUM_UPSAMPLE_FILTERS)
 
     head = mcfg.DENSE_HEAD
     n_anchors = sum(len(a['anchor_sizes']) * len(a['anchor_rotations'])
                     * len(a['anchor_bottom_heights'])
                     for a in head.ANCHOR_GENERATOR_CONFIG)
-    outs = {'conv_cls': len(cfg.CLASS_NAMES), 'conv_box': 7}
+    n_class = len(cfg.CLASS_NAMES)
+    outs = {'conv_cls': n_class, 'conv_box': 7}
     if head.get('USE_DIRECTION_CLASSIFIER', False):
         outs['conv_dir_cls'] = head.NUM_DIR_BINS
+    if head.NAME in ('AnchorHeadKLLabel', 'AnchorHeadKLLabelIoU'):
+        outs['conv_box_std'] = 7
+    if head.NAME == 'AnchorHeadKLLabelIoU':
+        outs['conv_iou'] = n_class
     for name, per_anchor in outs.items():
         weight(f'dense_head.{name}.weight', (n_anchors * per_anchor, c_bev,
                                              1, 1), c_bev)
         bias(f'dense_head.{name}.bias', n_anchors * per_anchor)
 
+    if 'ROI_HEAD' not in mcfg:
+        return _tensors(sd)
     roi = mcfg.ROI_HEAD
     pool = roi.ROI_GRID_POOL
     channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64}
@@ -248,6 +290,10 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=4):
         bn('roi_head.reg_std_bn1', 64)
         weight('roi_head.reg_std_fc2.weight', (1, 64), 64)
         bias('roi_head.reg_std_fc2.bias', 1)
+    return _tensors(sd)
+
+
+def _tensors(sd):
     return {k: torch.from_numpy(np.asarray(
         v, np.int64 if k.endswith('num_batches_tracked') else np.float32))
         for k, v in sd.items()}

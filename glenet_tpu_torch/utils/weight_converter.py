@@ -1,8 +1,10 @@
 """Reference (pcdet) checkpoints -> glenet_tpu's variable layout, for the
-VoxelRCNN family the port runs (GLENet-VR, plain Voxel R-CNN): MeanVFE +
-VoxelBackBone8x + HeightCompression + BaseBEVBackbone + AnchorHeadSingle +
-the VoxelRCNN roi head.  The port's own copy of the matching part of
-glenet_tpu/utils/weight_converter.py, numpy only.  It returns the same
+families the port runs: MeanVFE + VoxelBackBone8x or VoxelBackBone8xCiassd
++ HeightCompression + BaseBEVBackbone or SSFA + AnchorHeadSingle or the
+KL-label heads, and for VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi
+head; SECONDNet (GLENet-S, GLENet-C, plain SECOND) has none.  The port's
+own copy of the matching part of glenet_tpu/utils/weight_converter.py,
+numpy only.  It returns the same
 flax-shaped {'params', 'batch_stats'} numpy tree, which
 utils/jax_weights.load_jax_variables loads into the port.
 
@@ -86,8 +88,8 @@ def t2f_spconv(w):
 # ---------------------------------------------------------------------------
 
 def _conv_block(sd, conv_key, bn_key, transpose=False):
-    """-> ConvBlock variables: params {Conv_0: {kernel}, MaskedBatchNorm_0},
-    batch_stats {MaskedBatchNorm_0}."""
+    """-> ConvBlock variables: params {Conv_0 (or ConvTranspose_0):
+    {kernel}, MaskedBatchNorm_0}, batch_stats {MaskedBatchNorm_0}."""
     w = sd[conv_key]
     kernel = t2f_conv_transpose(w) if transpose else t2f_conv(w)
     bn_p, bn_s = t2f_bn(sd, bn_key)
@@ -155,6 +157,39 @@ def convert_base_bev_backbone(sd, layer_nums, upsample=True, prefix='',
             params[f'ConvBlock_{k}'] = p
             stats[f'ConvBlock_{k}'] = s
             k += 1
+    return params, stats
+
+
+def convert_ssfa(sd, prefix='backbone_2d.', in_perm=None):
+    """Reference SSFA state dict -> the SSFA subtree (bev_backbone.SSFA's
+    children).  bottom_up_block_0 leads with a ZeroPad2d, so its convs sit
+    at Sequential indices 1, 4, 7; every other block is [Conv or
+    ConvTranspose, BN, (ReLU)] from index 0.  The k3 s2 p1 op1
+    deconvolutions keep their kernel on the ConvBlock itself.  `in_perm`
+    remaps the first conv's input channels (height_compression_perm)."""
+    params, stats = {}, {}
+
+    def put(ours, conv_key, bn_key, transpose=False):
+        p, s = _conv_block(sd, prefix + conv_key, prefix + bn_key,
+                           transpose=transpose)
+        if transpose:
+            p = {'kernel': p['ConvTranspose_0']['kernel'],
+                 'MaskedBatchNorm_0': p['MaskedBatchNorm_0']}
+        params[ours], stats[ours] = p, s
+
+    for i in range(3):
+        put(f'bottom_up_0_{i}', f'bottom_up_block_0.{1 + 3 * i}.weight',
+            f'bottom_up_block_0.{2 + 3 * i}')
+        put(f'bottom_up_1_{i}', f'bottom_up_block_1.{3 * i}.weight',
+            f'bottom_up_block_1.{3 * i + 1}')
+    for name in ('trans_0', 'trans_1', 'conv_0', 'conv_1', 'w_0', 'w_1'):
+        put(name, f'{name}.0.weight', f'{name}.1')
+    for i in (0, 1):
+        put(f'deconv_{i}', f'deconv_block_{i}.0.weight',
+            f'deconv_block_{i}.1', transpose=True)
+    if in_perm is not None:
+        k = params['bottom_up_0_0']['Conv_0']['kernel']
+        params['bottom_up_0_0']['Conv_0']['kernel'] = k[:, :, in_perm, :]
     return params, stats
 
 
@@ -359,44 +394,63 @@ def _require(cond, family):
         raise NotImplementedError(f'no conversion for {family} in the port')
 
 
+# BACKBONE_3D name -> subm_per_block
+_BB3D_VARIANTS = {'VoxelBackBone8x': (2, 2, 2),
+                  'VoxelBackBone8xCiassd': (2, 3, 3)}
+_DENSE_HEADS = ('AnchorHeadSingle', 'AnchorHeadKLLabel', 'AnchorHeadKL',
+                'AnchorHeadKLLabelIoU', 'AnchorHeadKLLabelIoUGuide',
+                'AnchorHeadIoU')
+
+
 def convert_full_model(cfg, state_dict, variables):
-    """Full-model reference -> variables conversion for the VoxelRCNN
-    family: MeanVFE (no parameters), VoxelBackBone8x, BaseBEVBackbone,
-    AnchorHeadSingle and, with POOL_MODE voxel_query, the VoxelRCNN roi
+    """Full-model reference -> variables conversion: MeanVFE (no
+    parameters), VoxelBackBone8x or VoxelBackBone8xCiassd, BaseBEVBackbone
+    or SSFA, the anchor head (with conv_box_std / conv_iou where the state
+    dict has them) and, in VoxelRCNN with POOL_MODE voxel_query, the roi
     head (see the module docstring for corner mode).  `variables` is the
     template: a full {'params', 'batch_stats'} tree whose leaves the
-    converted ones replace.  Any other family raises NotImplementedError.
+    converted ones replace.  Any other family raises NotImplementedError
+    before it reads a key.
 
     Returns (variables, report): report['converted'] lists the converted
     subtrees, report['unconsumed'] the reference keys that had no
     destination (num_batches_tracked left out)."""
     mcfg = cfg.MODEL
+    name = mcfg.get('NAME')
+    _require(name in ('VoxelRCNN', 'SECONDNet'), f'MODEL {name}')
     _require(mcfg.VFE.NAME == 'MeanVFE', f'VFE {mcfg.VFE.NAME}')
     bb3d = mcfg.get('BACKBONE_3D', {}).get('NAME')
-    _require(bb3d == 'VoxelBackBone8x', f'BACKBONE_3D {bb3d}')
+    _require(bb3d in _BB3D_VARIANTS, f'BACKBONE_3D {bb3d}')
     bb2d = mcfg.get('BACKBONE_2D', {}).get('NAME')
-    _require(bb2d == 'BaseBEVBackbone', f'BACKBONE_2D {bb2d}')
-    _require(mcfg.DENSE_HEAD.NAME == 'AnchorHeadSingle',
+    _require(bb2d in ('BaseBEVBackbone', 'SSFA'), f'BACKBONE_2D {bb2d}')
+    _require(mcfg.DENSE_HEAD.NAME in _DENSE_HEADS,
              f'DENSE_HEAD {mcfg.DENSE_HEAD.NAME}')
     roi_cfg = mcfg.get('ROI_HEAD', None)
     roi_name = roi_cfg.NAME if roi_cfg is not None else None
-    _require(roi_name in ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
+    _require(roi_name in (('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead')
+                          if name == 'VoxelRCNN' else (None,)),
              f'ROI_HEAD {roi_name}')
 
     tsd, sd, consumed = _tracked(state_dict)
     merged = variables
     report = {'converted': []}
 
-    bb3d_p, bb3d_s = convert_voxel_backbone_8x(tsd)
+    bb3d_p, bb3d_s = convert_voxel_backbone_8x(
+        tsd, subm_per_block=_BB3D_VARIANTS[bb3d])
     merged = merge_into(merged, ('backbone_3d',), bb3d_p, bb3d_s)
     report['converted'].append('backbone_3d')
 
-    layer_nums = list(mcfg.BACKBONE_2D.LAYER_NUMS)
-    upsample = bool(mcfg.BACKBONE_2D.get('UPSAMPLE_STRIDES', []))
-    perm = height_compression_perm(sd, 'backbone_2d.blocks.0.1.weight')
-    bb2d_p, bb2d_s = convert_base_bev_backbone(
-        tsd, layer_nums, upsample=upsample, prefix='backbone_2d.',
-        in_perm=perm)
+    if bb2d == 'SSFA':
+        perm = height_compression_perm(
+            sd, 'backbone_2d.bottom_up_block_0.1.weight')
+        bb2d_p, bb2d_s = convert_ssfa(tsd, in_perm=perm)
+    else:
+        layer_nums = list(mcfg.BACKBONE_2D.LAYER_NUMS)
+        upsample = bool(mcfg.BACKBONE_2D.get('UPSAMPLE_STRIDES', []))
+        perm = height_compression_perm(sd, 'backbone_2d.blocks.0.1.weight')
+        bb2d_p, bb2d_s = convert_base_bev_backbone(
+            tsd, layer_nums, upsample=upsample, prefix='backbone_2d.',
+            in_perm=perm)
     merged = merge_into(merged, ('backbone_2d',), bb2d_p, bb2d_s)
     report['converted'].append('backbone_2d')
 
@@ -404,8 +458,9 @@ def convert_full_model(cfg, state_dict, variables):
     merged = merge_into(merged, ('dense_head',), dh_p, dh_s)
     report['converted'].append('dense_head')
 
-    if (str(roi_cfg.get('ROI_GRID_POOL', {}).get(
-            'POOL_MODE', 'corner')) == 'voxel_query'
+    if (roi_cfg is not None
+            and str(roi_cfg.get('ROI_GRID_POOL', {}).get(
+                'POOL_MODE', 'corner')) == 'voxel_query'
             and 'roi_head.shared_fc_layer.0.weight' in sd):
         rh_p, rh_s = convert_voxelrcnn_kl_head(
             tsd, list(roi_cfg.ROI_GRID_POOL.FEATURES_SOURCE))

@@ -55,7 +55,8 @@ def test_other_families_raise():
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/second.yaml'))
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
+                                        'pointpillar.yaml'))
     with pytest.raises(NotImplementedError):
         build_detector(cfg, device='cpu')
 
@@ -178,6 +179,37 @@ def test_unported_augmentations_raise(name, tmp_path):
     assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 1
 
 
+@pytest.mark.parametrize('section,key,value,match', [
+    ('DENSE_HEAD', 'NAME', 'AnchorHeadSessd', 'AnchorHeadSessd'),
+    ('DENSE_HEAD', 'NAME', 'AnchorHeadMulti', 'AnchorHeadMulti'),
+    ('', 'NAME', 'SECONDNetIoU', 'SECONDNetIoU'),
+    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'NAME', 'ATSSTargetAssigner',
+     'ATSSTargetAssigner'),
+    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'MATCH_HEIGHT', True,
+     'MATCH_HEIGHT'),
+    ('POST_PROCESSING.NMS_CONFIG', 'MULTI_CLASSES_NMS', True,
+     'multi-class')])
+def test_single_stage_refusals(section, key, value, match):
+    """What the single-stage family of the JAX package has and the port
+    does not (SE-SSD's head and od-IoU loss, the multi-head, SECOND-IoU,
+    ATSS, height matching, multi-class final NMS) raises naming itself, at
+    build time or at the first predict."""
+    import torch_parity as tp
+
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = tp.to_port_cfg(tp.tiny_single_stage_cfg('SECOND'))
+    node = cfg.MODEL
+    for part in filter(None, section.split('.')):
+        node = node[part]
+    node[key] = value
+    with pytest.raises(NotImplementedError, match=match):
+        det = build_detector(cfg, device='cpu')
+        pts = torch.zeros((1, 16, 4))
+        det.predict({'points': pts,
+                     'points_mask': torch.ones((1, 16), dtype=torch.bool)})
+
+
 @pytest.mark.parametrize('name', ['WaymoDataset', 'NuScenesDataset',
                                   'LyftDataset', 'PandasetDataset'])
 def test_unported_datasets_raise(name):
@@ -203,12 +235,12 @@ def test_camera_items_raise(item, tmp_path):
 
 @pytest.mark.parametrize('section,name', [
     ('VFE', 'PillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
-    ('BACKBONE_3D', 'VoxelBackBone8xCiassd'), ('BACKBONE_2D', 'SSFA'),
+    ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
     ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PVRCNNHead')])
 def test_converter_refuses_other_families(section, name):
-    """The port's converter of reference checkpoints covers the VoxelRCNN
-    family only; any other module raises naming itself, before it reads a
-    key."""
+    """The port's converter of reference checkpoints covers the families
+    the port runs (VoxelRCNN, single-stage SECONDNet); any other module
+    raises naming itself, before it reads a key."""
     import torch_parity as tp
 
     from glenet_tpu_torch.utils import weight_converter as wc

@@ -266,3 +266,338 @@ def pinned_f32():
                           (tbb, 'DENSE_MXU_DTYPE')):
             mp.setattr(mod, name, None)
         yield
+
+
+# ---------------------------------------------------------------------------
+# the single-stage SECONDNet family (GLENet-S, GLENet-C, plain SECOND)
+# ---------------------------------------------------------------------------
+
+TINY_RANGE = (0, -8, -3, 16, 8, 1)
+TINY_OPTIMIZATION = {
+    'BATCH_SIZE_PER_GPU': 2, 'NUM_EPOCHS': 1, 'OPTIMIZER': 'adam_onecycle',
+    'LR': 0.003, 'WEIGHT_DECAY': 0.01, 'MOMS': [0.95, 0.85],
+    'PCT_START': 0.4, 'DIV_FACTOR': 10, 'GRAD_NORM_CLIP': 10}
+# second.yaml's anchors and thresholds per class
+SECOND_ANCHORS = [
+    ('Car', [3.9, 1.6, 1.56], -1.78, 0.6, 0.45),
+    ('Pedestrian', [0.8, 0.6, 1.73], -0.6, 0.5, 0.35),
+    ('Cyclist', [1.76, 0.6, 1.73], -0.6, 0.5, 0.35)]
+
+
+def tiny_single_stage_cfg(kind, max_voxels=512):
+    """tests/test_second.py's TINY_SECOND on KITTI's z range (so the BEV
+    fold has depth 2, as at full width), turned into a toy version of
+    GLENet_S.yaml (kind 'S'), GLENet_C.yaml ('C': VoxelBackBone8xCiassd,
+    SSFA, AnchorHeadKLLabelIoU) or second.yaml ('SECOND': Car, Pedestrian
+    and Cyclist with second.yaml's anchors and thresholds), each with its
+    published post-processing and the toy optimizer."""
+    import copy
+
+    from glenet_tpu.config import Cfg
+    from test_second import TINY_SECOND
+    cfg = copy.deepcopy(TINY_SECOND)
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = list(TINY_RANGE)
+    cfg.DATA_CONFIG.DATA_PROCESSOR[0].MAX_NUMBER_OF_VOXELS = {
+        'train': max_voxels, 'test': max_voxels}
+    cfg.OPTIMIZATION = Cfg(dict(TINY_OPTIMIZATION))
+    head, post = cfg.MODEL.DENSE_HEAD, cfg.MODEL.POST_PROCESSING
+    if kind == 'SECOND':
+        cfg.CLASS_NAMES = [a[0] for a in SECOND_ANCHORS]
+        head.ANCHOR_GENERATOR_CONFIG = [Cfg({
+            'class_name': name, 'anchor_sizes': [size],
+            'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [z],
+            'align_center': False, 'feature_map_stride': 8,
+            'matched_threshold': hi, 'unmatched_threshold': lo})
+            for name, size, z, hi, lo in SECOND_ANCHORS]
+        return cfg
+    head.TARGET_ASSIGNER_CONFIG.NAME = 'WeightedAxisAlignedTargetAssigner'
+    post.NMS_CONFIG.NMS_TYPE = 'new_nms_gpu'
+    if kind == 'S':
+        head.NAME = 'AnchorHeadKLLabel'
+        post.POST_SCORE_THRESH = 0.3
+    else:
+        cfg.MODEL.BACKBONE_3D.NAME = 'VoxelBackBone8xCiassd'
+        cfg.MODEL.MAP_TO_BEV.NUM_BEV_FEATURES = 128
+        cfg.MODEL.BACKBONE_2D = Cfg({'NAME': 'SSFA'})
+        head.NAME = 'AnchorHeadKLLabelIoU'
+        head.update(PRE_CLS_THRESH=0.0, PRE_IOU_THRESH=0.0, POW=4)
+        post.SCORE_THRESH = 0.055
+    return cfg
+
+
+def zero_thresholds(cfg):
+    """A copy of `cfg` with SCORE_THRESH and POST_SCORE_THRESH at 0: every
+    NMS_PRE_MAXSIZE candidate is live, whatever the weights."""
+    import copy
+    cfg = copy.deepcopy(cfg)
+    post = cfg.MODEL.POST_PROCESSING
+    post.SCORE_THRESH = 0.0
+    if 'POST_SCORE_THRESH' in post:
+        post.POST_SCORE_THRESH = 0.0
+    return cfg
+
+
+def single_stage_batch(cfg, batch_size=2, n_points=1024, n_gt=6, seed=3):
+    """Toy training batch: uniform points in the range, 3 gt boxes per
+    sample cycling through the config's classes, each with its anchor's
+    size on its anchor's bottom height, within 0.3 m of one of its anchors'
+    centres (so small classes match too), label variances in [0.02, 0.3);
+    numpy arrays."""
+    from glenet_tpu.models.anchors import generate_anchors
+    from glenet_tpu.ops.voxelize import compute_grid_size
+    x0, y0, z0, x1, y1, z1 = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    anchors = cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
+    grid = compute_grid_size(cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                             cfg.DATA_CONFIG.DATA_PROCESSOR[0].VOXEL_SIZE)
+    centres = np.asarray(generate_anchors(
+        anchors, grid, cfg.DATA_CONFIG.POINT_CLOUD_RANGE).anchors)[
+        :, :, 0, :2].reshape(-1, 2)
+    rng = np.random.RandomState(seed)
+    pts = np.zeros((batch_size, n_points, 4), np.float32)
+    pts[..., 0] = rng.uniform(x0, x1, (batch_size, n_points))
+    pts[..., 1] = rng.uniform(y0, y1, (batch_size, n_points))
+    pts[..., 2] = rng.uniform(z0 + 0.1, z1 - 0.1, (batch_size, n_points))
+    pts[..., 3] = rng.uniform(0, 1, (batch_size, n_points))
+    gt = np.zeros((batch_size, n_gt, 8), np.float32)
+    gt_mask = np.zeros((batch_size, n_gt), bool)
+    for b in range(batch_size):
+        for g in range(3):
+            c = (b + g) % len(anchors)
+            dx, dy, dz = anchors[c]['anchor_sizes'][0]
+            zb = anchors[c]['anchor_bottom_heights'][0]
+            cx, cy = centres[rng.randint(len(centres))] + rng.uniform(
+                -0.3, 0.3, 2)
+            gt[b, g] = [cx, cy, zb + dz / 2, dx, dy, dz, rng.uniform(-1, 1),
+                        c + 1]
+            gt_mask[b, g] = True
+    unc = rng.uniform(0.02, 0.3, (batch_size, n_gt, 7)).astype(np.float32)
+    return {'points': pts, 'points_mask': np.ones(pts.shape[:2], bool),
+            'gt_boxes': gt, 'gt_mask': gt_mask, 'gt_uncertainty': unc}
+
+
+def assert_assigner_margin(det, batch, margin=1e-3):
+    """No anchor's nearest-BEV IoU with a gt of its class lies within
+    `margin` of that class's thresholds, so f32 rounding cannot flip a
+    target label between the packages."""
+    from glenet_tpu.utils import box_utils
+    a = det.anchor_set
+    anchors = np.asarray(a.anchors)
+    for b in range(batch['gt_boxes'].shape[0]):
+        for ci, name in enumerate(a.class_names):
+            gts = batch['gt_boxes'][b][batch['gt_mask'][b]
+                                       & (batch['gt_boxes'][b, :, 7]
+                                          == ci + 1), :7]
+            if not len(gts):
+                continue
+            sl = a.class_slices[ci]
+            iou = np.asarray(box_utils.boxes3d_nearest_bev_iou(
+                anchors[:, :, sl].reshape(-1, 7), gts))
+            for thr in (a.matched_thresholds[name],
+                        a.unmatched_thresholds[name]):
+                assert np.abs(iou - thr).min() > margin, (
+                    'IoU near a threshold', name)
+
+
+def run_single_stage_step(cfg, batch, total_steps=100):
+    """One train step of glenet_tpu and one of the port's train_state on a
+    single-stage `cfg`, the same numpy-drawn weights and `batch`.  Returns
+    (JAX's metrics, grads, batch_stats, params after adam_onecycle and
+    anchor targets; the port's metrics; its gradients by port key; its
+    anchor targets; the port's detector); call inside pinned_f32()."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+    import torch
+
+    from glenet_tpu.models import target_assigner as jta
+    from glenet_tpu.models.detectors import build_detector as jax_build
+    from glenet_tpu.train import optim as joptim
+
+    from glenet_tpu_torch.models import target_assigner
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.train import optim, state as st
+    from glenet_tpu_torch.utils.jax_weights import load_jax_variables
+    tcfg = to_port_cfg(cfg)
+    det = jax_build(cfg)
+    assert_assigner_margin(det, batch)
+    shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
+                            jax.tree.map(jnp.asarray, batch))
+    variables = random_variables(shapes, seed=1)
+    tx, _ = joptim.build_optimizer(cfg.OPTIMIZATION, total_steps)
+
+    @jax.jit
+    def jax_step(v, bt):
+        def loss_fn(params):
+            out, new_state = det.net.apply(
+                {'params': params, 'batch_stats': v['batch_stats']},
+                bt['points'], bt['points_mask'], gt_boxes=bt['gt_boxes'],
+                gt_mask=bt['gt_mask'], gt_uncertainty=bt['gt_uncertainty'],
+                train=True, mutable=['batch_stats'])
+            loss, metrics = det.compute_loss(out, bt)
+            return loss, (metrics, new_state)
+
+        grads, (metrics, new_state) = jax.grad(
+            loss_fn, has_aux=True)(v['params'])
+        upd, _ = tx.update(grads, tx.init(v['params']), v['params'])
+        metrics['grad_norm'] = optax.global_norm(grads)
+        targets = jax.vmap(lambda gb, gm, gu: jta.assign_targets(
+            det.anchor_set, gb, gm, gu, det.box_coder))(
+            bt['gt_boxes'], bt['gt_mask'], bt['gt_uncertainty'])
+        return {'metrics': metrics, 'grads': grads,
+                'batch_stats': new_state['batch_stats'],
+                'params': optax.apply_updates(v['params'], upd),
+                'targets': targets._asdict()}
+
+    ref = jax.tree.map(np.asarray, jax_step(
+        jax.tree.map(jnp.asarray, variables),
+        jax.tree.map(jnp.asarray, batch)))
+    tdet = build_detector(tcfg, device='cpu')
+    load_jax_variables(tdet.net, variables)
+    ttx, _ = optim.build_optimizer(tcfg.OPTIMIZATION, total_steps)
+    state = st.create_train_state(tdet, ttx)
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    targets = [target_assigner.assign_targets(
+        tdet.anchor_set, gb, gm, gu, tdet.box_coder)._asdict()
+        for gb, gm, gu in zip(tbatch['gt_boxes'], tbatch['gt_mask'],
+                              tbatch['gt_uncertainty'])]
+    targets = {k: torch.stack([t[k] for t in targets]).numpy()
+               for k in targets[0]}
+    _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+             for n, p in tdet.net.named_parameters()}
+    return ref, metrics, grads, targets, tdet
+
+
+def assert_params_after_adam(tdet, ref, grads, lr):
+    """The parameters after one adam_onecycle step: where the two gradients
+    agree to 1% within 1e-6, elsewhere within the step's reach 2 lr (+1e-6
+    for the decay), and the tight elements over 90% of all (as
+    tests/test_torch_train_step.py holds them)."""
+    from glenet_tpu_torch.utils.jax_weights import jax_tree_to_port
+    params = dict(tdet.net.named_parameters())
+    ref_grads = jax_tree_to_port(tdet.net, ref['grads'])
+    n_tight = 0
+    for k, v in jax_tree_to_port(tdet.net, ref['params']).items():
+        g, g_ref = grads[k].numpy(), ref_grads[k]
+        agree = np.abs(g - g_ref) <= 1e-2 * np.abs(g_ref)
+        diff = np.abs(params[k].detach().numpy() - v)
+        assert diff[agree].max(initial=0) <= 1e-6, k
+        assert diff.max() <= 2 * lr + 1e-6, k
+        n_tight += int(agree.sum())
+    assert n_tight > 0.9 * sum(p.numel() for p in params.values())
+
+
+def run_single_stage_predicts(cfg, batch):
+    """glenet_tpu's and the port's forward stages and predicts on a
+    single-stage `cfg`, numpy-drawn weights: at the config's thresholds and
+    at zero thresholds (zero_thresholds).  Returns (JAX's {'stages',
+    'pred', 'pred_zero'}, the port's {'full', 'pred', 'pred_zero'}, the
+    variables); call inside pinned_f32()."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from glenet_tpu.models.detectors import build_detector as jax_build
+    from glenet_tpu.ops import voxelize as jvox
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils.jax_weights import load_jax_variables
+    det = jax_build(cfg)
+    shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
+                            jax.tree.map(jnp.asarray, batch))
+    variables = random_variables(shapes, seed=1)
+    zero = zero_thresholds(cfg)
+
+    def stages(m, points, pmask):
+        vox = jax.vmap(functools.partial(
+            jvox.voxelize, voxel_size=det.voxel_size, pc_range=det.pc_range,
+            grid_size=det.grid_size, max_voxels=det.max_voxels_test,
+            max_points_per_voxel=det.max_points_per_voxel))(points, pmask)
+        feats = jax.vmap(lambda v, n: m.vfe(v, n, train=False))(
+            vox['voxels'], vox['voxel_num_points'])
+        sp = m.backbone_3d(feats, vox['voxel_coords'], vox['voxel_mask'],
+                           train=False)
+        ms = {k: {f: sp['multi_scale'][k][f]
+                  for f in ('features', 'ids', 'mask', 'occ')
+                  if f in sp['multi_scale'][k]}
+              for k in sp['multi_scale']}
+        return {'vox': vox, 'multi_scale': ms, 'bev': sp['bev_features'],
+                'bev_2d': m.backbone_2d(sp['bev_features'], train=False)}
+
+    @jax.jit
+    def run(v, b):
+        return {'stages': det.net_eval.apply(v, b['points'],
+                                             b['points_mask'],
+                                             method=stages),
+                'pred': det.predict(v, b),
+                'pred_zero': det.predict(v, b,
+                                         post_cfg=zero.MODEL.POST_PROCESSING)}
+
+    pb = {k: jnp.asarray(batch[k]) for k in ('points', 'points_mask')}
+    ref = jax.tree.map(np.asarray, run(jax.tree.map(jnp.asarray, variables),
+                                       pb))
+    tdet = build_detector(to_port_cfg(cfg), device='cpu')
+    load_jax_variables(tdet.net, variables)
+    with torch.no_grad():
+        full = tdet.net(torch.from_numpy(batch['points']),
+                        torch.from_numpy(batch['points_mask']))
+        got = {'full': full, 'pred': tdet.finalize(full),
+               'pred_zero': build_detector(to_port_cfg(zero),
+                                           device='cpu').finalize(full)}
+    return ref, got, variables
+
+
+def single_stage_slice(kind):
+    """The toy config of `kind` (tiny_single_stage_cfg), its batch, both
+    packages' predicts and one train step of each (see
+    run_single_stage_predicts / run_single_stage_step), f32 pinned."""
+    cfg = tiny_single_stage_cfg(kind)
+    batch = single_stage_batch(cfg)
+    with pinned_f32():
+        predicts = run_single_stage_predicts(cfg, batch)
+        step = run_single_stage_step(cfg, batch)
+    return cfg, batch, predicts, step
+
+
+def assert_single_stage_stages(predicts):
+    """Voxels and every backbone level (ids, masks, occupancy exactly;
+    features rtol 1e-4 / atol 1e-5), the BEV map, the 2D backbone's map and
+    every dense-head output."""
+    ref, got, _ = predicts
+    st, full = ref['stages'], got['full']
+    for k in ('voxel_coords', 'voxel_mask', 'voxel_num_points'):
+        np.testing.assert_array_equal(full['vox'][k].numpy(), st['vox'][k])
+    ms = full['backbone_3d']['multi_scale']
+    assert sorted(ms) == sorted(st['multi_scale'])
+    for lvl, fields in st['multi_scale'].items():
+        for f, v in fields.items():
+            if f == 'features':
+                assert_close(ms[lvl][f], v, err_msg=f'{lvl} {f}')
+            else:
+                np.testing.assert_array_equal(ms[lvl][f].numpy(), v,
+                                              err_msg=f'{lvl} {f}')
+    assert_close(full['backbone_3d']['bev_features'], st['bev'])
+
+
+def assert_single_stage_predict(predicts, key):
+    """Final boxes, scores, labels and valid flags of one predict (the
+    config's thresholds or zero thresholds): integers equal, floats as
+    assert_predict_equal and rtol 1e-4 / atol 1e-5."""
+    ref, got, _ = predicts
+    assert_predict_equal(got[key], ref[key])
+    for k in ('final_boxes', 'final_scores'):
+        assert_close(got[key][k], ref[key][k], err_msg=k)
+
+
+def assert_single_stage_targets(step):
+    """The anchor targets: labels exactly, box targets and label
+    variances rtol 1e-4 / atol 1e-5, with positives in every class."""
+    ref, _, _, targets, tdet = step
+    labels = ref['targets']['box_cls_labels']
+    np.testing.assert_array_equal(targets['box_cls_labels'], labels)
+    assert set(np.unique(labels[labels > 0])) == set(
+        range(1, len(tdet.anchor_set.class_names) + 1))
+    for k in ('box_reg_targets', 'label_uncertainty', 'reg_weights'):
+        assert_close(targets[k], ref['targets'][k], err_msg=k)
