@@ -93,7 +93,32 @@ Phases, each of which exits non-zero on failure:
      scores within phase 7's tolerances) and a train step (as phase 7);
      (d) a synthetic reference GLENet-C .pth through convert_weights, then
      `tools.test --ckpt` on the [cli] tree;
- 10. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 10. GLENet-S on Waymo, [waymo] (launches counted from 0 just before and
+     read just after each call): (a) configs/waymo_models/GLENet_S.yaml at
+     full width (5 point features, the 1504 x 1504 x 40 grid, budgets
+     80000 / 90000, 188 x 188 x 2 anchors) with seeded weights on
+     synthetic Waymo scenes of 170000 points over 360 degrees: a warm-up
+     predict that captures its merge-resolve calls for phase 6, 3 predicts
+     at B = 2 at the published thresholds and 1 at zero thresholds, then 3
+     train steps at B = 4 as phase 3 (Waymo's schedule: 30 epochs x 7905
+     iterations); (b) a synthetic tree in Waymo's processed layout (3
+     sequences x 6 frames) through the port's create_waymo_gt_database,
+     `tools.train` (B = 4, 1 epoch x 2 steps over every train frame, then
+     a resume for a second epoch) and `tools.test` with the Waymo
+     evaluation, printing every AP / APH key, data ms and step ms; (c)
+     configs/waymo_models/second.yaml: one predict and one train step; (d)
+     a port train state after 2 steps written as a glenet_tpu .msgpack,
+     read back bit for bit, and the train CLI auto-resuming from it (count,
+     lr and b1 checked); (e) after phase 7, the card against the CPU on the
+     toy topology as Waymo's GLENet-S (a predict) and with SE-SSD's head,
+     ATSS and MATCH_HEIGHT (a train step), as phase 7, except that at a
+     ReLU input the two devices put on opposite sides of 0 (at most 4,
+     each within 1e-4 of its BN's largest |output| on both; a larger flip
+     fails) the CPU run takes the card's side; (f) the Waymo
+     evaluation on the card against its CPU run, timed at 300 frames and
+     projected to the val split's ~40 k; phase 6 adds the 4 captured calls
+     of a Waymo predict and of a Waymo train step;
+ 11. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -205,16 +230,25 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def tiny_batch(seed, b=2, n_points=1024):
+def tiny_batch(seed, b=2, n_points=1024, features=4):
+    """Uniform toy points in TINY_RANGE; a 5th (elongation) column, drawn
+    last, when features=5."""
     import numpy as np
     x0, y0, z0, x1, y1, z1 = TINY_RANGE
     rng = np.random.RandomState(seed)
-    pts = np.zeros((b, n_points, 4), np.float32)
+    pts = np.zeros((b, n_points, features), np.float32)
     pts[..., 0] = rng.uniform(x0, x1, (b, n_points))
     pts[..., 1] = rng.uniform(y0, y1, (b, n_points))
     pts[..., 2] = rng.uniform(z0 + 0.1, z1 - 0.1, (b, n_points))
     pts[..., 3] = rng.uniform(0, 1, (b, n_points))
+    if features == 5:
+        pts[..., 4] = rng.uniform(0, 1, (b, n_points))
     return pts
+
+
+def n_features(cfg):
+    enc = cfg.DATA_CONFIG.get('POINT_FEATURE_ENCODING', None)
+    return 4 if enc is None else len(enc['used_feature_list'])
 
 
 def phase_setup(kernels):
@@ -368,7 +402,8 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        pts = torch.from_numpy(tiny_batch(SEED + 7))
+        pts = torch.from_numpy(tiny_batch(SEED + 7,
+                                          features=n_features(cfg)))
         mask = torch.ones(pts.shape[:2], dtype=torch.bool)
         outs = {}
         for dev in ('cpu', 'cuda'):
@@ -450,10 +485,57 @@ def tiny_train_batch(cfg):
     return batch
 
 
+def relu_signs(net, recorded=None, rel=1e-4):
+    """Hooks on every MaskedBatchNorm of `net` (each feeds a ReLU).  With
+    recorded=None they record the BN outputs per module; given another
+    run's record they keep this run's outputs on the record's side of 0
+    where the two differ (a shift of that element's value to the
+    record's, the gradient path unchanged) and count those elements.  Only
+    an element whose two values both lie within `rel` of the module's
+    largest recorded |output| may be shifted: any other flip fails.
+    Returns (the record or the count dict, the hook handles)."""
+    import torch
+
+    from glenet_tpu_torch.models.layers import MaskedBatchNorm
+    out = {} if recorded is None else {'flipped': 0, 'largest': 0.0}
+
+    def hook(name):
+        def fn(_mod, _inp, y):
+            if recorded is None:
+                out.setdefault(name, []).append(y.detach().cpu())
+                return None
+            ref = recorded[name].pop(0).to(y.device)
+            flip = (y > 0) != (ref > 0)
+            if not bool(flip.any()):
+                return None
+            eps = rel * float(ref.abs().max())
+            size = float(torch.maximum(y.detach().abs(),
+                                       ref.abs())[flip].max())
+            check(size <= eps, f'{name}: a ReLU input lies on the other '
+                               f'side of 0 on the card than on the CPU at '
+                               f'|value| {size:.3e}, beyond rounding '
+                               f'({eps:.3e})')
+            out['flipped'] += int(flip.sum())
+            out['largest'] = max(out['largest'], size / eps)
+            return y + torch.where(flip, ref - y, 0.0).detach()
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in
+               net.named_modules() if isinstance(m, MaskedBatchNorm)]
+    return out, handles
+
+
 def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
-                           make_batch=tiny_train_batch):
+                           make_batch=tiny_train_batch, align_relu=False):
     """One toy train step (in two-stage configs fixed RoI targets and
-    DP_RATIO 0) on the card and on the port's CPU path."""
+    DP_RATIO 0) on the card and on the port's CPU path.  With align_relu:
+    a ReLU input within rounding of 0 can land on the other side of the
+    kink on the other device (the devices' f32 sums differ by ~1e-5
+    relative), and its mask then moves whole BN channels' gradients; the
+    CPU run takes the card's side at such elements, each within 1e-4 of
+    its module's largest |output| on both devices, the relative agreement
+    the loss terms are held to (relu_signs; at most 4 of them; a larger
+    flip fails), so both compute one branch."""
     import copy
 
     import torch
@@ -479,21 +561,30 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
         n_fg = int(batch['roi_targets']['reg_valid_mask'].sum()
                    if 'roi_targets' in batch else batch['gt_mask'].sum())
         check(n_fg > 0, 'the toy targets hold no foreground')
-        runs = {}
-        for dev in ('cpu', 'cuda'):
+        runs, signs, hooks = {}, None, []
+        # with align_relu the card runs first: the CPU takes its side
+        for dev in ('cuda', 'cpu') if align_relu else ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
             tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
             state = st.create_train_state(det, tx)
+            if align_relu:
+                signs, hooks = relu_signs(det.net, signs)
             bt = {k: (v.to(dev) if torch.is_tensor(v)
                       else {kk: vv.to(dev) for kk, vv in v.items()})
                   for k, v in batch.items()}
             state, metrics = st.make_train_step(det, tx)(state, bt)
+            for h in hooks:
+                h.remove()
             runs[dev] = (metrics, det.net, tx)
     finally:
         (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     (mc, nc, tx), (mg, ng, _) = runs['cpu'], runs['cuda']
+    if align_relu:
+        check(signs['flipped'] <= 4, f'{signs["flipped"]} ReLU inputs on '
+                                     f'the other side of 0 on the card '
+                                     f'than on the CPU')
     # f32 on both devices, TF32 off.  Loss terms rtol 1e-4.  Gradients:
     # atomics in the backward of the row gathers and the corner gathers
     # (index_add_ / scatter-add) and the strided convs, and cuDNN's
@@ -531,9 +622,12 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
                   f'GPU and CPU BN running stats differ in {name}')
     print(f'[{tag}] tiny {cfg.MODEL.NAME} train step: {n_fg} foreground '
           f'RoIs or gt boxes; loss terms within rtol 1e-4, every gradient '
-          f'within its tolerance '
-          f'(worst at {worst:.2f} of it), BN running stats and the '
-          f'parameters after adam_onecycle agree')
+          f'within its tolerance (worst at {worst:.2f} of it'
+          + (f'; ReLU inputs the CPU took on the card\'s side of 0: '
+             f'{signs["flipped"]}, the largest at {signs["largest"]:.2f} '
+             f'of rounding' if align_relu else '')
+          + '), BN running stats and the parameters after adam_onecycle '
+          'agree')
 
 
 def prepare_full_width():
@@ -576,7 +670,7 @@ def sites_line(sites, caps):
 
 
 def phase_full_width(det, batches, tag='full', label='GLENet-VR',
-                     min_valid=0):
+                     min_valid=0, n_points=N_POINTS):
     """The main path: one predict per batch, merge-resolve launches counted
     from 0 just before and read just after; each sample must keep at least
     `min_valid` final boxes."""
@@ -627,7 +721,7 @@ def phase_full_width(det, batches, tag='full', label='GLENet-VR',
               f'{pred["final_valid"].sum(1).tolist()}; merge_resolve '
               f'launches {n_launch}; max_memory_allocated '
               f'{mem / 2**30:.2f} GiB')
-    print(f'[{tag}] {label} predict B={BATCH} x {N_POINTS} points: '
+    print(f'[{tag}] {label} predict B={BATCH} x {n_points} points: '
           f'mean {sum(times) / len(times):.1f} ms over {len(times)} requests')
     return launches
 
@@ -651,7 +745,7 @@ def onecycle_expected(opt_cfg, n_total, count):
     return cos(lr_max, lr_max / div / 1e4, pct), cos(m1, m0, pct)
 
 
-def phase_train(cfg, det, tag='train', label='GLENet-VR'):
+def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
     """The train step at full width: a warm-up step that captures the
     merge-resolve calls, then TRAIN_STEPS timed steps with the launches
     counted from 0 just before and read just after."""
@@ -662,19 +756,20 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR'):
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.ops import sparse
-    from glenet_tpu_torch.profile_train import build_training, total_steps
-    from glenet_tpu_torch.utils.synthetic import train_batches
+    from glenet_tpu_torch.profile_train import (build_training, total_steps,
+                                                train_frames)
+    from glenet_tpu_torch.utils.synthetic import batches_for
     opt_cfg = cfg.OPTIMIZATION
     caps = sparse.level_caps(det.max_voxels_train)
     b = int(opt_cfg.BATCH_SIZE_PER_GPU)
-    n_total = total_steps(opt_cfg)
+    n_total = total_steps(opt_cfg, train_frames(cfg))
     tx, state, train_step = build_training(cfg, det)
-    batches = train_batches(TRAIN_STEPS + 1, SEED + 1, b)
+    batches = batches_for(cfg, TRAIN_STEPS + 1, SEED + 1, b, train=True)
     n_gt = batches[0]['gt_mask'].sum(1).tolist()
     t0 = time.perf_counter()
     captured, (state, metrics) = capture_calls(
         lambda: train_step(state, batches[0]))
-    print(f'[{tag}] {label} train step, B={b} x {N_POINTS} points, train '
+    print(f'[{tag}] {label} train step, B={b} x {n_points} points, train '
           f'voxel budget {det.max_voxels_train}, gt boxes {n_gt}, '
           f'adam_onecycle total_steps {n_total} ({opt_cfg.NUM_EPOCHS} epochs x '
           f'{n_total // int(opt_cfg.NUM_EPOCHS)} iterations); warm-up step '
@@ -1668,7 +1763,7 @@ def phase_weights_vq(tmp):
     return launches
 
 
-def predict_and_step(cfg_name, seed):
+def predict_and_step(cfg_name, seed, models='kitti_models'):
     """`cfg_name` at full width, seeded weights: one predict at B = 2 and one
     train step at B = 4, launches counted from 0 just before and read just
     after each.  Returns a dict: det, cfg, pred, predict_ms, n_predict,
@@ -1680,12 +1775,10 @@ def predict_and_step(cfg_name, seed):
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
-    from glenet_tpu_torch.utils.synthetic import (scene_batches,
-                                                  seeded_detector,
-                                                  train_batches)
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
     det = seeded_detector(cfg, 'cuda', seed)
-    batch = scene_batches(1, SEED + 2, BATCH)[0]
+    batch = batches_for(cfg, 1, SEED + 2, BATCH)[0]
     mk.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1698,7 +1791,7 @@ def predict_and_step(cfg_name, seed):
           f'{cfg_name} predict: {n_predict} launches or outputs not finite')
     _, state, train_step = build_training(cfg, det)
     b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    tbatch = train_batches(1, SEED + 3, b)[0]
+    tbatch = batches_for(cfg, 1, SEED + 3, b, train=True)[0]
     mk.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1821,23 +1914,25 @@ def tiny_single_raw():
 
 
 def tiny_single_batch(cfg):
-    """tiny_batch's points, 3 gt boxes per sample within 0.3 m of anchor
-    centres (so they match), label variances in [0.02, 0.3)."""
+    """tiny_batch's points (with the config's point features), 3 gt boxes
+    per sample of the first anchor's size within 0.3 m of anchor centres
+    (so they match), label variances in [0.02, 0.3)."""
     import numpy as np
     import torch
 
     from glenet_tpu_torch.models.detectors import build_detector
-    pts = torch.from_numpy(tiny_batch(SEED + 7))
+    pts = torch.from_numpy(tiny_batch(SEED + 7, features=n_features(cfg)))
     b = pts.shape[0]
     rng = np.random.RandomState(SEED + 12)
     anchors = build_detector(cfg, device='cpu').anchor_set.anchors
     centres = anchors[:, :, 0, :3].reshape(-1, 3)
+    size = cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG[0]['anchor_sizes'][0]
     gt = np.zeros((b, 8, 8), np.float32)
     for i in range(b):
         for j, c in enumerate(rng.choice(len(centres), 3, replace=False)):
             gt[i, j, :3] = centres[c]
             gt[i, j, :2] += rng.uniform(-0.3, 0.3, 2)
-            gt[i, j, 3:] = [3.9, 1.6, 1.56, rng.uniform(-1, 1), 1]
+            gt[i, j, 3:] = [*size, rng.uniform(-1, 1), 1]
     gt_mask = np.zeros((b, 8), bool)
     gt_mask[:, :3] = True
     unc = rng.uniform(0.02, 0.3, (b, 8, 7)).astype(np.float32)
@@ -1917,6 +2012,397 @@ def phase_single(tmp, cli_root):
     return launches, captured['GLENet_C.yaml']
 
 
+# ---------------------------------------------------------------------------
+# [waymo]: GLENet-S on Waymo (configs/waymo_models/GLENet_S.yaml)
+# ---------------------------------------------------------------------------
+
+WAYMO_SEQ, WAYMO_FRAMES = 3, 6          # 2 train + 1 val sequences
+WAYMO_BATCH = 4
+WAYMO_EVAL_FRAMES = 300
+WAYMO_VAL_FRAMES = 202 * 198            # Waymo's val split, ~40 k frames
+
+
+def phase_waymo_full(seed):
+    """(a): GLENet_S.yaml on Waymo at full width, seeded weights: a warm-up
+    predict that captures the merge-resolve calls, N_REQUESTS predicts at
+    B = 2 at the published thresholds and 1 at zero thresholds, then
+    phase_train's steps at B = 4 on Waymo scenes.  Returns (launches, the
+    captured predict calls, the captured train-step calls, step ms)."""
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.utils.synthetic import (WAYMO_N_POINTS,
+                                                  seeded_detector,
+                                                  waymo_scene_batches)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/GLENet_S.yaml'))
+    det = seeded_detector(cfg, 'cuda', seed)
+    check(det.num_point_features == 5
+          and tuple(det.grid_size) == (1504, 1504, 40)
+          and det.anchor_set.anchors.shape[:3] == (188, 188, 2),
+          f'Waymo GLENet-S built with {det.num_point_features} features, '
+          f'grid {det.grid_size}')
+    t0 = time.perf_counter()
+    batches = waymo_scene_batches(N_REQUESTS + 1, SEED, BATCH)
+    n_pts = [int(m.sum()) for b in batches for m in b['points_mask']]
+    print(f'[waymo] {len(n_pts)} synthetic Waymo scenes, {min(n_pts)}-'
+          f'{max(n_pts)} points in range each, made in '
+          f'{time.perf_counter() - t0:.1f} s; level caps at the test budget '
+          f'{sparse.level_caps(det.max_voxels_test)}, at the train budget '
+          f'{sparse.level_caps(det.max_voxels_train)}')
+    t0 = time.perf_counter()
+    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    print(f'[waymo] GLENet-S Waymo: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    label = 'GLENet-S Waymo'
+    launches = phase_full_width(det, batches[1:], 'waymo', label,
+                                n_points=WAYMO_N_POINTS)
+    post = det.model_cfg.POST_PROCESSING
+    saved = post.SCORE_THRESH
+    post.SCORE_THRESH = 0.0
+    try:
+        launches += phase_full_width(det, batches[1:2], 'waymo',
+                                     f'{label} at zero thresholds', 1,
+                                     n_points=WAYMO_N_POINTS)
+    finally:
+        post.SCORE_THRESH = saved
+    n, captured_train, step_ms = phase_train(cfg, det, 'waymo', label,
+                                             n_points=WAYMO_N_POINTS)
+    del det
+    torch.cuda.empty_cache()
+    return launches + n, captured, captured_train, step_ms
+
+
+def phase_waymo_cli(tmp, in_memory_ms):
+    """(b): a synthetic Waymo tree through the port's gt database, the
+    train CLI (B = 4, 1 epoch x 2 steps, then a resume for a second epoch)
+    and the test CLI with the Waymo evaluation.  Returns (launches, the
+    tree's root)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets import augmentor
+    from glenet_tpu_torch.datasets.waymo_dataset import (
+        WaymoDataset, create_waymo_gt_database)
+    from glenet_tpu_torch.models.detectors import Detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import state as state_lib
+    from glenet_tpu_torch.utils import synthetic
+    cfg_file = str(ROOT / 'configs/waymo_models/GLENet_S.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    root, out = tmp / 'waymo', tmp / 'waymo_out'
+    t0 = time.perf_counter()
+    synthetic.write_waymo_tree(root, WAYMO_SEQ, WAYMO_FRAMES, seed=SEED)
+    t1 = time.perf_counter()
+    db = create_waymo_gt_database(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root)
+    synthetic.add_waymo_db_variances(root)
+    t2 = time.perf_counter()
+    print(f'[waymo] synthetic tree in Waymo\'s processed layout: '
+          f'{WAYMO_SEQ} sequences x {WAYMO_FRAMES} frames of '
+          f'{synthetic.WAYMO_N_POINTS} points (x y z intensity elongation '
+          f'NLZ) written in {t1 - t0:.1f} s; create_waymo_gt_database '
+          f'{t2 - t1:.1f} s, {len(db["Vehicle"])} Vehicle crops')
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(WAYMO_BATCH),
+              '--max_steps_per_epoch', '2']
+    every_frame = ['--set', 'DATA_CONFIG.SAMPLED_INTERVAL.train', '1']
+    step_launches, predict_launches, data, pasted = [], [], {}, []
+    sample = augmentor.DataBaseSampler.__call__
+
+    def count_pasted(self, data_dict):
+        n0 = len(data_dict['gt_boxes'])
+        out = sample(self, data_dict)
+        pasted.append(len(out['gt_boxes']) - n0)
+        return out
+
+    augmentor.DataBaseSampler.__call__ = count_pasted
+    undo = [count_launches(state_lib, 'make_train_step', step_launches),
+            count_launches(Detector, 'predict', predict_launches)]
+    timers = [time_calls(WaymoDataset, '__getitem__', data, 'items'),
+              time_calls(augmentor.DataAugmentor, '__call__', data,
+                         'augment'),
+              time_calls(augmentor.DataBaseSampler, '__call__', data,
+                         'gt_sampling'),
+              time_calls(WaymoDataset, 'collate_batch', data, 'collate'),
+              time_calls(train_cli, 'to_device', data, 'copy')]
+    mk.LAUNCHES = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        first = train_cli.main(common + ['--epochs', '1'] + every_frame)
+        resumed = train_cli.main(common + ['--epochs', '2'] + every_frame)
+        peak = torch.cuda.max_memory_allocated()
+        for u in timers:
+            u()
+        results = test_cli.main(common[:8])
+    finally:
+        for u in undo + timers:
+            u()
+        augmentor.DataBaseSampler.__call__ = sample
+    launches = mk.LAUNCHES
+    steps = first['steps'] + resumed['steps']
+    check(resumed['start_step'] == 2
+          and [r['it'] for r in steps] == [1, 2, 3, 4],
+          f'Waymo CLI steps {[r["it"] for r in steps]}, resumed at '
+          f'{resumed["start_step"]}')
+    for r in steps:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'Waymo CLI step {r["it"]}: not finite: {bad}')
+        print(f'[waymo] CLI train step {r["it"]} (epoch {r["epoch"]}): data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, loc_loss_src {r["loc_loss_src"]:.4f}, '
+              f'grad_norm {r["grad_norm"]:.3f}, lr {r["lr"]:.3e}')
+    check(step_launches == [4] * 4, f'merge-resolve launches per Waymo CLI '
+                                    f'train step: {step_launches}')
+    warm = [r for r in steps if r['it'] not in (1, 3)]
+    n = data['collate n']
+    check(sum(pasted) > 0, 'gt sampling pasted no box into any Waymo scene')
+    print(f'[waymo] gt sampling (Vehicle:15, LIMIT_WHOLE_SCENE) pasted '
+          f'{sum(pasted)} boxes into {sum(k > 0 for k in pasted)} of '
+          f'{len(pasted)} scenes: {pasted}')
+    ms = {k: 1e3 * data[k] / n for k in ('items', 'augment', 'gt_sampling',
+                                          'collate', 'copy')}
+    print(f'[waymo] train through the CLI, B={WAYMO_BATCH}: resumed at step '
+          f'{resumed["start_step"]}; mean over the steps after each run\'s '
+          f'first: data {sum(r["data_ms"] for r in warm) / len(warm):.1f} '
+          f'ms, step {sum(r["step_ms"] for r in warm) / len(warm):.1f} ms '
+          f'against the in-memory step '
+          f'{sum(in_memory_ms) / len(in_memory_ms):.1f} ms; data per batch '
+          f'(host ms, mean over {n} batches): items '
+          f'{ms["items"] + ms["augment"] + ms["gt_sampling"]:.1f} = gt '
+          f'sampling {ms["gt_sampling"]:.1f} + world augmentations '
+          f'{ms["augment"]:.1f} + loading, NLZ mask, range mask, shuffle '
+          f'and padding {ms["items"]:.1f}; collation {ms["collate"]:.1f}; '
+          f'copy to the card {ms["copy"]:.1f}; max_memory_allocated '
+          f'{peak / 2**30:.2f} GiB')
+    (path, res), = results.items()
+    keys = [f'OBJECT_TYPE_TYPE_VEHICLE_LEVEL_{lv}/{m}' for lv in (1, 2)
+            for m in ('AP', 'APH')]
+    check(path.endswith('checkpoint_epoch_1.pth')
+          and res['frames'] == WAYMO_FRAMES
+          and sorted(res['ap']) == sorted(keys)
+          and all(np.isfinite(res['ap'][k]) for k in keys),
+          f'Waymo test CLI: {path}, {res["frames"]} frames, {res["ap"]}')
+    check(predict_launches == [4] * math.ceil(WAYMO_FRAMES / WAYMO_BATCH),
+          f'merge-resolve launches per Waymo CLI predict: '
+          f'{predict_launches}')
+    print(f'[waymo] test CLI on {Path(path).name}: {res["frames"]} val '
+          f'frames, {res["sec_per_frame"]:.4f} s/frame, Waymo evaluation '
+          f'{res["eval_sec"]:.3f} s; merge_resolve launches per predict '
+          f'{predict_launches}; ' + ', '.join(
+              f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + ' (random weights: only the keys are checked)')
+    return launches, root
+
+
+def phase_waymo_second():
+    """(c): configs/waymo_models/second.yaml (3 classes, AnchorHeadSingle):
+    one predict and one train step on Waymo scenes."""
+    r = predict_and_step('second.yaml', SEED + 90, 'waymo_models')
+    vals, labels = r['vals'], r['pred']['final_labels']
+    check(r['det'].num_point_features == 5
+          and r['det'].anchor_set.num_anchors_per_location == 6
+          and int(labels.max()) <= 3, f'Waymo second.yaml: {vals}')
+    print(f'[waymo] second.yaml (Vehicle, Pedestrian, Cyclist): predict '
+          f'B={BATCH} {r["predict_ms"]:.1f} ms (first call), valid final '
+          f'boxes {r["pred"]["final_valid"].sum(1).tolist()}, merge_resolve '
+          f'launches {r["n_predict"]}; train step B={r["b"]} '
+          f'{r["step_ms"]:.1f} ms (first call), loss {vals["loss"]:.4f}, '
+          f'merge_resolve launches {r["n_step"]}')
+    return r['n_predict'] + r['n_step']
+
+
+def phase_waymo_msgpack(tmp, root):
+    """(d): a port train state of Waymo's GLENet-S after 2 steps written as
+    a glenet_tpu checkpoint (jax_weights.port_to_jax_variables and the
+    inverse optimizer-state map); read back bit for bit; then the train
+    CLI auto-resumes from it for a second epoch, and its count, lr and b1
+    go on from the checkpoint's.  Returns the launches."""
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import checkpoint as ck
+    from glenet_tpu_torch.train import jax_checkpoint as jc
+    from glenet_tpu_torch.train import optim
+    from glenet_tpu_torch.train import state as state_lib
+    from glenet_tpu_torch.utils.synthetic import (seeded_detector,
+                                                  waymo_scene_batches)
+    cfg_file = str(ROOT / 'configs/waymo_models/GLENet_S.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    det = seeded_detector(cfg, 'cuda', SEED + 95)
+    n_total = 4                 # the CLI run's 2 epochs x 2 steps
+    tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, n_total)
+    ts = state_lib.create_train_state(det, tx)
+    step = state_lib.make_train_step(det, tx)
+    mk.LAUNCHES = 0
+    for batch in waymo_scene_batches(2, SEED + 96, WAYMO_BATCH, train=True):
+        ts, _ = step(ts, batch)
+    launches = mk.LAUNCHES
+    out = tmp / 'waymo_msgpack'
+    t0 = time.perf_counter()
+    path = jc.save_checkpoint(jc.checkpoint_state(ts, tx, 0, 2),
+                              out / 'ckpt', 0)
+    t1 = time.perf_counter()
+    back = state_lib.create_train_state(
+        seeded_detector(cfg, 'cuda', SEED + 97), tx)
+    jc.restore_train_state(back, jc.load_checkpoint(path), tx)
+    same = all(torch.equal(a, b) for a, b in zip(
+        ts.opt_state['mu'] + ts.opt_state['nu'],
+        back.opt_state['mu'] + back.opt_state['nu']))
+    same &= all(torch.equal(v, back.net.state_dict()[k])
+                for k, v in ts.net.state_dict().items())
+    check(same and back.step == 2 and back.opt_state['count'] == 2,
+          'the .msgpack round trip changed the train state')
+    mk.LAUNCHES = 0
+    run = train_cli.main(['--cfg_file', cfg_file, '--data_path', str(root),
+                          '--output_dir', str(out), '--batch_size',
+                          str(WAYMO_BATCH), '--max_steps_per_epoch', '2',
+                          '--epochs', '2', '--set',
+                          'DATA_CONFIG.SAMPLED_INTERVAL.train', '1'])
+    launches += mk.LAUNCHES
+    saved = ck.load_checkpoint(out / 'ckpt' / 'checkpoint_epoch_1.pth')
+    lr, b1 = saved['optimizer_state']['hyperparams']
+    lr_x, b1_x = tx.hyperparams(3)
+    check(run['start_step'] == 2 and [r['it'] for r in run['steps']] == [3, 4]
+          and saved['optimizer_state']['count'] == 4
+          and abs(lr - lr_x) <= 1e-12 and abs(b1 - b1_x) <= 1e-12,
+          f'resume from {path}: start {run["start_step"]}, count '
+          f'{saved["optimizer_state"]["count"]}, lr {lr} / {lr_x}, b1 {b1} '
+          f'/ {b1_x}')
+    print(f'[waymo] .msgpack of a port train state after 2 steps '
+          f'({Path(path).stat().st_size / 2**20:.1f} MiB, written in '
+          f'{t1 - t0:.2f} s): read back bit for bit (parameters, BN stats, '
+          f'Adam moments, count 2, step 2); the train CLI auto-resumed from '
+          f'it at step {run["start_step"]}, trained steps '
+          f'{[r["it"] for r in run["steps"]]} and wrote '
+          f'checkpoint_epoch_1.pth at count '
+          f'{saved["optimizer_state"]["count"]}, lr {lr:.6e}, b1 {b1:.6f} '
+          f'(the schedule\'s 4th update)')
+    del det, ts, back
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tiny_waymo_raw(sessd=False):
+    """The toy single-stage topology as Waymo's GLENet-S (5 point features,
+    one Vehicle class with Waymo's anchor, AnchorHeadKLLabel, variance
+    voting at zero thresholds), or with sessd=True as SE-SSD's head with
+    ATSS (TOPK 9) on 3D IoU (MATCH_HEIGHT)."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    raw['CLASS_NAMES'] = ['Vehicle']
+    raw['DATA_CONFIG']['POINT_FEATURE_ENCODING'] = {
+        'encoding_type': 'absolute_coordinates_encoding',
+        'used_feature_list': ['x', 'y', 'z', 'intensity', 'elongation'],
+        'src_feature_list': ['x', 'y', 'z', 'intensity', 'elongation']}
+    m = raw['MODEL']
+    del m['ROI_HEAD']
+    m['NAME'] = 'SECONDNet'
+    head = m['DENSE_HEAD']
+    head['ANCHOR_GENERATOR_CONFIG'][0].update(
+        class_name='Vehicle', anchor_sizes=[[4.7, 2.1, 1.7]],
+        matched_threshold=0.55, unmatched_threshold=0.4)
+    head['NAME'] = 'AnchorHeadKLLabel'
+    head['TARGET_ASSIGNER_CONFIG']['NAME'] = \
+        'WeightedAxisAlignedTargetAssigner'
+    m['POST_PROCESSING']['SCORE_THRESH'] = 0.0
+    if sessd:
+        head['NAME'] = 'AnchorHeadSessd'
+        head['TARGET_ASSIGNER_CONFIG'].update(
+            NAME='ATSSTargetAssigner', TOPK=9, MATCH_HEIGHT=True)
+    return raw
+
+
+def waymo_eval_case(n_frames, rng):
+    """Synthetic Waymo annos: per frame the Vehicle boxes of waymo_frame
+    with random point counts (some of 5 or fewer: LEVEL_2 only) as gts,
+    and as detections each gt jittered by one of three offsets plus 10
+    false positives, with random scores."""
+    import numpy as np
+
+    from glenet_tpu_torch.utils.synthetic import waymo_frame
+    gts, dets = [], []
+    for _ in range(n_frames):
+        _, boxes = waymo_frame(rng, n_points=1000)
+        n = len(boxes)
+        gts.append({'name': np.array(['Vehicle'] * n), 'boxes_lidar': boxes,
+                    'num_points_in_gt': rng.randint(1, 400, n),
+                    'difficulty': np.zeros(n, np.int64)})
+        sigma = rng.choice([0.05, 0.2, 0.5], n)[:, None]
+        jit = boxes + rng.normal(0, 1, (n, 7)) * sigma * [1, 1, 0.3, 0.2,
+                                                          0.1, 0.1, 0.2]
+        fp = boxes[rng.randint(n, size=10)] + [
+            *rng.uniform(-30, 30, 2), 0, 0, 0, 0, 0]
+        d = np.concatenate([jit, fp]).astype(np.float32)
+        dets.append({'name': np.array(['Vehicle'] * len(d)),
+                     'boxes_lidar': d, 'score': rng.uniform(0, 1, len(d))})
+    return dets, gts
+
+
+def phase_waymo_eval():
+    """(f): the Waymo evaluation on the card against its CPU run, then its
+    time at WAYMO_EVAL_FRAMES frames (IoUs on the card, matching on the
+    host) projected to the val split's size."""
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.eval import waymo_eval as we
+    dets, gts = waymo_eval_case(WAYMO_EVAL_FRAMES, np.random.RandomState(SEED))
+    we.waymo_evaluation(dets[:2], gts[:2], ['Vehicle'], device='cuda')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_gpu, r_gpu = we.waymo_evaluation(dets, gts, ['Vehicle'], device='cuda')
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s_cpu, r_cpu = we.waymo_evaluation(dets, gts, ['Vehicle'], device='cpu')
+    t2 = time.perf_counter()
+    err = max(abs(r_gpu[k] - r_cpu[k]) for k in r_cpu)
+    check(list(r_gpu) == list(r_cpu) and err <= 1e-3,
+          f'Waymo evaluation differs between the card and the CPU ({err})')
+    ap = r_gpu['OBJECT_TYPE_TYPE_VEHICLE_LEVEL_2/AP']
+    check(0 < ap < 100, f'Waymo LEVEL_2 AP {ap}')
+    frames = we.class_frames(dets, gts, 'Vehicle')
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    we.frame_ious([(d, g) for d, _, g, _ in frames], 'cuda')
+    torch.cuda.synchronize()
+    iou_s = time.perf_counter() - t3
+    n_det = sum(len(d['name']) for d in dets)
+    n_gt = sum(len(g['name']) for g in gts)
+    print(f'[waymo] Waymo evaluation of {WAYMO_EVAL_FRAMES} frames ({n_gt} '
+          f'Vehicle gts, {n_det} detections): card {t1 - t0:.3f} s, CPU '
+          f'{t2 - t1:.3f} s, every AP / APH within {err:.1e}; on the card '
+          f'the 3D IoUs of every frame take {iou_s:.3f} s, the Hungarian '
+          f'matching per cutoff and the curves the rest; ' + ', '.join(
+              f'{k} {v:.2f}' for k, v in r_gpu.items()))
+    print(f'[waymo] projection, not a measurement: the val split\'s '
+          f'{WAYMO_VAL_FRAMES} frames at this rate take '
+          f'{(t1 - t0) * WAYMO_VAL_FRAMES / WAYMO_EVAL_FRAMES:.0f} s')
+
+
+def phase_waymo(tmp):
+    """[waymo]: (a) GLENet-S on Waymo at full width, (b) the CLIs on a
+    synthetic Waymo tree, (c) second.yaml on Waymo, (d) the .msgpack
+    resume, (f) the Waymo evaluation on the card; (e), the card against
+    the CPU, runs after the kernel check.  Returns (launches, the captured
+    predict calls, the captured train-step calls)."""
+    launches, captured, captured_train, step_ms = phase_waymo_full(SEED + 85)
+    n, root = phase_waymo_cli(tmp, step_ms)
+    launches += n
+    launches += phase_waymo_second()
+    launches += phase_waymo_msgpack(tmp, root)
+    phase_waymo_eval()
+    return launches, captured, captured_train
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1939,7 +2425,12 @@ def main():
             launches_weights = phase_weights(Path(tmp), cli_root)
             launches_single, captured_single = phase_single(Path(tmp),
                                                             cli_root)
+            launches_waymo, captured_waymo, captured_waymo_train = \
+                phase_waymo(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
+        waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
+        waymo_train = check_captured(captured_waymo_train,
+                                     'Waymo GLENet-S train step')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -1949,6 +2440,10 @@ def main():
         phase_gpu_vs_cpu(single, 'single] [gpu-vs-cpu')
         phase_gpu_vs_cpu_train(single, 'single] [gpu-vs-cpu',
                                tiny_single_batch)
+        phase_gpu_vs_cpu(tiny_waymo_raw(), 'waymo] [gpu-vs-cpu')
+        phase_gpu_vs_cpu_train(tiny_waymo_raw(sessd=True),
+                               'waymo] [gpu-vs-cpu sessd atss height',
+                               tiny_single_batch, align_relu=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -1959,7 +2454,7 @@ def main():
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
-                     + launches_weights + launches_single),
+                     + launches_weights + launches_single + launches_waymo),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -1970,6 +2465,7 @@ def main():
         'launches_cli': launches_cli, 'launches_cvae': launches_cvae,
         'launches_weights': launches_weights,
         'launches_single': launches_single,
+        'launches_waymo': launches_waymo,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -1979,7 +2475,23 @@ def main():
         'single_ms': single['ms'], 'single_device_ms': single['device_ms'],
         'single_plain_ms': single['plain_ms'],
         'single_bound_ms': single['bound_ms'],
-        'single_library_ms': single['library_ms']}]
+        'single_library_ms': single['library_ms'],
+        'waymo_ms': waymo['ms'], 'waymo_device_ms': waymo['device_ms'],
+        'waymo_host_ms': waymo['host_ms'], 'waymo_cold_ms': waymo['cold_ms'],
+        'waymo_plain_ms': waymo['plain_ms'],
+        'waymo_bound_ms': waymo['bound_ms'],
+        'waymo_bound_by': waymo['bound_by'],
+        'waymo_library_ms': waymo['library_ms'],
+        'waymo_library_device_ms': waymo['library_device_ms'],
+        'waymo_train_ms': waymo_train['ms'],
+        'waymo_train_device_ms': waymo_train['device_ms'],
+        'waymo_train_host_ms': waymo_train['host_ms'],
+        'waymo_train_cold_ms': waymo_train['cold_ms'],
+        'waymo_train_plain_ms': waymo_train['plain_ms'],
+        'waymo_train_bound_ms': waymo_train['bound_ms'],
+        'waymo_train_bound_by': waymo_train['bound_by'],
+        'waymo_train_library_ms': waymo_train['library_ms'],
+        'waymo_train_library_device_ms': waymo_train['library_device_ms']}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
@@ -1990,8 +2502,13 @@ def main():
           f'steps, 1 plain predict, 1 plain train step, 1 predict of test '
           f'--ckpt) and the single-stage phase (GLENet-S and GLENet-C: '
           f'{2 * N_REQUESTS} predicts and {TRAIN_STEPS} train steps each; '
-          f'SECOND: 1 predict, 1 train step; 1 predict of test --ckpt); '
-          f'single_* per GLENet-C predict')
+          f'SECOND: 1 predict, 1 train step; 1 predict of test --ckpt) '
+          f'and the Waymo phase (GLENet-S: {N_REQUESTS + 1} predicts, '
+          f'{TRAIN_STEPS} train steps; the CLIs: 4 train steps, 2 '
+          f'predicts; second.yaml: 1 predict, 1 train step; the .msgpack '
+          f'resume: 4 train steps); single_* per GLENet-C predict, '
+          f'waymo_* per Waymo GLENet-S predict and waymo_train_* per Waymo '
+          f'train step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -37,6 +37,8 @@ def _numpy(x):
 
 
 class KittiDataset:
+    METRIC = 'KITTI'
+
     def __init__(self, dataset_cfg, class_names, training=True,
                  root_path=None, logger=None, seed=None):
         self.dataset_cfg = dataset_cfg

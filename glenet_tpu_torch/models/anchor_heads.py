@@ -1,15 +1,16 @@
 """Anchor-based dense heads, their decode and their losses (torch
 counterpart of glenet_tpu/models/anchor_heads.py):
 
-  - AnchorHeadSingle: 1x1 cls / box / direction convs;
+  - AnchorHeadSingle: 1x1 cls / box / direction convs (also SE-SSD's
+    AnchorHeadSessd, which differs only in its regression loss);
   - AnchorHeadKLLabel: AnchorHeadSingle plus a log-variance branch
     (GLENet-S), an IoU branch (with it GLENet-C's AnchorHeadKLLabelIoU;
     alone AnchorHeadIoU) and the variance-guided IoU gate
     (AnchorHeadKLLabelIoUGuide).
 
 The losses: focal classification, direction-bin cross entropy, the
-sin-difference smooth-L1, KL-label and KL regression losses, and the IoU
-branch's smooth-L1 against 2 * IoU3D(pred, gt) - 1.
+sin-difference smooth-L1, KL-label, KL and od-IoU regression losses, and
+the IoU branch's smooth-L1 against 2 * IoU3D(pred, gt) - 1.
 """
 from __future__ import annotations
 
@@ -116,7 +117,7 @@ def build_dense_head(name, in_channels, num_class, num_anchors_per_location,
     it; the names it does not port raise."""
     args = (in_channels, num_class, num_anchors_per_location, code_size,
             num_dir_bins)
-    if name == 'AnchorHeadSingle':
+    if name in ('AnchorHeadSingle', 'AnchorHeadSessd'):
         return AnchorHeadSingle(*args)
     flags = {'AnchorHeadKLLabel': {}, 'AnchorHeadKL': {},
              'AnchorHeadKLLabelIoU': {'with_iou_branch': True},
@@ -242,6 +243,21 @@ def reg_loss_kl(box_preds, box_std_preds, box_reg_targets, box_cls_labels,
     s = box_std_preds
     return (torch.exp(-s) * l1
             + 0.5 * s * reg_weights[..., None]).sum() / batch_size
+
+
+def reg_loss_odiou(box_preds, box_reg_targets, box_cls_labels, flat_anchors,
+                   box_coder):
+    """SE-SSD's od-IoU regression loss on decoded boxes: every anchor's
+    decoded prediction against its decoded target (which carries no
+    gradient), weighted by the positives normalised per sample."""
+    batch_size = box_preds.shape[0]
+    reg_weights = _positive_weights(box_cls_labels)
+    anchors = flat_anchors[None].expand(batch_size, *flat_anchors.shape)
+    pred_boxes = box_coder.decode(box_preds, anchors).reshape(-1, 7)
+    with torch.no_grad():
+        gt_boxes = box_coder.decode(box_reg_targets, anchors).reshape(-1, 7)
+    return losses.odiou_3d_loss(gt_boxes, pred_boxes,
+                                reg_weights.reshape(-1), batch_size)
 
 
 def iou_branch_loss(iou_preds, box_preds, box_reg_targets, box_cls_labels,

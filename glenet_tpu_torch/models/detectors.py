@@ -5,10 +5,16 @@ for two topologies:
     VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone -> anchor head
     -> proposal NMS -> (train: RoI target sampling) -> VoxelRCNNHead ->
     final NMS over the refined RoIs;
-  - SECONDNet, single stage (GLENet-S, GLENet-C, plain SECOND): voxelize ->
-    MeanVFE -> VoxelBackBone8x(Ciassd) -> HeightCompression ->
-    BaseBEVBackbone or SSFA -> AnchorHeadSingle or the KL-label family ->
+  - SECONDNet, single stage (GLENet-S, GLENet-C, plain SECOND, SE-SSD's
+    head): voxelize -> MeanVFE -> VoxelBackBone8x(Ciassd) ->
+    HeightCompression -> BaseBEVBackbone or SSFA -> AnchorHeadSingle,
+    AnchorHeadSessd (its od-IoU regression loss) or the KL-label family ->
     final NMS over the dense head's decoded anchors.
+
+The dense head's targets come from the axis-aligned assigner or ATSS, on
+nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
+those of POINT_FEATURE_ENCODING's used_feature_list (4 on KITTI, 5 on
+Waymo).
 
 Every other family or option raises NotImplementedError naming itself.
 
@@ -73,8 +79,8 @@ class DetectorNet(nn.Module):
         ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
         assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
         _require(assigner in ('AxisAlignedTargetAssigner',
-                              'WeightedAxisAlignedTargetAssigner'), assigner)
-        _require(not ta_cfg.get('MATCH_HEIGHT', False), 'MATCH_HEIGHT')
+                              'WeightedAxisAlignedTargetAssigner',
+                              'ATSSTargetAssigner'), assigner)
         if roi_cfg is not None:
             _require(roi_name in ('VoxelRCNNKLLabelIoUHead',
                                   'VoxelRCNNHead'), f'ROI_HEAD {roi_name}')
@@ -269,12 +275,20 @@ class Detector:
         # Detector reads them off its name
         self.use_kl_loss = 'KLLabel' in head_cfg.NAME
         self.use_kl_nolabel = head_cfg.NAME == 'AnchorHeadKL'
+        self.use_odiou = head_cfg.NAME == 'AnchorHeadSessd'
         self.use_iou_branch = 'IoU' in head_cfg.NAME
+        self.assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
+        self.match_height = bool(ta_cfg.get('MATCH_HEIGHT', False))
+        self.atss_topk = int(ta_cfg.get('TOPK', 9))
+        encoding = data_cfg.get('POINT_FEATURE_ENCODING', None)
+        self.num_point_features = (
+            len(encoding['used_feature_list']) if encoding is not None
+            else 4)
         self.net = DetectorNet(
             model_cfg, self.grid_size, self.voxel_size, self.pc_range,
             self.max_voxels_train, self.max_voxels_test,
-            self.max_points_per_voxel,
-            num_class, self.anchor_set, self.box_coder).to(self.device).eval()
+            self.max_points_per_voxel, num_class, self.anchor_set,
+            self.box_coder, self.num_point_features).to(self.device).eval()
 
     @torch.no_grad()
     def predict(self, batch):
@@ -295,15 +309,26 @@ class Detector:
                        roi_targets=batch.get('roi_targets'))
         return self.compute_loss(out, batch)
 
+    def assign_targets(self, gt_boxes, gt_mask, gt_uncertainty):
+        """One sample's anchor targets: ATSS (TOPK candidates per gt) or
+        the axis-aligned assigner, on 3D IoU with MATCH_HEIGHT."""
+        if self.assigner == 'ATSSTargetAssigner':
+            return target_assigner.atss_assign_targets(
+                self.anchor_set, gt_boxes, gt_mask, gt_uncertainty,
+                self.box_coder, topk=self.atss_topk,
+                match_height=self.match_height)
+        return target_assigner.assign_targets(
+            self.anchor_set, gt_boxes, gt_mask, gt_uncertainty,
+            self.box_coder, match_height=self.match_height)
+
     def compute_loss(self, full_out, batch):
-        """Anchor-head losses (focal cls; KL-label, KL or sin-difference
-        smooth-L1 regression; direction bins; the IoU branch) and, in
-        VoxelRCNN, the RCNN losses -> (total, metrics)."""
+        """Anchor-head losses (focal cls; KL-label, KL, od-IoU or
+        sin-difference smooth-L1 regression; direction bins; the IoU
+        branch) and, in VoxelRCNN, the RCNN losses -> (total, metrics)."""
         with torch.no_grad():
-            per_sample = [target_assigner.assign_targets(
-                self.anchor_set, gb, gm, gu, self.box_coder)
-                for gb, gm, gu in zip(batch['gt_boxes'], batch['gt_mask'],
-                                      batch['gt_uncertainty'])]
+            per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
+                          zip(batch['gt_boxes'], batch['gt_mask'],
+                              batch['gt_uncertainty'])]
         targets = target_assigner.TargetDict(
             *(torch.stack(t) for t in zip(*per_sample)))
         flat = anchor_heads._flatten_preds(full_out['dense_head'])
@@ -323,6 +348,11 @@ class Detector:
                 flat['box_preds'], flat['box_std_preds'],
                 targets.box_reg_targets, targets.box_cls_labels,
                 code_weights=self.code_weights)
+        elif self.use_odiou:
+            r_loss = anchor_heads.reg_loss_odiou(
+                flat['box_preds'], targets.box_reg_targets,
+                targets.box_cls_labels, self.net.flat_anchors,
+                self.box_coder)
         else:
             r_loss = anchor_heads.reg_loss_smooth_l1(
                 flat['box_preds'], targets.box_reg_targets,

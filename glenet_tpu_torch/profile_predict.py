@@ -5,8 +5,9 @@
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml or second.yaml) at full width, seeded random
 weights,
-B = 2 synthetic KITTI-like scenes of 32768 points (utils/synthetic.py), one
-warm-up predict, then:
+B = 2 synthetic KITTI-like scenes of 32768 points (for a Waymo config,
+configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
+features; utils/synthetic.py), one warm-up predict, then:
   1. the wall time of 3 requests as a caller sees it (a device synchronise
      after each request only);
   2. per-stage wall times of the same 3 requests, with a device synchronise
@@ -33,7 +34,7 @@ from .config import cfg_from_yaml_file
 from .ops import iou3d
 from .ops import nms as nms_ops
 from .utils.cuda_timing import card_line, profile_window
-from .utils.synthetic import scene_batches, seeded_detector
+from .utils.synthetic import batches_for, seeded_detector
 
 ROOT = Path(__file__).resolve().parent.parent
 REQUESTS, TOP = 3, 30
@@ -125,7 +126,7 @@ def main(argv=None):
     cfg = cfg_from_yaml_file(args.cfg_file)
     det = seeded_detector(cfg, 'cuda', 0)
     print(f'{cfg.TAG} predict, B=2, test voxel budget {det.max_voxels_test}')
-    batches = scene_batches(REQUESTS + 1)
+    batches = batches_for(cfg, REQUESTS + 1)
     det.predict(batches[0])
     torch.cuda.synchronize()
 

@@ -6,7 +6,8 @@ configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
 voxel-query RoI pooling, or a single-stage GLENet_S.yaml, GLENet_C.yaml,
 second.yaml) at full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
-points with Car gt boxes at their clusters (utils/synthetic.py), the train
+points with Car gt boxes at their clusters (for a Waymo config, Waymo-like
+scenes of 170000 points with Vehicle boxes; utils/synthetic.py), the train
 voxel budget, adam_onecycle over the schedule of a full run (`total_steps`).
 One warm-up step, then:
   1. per-stage wall times of 3 steps, with a device synchronise at every
@@ -34,25 +35,37 @@ from .config import cfg_from_yaml_file
 from .train import optim
 from .train import state as train_state
 from .utils.cuda_timing import card_line, profile_window
-from .utils.synthetic import seeded_detector, train_batches
+from .utils.synthetic import batches_for, seeded_detector
 
 ROOT = Path(__file__).resolve().parent.parent
 KITTI_TRAIN_FRAMES = 3712       # KITTI's train split (ImageSets/train.txt)
+# Waymo's train split (v1.2: 798 sequences, 158081 frames) at
+# waymo_dataset.yaml's SAMPLED_INTERVAL of 5
+WAYMO_TRAIN_FRAMES = 31617
 STEPS, TOP = 3, 30
 
 
-def total_steps(opt_cfg):
-    """Optimizer steps of a full KITTI run: NUM_EPOCHS x iterations per
-    epoch (80 x 928 for GLENet_VR.yaml)."""
+def train_frames(cfg):
+    """Frames of a full run's train split for the config's dataset."""
+    return (WAYMO_TRAIN_FRAMES
+            if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset'
+            else KITTI_TRAIN_FRAMES)
+
+
+def total_steps(opt_cfg, frames=KITTI_TRAIN_FRAMES):
+    """Optimizer steps of a full run: NUM_EPOCHS x iterations per epoch
+    (80 x 928 for GLENet_VR.yaml on KITTI, 30 x 7905 for Waymo's
+    GLENet_S.yaml)."""
     return int(opt_cfg.NUM_EPOCHS) * math.ceil(
-        KITTI_TRAIN_FRAMES / int(opt_cfg.BATCH_SIZE_PER_GPU))
+        frames / int(opt_cfg.BATCH_SIZE_PER_GPU))
 
 
 def build_training(cfg, det):
     """adam_onecycle over a full run's schedule for `det`: returns (tx,
     state, train_step)."""
     tx, _ = optim.build_optimizer(cfg.OPTIMIZATION,
-                                  total_steps(cfg.OPTIMIZATION))
+                                  total_steps(cfg.OPTIMIZATION,
+                                              train_frames(cfg)))
     state = train_state.create_train_state(det, tx)
     return tx, state, train_state.make_train_step(det, tx)
 
@@ -128,10 +141,11 @@ def main(argv=None):
     det = seeded_detector(cfg, 'cuda', 0)
     tx, state, train_step = build_training(cfg, det)
     batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
-    batches = train_batches(1 + 2 * STEPS, seed=0, batch=batch_size)
+    batches = batches_for(cfg, 1 + 2 * STEPS, seed=0, batch=batch_size,
+                          train=True)
     print(f'{cfg.TAG} train step, B={batch_size}, train voxel budget '
           f'{det.max_voxels_train}, total_steps '
-          f'{total_steps(cfg.OPTIMIZATION)}')
+          f'{total_steps(cfg.OPTIMIZATION, train_frames(cfg))}')
     state, _ = train_step(state, batches[0])
     torch.cuda.synchronize()
 

@@ -11,8 +11,10 @@ tools.convert_weights turns a reference `.pth` into a port checkpoint) or,
 with --eval_all, every checkpoint of the directory
 as it appears (polling every 30 s, at most --max_waiting_mins without a new
 one).  Per checkpoint: batched predicts on the device, prediction dicts,
-recall telemetry (3D IoU on the device), `result.pkl` and the KITTI AP
-(overlaps and matcher on the device).  Runs on the GPU unless --device cpu
+recall telemetry (3D IoU on the device), `result.pkl` and the dataset's
+evaluation: the KITTI AP (overlaps and matcher on the device) or, for a
+Waymo config, Waymo's AP / APH at LEVEL_1 / LEVEL_2 (IoUs on the
+device, matching on the host).  Runs on the GPU unless --device cpu
 is given; without a GPU it raises.
 
 `main(argv)` returns {checkpoint path: eval_one_epoch's result}.
@@ -55,10 +57,11 @@ def parse_config(argv=None):
 
 def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
                    result_dir=None):
-    """Batched predicts -> prediction dicts -> KITTI AP, with the recall of
-    the gt boxes at RECALL_THRESH_LIST.  Returns {'ap': ret_dict,
-    'result_str', 'frames', 'sec_per_frame' (predicts and prediction dicts,
-    per frame), 'eval_sec' (the KITTI evaluation alone), 'recall'}."""
+    """Batched predicts -> prediction dicts -> the dataset's evaluation
+    (KITTI AP, or Waymo AP / APH), with the recall of the gt boxes at
+    RECALL_THRESH_LIST.  Returns {'ap': ret_dict, 'result_str', 'frames',
+    'sec_per_frame' (predicts and prediction dicts, per frame), 'eval_sec'
+    (the evaluation alone), 'recall'}."""
     import torch
 
     from ..ops import iou3d
@@ -110,10 +113,11 @@ def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
         torch.cuda.synchronize(detector.device)
     eval_sec = time.perf_counter() - t_eval
     logger.info('\n' + result_str)
-    logger.info(f'KITTI evaluation: {eval_sec:.3f} s')
+    logger.info(f'{dataset.METRIC} evaluation: {eval_sec:.3f} s')
     if result_dir is not None:
         writer = ScalarWriter(Path(result_dir) / 'tensorboard')
-        writer.add_scalars({f'eval/{k}': v for k, v in ret_dict.items()}, 0)
+        writer.add_scalars({f'eval/{k}': v for k, v in ret_dict.items()
+                            if isinstance(v, (int, float))}, 0)
         writer.add_scalars({f'eval/recall_{t}': r for t, r in rates.items()},
                            0)
         writer.close()

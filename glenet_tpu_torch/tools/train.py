@@ -4,9 +4,10 @@ tools/train.py:
     python -m glenet_tpu_torch.tools.train --cfg_file CFG [--device cpu] ...
 
 Config and overrides, dataset, detector and optimizer, auto-resume from the
-newest checkpoint in <output_dir>/ckpt (a glenet_tpu `.msgpack`, given or
-found there, raises NotImplementedError: its optimizer state is not
-mapped into the port), the epoch loop with per-step
+newest checkpoint in <output_dir>/ckpt (the port's `.pth`, or when there
+is none a glenet_tpu `.msgpack`; --ckpt takes either: a `.msgpack` brings
+its parameters, BN statistics, optimizer state and step, and the run goes
+on writing `.pth`), the epoch loop with per-step
 telemetry (data ms: `iter_batches` until the batch is on the device; step
 ms: the train step until its results are on the host), a checkpoint per
 epoch (pruned to --max_ckpt_save_num), then optionally the BN-statistics
@@ -115,11 +116,6 @@ def main(argv=None):
     latest = (args.ckpt or ckpt_lib.find_latest_checkpoint(ckpt_dir)
               or ckpt_lib.find_latest_checkpoint(ckpt_dir,
                                                  jax_checkpoint.PATTERN))
-    if latest and str(latest).endswith('.msgpack'):
-        raise NotImplementedError(
-            f'resuming from {latest}: mapping the optimizer state of a '
-            f'glenet_tpu checkpoint into the port is not ported yet (its '
-            f'weights load into tools.test --ckpt)')
     output_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(output_dir / 'train.log')
 
@@ -146,9 +142,13 @@ def main(argv=None):
     start_epoch = 0
     if latest:
         logger.info(f'resuming from {latest}')
-        ck = ckpt_lib.load_checkpoint(latest)
-        ckpt_lib.restore_train_state(ts, ck)
-        start_epoch = ck['epoch'] + 1
+        if str(latest).endswith('.msgpack'):
+            ck = jax_checkpoint.load_checkpoint(latest)
+            jax_checkpoint.restore_train_state(ts, ck, tx)
+        else:
+            ck = ckpt_lib.load_checkpoint(latest)
+            ckpt_lib.restore_train_state(ts, ck)
+        start_epoch = int(ck['epoch']) + 1
 
     writer = ScalarWriter(output_dir / 'tensorboard')
     it = ts.step

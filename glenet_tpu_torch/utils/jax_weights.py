@@ -117,6 +117,24 @@ def _export(module, name, value):
     raise KeyError(f'no rule for {name!r} of {type(module).__name__}')
 
 
+def port_tree_to_jax(net: nn.Module, arrays: dict) -> dict:
+    """{port parameter key: array in the port's layout} (e.g. an optimizer
+    moment per parameter) -> the JAX params tree of numpy arrays, the
+    inverse of jax_tree_to_port."""
+    out = {}
+    for key, arr in arrays.items():
+        *mods, name = key.split('.')
+        coll, leaf, value = _export(net.get_submodule('.'.join(mods)), name,
+                                    np.asarray(arr))
+        if coll != 'params':
+            raise KeyError(f'{key} is not a parameter')
+        node = out
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return out
+
+
 def port_to_jax_variables(net: nn.Module) -> dict:
     """The port's parameters and BN statistics as a glenet_tpu variables
     tree of numpy arrays ({'params', 'batch_stats'}, JAX layouts), the

@@ -1,7 +1,8 @@
 """Detection losses of the train steps (torch counterparts of
 glenet_tpu/utils/losses.py): focal classification, sin-difference smooth-L1
 regression with per-code weights and the NaN-target rule, direction-bin
-cross entropy, the corner loss and GLENet's KL-label regression loss."""
+cross entropy, the corner loss, SE-SSD's od-IoU loss and GLENet's KL-label
+regression loss."""
 from __future__ import annotations
 
 import math
@@ -76,6 +77,47 @@ def corner_loss_lidar(pred_boxes, gt_boxes, mask=None):
     if mask is not None:
         loss = loss * mask
     return loss
+
+
+def odiou_3d_loss(gboxes, qboxes, weights, batch_size):
+    """SE-SSD's orientation-aware distance-IoU loss of row-aligned boxes
+    gboxes / qboxes (N, 7) with weights (N,):
+
+        odiou = 1 - IoU3D + d_centre^2 / diag^2 + 1.25 (1 - |cos dtheta|),
+
+    diag the 3D diagonal of the axis-aligned rectangle around both boxes'
+    BEV corners (with the height overlap as its third side); a pair with a
+    non-positive size counts 0.  Returns 2 * sum(odiou * weights) /
+    batch_size.  The rotated overlap is ops/iou3d.overlap_bev_corners, so
+    the gradient flows through its polygon clipping."""
+    from ..ops import iou3d
+    g = gboxes.clamp(-200.0, 200.0)
+    q = qboxes.clamp(-200.0, 200.0)
+    valid = (g[:, 3:6] > 0).all(dim=1) & (q[:, 3:6] > 0).all(dim=1)
+
+    angle_factor = 1.25 * (1.0 - torch.abs(torch.cos(q[:, 6] - g[:, 6])))
+
+    cg = iou3d.box_to_bev_corners(g)                      # (N, 4, 2)
+    cq = iou3d.box_to_bev_corners(q)
+    inter_area = iou3d.overlap_bev_corners(cg, cq)
+    inter_h = (torch.minimum(g[:, 2] + g[:, 5] / 2, q[:, 2] + q[:, 5] / 2)
+               - torch.maximum(g[:, 2] - g[:, 5] / 2,
+                               q[:, 2] - q[:, 5] / 2)).clamp_min(0)
+    vol_inc = inter_area * inter_h
+    vol_union = (g[:, 3] * g[:, 4] * g[:, 5] + q[:, 3] * q[:, 4] * q[:, 5]
+                 - vol_inc)
+    ious = vol_inc / vol_union.clamp_min(1e-7)
+
+    all_corners = torch.cat([cg, cq], dim=1)              # (N, 8, 2)
+    mbr_min = all_corners.amin(dim=1)
+    mbr_max = all_corners.amax(dim=1)
+    mbr_diag_bev_sq = ((mbr_max - mbr_min) ** 2).sum(dim=1)
+    mbr_diag_3d_sq = mbr_diag_bev_sq + inter_h ** 2 + 1e-7
+    d_center_sq = ((g[:, 0:3] - q[:, 0:3]) ** 2).sum(dim=1)
+
+    odious = 1.0 - ious + d_center_sq / mbr_diag_3d_sq + angle_factor
+    odious = torch.where(valid, odious, 0.0)
+    return 2.0 * (odious * weights).sum() / batch_size
 
 
 def add_sin_difference(boxes1, boxes2, dim: int = 6):

@@ -1,6 +1,7 @@
 """Synthetic inputs and seeded random weights for runs on the card
-(chip_smoke.py, profile_predict.py, profile_train.py): no trained GLENet-VR
-checkpoint and no KITTI data are in the repository."""
+(chip_smoke.py, profile_predict.py, profile_train.py) and for the CPU
+tests: no trained checkpoint and no KITTI or Waymo data are in the
+repository."""
 from __future__ import annotations
 
 import pickle
@@ -128,7 +129,7 @@ def _pcdet_backbone(subm_per_block, out_channels):
     return layers + [('conv_out.0', 64, out_channels, (3, 1, 1))]
 
 
-def pcdet_state_dict(cfg, seed=0, num_point_features=4):
+def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     """A state dict of random tensors under the key names and layouts of
     the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN or SECONDNet:
     MeanVFE (no parameters), VoxelBackBone8x or VoxelBackBone8xCiassd
@@ -150,12 +151,18 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=4):
     reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2.
     Every BN comes with running stats and num_batches_tracked.  Weights ~
     N(0, 1/fan_in), biases and running means ~ N(0, 0.1), BN scales and
-    running variances ~ U(0.5, 1.5).  Returns {key: CPU tensor}."""
+    running variances ~ U(0.5, 1.5).  The input convolution takes
+    `num_point_features` channels, by default those of the config's
+    used_feature_list (5 on Waymo), else 4.  Returns {key: CPU tensor}."""
     from ..ops import sparse
     from ..ops import voxelize as vox_ops
     rng = np.random.RandomState(seed)
     mcfg = cfg.MODEL
     sd = {}
+    if num_point_features is None:
+        enc = cfg.DATA_CONFIG.get('POINT_FEATURE_ENCODING', None)
+        num_point_features = (len(enc['used_feature_list'])
+                              if enc is not None else 4)
 
     def weight(key, shape, fan_in):
         sd[key] = rng.randn(*shape) / np.sqrt(fan_in)
@@ -494,3 +501,210 @@ def add_label_variances(root, seed=0, car_class='Car'):
         info['uncertainty'] = variances[(info['image_idx'], info['gt_idx'])]
     with open(root / 'kitti_dbinfos_train.pkl', 'wb') as f:
         pickle.dump(db_infos, f)
+
+
+# ---------------------------------------------------------------------------
+# synthetic Waymo scenes and a data tree in Waymo's processed layout
+# ---------------------------------------------------------------------------
+
+WAYMO_RANGE = 75.2          # metres, the x / y half extent of the grid
+WAYMO_N_POINTS = 170_000    # points per frame of the 64-beam top lidar and
+                            # the 4 short-range lidars, both returns
+WAYMO_MAX_GT = 256          # MAX_GT_PER_SCENE of waymo_dataset.yaml
+VEHICLE_SIZE = ((4.2, 5.2), (1.8, 2.3), (1.5, 1.9))   # l, w, h ranges
+# Vehicles per frame, drawn uniformly from this range: its mean, 26.5, is
+# the Waymo Open Dataset's (about 6.1 M 3D Vehicle labels over 1150 scenes
+# of 20 s at 10 Hz, Sun et al., CVPR 2020); the spread is assumed (the
+# paper gives no per-frame distribution) and puts about a quarter of the
+# frames under the 15 Vehicles that waymo_dataset.yaml's gt sampling fills
+# a scene up to.
+WAYMO_VEHICLES = (1, 52)
+
+
+def _place_vehicles(rng, n):
+    """n non-overlapping Vehicle boxes over 360 degrees, 4-70 m away, on
+    the ground (z = 0 in Waymo's vehicle frame)."""
+    boxes = []
+    while len(boxes) < n:
+        r, t = rng.uniform(4.0, 70.0), rng.uniform(-np.pi, np.pi)
+        x, y = r * np.cos(t), r * np.sin(t)
+        if any(np.hypot(x - b[0], y - b[1]) < 6.0 for b in boxes):
+            continue
+        l, w, h = (rng.uniform(*v) for v in VEHICLE_SIZE)
+        boxes.append([x, y, h / 2, l, w, h, rng.uniform(-np.pi, np.pi)])
+    return np.array(boxes, np.float32).reshape(-1, 7)
+
+
+def waymo_frame(rng, n_points=WAYMO_N_POINTS, vehicles=WAYMO_VEHICLES):
+    """One synthetic Waymo frame: (points (n_points, 6) [x y z intensity
+    elongation NLZ] over 360 degrees out to the grid's range, raw intensity
+    before tanh, 2% of the points in a no-label zone (flag 1, the rest -1);
+    Vehicle boxes (M, 7), M uniform in `vehicles`, with a cluster of points
+    in each, fewer the farther they are, in proportion to n_points).  The
+    ground's density falls as 1 / range, as a spinning lidar's does."""
+    boxes = _place_vehicles(rng, rng.randint(vehicles[0], vehicles[1] + 1))
+    parts = []
+    for b in boxes:
+        k = int(3000 * n_points / WAYMO_N_POINTS
+                * np.exp(-np.hypot(b[0], b[1]) / 25.0)) + 30
+        local = rng.uniform(-0.5, 0.5, (k, 3)) * b[3:6]
+        parts.append(common.rotate_points_along_z_np(
+            local, np.array([b[6]])) + b[:3])
+    n_rest = max(n_points - sum(len(p) for p in parts), 0)
+    r = rng.uniform(3.0, WAYMO_RANGE * np.sqrt(2), n_rest)
+    t = rng.uniform(-np.pi, np.pi, n_rest)
+    z = np.where(rng.uniform(0, 1, n_rest) < 0.75,
+                 rng.normal(0.0, 0.05, n_rest), rng.uniform(0.0, 4.0, n_rest))
+    parts.append(np.stack([r * np.cos(t), r * np.sin(t), z], 1))
+    xyz = np.concatenate(parts)[:n_points]
+    feats = np.stack([rng.exponential(0.3, len(xyz)),
+                      rng.uniform(0, 1, len(xyz)),
+                      np.where(rng.uniform(0, 1, len(xyz)) < 0.02, 1.0,
+                               -1.0)], 1)
+    return np.concatenate([xyz, feats], 1).astype(np.float32), boxes
+
+
+def _model_points(raw, n_points):
+    """A frame's raw (N, 6) points as the detector's input: the points out
+    of the no-label zone, tanh of the intensity (WaymoDataset.get_lidar),
+    the range mask, padded to n_points with a mask."""
+    pts = raw[raw[:, 5] == -1][:, :5].copy()
+    pts[:, 3] = np.tanh(pts[:, 3])
+    keep = (np.abs(pts[:, :2]) <= WAYMO_RANGE).all(1) & (pts[:, 2] >= -2) \
+        & (pts[:, 2] <= 4)
+    pts = pts[keep][:n_points]
+    out = np.zeros((n_points, 5), np.float32)
+    out[:len(pts)] = pts
+    mask = np.zeros(n_points, bool)
+    mask[:len(pts)] = True
+    return out, mask
+
+
+def waymo_scene_batches(n, seed=0, batch=2, device='cuda',
+                        n_points=WAYMO_N_POINTS, train=False):
+    """`n` batches of `batch` synthetic Waymo scenes (waymo_frame) from one
+    RandomState(seed) as the detector takes them: points (B, n_points, 5),
+    points_mask; with train=True also the Vehicle gt boxes (class 1) in
+    WAYMO_MAX_GT slots, gt_mask and label variances in [0.01, 0.2)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        pts = np.zeros((batch, n_points, 5), np.float32)
+        pmask = np.zeros((batch, n_points), bool)
+        gt = np.zeros((batch, WAYMO_MAX_GT, 8), np.float32)
+        gt_mask = np.zeros((batch, WAYMO_MAX_GT), bool)
+        unc = np.ones((batch, WAYMO_MAX_GT, 7), np.float32)
+        for b in range(batch):
+            raw, boxes = waymo_frame(rng, n_points)
+            pts[b], pmask[b] = _model_points(raw, n_points)
+            k = min(len(boxes), WAYMO_MAX_GT)
+            gt[b, :k, :7], gt[b, :k, 7] = boxes[:k], 1
+            gt_mask[b, :k] = True
+            unc[b, :k] = rng.uniform(0.01, 0.2, (k, 7))
+        fields = [('points', pts), ('points_mask', pmask)]
+        if train:
+            fields += [('gt_boxes', gt), ('gt_mask', gt_mask),
+                       ('gt_uncertainty', unc)]
+        out.append({k: torch.from_numpy(v).to(device) for k, v in fields})
+    return out
+
+
+WAYMO_PROCESSED = 'waymo_processed_data_v0_5_0'
+
+
+def write_waymo_tree(root, n_seq, frames_per_seq, seed=0,
+                     n_points=WAYMO_N_POINTS, vehicles=WAYMO_VEHICLES,
+                     n_val_seq=1):
+    """A synthetic data tree in the layout of
+    waymo_raw.process_single_sequence under `root`:
+    WAYMO_PROCESSED/<seq>/<seq>.pkl and %04d.npy frames of waymo_frame's
+    (n_points, 6) points, ImageSets/{train, val}.txt (the last n_val_seq
+    sequences are val, the rest train).  Each info holds point_cloud,
+    frame_id, metadata, pose, num_points_of_each_lidar and annos: name
+    (Vehicle, and one Pedestrian box with no points that the class
+    filter drops), gt_boxes_lidar, dimensions, location, heading_angles,
+    num_points_in_gt, difficulty (0, or 2 for 5 points or fewer) and the
+    label variances `uncertainty` in [0.01, 0.2) (-1 for the Pedestrian),
+    so the KL loss sees positive variances.  Returns `root`."""
+    root = Path(root)
+    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    seqs = [f'segment-{s:05d}_with_camera_labels' for s in range(n_seq)]
+    for seq in seqs:
+        seq_dir = root / WAYMO_PROCESSED / seq
+        seq_dir.mkdir(parents=True, exist_ok=True)
+        infos = []
+        for f in range(frames_per_seq):
+            pts, boxes = waymo_frame(rng, n_points, vehicles)
+            np.save(str(seq_dir / f'{f:04d}.npy'), pts)
+            ped = np.array([[rng.uniform(-60, 60), rng.uniform(-60, 60),
+                             0.9, 0.8, 0.8, 1.8, 0.0]], np.float32)
+            all_boxes = np.concatenate([boxes, ped])
+            n_in = box_utils.points_in_boxes_np(pts[:, :3],
+                                                all_boxes).sum(0)
+            unc = np.concatenate([rng.uniform(0.01, 0.2, (len(boxes), 7)),
+                                  -np.ones((1, 7))])
+            infos.append({
+                'point_cloud': {'num_features': 5, 'lidar_sequence': seq,
+                                'sample_idx': f},
+                'frame_id': f'{seq}_{f:03d}',
+                'metadata': {'context_name': seq,
+                             'timestamp_micros': 1_500_000_000_000_000
+                             + 100_000 * f},
+                'pose': np.eye(4, dtype=np.float32),
+                'num_points_of_each_lidar': [len(pts), 0, 0, 0, 0],
+                'annos': {
+                    'name': np.array(['Vehicle'] * len(boxes)
+                                     + ['Pedestrian']),
+                    'gt_boxes_lidar': all_boxes,
+                    'dimensions': all_boxes[:, 3:6],
+                    'location': all_boxes[:, :3],
+                    'heading_angles': all_boxes[:, 6],
+                    'num_points_in_gt': n_in.astype(np.int64),
+                    'difficulty': np.where(n_in <= 5, 2, 0).astype(np.int32),
+                    'uncertainty': unc,
+                }})
+        with open(seq_dir / f'{seq}.pkl', 'wb') as fh:
+            pickle.dump(infos, fh)
+    names = [s + '.tfrecord' for s in seqs]
+    split = max(len(names) - n_val_seq, 1)
+    (root / 'ImageSets/train.txt').write_text('\n'.join(names[:split]) + '\n')
+    (root / 'ImageSets/val.txt').write_text(
+        '\n'.join(names[split:] or names[-1:]) + '\n')
+    return root
+
+
+def add_waymo_db_variances(root, split='train'):
+    """Copy each gt box's label variances from the infos of `root` into the
+    entries of its pcdet_waymo_dbinfos_<split>.pkl (matched by frame and
+    gt index), as the CVAE's injection writes them, so sampled boxes carry
+    positive variances too.  Returns the number of entries."""
+    root = Path(root)
+    unc = {}
+    for pkl in (root / WAYMO_PROCESSED).glob('*/*.pkl'):
+        with open(pkl, 'rb') as f:
+            for info in pickle.load(f):
+                for i, u in enumerate(info['annos']['uncertainty']):
+                    unc[(info['frame_id'], i)] = u
+    path = root / f'pcdet_waymo_dbinfos_{split}.pkl'
+    with open(path, 'rb') as f:
+        db = pickle.load(f)
+    n = 0
+    for entries in db.values():
+        for e in entries:
+            e['uncertainty'] = unc[(e['image_idx'], e['gt_idx'])]
+            n += 1
+    with open(path, 'wb') as f:
+        pickle.dump(db, f)
+    return n
+
+
+def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
+    """`n` synthetic batches for `cfg`'s dataset: Waymo scenes
+    (waymo_scene_batches) for a WaymoDataset config, else KITTI-like
+    scenes (scene_batches, or train_batches with train=True)."""
+    if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
+        return waymo_scene_batches(n, seed, batch, device, train=train)
+    if train:
+        return train_batches(n, seed, batch, device)
+    return scene_batches(n, seed, batch, device)

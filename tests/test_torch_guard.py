@@ -62,7 +62,6 @@ def test_other_families_raise():
 
 
 @pytest.mark.parametrize('section,key,value', [
-    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'MATCH_HEIGHT', True),
     ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'cls'),
     ('ROI_HEAD.ROI_GRID_POOL', 'POOL_MODE', 'ball_query')])
 def test_unported_options_raise(section, key, value):
@@ -180,20 +179,14 @@ def test_unported_augmentations_raise(name, tmp_path):
 
 
 @pytest.mark.parametrize('section,key,value,match', [
-    ('DENSE_HEAD', 'NAME', 'AnchorHeadSessd', 'AnchorHeadSessd'),
     ('DENSE_HEAD', 'NAME', 'AnchorHeadMulti', 'AnchorHeadMulti'),
     ('', 'NAME', 'SECONDNetIoU', 'SECONDNetIoU'),
-    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'NAME', 'ATSSTargetAssigner',
-     'ATSSTargetAssigner'),
-    ('DENSE_HEAD.TARGET_ASSIGNER_CONFIG', 'MATCH_HEIGHT', True,
-     'MATCH_HEIGHT'),
     ('POST_PROCESSING.NMS_CONFIG', 'MULTI_CLASSES_NMS', True,
      'multi-class')])
 def test_single_stage_refusals(section, key, value, match):
     """What the single-stage family of the JAX package has and the port
-    does not (SE-SSD's head and od-IoU loss, the multi-head, SECOND-IoU,
-    ATSS, height matching, multi-class final NMS) raises naming itself, at
-    build time or at the first predict."""
+    does not (the multi-head, SECOND-IoU, multi-class final NMS) raises
+    naming itself, at build time or at the first predict."""
     import torch_parity as tp
 
     from glenet_tpu_torch.models.detectors import build_detector
@@ -210,8 +203,8 @@ def test_single_stage_refusals(section, key, value, match):
                      'points_mask': torch.ones((1, 16), dtype=torch.bool)})
 
 
-@pytest.mark.parametrize('name', ['WaymoDataset', 'NuScenesDataset',
-                                  'LyftDataset', 'PandasetDataset'])
+@pytest.mark.parametrize('name', ['NuScenesDataset', 'LyftDataset',
+                                  'PandasetDataset'])
 def test_unported_datasets_raise(name):
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.datasets import build_dataset
@@ -250,23 +243,49 @@ def test_converter_refuses_other_families(section, name):
         wc.convert_full_model(cfg, {}, {'params': {}})
 
 
-@pytest.mark.parametrize('how', ['--ckpt', 'auto-resume'])
-def test_train_cli_refuses_msgpack(how, tmp_path):
-    """Resuming training from a glenet_tpu checkpoint needs its optimizer
-    state mapped, which is not ported: the train CLI raises, naming it,
-    before it writes anything."""
-    from glenet_tpu_torch.tools import train
-    ckpt_dir = tmp_path / 'out' / 'ckpt'
-    ckpt_dir.mkdir(parents=True)
-    msgpack_path = ckpt_dir / 'checkpoint_epoch_3.msgpack'
-    msgpack_path.write_bytes(b'\x80')
-    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
-            '--output_dir', str(tmp_path / 'out'), '--device', 'cpu']
-    if how == '--ckpt':
-        argv += ['--ckpt', str(msgpack_path)]
-    with pytest.raises(NotImplementedError, match='optimizer state'):
-        train.main(argv)
-    assert sorted(p.name for p in (tmp_path / 'out').iterdir()) == ['ckpt']
+def _waymo_sdk_calls(tmp_path):
+    """name -> a call of each SDK seam of datasets/waymo_raw.py."""
+    from glenet_tpu_torch.datasets import waymo_raw
+    return {
+        '_iter_frames': lambda: next(waymo_raw._iter_frames(
+            tmp_path / 'segment-0.tfrecord')),
+        'extract_points': lambda: waymo_raw.extract_points(object()),
+        'create_waymo_infos': lambda: waymo_raw.create_waymo_infos(
+            tmp_path / 'raw', tmp_path / 'out'),
+    }
+
+
+@pytest.mark.parametrize('name,package', [
+    ('_iter_frames', 'tensorflow'),
+    ('extract_points', 'waymo_open_dataset'),
+    ('create_waymo_infos', 'waymo-open-dataset')])
+def test_waymo_sdk_seams_raise(name, package, tmp_path, monkeypatch):
+    """The TFRecord decode and the range-image conversion need tensorflow
+    and the waymo-open-dataset SDK, which neither this machine nor the
+    card's has: each seam raises naming its package, before it writes
+    anything."""
+    for mod in ('tensorflow', 'waymo_open_dataset'):
+        monkeypatch.setitem(sys.modules, mod, None)
+    with pytest.raises(ImportError, match=package):
+        _waymo_sdk_calls(tmp_path)[name]()
+    assert not (tmp_path / 'out').exists()
+
+
+def test_waymo_evaluation_needs_a_card(tmp_path):
+    """The Waymo evaluation computes its IoUs on the GPU unless given the
+    CPU; without a card it raises."""
+    from glenet_tpu_torch.eval import waymo_eval
+    gt = {'name': np.array(['Vehicle']),
+          'boxes_lidar': np.array([[0, 0, 0, 4, 2, 1.6, 0.0]]),
+          'num_points_in_gt': np.array([20])}
+    det = dict(gt, score=np.array([0.9]))
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: nothing to refuse')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        waymo_eval.waymo_evaluation([det], [gt], ['Vehicle'])
+    _, ret = waymo_eval.waymo_evaluation([det], [gt], ['Vehicle'],
+                                         device='cpu')
+    assert ret['OBJECT_TYPE_TYPE_VEHICLE_LEVEL_1/AP'] == pytest.approx(100)
 
 
 def _weights_entry_points(tmp_path):
@@ -303,10 +322,15 @@ def test_weights_entry_points_need_a_card(name, tmp_path):
 
 @pytest.mark.parametrize('module', ['utils.weight_converter',
                                     'train.jax_checkpoint',
-                                    'tools.convert_weights'])
+                                    'tools.convert_weights',
+                                    'datasets.waymo_dataset',
+                                    'datasets.waymo_raw',
+                                    'datasets.waymo_utils',
+                                    'eval.waymo_eval'])
 def test_weights_modules_in_import_probe(module):
-    """The weights slice's modules are among those the import probe of
-    test_port_imports_no_jax walks, and import no JAX package themselves."""
+    """The modules of the weights slice and of the Waymo slice are among
+    those the import probe of test_port_imports_no_jax walks, and import no
+    JAX package (nor tensorflow or the Waymo SDK) at module level."""
     import ast
     import pkgutil
 
@@ -322,3 +346,10 @@ def test_weights_modules_in_import_probe(module):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             imported.add(node.module.split('.')[0])
     assert not imported & {'jax', 'flax', 'glenet_tpu', 'msgpack'}
+    top = set()
+    for node in ast.parse(src.read_text()).body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split('.')[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split('.')[0])
+    assert not top & {'tensorflow', 'waymo_open_dataset'}

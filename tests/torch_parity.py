@@ -342,13 +342,16 @@ def single_stage_batch(cfg, batch_size=2, n_points=1024, n_gt=6, seed=3):
     sample cycling through the config's classes, each with its anchor's
     size on its anchor's bottom height, within 0.3 m of one of its anchors'
     centres (so small classes match too), label variances in [0.02, 0.3);
-    numpy arrays."""
+    numpy arrays.  A config with 5 point features (Waymo's) gets an
+    elongation column in [0, 1), drawn after everything else."""
     from glenet_tpu.models.anchors import generate_anchors
     from glenet_tpu.ops.voxelize import compute_grid_size
     x0, y0, z0, x1, y1, z1 = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
     anchors = cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG
+    vox = [p for p in cfg.DATA_CONFIG.DATA_PROCESSOR
+           if p.NAME == 'transform_points_to_voxels'][0]
     grid = compute_grid_size(cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-                             cfg.DATA_CONFIG.DATA_PROCESSOR[0].VOXEL_SIZE)
+                             vox.VOXEL_SIZE)
     centres = np.asarray(generate_anchors(
         anchors, grid, cfg.DATA_CONFIG.POINT_CLOUD_RANGE).anchors)[
         :, :, 0, :2].reshape(-1, 2)
@@ -371,15 +374,26 @@ def single_stage_batch(cfg, batch_size=2, n_points=1024, n_gt=6, seed=3):
                         c + 1]
             gt_mask[b, g] = True
     unc = rng.uniform(0.02, 0.3, (batch_size, n_gt, 7)).astype(np.float32)
+    enc = cfg.DATA_CONFIG.get('POINT_FEATURE_ENCODING', None)
+    if enc is not None and len(enc['used_feature_list']) == 5:
+        pts = np.concatenate([pts, rng.uniform(
+            0, 1, (batch_size, n_points, 1)).astype(np.float32)], axis=2)
     return {'points': pts, 'points_mask': np.ones(pts.shape[:2], bool),
             'gt_boxes': gt, 'gt_mask': gt_mask, 'gt_uncertainty': unc}
 
 
 def assert_assigner_margin(det, batch, margin=1e-3):
-    """No anchor's nearest-BEV IoU with a gt of its class lies within
-    `margin` of that class's thresholds, so f32 rounding cannot flip a
-    target label between the packages."""
+    """No anchor's nearest-BEV IoU (with MATCH_HEIGHT its 3D IoU) with a gt
+    of its class lies within `margin` of that class's thresholds, so f32
+    rounding cannot flip a target label between the packages.  ATSS's
+    adaptive thresholds are held by test_torch_sessd_atss.py's own
+    margin check."""
+    import jax.numpy as jnp
+
+    from glenet_tpu.ops import iou3d
     from glenet_tpu.utils import box_utils
+    if det.target_assigner_name == 'ATSSTargetAssigner':
+        return
     a = det.anchor_set
     anchors = np.asarray(a.anchors)
     for b in range(batch['gt_boxes'].shape[0]):
@@ -390,30 +404,96 @@ def assert_assigner_margin(det, batch, margin=1e-3):
             if not len(gts):
                 continue
             sl = a.class_slices[ci]
-            iou = np.asarray(box_utils.boxes3d_nearest_bev_iou(
-                anchors[:, :, sl].reshape(-1, 7), gts))
+            fn = (iou3d.boxes_iou3d if det.match_height
+                  else box_utils.boxes3d_nearest_bev_iou)
+            iou = np.asarray(fn(jnp.asarray(anchors[:, :, sl].reshape(-1, 7)),
+                                jnp.asarray(gts)))
             for thr in (a.matched_thresholds[name],
                         a.unmatched_thresholds[name]):
                 assert np.abs(iou - thr).min() > margin, (
                     'IoU near a threshold', name)
 
 
-def run_single_stage_step(cfg, batch, total_steps=100):
+def jax_assign_targets(det, gb, gm, gu):
+    """One sample's anchor targets as glenet_tpu's Detector.compute_loss
+    picks the assigner (ATSS or axis-aligned, MATCH_HEIGHT)."""
+    from glenet_tpu.models import target_assigner as jta
+    if det.target_assigner_name == 'ATSSTargetAssigner':
+        return jta.atss_assign_targets(det.anchor_set, gb, gm, gu,
+                                       det.box_coder, topk=det.atss_topk,
+                                       match_height=det.match_height)
+    return jta.assign_targets(det.anchor_set, gb, gm, gu, det.box_coder,
+                              match_height=det.match_height)
+
+
+def jax_bn_outputs(intermediates):
+    """flax's captured intermediates -> {port module name: [outputs of each
+    call]} (the port names its modules after the flax tree)."""
+    from flax import traverse_util
+    return {'.'.join(k[:-1]): [np.asarray(o) for o in v]
+            for k, v in traverse_util.flatten_dict(
+                intermediates).items()}
+
+
+def align_relu_kinks(net, ref_outputs, rel=1e-5):
+    """Hooks on every MaskedBatchNorm of the port's `net` (each feeds a
+    ReLU).  Where the port's output and JAX's (`ref_outputs`, from
+    jax_bn_outputs) lie on opposite sides of 0, the port takes JAX's value
+    (a shift by less than rounding, the gradient path unchanged), so both
+    packages differentiate one branch of the ReLU.  Only an element whose
+    two values both lie within `rel` of the module's largest |output| may
+    flip; any other flip fails.  Returns (a dict whose 'flipped' counts the
+    elements, the hook handles)."""
+    import torch
+
+    from glenet_tpu_torch.models.layers import MaskedBatchNorm
+    seen = {'flipped': 0}
+    calls = {name: list(outs) for name, outs in ref_outputs.items()}
+
+    def hook(name):
+        def fn(mod, _inp, y):
+            ref = torch.from_numpy(np.array(calls[name].pop(0))).movedim(
+                -1, mod.channel_dim % y.dim())
+            assert ref.shape == y.shape, (name, ref.shape, y.shape)
+            flip = (y > 0) != (ref > 0)
+            if not bool(flip.any()):
+                return None
+            eps = rel * float(ref.abs().max())
+            near = (y.abs() <= eps) & (ref.abs() <= eps)
+            assert bool(near[flip].all()), (
+                f'{name}: a ReLU input flips sign beyond rounding '
+                f'({float((y - ref)[flip].abs().max()):.3e} > 2 x {eps:.3e})')
+            seen['flipped'] += int(flip.sum())
+            return y + torch.where(flip, ref - y, 0.0).detach()
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in
+               net.named_modules() if isinstance(m, MaskedBatchNorm)]
+    assert len(handles) == len(calls) and all(n in calls for n, m in
+                                              net.named_modules()
+                                              if isinstance(m,
+                                                            MaskedBatchNorm))
+    return seen, handles
+
+
+def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     """One train step of glenet_tpu and one of the port's train_state on a
     single-stage `cfg`, the same numpy-drawn weights and `batch`.  Returns
     (JAX's metrics, grads, batch_stats, params after adam_onecycle and
     anchor targets; the port's metrics; its gradients by port key; its
-    anchor targets; the port's detector); call inside pinned_f32()."""
+    anchor targets; the port's detector); call inside pinned_f32().  With
+    align_relu, JAX's BN outputs are captured in its train forward and the
+    port takes JAX's side of each ReLU kink within rounding of 0
+    (align_relu_kinks); their count is ref['relu_flipped']."""
     import jax
     import jax.numpy as jnp
     import optax
     import torch
 
-    from glenet_tpu.models import target_assigner as jta
     from glenet_tpu.models.detectors import build_detector as jax_build
+    from glenet_tpu.models.layers import MaskedBatchNorm as JaxBN
     from glenet_tpu.train import optim as joptim
 
-    from glenet_tpu_torch.models import target_assigner
     from glenet_tpu_torch.models.detectors import build_detector
     from glenet_tpu_torch.train import optim, state as st
     from glenet_tpu_torch.utils.jax_weights import load_jax_variables
@@ -424,6 +504,10 @@ def run_single_stage_step(cfg, batch, total_steps=100):
                             jax.tree.map(jnp.asarray, batch))
     variables = random_variables(shapes, seed=1)
     tx, _ = joptim.build_optimizer(cfg.OPTIMIZATION, total_steps)
+    mutable, capture = ['batch_stats'], False
+    if align_relu:
+        mutable.append('intermediates')
+        capture = lambda mdl, _: isinstance(mdl, JaxBN)  # noqa: E731
 
     @jax.jit
     def jax_step(v, bt):
@@ -432,7 +516,7 @@ def run_single_stage_step(cfg, batch, total_steps=100):
                 {'params': params, 'batch_stats': v['batch_stats']},
                 bt['points'], bt['points_mask'], gt_boxes=bt['gt_boxes'],
                 gt_mask=bt['gt_mask'], gt_uncertainty=bt['gt_uncertainty'],
-                train=True, mutable=['batch_stats'])
+                train=True, mutable=mutable, capture_intermediates=capture)
             loss, metrics = det.compute_loss(out, bt)
             return loss, (metrics, new_state)
 
@@ -440,13 +524,14 @@ def run_single_stage_step(cfg, batch, total_steps=100):
             loss_fn, has_aux=True)(v['params'])
         upd, _ = tx.update(grads, tx.init(v['params']), v['params'])
         metrics['grad_norm'] = optax.global_norm(grads)
-        targets = jax.vmap(lambda gb, gm, gu: jta.assign_targets(
-            det.anchor_set, gb, gm, gu, det.box_coder))(
+        targets = jax.vmap(lambda gb, gm, gu: jax_assign_targets(
+            det, gb, gm, gu))(
             bt['gt_boxes'], bt['gt_mask'], bt['gt_uncertainty'])
         return {'metrics': metrics, 'grads': grads,
                 'batch_stats': new_state['batch_stats'],
                 'params': optax.apply_updates(v['params'], upd),
-                'targets': targets._asdict()}
+                'targets': targets._asdict(),
+                'bn_out': new_state.get('intermediates', {})}
 
     ref = jax.tree.map(np.asarray, jax_step(
         jax.tree.map(jnp.asarray, variables),
@@ -456,13 +541,19 @@ def run_single_stage_step(cfg, batch, total_steps=100):
     ttx, _ = optim.build_optimizer(tcfg.OPTIMIZATION, total_steps)
     state = st.create_train_state(tdet, ttx)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    targets = [target_assigner.assign_targets(
-        tdet.anchor_set, gb, gm, gu, tdet.box_coder)._asdict()
-        for gb, gm, gu in zip(tbatch['gt_boxes'], tbatch['gt_mask'],
-                              tbatch['gt_uncertainty'])]
+    targets = [tdet.assign_targets(gb, gm, gu)._asdict()
+               for gb, gm, gu in zip(tbatch['gt_boxes'], tbatch['gt_mask'],
+                                     tbatch['gt_uncertainty'])]
     targets = {k: torch.stack([t[k] for t in targets]).numpy()
                for k in targets[0]}
+    bn_out, hooks = ref.pop('bn_out'), []
+    if align_relu:
+        seen, hooks = align_relu_kinks(tdet.net, jax_bn_outputs(bn_out))
     _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
+    for h in hooks:
+        h.remove()
+    if align_relu:
+        ref['relu_flipped'] = seen['flipped']
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in tdet.net.named_parameters()}
     return ref, metrics, grads, targets, tdet
@@ -487,7 +578,7 @@ def assert_params_after_adam(tdet, ref, grads, lr):
     assert n_tight > 0.9 * sum(p.numel() for p in params.values())
 
 
-def run_single_stage_predicts(cfg, batch):
+def run_single_stage_predicts(cfg, batch, variables=None):
     """glenet_tpu's and the port's forward stages and predicts on a
     single-stage `cfg`, numpy-drawn weights: at the config's thresholds and
     at zero thresholds (zero_thresholds).  Returns (JAX's {'stages',
@@ -507,7 +598,8 @@ def run_single_stage_predicts(cfg, batch):
     det = jax_build(cfg)
     shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
                             jax.tree.map(jnp.asarray, batch))
-    variables = random_variables(shapes, seed=1)
+    if variables is None:
+        variables = random_variables(shapes, seed=1)
     zero = zero_thresholds(cfg)
 
     def stages(m, points, pmask):
