@@ -118,7 +118,29 @@ Phases, each of which exits non-zero on failure:
      evaluation on the card against its CPU run, timed at 300 frames and
      projected to the val split's ~40 k; phase 6 adds the 4 captured calls
      of a Waymo predict and of a Waymo train step;
- 11. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 11. KITTI's three-class detectors, [three_class] (launches counted from
+     0 just before and read just after each call): (a) second_multihead.yaml,
+     second_iou.yaml and pointpillar.yaml at full width with seeded weights:
+     a warm-up predict, 3 predicts at B = 2 at the published thresholds and
+     1 at zero thresholds (detections per class), a warm-up and 2 train
+     steps at B = 4 on scenes holding Cars, Pedestrians and Cyclists at
+     KITTI's label ratios (ms, loss terms, active sites against the level
+     caps or pillars against the voxel budget, merge-resolve launches: 4
+     per call for SECOND, 0 for PointPillars, peak memory; losses finite,
+     parameters and BN stats moved); (b) phase 6 adds the 4 captured calls
+     of the SECOND-IoU predict and train step; (c) after phase 7, the card
+     against the CPU on the toy topology as each family (a predict, and a
+     train step with SECOND-IoU's RoI targets fixed), as phase 7; (d) a
+     synthetic three-class tree (8 train + 4 val frames of 120k points)
+     through create_kitti_infos, then for pointpillar_newaugs.yaml and
+     pointpillar_pyramid_aug.yaml `tools.train` (B = 4, 1 epoch x 2
+     steps) with each yaml's augmentation queue and `tools.test` with the
+     three-class KITTI evaluation, printing data ms per batch and its parts
+     and the boxes gt sampling pasted per class (a class with none fails),
+     then second_iou.yaml through convert_weights and `tools.test --ckpt`;
+     (e) `tools.demo` over 2 scans of the tree with (d)'s checkpoint: the
+     JSON lines and the HTML scenes;
+ 12. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -428,14 +450,19 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
                       fg['proposals']['roi_valid']))
     for name, a, b in exact:
         check(torch.equal(a, b.cpu()), f'GPU and CPU differ in {name}')
+    # PointPillars has no 3D backbone: its canvas feeds the dense head
     close = [('bev_features', fc['backbone_3d']['bev_features'],
-              fg['backbone_3d']['bev_features'], 1e-3, 1e-4),
-             ('final_boxes', pc['final_boxes'], pg['final_boxes'], 0, 1e-3),
-             ('final_scores', pc['final_scores'], pg['final_scores'], 0,
-              1e-3)]
+              fg['backbone_3d']['bev_features'], 1e-3, 1e-4)] \
+        if 'backbone_3d' in fc else []
+    close += [('final_boxes', pc['final_boxes'], pg['final_boxes'], 0, 1e-3),
+              ('final_scores', pc['final_scores'], pg['final_scores'], 0,
+               1e-3)]
     if 'rcnn' in fc:
         close.append(('rcnn_reg', fc['rcnn']['rcnn_reg'],
                       fg['rcnn']['rcnn_reg'], 1e-3, 1e-4))
+        if 'no_reg_loss' in fc['rcnn']:   # SECONDHead scores the rois
+            close.append(('rcnn_cls', fc['rcnn']['rcnn_cls'],
+                          fg['rcnn']['rcnn_cls'], 1e-3, 1e-4))
     else:
         close += [(k, fc['dense_head'][k], fg['dense_head'][k], 1e-3, 1e-4)
                   for k in sorted(fc['dense_head'])]
@@ -452,8 +479,8 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
 
 def tiny_train_batch(cfg):
     """The toy training batch: tiny_batch's points, gt boxes 0.15 m off the
-    first 4 valid proposals of each sample of a CPU predict (so the RoI
-    targets hold foreground), label variances in [0.02, 0.3), and fixed RoI
+    first 4 valid proposals of each sample of a CPU predict, with their
+    classes (so the RoI targets hold foreground), label variances in [0.02, 0.3), and fixed RoI
     targets sampled once on the CPU."""
     import numpy as np
     import torch
@@ -471,7 +498,7 @@ def tiny_train_batch(cfg):
         idx = torch.nonzero(prop['roi_valid'][i]).flatten()[:4]
         gt[i, :len(idx), :7] = prop['rois'][i, idx]
         gt[i, :len(idx), 0] += 0.15
-        gt[i, :len(idx), 7] = 1
+        gt[i, :len(idx), 7] = prop['roi_labels'][i, idx].float()
         gt_mask[i, :len(idx)] = True
     unc = np.random.RandomState(SEED + 11).uniform(0.02, 0.3, (b, 8, 7))
     batch = {'points': pts, 'points_mask': mask, 'gt_boxes': gt,
@@ -1828,8 +1855,9 @@ def phase_weights_plain():
 def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
                       tag='weights', seed=SEED + 50):
     """A synthetic reference .pth of `cfg_name` through the convert_weights
-    CLI, then `tools.test --ckpt` on the [cli] tree, in process; launches
-    counted from 0 just before and read just after."""
+    CLI, then `tools.test --ckpt` on the tree at `cli_root`, in process;
+    launches counted from 0 just before and read just after.  Every key is
+    consumed but SECONDHead's, which neither package converts."""
     import math
 
     import numpy as np
@@ -1851,8 +1879,12 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
         '--cfg_file', cfg_file, '--torch_ckpt', str(pth),
         '--output_dir', str(out / 'ckpt')])
     t1 = time.perf_counter()
-    check(report['unconsumed'] == [] and Path(path).name ==
-          'checkpoint_epoch_80.pth', f'convert_weights: {path}, {report}')
+    roi_keys = cfg.MODEL.get('ROI_HEAD', {}).get('NAME') == 'SECONDHead'
+    left = report['unconsumed']
+    check((all(k.startswith('roi_head.') for k in left) and bool(left)
+           if roi_keys else left == [])
+          and Path(path).name == 'checkpoint_epoch_80.pth',
+          f'convert_weights: {path}, {report}')
     predicts = []
     undo = count_launches(Detector, 'predict', predicts)
     mk.LAUNCHES = 0
@@ -1869,9 +1901,11 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
     check(res['frames'] == CLI_VAL and predicts == [4] * math.ceil(
         CLI_VAL / CLI_BATCH) and all(np.isfinite(res['ap'][k]) for k in keys),
         f'test --ckpt: {res["frames"]} frames, launches {predicts}')
+    consumed = (f'every key consumed but SECONDHead\'s {len(left)}'
+                if roi_keys else 'every key consumed')
     print(f'[{tag}] {cfg_name}: convert_weights ({len(report["converted"])} '
-          f'subtrees, every key consumed) {t1 - t0:.2f} s -> '
-          f'{Path(path).name}; test --ckpt on the [cli] tree: '
+          f'subtrees, {consumed}) {t1 - t0:.2f} s -> '
+          f'{Path(path).name}; test --ckpt on the tree: '
           f'{res["frames"]} val frames, '
           f'{res["sec_per_frame"]:.4f} s/frame, merge_resolve launches per '
           f'predict {predicts}; ' + ', '.join(
@@ -2403,6 +2437,418 @@ def phase_waymo(tmp):
     return launches, captured, captured_train
 
 
+# ---------------------------------------------------------------------------
+# [three_class]: KITTI's three-class detectors (second_multihead.yaml,
+# second_iou.yaml, pointpillar.yaml and its augmentation variants)
+# ---------------------------------------------------------------------------
+
+THREE_CLASS_CFGS = ('second_multihead.yaml', 'second_iou.yaml',
+                    'pointpillar.yaml')
+THREE_CLASS_STEPS = 2
+# the [three_class] CLI tree: train and val frames
+TC_TRAIN, TC_VAL = 8, CLI_VAL
+# second.yaml's anchors per class: (name, size, bottom, matched, unmatched)
+KITTI_ANCHORS = (('Car', [3.9, 1.6, 1.56], -1.78, 0.6, 0.45),
+                 ('Pedestrian', [0.8, 0.6, 1.73], -0.6, 0.5, 0.35),
+                 ('Cyclist', [1.76, 0.6, 1.73], -0.6, 0.5, 0.35))
+
+
+def tiny_three_class_raw(kind):
+    """The toy topology with three classes (second.yaml's anchors) as
+    SECOND-multihead ('multihead': AnchorHeadMulti with Car alone and
+    Pedestrian with Cyclist in one head, per-class final NMS), SECOND-IoU
+    ('iou': SECONDHead on the stride-8 map) or PointPillars ('pillar':
+    0.5 x 0.5 x 4 m pillars of at most 4 points, two PFN layers, a
+    stride-2 BEV backbone), at zero score thresholds."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    raw['CLASS_NAMES'] = [a[0] for a in KITTI_ANCHORS]
+    m = raw['MODEL']
+    head = m['DENSE_HEAD']
+    head['ANCHOR_GENERATOR_CONFIG'] = [{
+        'class_name': name, 'anchor_sizes': [size],
+        'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [z],
+        'align_center': False,
+        'feature_map_stride': 2 if kind == 'pillar' else 8,
+        'matched_threshold': hi, 'unmatched_threshold': lo}
+        for name, size, z, hi, lo in KITTI_ANCHORS]
+    m['POST_PROCESSING'].update(SCORE_THRESH=0.0)
+    m['POST_PROCESSING']['NMS_CONFIG']['NMS_TYPE'] = 'nms_gpu'
+    roi = m.pop('ROI_HEAD')
+    m['NAME'] = 'SECONDNet'
+    if kind == 'multihead':
+        head.update(NAME='AnchorHeadMulti', SHARED_CONV_NUM_FILTER=16,
+                    RPN_HEAD_CFGS=[{'HEAD_CLS_NAME': ['Car']},
+                                   {'HEAD_CLS_NAME': ['Pedestrian',
+                                                      'Cyclist']}])
+        m['POST_PROCESSING']['NMS_CONFIG']['MULTI_CLASSES_NMS'] = True
+    elif kind == 'iou':
+        m['NAME'] = 'SECONDNetIoU'
+        m['ROI_HEAD'] = {
+            'NAME': 'SECONDHead', 'CLASS_AGNOSTIC': True,
+            'SHARED_FC': [32, 32], 'IOU_FC': [32, 32], 'DP_RATIO': 0.3,
+            'NMS_CONFIG': roi['NMS_CONFIG'],
+            'ROI_GRID_POOL': {'GRID_SIZE': 4, 'IN_CHANNEL': 64,
+                              'DOWNSAMPLE_RATIO': 8},
+            'TARGET_CONFIG': roi['TARGET_CONFIG'],
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {'rcnn_iou_weight': 1.0,
+                                             'code_weights': [1.0] * 7}}}
+    else:
+        proc = raw['DATA_CONFIG']['DATA_PROCESSOR'][0]
+        proc.update(VOXEL_SIZE=[0.5, 0.5, 4.0], MAX_POINTS_PER_VOXEL=4)
+        m['NAME'] = 'PointPillar'
+        del m['BACKBONE_3D']
+        m['VFE'] = {'NAME': 'PillarVFE', 'WITH_DISTANCE': False,
+                    'USE_ABSLOTE_XYZ': True, 'USE_NORM': True,
+                    'NUM_FILTERS': [16, 16]}
+        m['MAP_TO_BEV'] = {'NAME': 'PointPillarScatter',
+                           'NUM_BEV_FEATURES': 16}
+        m['BACKBONE_2D'].update(LAYER_NUMS=[1, 1], LAYER_STRIDES=[2, 2],
+                                NUM_FILTERS=[16, 32],
+                                NUM_UPSAMPLE_FILTERS=[16, 16])
+    return raw
+
+
+def per_class(labels, valid, names):
+    """'Car n, Pedestrian n, Cyclist n' over the valid boxes."""
+    return ', '.join(f'{n} {int(((labels == i + 1) & valid).sum())}'
+                     for i, n in enumerate(names))
+
+
+def phase_three_class_full(cfg_name, seed, capture=False):
+    """[three_class] (a): `cfg_name` at full width with seeded weights: a
+    warm-up predict, N_REQUESTS predicts at B = 2 at the published
+    thresholds and one at zero thresholds (random weights keep no box at
+    the published ones), then a warm-up train step and THREE_CLASS_STEPS
+    timed steps at B = 4 on three-class scenes; launches counted from 0
+    just before and read just after each call.  With capture, the
+    merge-resolve calls of the warm-up predict and step are returned for
+    the kernel check.  Returns (launches, captured predict, captured
+    step)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
+    names = list(cfg.CLASS_NAMES)
+    det = seeded_detector(cfg, 'cuda', seed)
+    pillars = det.net.backbone_3d is None
+    per_call = 0 if pillars else 4
+    sites = {}
+
+    def record_sites(_mod, inp, out):
+        if pillars:                       # PointPillarScatter(f, coords, m)
+            sites['pillars'] = inp[2].sum(1)
+        else:
+            ms = out['multi_scale']
+            sites.update({k: ms[k]['mask'].sum(1) for k in
+                          ('x_conv1', 'x_conv2', 'x_conv3')})
+
+    hook = (det.net.map_to_bev if pillars else det.net.backbone_3d
+            ).register_forward_hook(record_sites)
+
+    def site_text(budget):
+        if pillars:
+            return f'pillars {sites["pillars"].tolist()}/{budget}'
+        caps = sparse.level_caps(budget)
+        return 'active sites ' + ', '.join(
+            f'{k} {sites[k].tolist()}/{caps[i]}'
+            for i, k in enumerate(('x_conv1', 'x_conv2', 'x_conv3')))
+
+    batches = batches_for(cfg, N_REQUESTS + 1, SEED + 5, BATCH)
+    t0 = time.perf_counter()
+    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    print(f'[three_class] {cfg.TAG}: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    check(len(captured) == per_call, f'{cfg.TAG}: {len(captured)} '
+                                     f'merge-resolve calls per predict')
+    post = det.model_cfg.POST_PROCESSING
+    launches, times = 0, []
+    for r, batch in enumerate(batches[1:] + batches[1:2]):
+        zero = r == N_REQUESTS
+        saved = post.SCORE_THRESH
+        if zero:
+            post.SCORE_THRESH = 0.0
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pred = det.predict(batch)
+            torch.cuda.synchronize()
+        finally:
+            post.SCORE_THRESH = saved
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = mk.LAUNCHES
+        launches += n
+        check(n == per_call, f'{cfg.TAG} predict {r}: {n} merge-resolve '
+                             f'launches, expected {per_call}')
+        k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape
+                  and bool(torch.isfinite(pred[key]).all()),
+                  f'{cfg.TAG} predict {r}: {key} {tuple(pred[key].shape)} '
+                  f'or not finite')
+        labels, valid = pred['final_labels'], pred['final_valid']
+        check(int(labels.min()) >= 0 and int(labels.max()) <= len(names),
+              f'{cfg.TAG}: labels {labels.unique().tolist()}')
+        if zero:
+            check(int(valid.sum()) > 0, f'{cfg.TAG}: no box kept at zero '
+                                        f'thresholds')
+        else:
+            times.append(ms)
+        print(f'[three_class] {cfg.TAG} predict {r}'
+              + (' at zero thresholds' if zero else '')
+              + f': {ms:.1f} ms; {site_text(det.max_voxels_test)}; '
+              f'detections {valid.sum(1).tolist()} ('
+              f'{per_class(labels, valid, names)}); merge_resolve launches '
+              f'{n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    print(f'[three_class] {cfg.TAG} predict B={BATCH} x {N_POINTS} points: '
+          f'mean {sum(times) / len(times):.1f} ms over {len(times)} requests')
+
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = batches_for(cfg, THREE_CLASS_STEPS + 1, SEED + 6, b,
+                           train=True)
+    gt_labels = tbatches[0]['gt_boxes'][..., 7][tbatches[0]['gt_mask']]
+    t0 = time.perf_counter()
+    captured_train, (state, _) = capture_calls(
+        lambda: train_step(state, tbatches[0]))
+    print(f'[three_class] {cfg.TAG} train step B={b}: gt boxes per class '
+          + per_class(gt_labels, torch.ones_like(gt_labels, dtype=bool),
+                      names)
+          + f'; warm-up step {1e3 * (time.perf_counter() - t0):.1f} ms')
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    times = []
+    for i, batch in enumerate(tbatches[1:]):
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f'{cfg.TAG} train step {i}: {vals}')
+        check(n == per_call, f'{cfg.TAG} train step {i}: {n} merge-resolve '
+                             f'launches, expected {per_call}')
+        print(f'[three_class] {cfg.TAG} step {i}: {times[-1]:.1f} ms; '
+              + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+              + f'; {site_text(det.max_voxels_train)}; merge_resolve '
+              f'launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    hook.remove()
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'{cfg.TAG}: parameters unchanged by the steps: '
+                     f'{stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'{cfg.TAG}: BN running stats unchanged: {same}')
+    print(f'[three_class] {cfg.TAG} {THREE_CLASS_STEPS} steps: mean '
+          f'{sum(times) / len(times):.1f} ms; {len(params) - len(still)} '
+          f'of {len(params)} parameter tensors and all {len(stats)} BN '
+          f'running-stat tensors changed')
+    del det
+    torch.cuda.empty_cache()
+    return launches, (captured if capture else None), (
+        captured_train if capture else None)
+
+
+def phase_three_class_cli(tmp):
+    """[three_class] (d): a synthetic three-class tree; for
+    pointpillar_newaugs.yaml and pointpillar_pyramid_aug.yaml
+    `tools.train` (B = 4, 1 epoch x 2 steps) with each yaml's augmentation
+    queue, then `tools.test` with the three-class KITTI evaluation; the
+    boxes gt sampling pasted per class (each class must get some) and the
+    data ms per batch split into its parts.  Then second_iou.yaml through
+    convert_weights -> test --ckpt on the tree.  Launches counted from 0
+    just before and read just after.  Returns (launches, the tree's root,
+    a checkpoint written)."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets import augmentor
+    from glenet_tpu_torch.datasets.kitti_dataset import (KittiDataset,
+                                                         create_kitti_infos)
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.utils import synthetic
+    root = tmp / 'kitti_three_class'
+    t0 = time.perf_counter()
+    synthetic.write_kitti_tree(root, TC_TRAIN, TC_VAL, seed=SEED + 3,
+                               n_points=CLI_POINTS, three_class=True)
+    t1 = time.perf_counter()
+    cfg0 = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
+                                         'pointpillar_newaugs.yaml'))
+    create_kitti_infos(cfg0.DATA_CONFIG, cfg0.CLASS_NAMES, root, root)
+    with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
+        db = pickle.load(f)
+    print(f'[three_class] synthetic three-class KITTI tree: {TC_TRAIN} '
+          f'train + {TC_VAL} val frames of {CLI_POINTS} points written in '
+          f'{t1 - t0:.1f} s; create_kitti_infos '
+          f'{time.perf_counter() - t1:.1f} s; gt database '
+          + ', '.join(f'{c} {len(db.get(c, []))}' for c in cfg0.CLASS_NAMES))
+    launches, ckpt = 0, None
+    for name in ('pointpillar_newaugs.yaml', 'pointpillar_pyramid_aug.yaml'):
+        cfg_file = str(ROOT / 'configs/kitti_models' / name)
+        cfg = cfg_from_yaml_file(cfg_file)
+        out = tmp / f'out_{cfg.TAG}'
+        common = ['--cfg_file', cfg_file, '--data_path', str(root),
+                  '--output_dir', str(out), '--batch_size', str(CLI_BATCH)]
+        data, pasted = {}, []
+        sample = augmentor.DataBaseSampler.__call__
+
+        def count_pasted(self, data_dict, sample=sample, pasted=pasted):
+            n0 = len(data_dict['gt_names'])
+            res = sample(self, data_dict)
+            pasted.append(res['gt_names'][n0:])
+            return res
+
+        augmentor.DataBaseSampler.__call__ = count_pasted
+        timers = [time_calls(KittiDataset, '__getitem__', data, 'items'),
+                  time_calls(augmentor.DataAugmentor, '__call__', data,
+                             'augment'),
+                  time_calls(augmentor.DataBaseSampler, '__call__', data,
+                             'gt_sampling'),
+                  time_calls(KittiDataset, 'collate_batch', data, 'collate'),
+                  time_calls(train_cli, 'to_device', data, 'copy')]
+        mk.LAUNCHES = 0
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            run = train_cli.main(common + ['--epochs', '1',
+                                           '--max_steps_per_epoch', '2'])
+            peak = torch.cuda.max_memory_allocated()
+            for u in timers:
+                u()
+            results = test_cli.main(common)
+        finally:
+            for u in timers:
+                u()
+            augmentor.DataBaseSampler.__call__ = sample
+        launches += mk.LAUNCHES
+        check(mk.LAUNCHES == 0, f'{name}: {mk.LAUNCHES} merge-resolve '
+                                f'launches (PointPillars has no sparse '
+                                f'backbone)')
+        for r in run['steps']:
+            bad = [k for k, v in r.items() if isinstance(v, float)
+                   and not math.isfinite(v)]
+            check(not bad, f'{name} CLI step {r["it"]}: not finite: {bad}')
+            print(f'[three_class] {cfg.TAG} CLI train step {r["it"]}: data '
+                  f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+                  f'{r["loss"]:.4f}, loss_cls {r["loss_cls"]:.4f}, loss_loc '
+                  f'{r["loss_loc"]:.4f}, grad_norm {r["grad_norm"]:.3f}')
+        got = np.concatenate(pasted) if pasted else np.zeros(0, str)
+        counts = {c: int((got == c).sum()) for c in cfg.CLASS_NAMES}
+        check(all(counts.values()), f'{name}: gt sampling pasted per class '
+                                    f'{counts}')
+        n = data['collate n']
+        ms = {k: 1e3 * data[k] / n for k in ('items', 'augment',
+                                              'gt_sampling', 'collate',
+                                              'copy')}
+        augs = [a.NAME for a in cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST
+                if a.NAME != 'gt_sampling' and a.NAME not in
+                cfg.DATA_CONFIG.DATA_AUGMENTOR.DISABLE_AUG_LIST]
+        print(f'[three_class] {cfg.TAG}: gt sampling pasted per class '
+              f'{counts} into {len(pasted)} scenes; data per batch of '
+              f'{CLI_BATCH}, host ms (mean over {n} batches): items '
+              f'{ms["items"] + ms["augment"] + ms["gt_sampling"]:.1f} = gt '
+              f'sampling {ms["gt_sampling"]:.1f} + {" / ".join(augs)} '
+              f'{ms["augment"]:.1f} + loading, FOV crop, range masks and '
+              f'padding {ms["items"]:.1f}; collation {ms["collate"]:.1f}; '
+              f'copy to the card {ms["copy"]:.1f}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+        (path, res), = results.items()
+        keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
+        check(res['frames'] == TC_VAL
+              and all(np.isfinite(res['ap'][k]) for k in keys),
+              f'{name} test CLI: {res["frames"]} frames, '
+              f'{sorted(res["ap"])[:6]}')
+        print(f'[three_class] {cfg.TAG} test CLI on {Path(path).name}: '
+              f'{res["frames"]} val frames, {res["sec_per_frame"]:.4f} '
+              f's/frame, KITTI evaluation {res["eval_sec"]:.3f} s; '
+              + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+              + ' (2 steps from random weights: only the keys are checked)')
+        ckpt = ckpt or (path, cfg_file)
+    launches += phase_weights_cli(root, tmp, 'second_iou.yaml',
+                                  'three_class', SEED + 100)
+    return launches, root, ckpt
+
+
+def phase_three_class_demo(root, ckpt, tmp):
+    """[three_class] (e): `tools.demo` over 2 .bin scans of the tree with a
+    checkpoint of (d): one JSON line per scan and an HTML scene each."""
+    import json as json_lib
+    import shutil
+
+    from glenet_tpu_torch.tools import demo
+    path, cfg_file = ckpt
+    scans = tmp / 'demo_scans'
+    scans.mkdir()
+    for fid in ('000000', '000001'):
+        shutil.copy(root / 'training/velodyne' / f'{fid}.bin', scans)
+    out, html = tmp / 'demo.jsonl', tmp / 'demo_html'
+    t0 = time.perf_counter()
+    records = demo.main(['--cfg_file', cfg_file, '--data_path', str(scans),
+                         '--ckpt', path, '--output', str(out),
+                         '--html_dir', str(html)])
+    dt = time.perf_counter() - t0
+    lines = [json_lib.loads(x) for x in out.read_text().splitlines()]
+    check(lines == records and [r['frame'] for r in lines] == ['000000',
+                                                               '000001'],
+          f'demo records: {[r["frame"] for r in lines]}')
+    for r in lines:
+        check(sorted(r) == ['boxes_lidar', 'frame', 'labels', 'scores']
+              and len(r['boxes_lidar']) == len(r['scores'])
+              == len(r['labels']), f'demo record {r["frame"]}')
+    page = (html / '000000.html').read_text()
+    check('const DATA = ' in page and '<canvas' in page,
+          'demo HTML scene malformed')
+    print(f'[three_class] tools.demo on {Path(path).name} over 2 scans: '
+          f'{dt:.2f} s; detections per scan '
+          f'{[len(r["labels"]) for r in lines]}; 2 JSON lines and 2 HTML '
+          f'scenes ({len(page) / 1e6:.2f} MB each) written')
+
+
+def phase_three_class(tmp):
+    """[three_class]: (a) the three configs at full width, (d) the CLIs
+    with PointPillars' augmentation variants and SECOND-IoU's converted
+    weights, (e) the demo.  (b) and (c) run after the main paths (kernel
+    check, GPU against CPU).  Returns (launches, SECOND-IoU's captured
+    predict and train step calls)."""
+    launches, captured = 0, {}
+    for i, name in enumerate(THREE_CLASS_CFGS):
+        n, pred, step = phase_three_class_full(name, SEED + 110 + i,
+                                               capture=name ==
+                                               'second_iou.yaml')
+        launches += n
+        if pred is not None:
+            captured = {'predict': pred, 'step': step}
+    n, root, ckpt = phase_three_class_cli(tmp)
+    phase_three_class_demo(root, ckpt, tmp)
+    return launches + n, captured
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2427,10 +2873,15 @@ def main():
                                                             cli_root)
             launches_waymo, captured_waymo, captured_waymo_train = \
                 phase_waymo(Path(tmp))
+            launches_three, captured_three = phase_three_class(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
                                      'Waymo GLENet-S train step')
+        three = check_captured(captured_three['predict'],
+                               'SECOND-IoU predict')
+        three_train = check_captured(captured_three['step'],
+                                     'SECOND-IoU train step')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -2444,6 +2895,12 @@ def main():
         phase_gpu_vs_cpu_train(tiny_waymo_raw(sessd=True),
                                'waymo] [gpu-vs-cpu sessd atss height',
                                tiny_single_batch, align_relu=True)
+        for kind in ('multihead', 'iou', 'pillar'):
+            raw = tiny_three_class_raw(kind)
+            tag = f'three_class] [gpu-vs-cpu {kind}'
+            phase_gpu_vs_cpu(raw, tag)
+            phase_gpu_vs_cpu_train(raw, tag, tiny_train_batch if kind == 'iou'
+                                   else tiny_single_batch)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -2454,7 +2911,8 @@ def main():
         'source': 'glenet_tpu_torch/csrc/merge_resolve.cu',
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
-                     + launches_weights + launches_single + launches_waymo),
+                     + launches_weights + launches_single + launches_waymo
+                     + launches_three),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -2466,6 +2924,7 @@ def main():
         'launches_weights': launches_weights,
         'launches_single': launches_single,
         'launches_waymo': launches_waymo,
+        'launches_three_class': launches_three,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -2491,7 +2950,13 @@ def main():
         'waymo_train_bound_ms': waymo_train['bound_ms'],
         'waymo_train_bound_by': waymo_train['bound_by'],
         'waymo_train_library_ms': waymo_train['library_ms'],
-        'waymo_train_library_device_ms': waymo_train['library_device_ms']}]
+        'waymo_train_library_device_ms': waymo_train['library_device_ms'],
+        **{f'{pre}_{k}': r[k] for pre, r in (('second_iou', three),
+                                             ('second_iou_train',
+                                              three_train))
+           for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
+                     'bound_ms', 'bound_by', 'library_ms',
+                     'library_device_ms')}}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
@@ -2506,9 +2971,14 @@ def main():
           f'and the Waymo phase (GLENet-S: {N_REQUESTS + 1} predicts, '
           f'{TRAIN_STEPS} train steps; the CLIs: 4 train steps, 2 '
           f'predicts; second.yaml: 1 predict, 1 train step; the .msgpack '
-          f'resume: 4 train steps); single_* per GLENet-C predict, '
-          f'waymo_* per Waymo GLENet-S predict and waymo_train_* per Waymo '
-          f'train step')
+          f'resume: 4 train steps) and the three-class phase '
+          f'(second_multihead.yaml and second_iou.yaml: {N_REQUESTS + 1} '
+          f'predicts and {THREE_CLASS_STEPS} train steps each; '
+          f'pointpillar.yaml and its CLIs: none; second_iou.yaml test '
+          f'--ckpt: 1 predict); single_* per GLENet-C predict, waymo_* per '
+          f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
+          f'second_iou_* per SECOND-IoU predict and second_iou_train_* per '
+          f'SECOND-IoU train step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,6 @@
 """Data augmentation of the host pipeline (numpy; the port's own copy of
-the parts of glenet_tpu/datasets/augmentor.py that GLENet-VR configures).
+glenet_tpu/datasets/augmentor.py but its camera and noise_per_object
+items).
 
   - gt_sampling (`DataBaseSampler`): per-class sample groups filtered by
     difficulty and point count, BEV-IoU collision rejection against the
@@ -7,13 +8,18 @@ the parts of glenet_tpu/datasets/augmentor.py that GLENet-VR configures).
     removal of the scene's points inside sampled boxes, and each sampled
     object's label `uncertainty` carried along (-1 where the database has
     none);
-  - random_world_flip, random_world_rotation, random_world_scaling.
+  - random_world_flip, random_world_rotation, random_world_scaling,
+    random_world_translation;
+  - random_local_translation, random_local_rotation, random_local_scaling;
+  - random_world_frustum_dropout, random_local_frustum_dropout;
+  - random_local_pyramid_aug (SE-SSD's pyramid dropout, sparsify, swap).
 
 Every draw comes from one numpy RandomState that `DataAugmentor` shares
 with its sampler, in the JAX package's order, so the two packages make the
 same items for a seed.  `gt_uncertainty` stays row-aligned with `gt_boxes`
-through every step.  Every other augmentation name raises
-NotImplementedError.
+through every step (the world frustum dropout filters it with the boxes).
+noise_per_object and random_image_flip, which only CaDDN.yaml configures,
+raise NotImplementedError, as does every unknown name.
 """
 from __future__ import annotations
 
@@ -24,9 +30,13 @@ import numpy as np
 
 from ..ops import iou3d
 from ..utils import box_utils, calibration_kitti
+from . import augmentor_utils as au
 
 PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
-          'random_world_scaling')
+          'random_world_scaling', 'random_world_translation',
+          'random_local_translation', 'random_local_rotation',
+          'random_local_scaling', 'random_world_frustum_dropout',
+          'random_local_frustum_dropout', 'random_local_pyramid_aug')
 
 
 def _bev_iou_np(boxes_a, boxes_b):
@@ -281,10 +291,92 @@ class DataAugmentor:
                     rot = [-rot, rot]
                 self.queue.append(
                     lambda d, r=rot: random_world_rotation(d, r, self.rng))
-            else:
+            elif cfg.NAME == 'random_world_scaling':
                 sc = cfg.WORLD_SCALE_RANGE
                 self.queue.append(
                     lambda d, s=sc: random_world_scaling(d, s, self.rng))
+            else:
+                method = getattr(self, self._METHODS[cfg.NAME])
+                self.queue.append(lambda d, c=cfg, m=method: m(d, c))
+
+    _METHODS = {'random_world_translation': '_world_translation',
+                'random_local_translation': '_local_translation',
+                'random_local_rotation': '_local_rotation',
+                'random_local_scaling': '_local_scaling',
+                'random_world_frustum_dropout': '_world_frustum',
+                'random_local_frustum_dropout': '_local_frustum',
+                'random_local_pyramid_aug': '_pyramid_aug'}
+
+    def _world_translation(self, d, cfg):
+        """NOISE_TRANSLATE_STD (a normal draw per axis) or, as
+        pointpillar_newaugs.yaml writes it, WORLD_TRANSLATION_RANGE (a
+        uniform draw per axis)."""
+        std = cfg.get('NOISE_TRANSLATE_STD', 0)
+        rng_cfg = cfg.get('WORLD_TRANSLATION_RANGE', None)
+        if std == 0 and rng_cfg is None:
+            return d
+        for axis in cfg.ALONG_AXIS_LIST:
+            if std:
+                d['gt_boxes'], d['points'] = au.random_translation_along_axis(
+                    d['gt_boxes'], d['points'], std, axis, self.rng)
+            else:
+                off = self.rng.uniform(rng_cfg[0], rng_cfg[1])
+                ax = au._AXIS[axis]
+                d['points'] = d['points'].copy()
+                d['gt_boxes'] = d['gt_boxes'].copy()
+                d['points'][:, ax] += off
+                d['gt_boxes'][:, ax] += off
+        return d
+
+    def _local_translation(self, d, cfg):
+        for axis in cfg.ALONG_AXIS_LIST:
+            d['gt_boxes'], d['points'] = \
+                au.random_local_translation_along_axis(
+                    d['gt_boxes'], d['points'],
+                    cfg.LOCAL_TRANSLATION_RANGE, axis, self.rng)
+        return d
+
+    def _local_rotation(self, d, cfg):
+        rot = cfg.LOCAL_ROT_ANGLE
+        if not isinstance(rot, (list, tuple)):
+            rot = [-rot, rot]
+        d['gt_boxes'], d['points'] = au.local_rotation(
+            d['gt_boxes'], d['points'], rot, self.rng)
+        return d
+
+    def _local_scaling(self, d, cfg):
+        d['gt_boxes'], d['points'] = au.local_scaling(
+            d['gt_boxes'], d['points'], cfg.LOCAL_SCALE_RANGE, self.rng)
+        return d
+
+    def _world_frustum(self, d, cfg):
+        for direction in cfg.DIRECTION:
+            d['gt_boxes'], d['points'], keep_b = au.global_frustum_dropout(
+                d['gt_boxes'], d['points'], cfg.INTENSITY_RANGE, direction,
+                self.rng)
+            for key in ('gt_names', 'gt_boxes_mask', 'gt_uncertainty'):
+                if key in d:
+                    d[key] = d[key][keep_b]
+        return d
+
+    def _local_frustum(self, d, cfg):
+        for direction in cfg.DIRECTION:
+            d['gt_boxes'], d['points'] = au.local_frustum_dropout(
+                d['gt_boxes'], d['points'], cfg.INTENSITY_RANGE, direction,
+                self.rng)
+        return d
+
+    def _pyramid_aug(self, d, cfg):
+        gt, pts = d['gt_boxes'], d['points']
+        gt, pts, pyr = au.local_pyramid_dropout(gt, pts, cfg.DROP_PROB,
+                                                self.rng)
+        gt, pts, pyr = au.local_pyramid_sparsify(
+            gt, pts, cfg.SPARSIFY_PROB, int(cfg.SPARSIFY_MAX_NUM), self.rng,
+            pyramids=pyr)
+        d['gt_boxes'], d['points'] = au.local_pyramid_swap(
+            gt, pts, cfg.SWAP_PROB, int(cfg.SWAP_MAX_NUM), self.rng,
+            pyramids=pyr)
+        return d
 
     def __call__(self, data_dict):
         for aug in self.queue:

@@ -6,7 +6,9 @@ counterpart of glenet_tpu/models/anchor_heads.py):
   - AnchorHeadKLLabel: AnchorHeadSingle plus a log-variance branch
     (GLENet-S), an IoU branch (with it GLENet-C's AnchorHeadKLLabelIoU;
     alone AnchorHeadIoU) and the variance-guided IoU gate
-    (AnchorHeadKLLabelIoUGuide).
+    (AnchorHeadKLLabelIoUGuide);
+  - AnchorHeadMulti: a shared 3x3 conv and one small head per class group
+    (SECOND-multihead), in AnchorHeadSingle's output layout.
 
 The losses: focal classification, direction-bin cross entropy, the
 sin-difference smooth-L1, KL-label, KL and od-IoU regression losses, and
@@ -22,6 +24,7 @@ from torch import nn
 
 from ..ops import iou3d
 from ..utils import common, losses
+from .layers import ConvBlock
 
 
 class AnchorHeadSingle(nn.Module):
@@ -108,6 +111,73 @@ class AnchorHeadKLLabel(AnchorHeadSingle):
                 gate = self.std_conv2(F.relu(self.std_conv1(std_raw)))
                 iou = iou * torch.sigmoid(gate)
             out['iou_preds'] = nhwc(iou, self.num_class)
+        return out
+
+
+class AnchorHeadMulti(nn.Module):
+    """Grouped-class multi-head (second_multihead.yaml): a shared 3x3
+    ConvBlock (`shared_conv`), then per class group `head{i}` its own 1x1
+    cls / box / direction convs over that group's anchors.
+
+    The outputs keep AnchorHeadSingle's (B, H, W, A_total, C) layout: the
+    heads' outputs are concatenated along the anchor axis (the anchor set
+    keeps each class's anchors contiguous, in class order), and each head's
+    logits go to its global class columns, every other class getting the
+    constant logit -20 (sigmoid ~ 0)."""
+
+    def __init__(self, in_channels: int, num_class: int, class_names,
+                 anchors_per_class, head_groups, code_size: int = 7,
+                 num_dir_bins: int = 0, shared_ch: int = 64):
+        super().__init__()
+        self.num_class, self.code_size = num_class, code_size
+        self.num_dir_bins = num_dir_bins
+        self.shared_ch = shared_ch
+        if shared_ch:
+            self.shared_conv = ConvBlock(in_channels, shared_ch, 3, 1,
+                                         padding=1)
+            in_channels = shared_ch
+        name_to_idx = {n: i for i, n in enumerate(class_names)}
+        self.groups = []
+        for hi, group in enumerate(head_groups):
+            idxs = [name_to_idx[n] for n in group]
+            a_h = sum(anchors_per_class[i] for i in idxs)
+            self.groups.append((idxs, a_h))
+            cls = nn.Conv2d(in_channels, a_h * len(group), 1)
+            nn.init.constant_(cls.bias, -math.log((1 - 0.01) / 0.01))
+            box = nn.Conv2d(in_channels, a_h * code_size, 1)
+            nn.init.normal_(box.weight, std=0.001)
+            nn.init.zeros_(box.bias)
+            setattr(self, f'head{hi}_conv_cls', cls)
+            setattr(self, f'head{hi}_conv_box', box)
+            if num_dir_bins > 0:
+                setattr(self, f'head{hi}_conv_dir_cls',
+                        nn.Conv2d(in_channels, a_h * num_dir_bins, 1))
+
+    def forward(self, x, train: bool = False):
+        x = x.permute(0, 3, 1, 2)
+        if self.shared_ch:
+            x = self.shared_conv(x, train)
+        b, _, h, w = x.shape
+
+        def nhwc(t, a, c):
+            return t.permute(0, 2, 3, 1).reshape(b, h, w, a, c)
+
+        cls_out, box_out, dir_out = [], [], []
+        for hi, (idxs, a_h) in enumerate(self.groups):
+            cls = nhwc(getattr(self, f'head{hi}_conv_cls')(x), a_h, len(idxs))
+            filler = cls.new_full(cls.shape[:-1], -20.0)
+            cols = [cls[..., idxs.index(ci)] if ci in idxs else filler
+                    for ci in range(self.num_class)]
+            cls_out.append(torch.stack(cols, dim=-1))
+            box_out.append(nhwc(getattr(self, f'head{hi}_conv_box')(x), a_h,
+                                self.code_size))
+            if self.num_dir_bins > 0:
+                dir_out.append(nhwc(getattr(self, f'head{hi}_conv_dir_cls')(x),
+                                    a_h, self.num_dir_bins))
+        out = {'cls_preds': torch.cat(cls_out, dim=3),
+               'box_preds': torch.cat(box_out, dim=3)}
+        if dir_out:
+            out['dir_cls_preds'] = torch.cat(dir_out, dim=3)
         return out
 
 

@@ -1,15 +1,21 @@
 """Detector composition (torch counterpart of glenet_tpu/models/detectors.py)
-for two topologies:
+for these topologies:
 
   - VoxelRCNN (GLENet-VR, plain Voxel R-CNN): voxelize -> MeanVFE ->
     VoxelBackBone8x -> HeightCompression -> BaseBEVBackbone -> anchor head
     -> proposal NMS -> (train: RoI target sampling) -> VoxelRCNNHead ->
     final NMS over the refined RoIs;
-  - SECONDNet, single stage (GLENet-S, GLENet-C, plain SECOND, SE-SSD's
-    head): voxelize -> MeanVFE -> VoxelBackBone8x(Ciassd) ->
-    HeightCompression -> BaseBEVBackbone or SSFA -> AnchorHeadSingle,
-    AnchorHeadSessd (its od-IoU regression loss) or the KL-label family ->
-    final NMS over the dense head's decoded anchors.
+  - SECONDNetIoU (SECOND-IoU): the same stage 1 with AnchorHeadSingle,
+    then SECONDHead scores the RoIs (sampled from the 2D backbone's map) by
+    their predicted IoU; the boxes are the RoIs;
+  - SECONDNet, single stage (GLENet-S, GLENet-C, plain SECOND,
+    SECOND-multihead, SE-SSD's head): voxelize -> MeanVFE ->
+    VoxelBackBone8x(Ciassd) -> HeightCompression -> BaseBEVBackbone or
+    SSFA -> AnchorHeadSingle, AnchorHeadMulti, AnchorHeadSessd (its od-IoU
+    regression loss) or the KL-label family -> final NMS over the dense
+    head's decoded anchors (per class with MULTI_CLASSES_NMS);
+  - PointPillar: voxelize into pillars -> PillarVFE -> PointPillarScatter
+    -> BaseBEVBackbone -> AnchorHeadSingle -> final NMS.
 
 The dense head's targets come from the axis-aligned assigner or ATSS, on
 nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
@@ -45,9 +51,10 @@ from ..utils import common
 from . import anchor_heads, anchors, target_assigner
 from . import roi_heads as roi_lib
 from .bev_backbone import SSFA, BaseBEVBackbone
-from .roi_heads import VoxelRCNNHead, decode_rcnn_boxes
+from .map_to_bev import PointPillarScatter
+from .roi_heads import SECONDHead, VoxelRCNNHead, decode_rcnn_boxes
 from .spconv_backbone import build_backbone_3d
-from .vfe import MeanVFE
+from .vfe import MeanVFE, PillarVFE
 
 
 def _require(cond, what):
@@ -55,8 +62,13 @@ def _require(cond, what):
         raise NotImplementedError(f'{what} is not ported yet')
 
 
+# the MODEL names the port builds
+FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar')
+
+
 class DetectorNet(nn.Module):
-    """Neural slots of the VoxelRCNN or single-stage SECONDNet detector."""
+    """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet
+    or PointPillar detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -64,15 +76,21 @@ class DetectorNet(nn.Module):
                  box_coder, num_point_features: int = 4):
         super().__init__()
         mcfg = Cfg(model_cfg)
-        name = mcfg.get('NAME')
-        _require(name in ('VoxelRCNN', 'SECONDNet'), f'MODEL {name}')
+        name = mcfg.get('NAME')             # one of FAMILIES (Detector)
         roi_cfg = mcfg.get('ROI_HEAD')
         roi_name = None if roi_cfg is None else roi_cfg.NAME
-        _require((name == 'VoxelRCNN') == (roi_cfg is not None),
+        two_stage = name in ('VoxelRCNN', 'SECONDNetIoU')
+        _require(two_stage == (roi_cfg is not None),
                  f'MODEL {name} with ROI_HEAD {roi_name}')
-        _require(mcfg.VFE.NAME == 'MeanVFE', f'VFE {mcfg.VFE.NAME}')
-        _require(mcfg.MAP_TO_BEV.NAME == 'HeightCompression',
-                 f'MAP_TO_BEV {mcfg.MAP_TO_BEV.NAME}')
+        pillars = name == 'PointPillar'
+        vfe_cfg, m2b = mcfg.VFE, mcfg.MAP_TO_BEV
+        _require(vfe_cfg.NAME == ('PillarVFE' if pillars else 'MeanVFE'),
+                 f'VFE {vfe_cfg.NAME}')
+        _require(m2b.NAME == ('PointPillarScatter' if pillars
+                              else 'HeightCompression'),
+                 f'MAP_TO_BEV {m2b.NAME}')
+        _require(pillars == ('BACKBONE_3D' not in mcfg),
+                 f'MODEL {name} with BACKBONE_3D')
         _require(mcfg.BACKBONE_2D.NAME in ('BaseBEVBackbone', 'SSFA'),
                  f'BACKBONE_2D {mcfg.BACKBONE_2D.NAME}')
         head_cfg = mcfg.DENSE_HEAD
@@ -82,8 +100,10 @@ class DetectorNet(nn.Module):
                               'WeightedAxisAlignedTargetAssigner',
                               'ATSSTargetAssigner'), assigner)
         if roi_cfg is not None:
-            _require(roi_name in ('VoxelRCNNKLLabelIoUHead',
-                                  'VoxelRCNNHead'), f'ROI_HEAD {roi_name}')
+            _require(roi_name in (('SECONDHead',) if name == 'SECONDNetIoU'
+                                  else ('VoxelRCNNKLLabelIoUHead',
+                                        'VoxelRCNNHead')),
+                     f'ROI_HEAD {roi_name}')
             score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
                 'CLS_SCORE_TYPE', 'roi_iou')
             _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
@@ -99,15 +119,27 @@ class DetectorNet(nn.Module):
         self.anchor_set = anchor_set
         self.box_coder = box_coder
 
-        self.vfe = MeanVFE()
-        self.backbone_3d = build_backbone_3d(mcfg.BACKBONE_3D, grid_size,
-                                             num_point_features)
+        if pillars:
+            self.vfe = PillarVFE(
+                num_point_features, vfe_cfg.NUM_FILTERS, voxel_size,
+                pc_range,
+                use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
+                with_distance=vfe_cfg.get('WITH_DISTANCE', False),
+                use_norm=vfe_cfg.get('USE_NORM', True))
+            self.backbone_3d = None
+            self.map_to_bev = PointPillarScatter(grid_size)
+            c_bev = self.vfe.num_out_features
+        else:
+            self.vfe = MeanVFE()
+            self.backbone_3d = build_backbone_3d(mcfg.BACKBONE_3D, grid_size,
+                                                 num_point_features)
+            c_bev = self.backbone_3d.num_bev_features
         bb = mcfg.BACKBONE_2D
         if bb.NAME == 'SSFA':
-            self.backbone_2d = SSFA(self.backbone_3d.num_bev_features)
+            self.backbone_2d = SSFA(c_bev)
         else:
             self.backbone_2d = BaseBEVBackbone(
-                in_channels=self.backbone_3d.num_bev_features,
+                in_channels=c_bev,
                 layer_nums=tuple(bb.LAYER_NUMS),
                 layer_strides=tuple(bb.LAYER_STRIDES),
                 num_filters=tuple(bb.NUM_FILTERS),
@@ -119,15 +151,35 @@ class DetectorNet(nn.Module):
                              else 0)
         self.dir_offset = head_cfg.get('DIR_OFFSET', 0.78539)
         self.dir_limit_offset = head_cfg.get('DIR_LIMIT_OFFSET', 0.0)
-        self.dense_head = anchor_heads.build_dense_head(
-            head_cfg.NAME, self.backbone_2d.num_bev_features, num_class,
-            anchor_set.num_anchors_per_location, box_coder.code_size,
-            self.num_dir_bins)
-        self.roi_head = None if roi_cfg is None else VoxelRCNNHead(
-            roi_cfg, voxel_size, pc_range,
-            level_channels=self.backbone_3d.level_channels,
-            code_size=box_coder.code_size,
-            kl_label='KLLabel' in roi_name)
+        c_2d = self.backbone_2d.num_bev_features
+        if head_cfg.NAME == 'AnchorHeadMulti':
+            groups = [tuple(h['HEAD_CLS_NAME'])
+                      for h in head_cfg.RPN_HEAD_CFGS]
+            names = tuple(anchor_set.class_names)
+            if tuple(n for g in groups for n in g) != names:
+                raise ValueError('RPN_HEAD_CFGS must partition CLASS_NAMES '
+                                 'in anchor order')
+            self.dense_head = anchor_heads.AnchorHeadMulti(
+                c_2d, num_class, names,
+                [sl.stop - sl.start for sl in anchor_set.class_slices],
+                groups, box_coder.code_size, self.num_dir_bins,
+                shared_ch=head_cfg.get('SHARED_CONV_NUM_FILTER', 64))
+        else:
+            self.dense_head = anchor_heads.build_dense_head(
+                head_cfg.NAME, c_2d, num_class,
+                anchor_set.num_anchors_per_location, box_coder.code_size,
+                self.num_dir_bins)
+        if roi_cfg is None:
+            self.roi_head = None
+        elif name == 'SECONDNetIoU':
+            self.roi_head = SECONDHead(roi_cfg, voxel_size, pc_range, c_2d,
+                                       code_size=box_coder.code_size)
+        else:
+            self.roi_head = VoxelRCNNHead(
+                roi_cfg, voxel_size, pc_range,
+                level_channels=self.backbone_3d.level_channels,
+                code_size=box_coder.code_size,
+                kl_label='KLLabel' in roi_name)
         self.register_buffer('flat_anchors',
                              torch.from_numpy(anchor_set.flat_anchors),
                              persistent=False)
@@ -153,12 +205,24 @@ class DetectorNet(nn.Module):
         """
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
         vox = self.voxelize(points, points_mask, max_voxels)
-        feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
-        sp_out = self.backbone_3d(feats, vox['voxel_coords'],
-                                  vox['voxel_mask'], train)
-        spatial_2d = self.backbone_2d(sp_out['bev_features'], train)
-        out = {'vox': vox, 'backbone_3d': sp_out,
-               'dense_head': self.dense_head(spatial_2d, train)}
+        out = {'vox': vox}
+        if self.backbone_3d is None:
+            # PointPillars: the batch flattened into the pillar axis, so the
+            # VFE's BN statistics span the batch
+            b, v = vox['voxel_coords'].shape[:2]
+            feats = self.vfe(vox['voxels'].flatten(0, 1),
+                             vox['voxel_num_points'].flatten(0, 1),
+                             vox['voxel_coords'].flatten(0, 1), train)
+            bev = self.map_to_bev(feats.reshape(b, v, -1),
+                                  vox['voxel_coords'], vox['voxel_mask'])
+        else:
+            feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
+            sp_out = self.backbone_3d(feats, vox['voxel_coords'],
+                                      vox['voxel_mask'], train)
+            out['backbone_3d'] = sp_out
+            bev = sp_out['bev_features']
+        spatial_2d = self.backbone_2d(bev, train)
+        out['dense_head'] = self.dense_head(spatial_2d, train)
         if self.roi_head is None:
             return out
 
@@ -177,8 +241,9 @@ class DetectorNet(nn.Module):
             roi_in = roi_targets['rois']
         else:
             roi_in = out['proposals']['rois']
-        out['rcnn'] = self.roi_head(roi_in, sp_out['multi_scale'], train,
-                                    generator)
+        features = (spatial_2d if isinstance(self.roi_head, SECONDHead)
+                    else sp_out['multi_scale'])
+        out['rcnn'] = self.roi_head(roi_in, features, train, generator)
         out['rcnn']['rois'] = roi_in
         return out
 
@@ -241,6 +306,9 @@ class Detector:
     and the training loss."""
 
     def __init__(self, model_cfg, data_cfg, num_class, device):
+        # before any slot is read: a point-based family has no DENSE_HEAD
+        _require(model_cfg.get('NAME') in FAMILIES,
+                 f'MODEL {model_cfg.get("NAME")}')
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.num_class = num_class
@@ -389,13 +457,15 @@ class Detector:
 
     def _rcnn_loss(self, full_out):
         """BCE cls on the IoU labels, KL-label (or, for the plain head,
-        smooth-L1) reg loss and corner loss."""
+        smooth-L1) reg loss and corner loss; SECONDHead's BCE alone."""
         rcnn = full_out['rcnn']
         rt = full_out['roi_targets']
         roi_lw = self.model_cfg.ROI_HEAD.LOSS_CONFIG.LOSS_WEIGHTS
         c_loss = roi_lib.rcnn_cls_loss(rcnn['rcnn_cls'], rt['rcnn_cls_labels'])
         c_loss = c_loss * roi_lw.get('rcnn_cls_weight',
                                      roi_lw.get('rcnn_iou_weight', 1.0))
+        if 'no_reg_loss' in rcnn:           # SECONDHead: IoU scoring only
+            return c_loss, {'rcnn_loss_cls': c_loss}
         r_loss, parts = roi_lib.rcnn_reg_loss(
             rcnn['rcnn_reg'], rcnn.get('rcnn_reg_std'), rt['rois'],
             rt['gt_of_rois_ct'], rt['gt_of_rois_src'], rt['gt_unc_of_rois'],
@@ -448,18 +518,18 @@ class Detector:
         boxes = decoded['batch_box_preds']
         std = decoded.get('batch_box_std_preds', torch.zeros_like(boxes))
         return self._final_nms(boxes[..., :7], best_scores, best_labels + 1,
-                               std)
+                               std, cls_scores_all=scores)
 
-    def _final_nms(self, boxes_all, best_scores, best_labels, std_all):
-        """Final NMS per sample over each box's best class (the
-        class-agnostic path; MULTI_CLASSES_NMS is not ported): variance
-        voting (new_nms_gpu / variance_voting, std_all (B, R, 7) the
-        predicted log variances) or greedy BEV NMS (nms_gpu) on the scores
-        at or above SCORE_THRESH."""
+    def _final_nms(self, boxes_all, best_scores, best_labels, std_all,
+                   cls_scores_all=None):
+        """Final NMS per sample.  With MULTI_CLASSES_NMS and the dense
+        head's per-class scores (B, N, num_class > 1): one greedy BEV NMS
+        per class, merged into the top NMS_POST_MAXSIZE slots by score.
+        Otherwise over each box's best class: variance voting (new_nms_gpu /
+        variance_voting, std_all (B, R, 7) the predicted log variances) or
+        greedy BEV NMS (nms_gpu) on the scores at or above SCORE_THRESH."""
         post = self.model_cfg.POST_PROCESSING
         nms_cfg = post.NMS_CONFIG
-        _require(not nms_cfg.get('MULTI_CLASSES_NMS', False),
-                 'multi-class final NMS')
         _require(nms_cfg.NMS_TYPE in ('new_nms_gpu', 'variance_voting',
                                       'nms_gpu'),
                  f'final NMS_TYPE {nms_cfg.NMS_TYPE}')
@@ -469,10 +539,22 @@ class Detector:
         thresh = float(nms_cfg.NMS_THRESH)
         score_thresh = float(post.get('SCORE_THRESH', 0.0))
         post_score_thresh = float(post.get('POST_SCORE_THRESH', 0.0))
+        multi = (nms_cfg.get('MULTI_CLASSES_NMS', False)
+                 and cls_scores_all is not None
+                 and cls_scores_all.shape[-1] > 1)
         res = []
         for i in range(boxes_all.shape[0]):
             boxes_s = boxes_all[i]
-            if use_voting:
+            if multi:
+                idx, valid, labels, scores = nms_ops.multi_classes_nms(
+                    boxes_s, cls_scores_all[i], thresh, self.num_class,
+                    pre_max=pre_max, post_max=post_max,
+                    score_threshold=score_thresh)
+                idx, valid = idx[:post_max], valid[:post_max]
+                final_boxes = boxes_s[idx]
+                final_scores = torch.where(valid, scores[:post_max], 0.0)
+                final_labels = torch.where(valid, labels[:post_max], 0)
+            elif use_voting:
                 boxes_wrapped = torch.cat([
                     boxes_s[:, :6],
                     common.limit_period(boxes_s[:, 6:7], 0.5, 2 * math.pi)],
@@ -491,7 +573,8 @@ class Detector:
                     post_max=post_max, score_threshold=score_thresh)
                 final_boxes = boxes_s[idx]
                 final_scores = torch.where(valid, best_scores[i][idx], 0.0)
-            final_labels = torch.where(valid, best_labels[i][idx], 0)
+            if not multi:
+                final_labels = torch.where(valid, best_labels[i][idx], 0)
             if post_score_thresh > 0:
                 keep = final_scores > post_score_thresh
                 valid = valid & keep

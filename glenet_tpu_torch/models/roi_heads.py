@@ -1,6 +1,7 @@
-"""RoI stage of GLENet-VR and Voxel R-CNN (torch counterpart of the
-VoxelRCNN part of glenet_tpu/models/roi_heads.py): train-time RoI target
-sampling, VoxelRCNNHead with or without its KL-label branches, and the
+"""RoI stage of GLENet-VR, Voxel R-CNN and SECOND-IoU (torch counterpart
+of the VoxelRCNN and SECONDHead parts of glenet_tpu/models/roi_heads.py):
+train-time RoI target sampling, VoxelRCNNHead with or without its
+KL-label branches, SECONDHead (IoU scoring of BEV-sampled rois), and the
 RCNN losses.
 
 POOL_MODE picks how each of the G^3 grid points of a roi pools a feature
@@ -558,6 +559,96 @@ class VoxelRCNNHead(nn.Module):
         p = torch.sigmoid(ori_cls) * torch.sigmoid(self.std_fc2(h))
         return {'rcnn_cls': torch.log((p + 1e-6) / (1 - p + 1e-6)),
                 'rcnn_reg': self.reg_pred(reg_feat), 'rcnn_reg_std': reg_std}
+
+
+def bilinear_interpolate(im, x, y):
+    """im (H, W, C), x (N,), y (N,) pixel coordinates -> (N, C).  The corner
+    indices are clamped to the map but the weights come from the unclamped
+    corners (clamp-to-edge, as the reference's voxel_set_abstraction)."""
+    h, w = im.shape[:2]
+    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+    x1, y1 = x0 + 1, y0 + 1
+    x0c, x1c = x0.clamp(0, w - 1), x1.clamp(0, w - 1)
+    y0c, y1c = y0.clamp(0, h - 1), y1.clamp(0, h - 1)
+    wa = (x1 - x) * (y1 - y)
+    wb = (x1 - x) * (y - y0)
+    wc = (x - x0) * (y1 - y)
+    wd = (x - x0) * (y - y0)
+    return (im[y0c, x0c] * wa[:, None] + im[y1c, x0c] * wb[:, None]
+            + im[y0c, x1c] * wc[:, None] + im[y1c, x1c] * wd[:, None])
+
+
+class SECONDHead(nn.Module):
+    """SECOND-IoU's RoI head (second_iou.yaml): a rotated GRID_SIZE^2 grid
+    at half-pixel offsets (affine_grid's align_corners=False convention)
+    bilinearly sampled from the 2D backbone's map per roi, detached; then
+    SHARED_FC and IOU_FC (Linear without bias, MaskedBatchNorm, ReLU;
+    DP_RATIO dropout between the shared layers in train mode) and one IoU
+    logit.  No box refinement: rcnn_reg is zeros, so the boxes are the
+    rois, and `no_reg_loss` leaves the regression loss out."""
+
+    def __init__(self, model_cfg, voxel_size, pc_range, in_channels: int,
+                 code_size: int = 7):
+        super().__init__()
+        pool = model_cfg.ROI_GRID_POOL
+        self.grid = int(pool.GRID_SIZE)
+        ds = float(pool.DOWNSAMPLE_RATIO)
+        self.vx, self.vy = voxel_size[0] * ds, voxel_size[1] * ds
+        self.x0, self.y0 = float(pc_range[0]), float(pc_range[1])
+        self.code_size = code_size
+        self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
+        g = self.grid
+        lin = (2.0 * (np.arange(g) + 0.5) / g - 1.0).astype(np.float32)
+        gy, gx = np.meshgrid(lin, lin, indexing='ij')
+        self.register_buffer('gx', torch.from_numpy(gx.reshape(-1)),
+                             persistent=False)
+        self.register_buffer('gy', torch.from_numpy(gy.reshape(-1)),
+                             persistent=False)
+        c = g * g * in_channels
+        self.layers = []
+        for stack, key in (('shared', 'SHARED_FC'), ('iou', 'IOU_FC')):
+            for i, s in enumerate(model_cfg[key]):
+                setattr(self, f'{stack}_{i}', nn.Linear(c, s, bias=False))
+                setattr(self, f'{stack}_bn{i}', MaskedBatchNorm(s))
+                self.layers.append((f'{stack}_{i}', f'{stack}_bn{i}',
+                                    stack == 'shared'
+                                    and i < len(model_cfg[key]) - 1))
+                c = s
+        self.iou_pred = nn.Linear(c, 1)
+
+    @torch.no_grad()
+    def pool(self, rois, spatial_2d):
+        """rois (B, R, 7), spatial_2d (B, H, W, C) -> (B * R, G^2 * C)."""
+        b, r = rois.shape[:2]
+        h, w, c = spatial_2d.shape[1:]
+        cx = (rois[..., 0] - self.x0) / self.vx                 # feature px
+        cy = (rois[..., 1] - self.y0) / self.vy
+        hx = rois[..., 3] / self.vx / 2
+        hy = rois[..., 4] / self.vy / 2
+        ca, sa = torch.cos(rois[..., 6]), torch.sin(rois[..., 6])
+        gx, gy = self.gx, self.gy
+        u = cx[..., None] + hx[..., None] * (gx * ca[..., None]
+                                             - gy * sa[..., None])
+        v = cy[..., None] + hy[..., None] * (gx * sa[..., None]
+                                             + gy * ca[..., None])
+        pooled = torch.stack([
+            bilinear_interpolate(spatial_2d[i], u[i].reshape(-1),
+                                 v[i].reshape(-1)) for i in range(b)])
+        return pooled.reshape(b * r, -1)
+
+    def forward(self, rois, spatial_2d, train: bool = False,
+                generator=None):
+        """rois (B, R, 7), spatial_2d (B, H, W, C) -> rcnn_cls (B*R, 1) (the
+        IoU logit), rcnn_reg zeros (B*R, code_size), no_reg_loss."""
+        x = self.pool(rois, spatial_2d)
+        for lin, bn, drop in self.layers:
+            x = F.relu(getattr(self, bn)(getattr(self, lin)(x),
+                                         use_running_average=not train))
+            if drop and train and self.dp_ratio > 0:
+                x = dropout(x, self.dp_ratio, generator)
+        return {'rcnn_cls': self.iou_pred(x),
+                'rcnn_reg': x.new_zeros((x.shape[0], self.code_size)),
+                'no_reg_loss': True}
 
 
 def decode_rcnn_boxes(rois, rcnn_reg, box_coder):

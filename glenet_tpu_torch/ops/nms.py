@@ -4,8 +4,8 @@
      greedy suppression as parallel locally-first confirmation rounds
      (`greedy_keep`);
   2. large counts (proposal NMS): a lazy kept-buffer pass over blocks of 256
-     score-ordered candidates (`_greedy_keep_lazy`) with an early exit once
-     `post_max` boxes are kept;
+     score-ordered candidates (`_greedy_keep_lazy`) that stops once
+     `post_max` boxes are kept or the live candidates run out;
   3. variance voting vectorized after the keep pass.
 
 Outputs are fixed-shape: (post_max,) indices + validity (+ voted boxes).
@@ -66,8 +66,9 @@ def _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max: int):
     `post_max` keeps are returned, so the kept-corner buffer is capped at
     post_max slots and the loop stops once that many are kept.
 
-    boxes_s: (P, 7) score-sorted; live: (P,) bool.  Returns keep (P,) bool
-    (entries after the early exit are False).
+    boxes_s: (P, 7) score-sorted; live: (P,) bool, True on a prefix (the
+    scores above the threshold).  Returns keep (P,) bool (entries after
+    the early exit are False).
     """
     blk = _LAZY_BLK
     p0 = boxes_s.shape[0]
@@ -86,7 +87,9 @@ def _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max: int):
     buf_a = torch.zeros(k + 1, dtype=areas.dtype, device=dev)
     n_kept = torch.zeros((), dtype=torch.int64, device=dev)
     slots = torch.arange(k, device=dev)
-    for b in range(p // blk):
+    # the candidates are score-sorted, so the live ones are a prefix: no
+    # block past it keeps a box
+    for b in range(-(-int(live.sum()) // blk)):
         sl = slice(b * blk, (b + 1) * blk)
         c_blk, a_blk, live_blk = corners[sl], areas[sl], live[sl]
         ov_prev = iou3d._pairwise(c_blk, buf_c[:k])              # (blk, k)
@@ -140,6 +143,33 @@ def nms_bev(boxes, scores, iou_threshold, pre_max: int = 4096,
         keep = _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max)
     keep_idx, keep_valid = _first_k_kept(keep, post_max)
     return order[keep_idx], keep_valid
+
+
+def multi_classes_nms(boxes, cls_scores, iou_threshold, num_class: int,
+                      pre_max: int = 1024, post_max: int = 128,
+                      score_threshold: float = 0.0):
+    """Per-class NMS: nms_bev of class k over every box scored by class k,
+    then the num_class * post_max slots merged by a stable descending sort
+    of their scores (empty slots score 0 and keep their order).
+
+    Args: boxes (N, 7); cls_scores (N, num_class).
+    Returns keep_idx (num_class * post_max,), keep_valid, keep_labels
+    (1-based), keep_scores, sorted by score descending.
+    """
+    idx, valid, scores, labels = [], [], [], []
+    for k in range(num_class):
+        sk = cls_scores[:, k]
+        i, v = nms_bev(boxes, sk, iou_threshold, pre_max=pre_max,
+                       post_max=post_max, score_threshold=score_threshold)
+        idx.append(i)
+        valid.append(v)
+        scores.append(torch.where(v, sk[i], 0.0))
+        labels.append(torch.full((post_max,), k + 1, dtype=torch.int64,
+                                 device=boxes.device))
+    idx, valid, scores, labels = (torch.cat(t) for t in (idx, valid, scores,
+                                                         labels))
+    order = torch.argsort(-scores, stable=True)
+    return idx[order], valid[order], labels[order], scores[order]
 
 
 def variance_voting_nms(boxes, scores, variance, iou_threshold,

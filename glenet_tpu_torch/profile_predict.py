@@ -3,8 +3,9 @@
     python3 -m glenet_tpu_torch.profile_predict [--cfg_file CFG]
 
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
-GLENet_S.yaml, GLENet_C.yaml or second.yaml) at full width, seeded random
-weights,
+GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
+two-stage second_iou.yaml, or pointpillar.yaml) at full width, seeded
+random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
 features; utils/synthetic.py), one warm-up predict, then:
@@ -12,7 +13,8 @@ features; utils/synthetic.py), one warm-up predict, then:
      after each request only);
   2. per-stage wall times of the same 3 requests, with a device synchronise
      at every stage boundary (so the stages add up to more than 1.):
-     voxelize + MeanVFE, the 3D backbone, the 2D backbone, the dense head,
+     voxelize + MeanVFE and the 3D backbone (PointPillars: voxelize,
+     PillarVFE, PointPillarScatter), the 2D backbone, the dense head,
      then two-stage decode + proposal NMS, the RoI head and decode +
      final NMS, or single-stage decode + final NMS; within the final
      NMS, the time of its rotated-IoU matrix (`boxes_iou_bev_blocked`)
@@ -51,8 +53,9 @@ def _stage_times(det, batch):
         return hook
 
     two_stage = det.net.roi_head is not None
-    names = ('backbone_3d', 'backbone_2d', 'dense_head') + (
-        ('roi_head',) if two_stage else ())
+    pillars = det.net.backbone_3d is None
+    names = (('vfe', 'map_to_bev') if pillars else ('backbone_3d',)) + (
+        'backbone_2d', 'dense_head') + (('roi_head',) if two_stage else ())
     hooks = []
     for name in names:
         mod = getattr(det.net, name)
@@ -75,11 +78,17 @@ def _stage_times(det, batch):
             u()
     t = dict(marks)
     mcfg = det.model_cfg
-    spans = {
-        'voxelize + MeanVFE': t['backbone_3d>'] - t0,
-        mcfg.BACKBONE_3D.NAME: t['backbone_3d<'] - t['backbone_3d>'],
+    if pillars:
+        spans = {'voxelize': t['vfe>'] - t0,
+                 mcfg.VFE.NAME: t['vfe<'] - t['vfe>'],
+                 mcfg.MAP_TO_BEV.NAME: t['map_to_bev<'] - t['map_to_bev>']}
+    else:
+        spans = {'voxelize + MeanVFE': t['backbone_3d>'] - t0,
+                 mcfg.BACKBONE_3D.NAME: t['backbone_3d<']
+                 - t['backbone_3d>']}
+    spans.update({
         mcfg.BACKBONE_2D.NAME: t['backbone_2d<'] - t['backbone_2d>'],
-        mcfg.DENSE_HEAD.NAME: t['dense_head<'] - t['dense_head>']}
+        mcfg.DENSE_HEAD.NAME: t['dense_head<'] - t['dense_head>']})
     nms = ('variance-voting' if mcfg.POST_PROCESSING.NMS_CONFIG.NMS_TYPE
            != 'nms_gpu' else 'greedy')
     if two_stage:

@@ -3,11 +3,14 @@
     python3 -m glenet_tpu_torch.profile_train [--cfg_file CFG]
 
 configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
-voxel-query RoI pooling, or a single-stage GLENet_S.yaml, GLENet_C.yaml,
-second.yaml) at full width, seeded random weights,
+voxel-query RoI pooling, a single-stage GLENet_S.yaml, GLENet_C.yaml,
+second.yaml or second_multihead.yaml, second_iou.yaml, pointpillar.yaml) at
+full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
-points with Car gt boxes at their clusters (for a Waymo config, Waymo-like
-scenes of 170000 points with Vehicle boxes; utils/synthetic.py), the train
+points with gt boxes at their clusters (Car; for a Car, Pedestrian and
+Cyclist config objects of the three classes at KITTI's label ratios; for a
+Waymo config, Waymo-like scenes of 170000 points with Vehicle boxes;
+utils/synthetic.py), the train
 voxel budget, adam_onecycle over the schedule of a full run (`total_steps`).
 One warm-up step, then:
   1. per-stage wall times of 3 steps, with a device synchronise at every

@@ -22,8 +22,13 @@ module at `mod.(...)`, converted by that module's type:
   - MaskedBatchNorm:    scale / bias / mean / var -> weight / bias /
                         running_mean / running_var
 
-It raises on any leaf it does not consume and on any port parameter or
-buffer it does not set.  `port_to_jax_variables` applies the rules the
+The rules are by module type, so every family's names follow: e.g.
+PointPillars' `vfe.PFNLayer_<i>.Dense_0` / `MaskedBatchNorm_0`,
+SECOND-multihead's `dense_head.shared_conv` (a ConvBlock) and
+`head<i>_conv_cls` / `_conv_box` / `_conv_dir_cls`, SECOND-IoU's
+`roi_head.shared_<i>` / `shared_bn<i>` / `iou_<i>` / `iou_bn<i>` /
+`iou_pred`.  It raises on any leaf it does not consume and on any port
+parameter or buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.
 """
 from __future__ import annotations

@@ -90,6 +90,79 @@ def train_batches(n, seed=0, batch=4, device='cuda', n_points=N_POINTS):
     return out
 
 
+# Labelled objects per class over KITTI's 7481 training frames (Geiger,
+# Lenz and Urtasun, CVPR 2012: the KITTI object detection benchmark's
+# label_2 files): the ratios at which the three-class scenes and trees
+# here place Pedestrians and Cyclists beside Cars.
+KITTI_LABEL_COUNTS = {'Car': 28742, 'Pedestrian': 4487, 'Cyclist': 1627}
+# (dx, dy, dz) ranges of each class's boxes, metres; the anchors of the
+# three-class configs (second.yaml, pointpillar.yaml) lie inside them
+KITTI_SIZES = {'Car': ((3.4, 4.6), (1.5, 1.9), (1.4, 1.8)),
+               'Pedestrian': ((0.6, 1.0), (0.5, 0.8), (1.5, 1.9)),
+               'Cyclist': ((1.5, 1.9), (0.5, 0.8), (1.6, 1.9))}
+# points inside one object of each class (a range drawn uniformly)
+KITTI_OBJECT_POINTS = {'Car': (300, 1500), 'Pedestrian': (80, 400),
+                       'Cyclist': (80, 400)}
+
+
+def _three_class_scene(rng, n_points):
+    """make_scene's ground (55% of the points), then objects until the
+    points run out, each of a class drawn by KITTI_LABEL_COUNTS: its box
+    (KITTI_SIZES, on the ground, heading within +-0.3 rad) filled with
+    KITTI_OBJECT_POINTS points.  Returns (points (n_points, 4), boxes
+    (K, 7), labels (K,) 1-based in KITTI_LABEL_COUNTS' order)."""
+    names = list(KITTI_LABEL_COUNTS)
+    p = np.array([KITTI_LABEL_COUNTS[n] for n in names], np.float64)
+    n_ground = int(n_points * 0.55)
+    pts = np.zeros((n_points, 4), np.float32)
+    pts[:n_ground, 0] = rng.uniform(0, 69.12, n_ground)
+    pts[:n_ground, 1] = rng.uniform(-39.68, 39.68, n_ground)
+    pts[:n_ground, 2] = rng.normal(-1.6, 0.1, n_ground)
+    boxes, labels = [], []
+    i = n_ground
+    while i < n_points:
+        c = rng.choice(len(names), p=p / p.sum())
+        dims = [rng.uniform(*r) for r in KITTI_SIZES[names[c]]]
+        n = min(rng.randint(*KITTI_OBJECT_POINTS[names[c]]), n_points - i)
+        box = [rng.uniform(5, 60), rng.uniform(-30, 30),
+               -1.6 + dims[2] / 2, *dims, rng.uniform(-0.3, 0.3)]
+        local = rng.uniform(-0.5, 0.5, (n, 3)) * dims
+        pts[i:i + n, :3] = common.rotate_points_along_z_np(
+            local, np.array([box[6]])) + box[:3]
+        boxes.append(box)
+        labels.append(c + 1)
+        i += n
+    pts[:, 3] = rng.uniform(0, 1, n_points)
+    return pts, np.array(boxes, np.float32), np.array(labels)
+
+
+def three_class_train_batches(n, seed=0, batch=4, device='cuda',
+                              n_points=N_POINTS):
+    """`n` training batches of `batch` three-class scenes each
+    (_three_class_scene), all from one RandomState(seed): every object's
+    box and class in MAX_GT_PER_SCENE slots, with gt_mask and label
+    variances in [0.01, 0.2)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        pts = np.zeros((batch, n_points, 4), np.float32)
+        gt = np.zeros((batch, MAX_GT_PER_SCENE, 8), np.float32)
+        gt_mask = np.zeros((batch, MAX_GT_PER_SCENE), bool)
+        unc = np.ones((batch, MAX_GT_PER_SCENE, 7), np.float32)
+        for b in range(batch):
+            pts[b], boxes, labels = _three_class_scene(rng, n_points)
+            k = min(len(boxes), MAX_GT_PER_SCENE)
+            gt[b, :k, :7] = boxes[:k]
+            gt[b, :k, 7] = labels[:k]
+            gt_mask[b, :k] = True
+            unc[b, :k] = rng.uniform(0.01, 0.2, (k, 7))
+        out.append({k: torch.from_numpy(v).to(device) for k, v in (
+            ('points', pts), ('points_mask', np.ones(pts.shape[:2], bool)),
+            ('gt_boxes', gt), ('gt_mask', gt_mask),
+            ('gt_uncertainty', unc))})
+    return out
+
+
 def seeded_detector(cfg, device, seed):
     """Detector with weights drawn from `seed`, BN statistics included (so
     BN is not an identity)."""
@@ -131,8 +204,10 @@ def _pcdet_backbone(subm_per_block, out_channels):
 
 def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     """A state dict of random tensors under the key names and layouts of
-    the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN or SECONDNet:
-    MeanVFE (no parameters), VoxelBackBone8x or VoxelBackBone8xCiassd
+    the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN, SECONDNet,
+    SECONDNetIoU or PointPillar: MeanVFE (no parameters) or PillarVFE
+    (vfe.pfn_layers.{i}.linear without bias and .norm), VoxelBackBone8x or
+    VoxelBackBone8xCiassd
     (spconv 2.x weights (O, kz, ky, kx, I); conv{L}.{block}.{0 conv, 1
     BN}), BaseBEVBackbone (blocks.{i} = ZeroPad, Conv, BN, ReLU, then Conv,
     BN, ReLU per layer; deblocks.{i} = ConvTranspose2d (I, O, k, k), BN,
@@ -148,7 +223,8 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     shared_fc_layer / cls_fc_layers / reg_fc_layers stacks of Linear, BN1d,
     ReLU (and Dropout after every Linear but the last when DP_RATIO > 0),
     cls_pred_layer, reg_pred_layer and, for VoxelRCNNKLLabelIoUHead,
-    reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2.
+    reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2;
+    in SECONDNetIoU the roi head of _pcdet_second_head.
     Every BN comes with running stats and num_batches_tracked.  Weights ~
     N(0, 1/fan_in), biases and running means ~ N(0, 0.1), BN scales and
     running variances ~ U(0.5, 1.5).  The input convolution takes
@@ -177,23 +253,36 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
         sd[f'{prefix}.running_var'] = rng.uniform(0.5, 1.5, n)
         sd[f'{prefix}.num_batches_tracked'] = np.array(1000, np.int64)
 
-    subm, c_out = VARIANTS[mcfg.BACKBONE_3D.NAME]
-    for name, cin, cout, k in _pcdet_backbone(subm, c_out):
-        cin = num_point_features if cin == 'in' else cin
-        weight(f'backbone_3d.{name}.weight', (cout, *k, cin),
-               cin * int(np.prod(k)))
-        bn(f'backbone_3d.{name.rsplit(".", 1)[0]}.1', cout)
+    if mcfg.VFE.NAME == 'PillarVFE':
+        vfe = mcfg.VFE
+        cin = num_point_features + (6 if vfe.get('USE_ABSLOTE_XYZ', True)
+                                    else 3)
+        cin += int(vfe.get('WITH_DISTANCE', False))
+        filters = list(vfe.NUM_FILTERS)
+        for i, f in enumerate(filters):
+            out = f if i == len(filters) - 1 else f // 2
+            weight(f'vfe.pfn_layers.{i}.linear.weight', (out, cin), cin)
+            bn(f'vfe.pfn_layers.{i}.norm', out)
+            cin = f
+        c_in = filters[-1]
+    else:
+        subm, c_out = VARIANTS[mcfg.BACKBONE_3D.NAME]
+        for name, cin, cout, k in _pcdet_backbone(subm, c_out):
+            cin = num_point_features if cin == 'in' else cin
+            weight(f'backbone_3d.{name}.weight', (cout, *k, cin),
+                   cin * int(np.prod(k)))
+            bn(f'backbone_3d.{name.rsplit(".", 1)[0]}.1', cout)
 
-    # the BEV depth after conv_out, as the reference's dense() gives it
-    proc = {p.NAME: p for p in cfg.DATA_CONFIG.DATA_PROCESSOR}
-    grid = vox_ops.compute_grid_size(
-        cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-        proc['transform_points_to_voxels'].VOXEL_SIZE)
-    g = (grid[0], grid[1], grid[2] + 1)
-    for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, (0, 1, 1)),
-                    ((3, 1, 1), (2, 1, 1), 0)):
-        g = sparse.out_grid_size(g, k, s, p)
-    c_in = g[2] * c_out
+        # the BEV depth after conv_out, as the reference's dense() gives it
+        proc = {p.NAME: p for p in cfg.DATA_CONFIG.DATA_PROCESSOR}
+        grid = vox_ops.compute_grid_size(
+            cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+            proc['transform_points_to_voxels'].VOXEL_SIZE)
+        g = (grid[0], grid[1], grid[2] + 1)
+        for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, (0, 1, 1)),
+                        ((3, 1, 1), (2, 1, 1), 0)):
+            g = sparse.out_grid_size(g, k, s, p)
+        c_in = g[2] * c_out
 
     bb = mcfg.BACKBONE_2D
     if bb.NAME == 'SSFA':
@@ -253,6 +342,9 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     if 'ROI_HEAD' not in mcfg:
         return _tensors(sd)
     roi = mcfg.ROI_HEAD
+    if roi.NAME == 'SECONDHead':
+        _pcdet_second_head(roi, weight, bn, bias)
+        return _tensors(sd)
     pool = roi.ROI_GRID_POOL
     channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64}
     c_pooled = 0
@@ -300,6 +392,30 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     return _tensors(sd)
 
 
+def _pcdet_second_head(roi, weight, bn, bias):
+    """SECONDHead's keys: shared_fc_layer (Conv1d k1 without bias, BN1d,
+    ReLU per SHARED_FC entry, a Dropout after each but the last when
+    DP_RATIO > 0) and iou_layers (RoIHeadTemplate.make_fc_layers: the same
+    per IOU_FC entry with a Dropout after the first when DP_RATIO >= 0,
+    then a Conv1d k1 with bias to one output)."""
+    pool = roi.ROI_GRID_POOL
+    c = int(pool.IN_CHANNEL) * int(pool.GRID_SIZE) ** 2
+    seq = 0
+    for k, f in enumerate(roi.SHARED_FC):
+        weight(f'roi_head.shared_fc_layer.{seq}.weight', (f, c, 1), c)
+        bn(f'roi_head.shared_fc_layer.{seq + 1}', f)
+        c = f
+        seq += 4 if k < len(roi.SHARED_FC) - 1 and roi.DP_RATIO > 0 else 3
+    seq = 0
+    for k, f in enumerate(roi.IOU_FC):
+        weight(f'roi_head.iou_layers.{seq}.weight', (f, c, 1), c)
+        bn(f'roi_head.iou_layers.{seq + 1}', f)
+        c = f
+        seq += 4 if k == 0 and roi.DP_RATIO >= 0 else 3
+    weight(f'roi_head.iou_layers.{seq}.weight', (1, c, 1), c)
+    bias(f'roi_head.iou_layers.{seq}.bias', 1)
+
+
 def _tensors(sd):
     return {k: torch.from_numpy(np.asarray(
         v, np.int64 if k.endswith('num_batches_tracked') else np.float32))
@@ -325,31 +441,38 @@ IMAGE_SHAPE = (375, 1242)
 FOV_HALF_ANGLE = np.radians(35.0)
 
 
-def _place_cars(rng, n, x_range, y_half):
-    """n non-overlapping Car boxes (lidar frame, bottoms on the ground)
-    inside the camera's field of view."""
+def _place_objects(rng, names, x_range, y_half):
+    """Non-overlapping boxes of the classes `names` (KITTI_SIZES; lidar
+    frame, bottoms on the ground) inside the camera's field of view: a Car
+    5.5 m from every earlier centre, a Pedestrian or Cyclist 3 m.
+    Pedestrians and Cyclists stay within 40 m, where their image boxes are
+    at least KITTI's 25 pixels high (difficulty moderate or easy)."""
     boxes = []
-    while len(boxes) < n:
-        x = rng.uniform(*x_range)
-        y_max = min(y_half, x * np.tan(FOV_HALF_ANGLE) - 1.5)
-        if y_max <= 0:
-            continue
-        y = rng.uniform(-y_max, y_max)
-        if any(np.hypot(x - b[0], y - b[1]) < 5.5 for b in boxes):
-            continue
-        l, w, h = (rng.uniform(3.4, 4.6), rng.uniform(1.5, 1.9),
-                   rng.uniform(1.4, 1.8))
+    for name in names:
+        far = x_range[1] if name == 'Car' else min(x_range[1], 40.0)
+        gap = 5.5 if name == 'Car' else 3.0       # centre to centre, m
+        while True:
+            x = rng.uniform(x_range[0], far)
+            y_max = min(y_half, x * np.tan(FOV_HALF_ANGLE) - 1.5)
+            if y_max <= 0:
+                continue
+            y = rng.uniform(-y_max, y_max)
+            if any(np.hypot(x - b[0], y - b[1]) < gap for b in boxes):
+                continue
+            break
+        l, w, h = (rng.uniform(*r) for r in KITTI_SIZES[name])
         boxes.append([x, y, GROUND_Z + h / 2, l, w, h,
                       rng.uniform(-np.pi, np.pi)])
     return np.array(boxes, np.float32).reshape(-1, 7)
 
 
-def _frame_points(rng, boxes, n_points, ground_radius):
-    """n_points over 360 degrees: points inside each car, then ground and
-    clutter out to ground_radius."""
+def _frame_points(rng, boxes, names, n_points, ground_radius):
+    """n_points over 360 degrees: points inside each box
+    (KITTI_OBJECT_POINTS of its class), then ground and clutter out to
+    ground_radius."""
     parts = []
-    for b in boxes:
-        k = rng.randint(300, 1500)
+    for b, name in zip(boxes, names):
+        k = rng.randint(*KITTI_OBJECT_POINTS[name])
         local = rng.uniform(-0.5, 0.5, (k, 3)) * b[3:6]
         xyz = common.rotate_points_along_z_np(local, np.array([b[6]]))
         parts.append(np.concatenate([xyz + b[:3],
@@ -367,12 +490,15 @@ def _frame_points(rng, boxes, n_points, ground_radius):
 
 def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
                      cars=(10, 18), x_range=(6.0, 55.0), y_half=30.0,
-                     ground_radius=70.0):
+                     ground_radius=70.0, three_class=False):
     """A synthetic data tree in KITTI's layout under `root` (training/
     {velodyne, label_2, calib, planes}, ImageSets/{train, val}.txt): frames
     of `n_points` lidar points over 360 degrees, between cars[0] and
     cars[1] labelled Car boxes in the camera's view plus one DontCare
-    region, KITTI's calibration and a flat road plane.  Returns `root`."""
+    region, KITTI's calibration and a flat road plane.  With three_class,
+    each frame also holds Pedestrians and Cyclists at KITTI's ratios to its
+    Cars (KITTI_LABEL_COUNTS, rounded stochastically; the first frame at
+    least one of each).  Returns `root`."""
     root = Path(root)
     for sub in ('velodyne', 'label_2', 'calib', 'planes'):
         (root / 'training' / sub).mkdir(parents=True, exist_ok=True)
@@ -383,14 +509,21 @@ def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
         calib_file = root / 'training/calib' / f'{fid}.txt'
         calib_file.write_text(KITTI_CALIB)
         calib = calibration_kitti.Calibration(str(calib_file))
-        boxes = _place_cars(rng, rng.randint(cars[0], cars[1] + 1), x_range,
-                            y_half)
-        pts = _frame_points(rng, boxes, n_points, ground_radius)
+        n_car = rng.randint(cars[0], cars[1] + 1)
+        names = ['Car'] * n_car
+        if three_class:
+            for name in ('Pedestrian', 'Cyclist'):
+                ratio = KITTI_LABEL_COUNTS[name] / KITTI_LABEL_COUNTS['Car']
+                k = int(np.floor(n_car * ratio + rng.uniform()))
+                names += [name] * (max(k, 1) if fid == ids[0] else k)
+        boxes = _place_objects(rng, names, x_range, y_half)
+        pts = _frame_points(rng, boxes, names, n_points, ground_radius)
         cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
         img = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib,
                                                            IMAGE_SHAPE)
         alpha = -np.arctan2(-boxes[:, 1], boxes[:, 0]) + cam[:, 6]
-        lines = [f'Car 0.00 0 {alpha[i]:.2f} {img[i, 0]:.2f} {img[i, 1]:.2f} '
+        lines = [f'{names[i]} 0.00 0 {alpha[i]:.2f} {img[i, 0]:.2f} '
+                 f'{img[i, 1]:.2f} '
                  f'{img[i, 2]:.2f} {img[i, 3]:.2f} {cam[i, 4]:.2f} '
                  f'{cam[i, 5]:.2f} {cam[i, 3]:.2f} {cam[i, 0]:.2f} '
                  f'{cam[i, 1]:.2f} {cam[i, 2]:.2f} {cam[i, 6]:.2f}'
@@ -476,9 +609,11 @@ def write_crop_database(root, n_car, n_van=0, seed=0, waymo=False):
 
 def add_label_variances(root, seed=0, car_class='Car'):
     """Write a label variance in [0.01, 0.2) per box coordinate into the
-    infos (annos['uncertainty'], -1 for other classes) and the Car entries
-    of the gt database of `root`, in the form the CVAE's uncertainty
-    injection gives them, so the KL loss sees positive variances."""
+    infos (annos['uncertainty'], -1 for other classes) and the gt database
+    entries of `root` of `car_class` (a name, or a tuple of names), in the
+    form the CVAE's uncertainty injection gives them, so the KL loss sees
+    positive variances."""
+    classes = (car_class,) if isinstance(car_class, str) else car_class
     root = Path(root)
     rng = np.random.RandomState(seed)
     variances = {}
@@ -489,7 +624,7 @@ def add_label_variances(root, seed=0, car_class='Car'):
             annos = info['annos']
             unc = np.full((len(annos['name']), 7), -1.0)
             for i, n in enumerate(annos['name']):
-                if n == car_class:
+                if n in classes:
                     unc[i] = rng.uniform(0.01, 0.2, 7)
                     variances[(info['image']['image_idx'], i)] = unc[i]
             annos['uncertainty'] = unc
@@ -497,8 +632,10 @@ def add_label_variances(root, seed=0, car_class='Car'):
             pickle.dump(infos, f)
     with open(root / 'kitti_dbinfos_train.pkl', 'rb') as f:
         db_infos = pickle.load(f)
-    for info in db_infos.get(car_class, []):
-        info['uncertainty'] = variances[(info['image_idx'], info['gt_idx'])]
+    for name in classes:
+        for info in db_infos.get(name, []):
+            info['uncertainty'] = variances[(info['image_idx'],
+                                             info['gt_idx'])]
     with open(root / 'kitti_dbinfos_train.pkl', 'wb') as f:
         pickle.dump(db_infos, f)
 
@@ -702,9 +839,12 @@ def add_waymo_db_variances(root, split='train'):
 def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
     """`n` synthetic batches for `cfg`'s dataset: Waymo scenes
     (waymo_scene_batches) for a WaymoDataset config, else KITTI-like
-    scenes (scene_batches, or train_batches with train=True)."""
+    scenes (scene_batches; with train=True three_class_train_batches for
+    KITTI's Car, Pedestrian and Cyclist, else train_batches)."""
     if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
         return waymo_scene_batches(n, seed, batch, device, train=train)
+    if train and list(cfg.CLASS_NAMES) == list(KITTI_LABEL_COUNTS):
+        return three_class_train_batches(n, seed, batch, device)
     if train:
         return train_batches(n, seed, batch, device)
     return scene_batches(n, seed, batch, device)

@@ -1,8 +1,12 @@
 """Reference (pcdet) checkpoints -> glenet_tpu's variable layout, for the
 families the port runs: MeanVFE + VoxelBackBone8x or VoxelBackBone8xCiassd
-+ HeightCompression + BaseBEVBackbone or SSFA + AnchorHeadSingle or the
-KL-label heads, and for VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi
-head; SECONDNet (GLENet-S, GLENet-C, plain SECOND) has none.  The port's
++ HeightCompression, or PillarVFE + PointPillarScatter (PointPillars), +
+BaseBEVBackbone or SSFA + AnchorHeadSingle or the KL-label heads, and for
+VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi head; SECONDNet
+(GLENet-S, GLENet-C, plain SECOND) and PointPillar have none, and
+SECOND-IoU's SECONDHead is not converted (its keys are reported
+unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti has no
+conversion, in glenet_tpu either.  The port's
 own copy of the matching part of glenet_tpu/utils/weight_converter.py,
 numpy only.  It returns the same
 flax-shaped {'params', 'batch_stats'} numpy tree, which
@@ -208,6 +212,17 @@ def convert_anchor_head(sd, prefix='dense_head.'):
     return params, {}
 
 
+def convert_pfn_layer(sd, prefix=''):
+    """PillarVFE's PFNLayer: linear (with a bias only without the norm) and
+    its BatchNorm1d `norm` -> Dense_0 and MaskedBatchNorm_0."""
+    p = {'Dense_0': {'kernel': t2f_linear(sd[f'{prefix}linear.weight'])}}
+    if f'{prefix}linear.bias' in sd:
+        p['Dense_0']['bias'] = np.asarray(sd[f'{prefix}linear.bias'])
+    bn_p, bn_s = t2f_bn(sd, f'{prefix}norm')
+    p['MaskedBatchNorm_0'] = bn_p
+    return p, {'MaskedBatchNorm_0': bn_s}
+
+
 def convert_fc_stack(sd, prefix, n_layers, our_name, with_final=None):
     """RoIHeadTemplate.make_fc_layers Sequential [Conv1d, BN, ReLU]*n +
     final Conv1d -> {our_name}_{i} Dense + {our_name}_bn{i} pairs and an
@@ -400,12 +415,17 @@ _BB3D_VARIANTS = {'VoxelBackBone8x': (2, 2, 2),
 _DENSE_HEADS = ('AnchorHeadSingle', 'AnchorHeadKLLabel', 'AnchorHeadKL',
                 'AnchorHeadKLLabelIoU', 'AnchorHeadKLLabelIoUGuide',
                 'AnchorHeadIoU')
+# MODEL name -> the ROI_HEAD names it may have (None: none); SECONDHead's
+# keys are not converted (as in glenet_tpu) and land in `unconsumed`
+_ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
+              'SECONDNetIoU': ('SECONDHead',), 'SECONDNet': (None,),
+              'PointPillar': (None,)}
 
 
 def convert_full_model(cfg, state_dict, variables):
     """Full-model reference -> variables conversion: MeanVFE (no
-    parameters), VoxelBackBone8x or VoxelBackBone8xCiassd, BaseBEVBackbone
-    or SSFA, the anchor head (with conv_box_std / conv_iou where the state
+    parameters) with VoxelBackBone8x or VoxelBackBone8xCiassd, or
+    PillarVFE's PFN layers, then BaseBEVBackbone or SSFA, the anchor head (with conv_box_std / conv_iou where the state
     dict has them) and, in VoxelRCNN with POOL_MODE voxel_query, the roi
     head (see the module docstring for corner mode).  `variables` is the
     template: a full {'params', 'batch_stats'} tree whose leaves the
@@ -417,28 +437,41 @@ def convert_full_model(cfg, state_dict, variables):
     destination (num_batches_tracked left out)."""
     mcfg = cfg.MODEL
     name = mcfg.get('NAME')
-    _require(name in ('VoxelRCNN', 'SECONDNet'), f'MODEL {name}')
-    _require(mcfg.VFE.NAME == 'MeanVFE', f'VFE {mcfg.VFE.NAME}')
+    _require(name in _ROI_HEADS, f'MODEL {name}')
+    pillars = name == 'PointPillar'
+    vfe = mcfg.VFE.NAME
+    _require(vfe == ('PillarVFE' if pillars else 'MeanVFE'), f'VFE {vfe}')
     bb3d = mcfg.get('BACKBONE_3D', {}).get('NAME')
-    _require(bb3d in _BB3D_VARIANTS, f'BACKBONE_3D {bb3d}')
+    _require(bb3d is None if pillars else bb3d in _BB3D_VARIANTS,
+             f'BACKBONE_3D {bb3d}')
     bb2d = mcfg.get('BACKBONE_2D', {}).get('NAME')
     _require(bb2d in ('BaseBEVBackbone', 'SSFA'), f'BACKBONE_2D {bb2d}')
     _require(mcfg.DENSE_HEAD.NAME in _DENSE_HEADS,
              f'DENSE_HEAD {mcfg.DENSE_HEAD.NAME}')
     roi_cfg = mcfg.get('ROI_HEAD', None)
     roi_name = roi_cfg.NAME if roi_cfg is not None else None
-    _require(roi_name in (('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead')
-                          if name == 'VoxelRCNN' else (None,)),
-             f'ROI_HEAD {roi_name}')
+    _require(roi_name in _ROI_HEADS[name], f'ROI_HEAD {roi_name}')
 
     tsd, sd, consumed = _tracked(state_dict)
     merged = variables
     report = {'converted': []}
 
-    bb3d_p, bb3d_s = convert_voxel_backbone_8x(
-        tsd, subm_per_block=_BB3D_VARIANTS[bb3d])
-    merged = merge_into(merged, ('backbone_3d',), bb3d_p, bb3d_s)
-    report['converted'].append('backbone_3d')
+    if pillars:
+        vfe_p, vfe_s = {}, {}
+        i = 0
+        while f'vfe.pfn_layers.{i}.linear.weight' in sd:
+            vfe_p[f'PFNLayer_{i}'], vfe_s[f'PFNLayer_{i}'] = \
+                convert_pfn_layer(tsd, prefix=f'vfe.pfn_layers.{i}.')
+            i += 1
+        if i == 0:
+            raise KeyError('no vfe.pfn_layers.* keys found')
+        merged = merge_into(merged, ('vfe',), vfe_p, vfe_s)
+        report['converted'].append('vfe')
+    else:
+        bb3d_p, bb3d_s = convert_voxel_backbone_8x(
+            tsd, subm_per_block=_BB3D_VARIANTS[bb3d])
+        merged = merge_into(merged, ('backbone_3d',), bb3d_p, bb3d_s)
+        report['converted'].append('backbone_3d')
 
     if bb2d == 'SSFA':
         perm = height_compression_perm(

@@ -51,14 +51,32 @@ def test_build_detector_needs_a_device():
             build_detector(cfg)
 
 
-def test_other_families_raise():
+@pytest.mark.parametrize('name', ['PartA2.yaml', 'pv_rcnn.yaml',
+                                  'pointrcnn.yaml'])
+def test_other_families_raise(name):
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/'
-                                        'pointpillar.yaml'))
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / name))
     with pytest.raises(NotImplementedError):
         build_detector(cfg, device='cpu')
+
+
+@pytest.mark.parametrize('name', ['second_multihead.yaml', 'second_iou.yaml',
+                                  'pointpillar.yaml'])
+def test_three_class_families_need_a_card(name):
+    """KITTI's three-class families build on the GPU by default and on the
+    CPU when asked; without a card the default raises."""
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / name))
+    assert build_detector(cfg, device='cpu').device.type == 'cpu'
+    if torch.cuda.is_available():
+        assert build_detector(cfg).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build_detector(cfg)
 
 
 @pytest.mark.parametrize('section,key,value', [
@@ -92,14 +110,17 @@ def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):
         mk.resolve_sorted_queries(ids, q)
 
 
-@pytest.mark.parametrize('cli', ['train', 'test'])
+@pytest.mark.parametrize('cli', ['train', 'test', 'demo'])
 def test_clis_need_a_card(cli, tmp_path):
-    """The train and test CLIs run on the GPU unless --device cpu is
-    given; importing them runs nothing."""
+    """The train, test and demo CLIs run on the GPU unless --device cpu is
+    given; importing them runs nothing, and without a card they raise
+    before they write anything."""
     import importlib
     mod = importlib.import_module(f'glenet_tpu_torch.tools.{cli}')
-    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
-            '--output_dir', str(tmp_path)]
+    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml')]
+    argv += (['--data_path', str(tmp_path), '--output',
+              str(tmp_path / 'dets.jsonl'), '--html_dir', str(tmp_path / 'h')]
+             if cli == 'demo' else ['--output_dir', str(tmp_path)])
     if torch.cuda.is_available():
         assert mod.parse_config(argv)[0].device == 'cuda'
     else:
@@ -160,10 +181,7 @@ def test_train_cli_refuses_multi_host_flags(flag, tmp_path):
                     flag, value])
 
 
-@pytest.mark.parametrize('name', ['random_image_flip', 'noise_per_object',
-                                  'random_world_translation',
-                                  'random_local_rotation',
-                                  'random_local_pyramid_aug'])
+@pytest.mark.parametrize('name', ['random_image_flip', 'noise_per_object'])
 def test_unported_augmentations_raise(name, tmp_path):
     from glenet_tpu_torch.config import Cfg
     from glenet_tpu_torch.datasets.augmentor import DataAugmentor
@@ -178,15 +196,34 @@ def test_unported_augmentations_raise(name, tmp_path):
     assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 1
 
 
+@pytest.mark.parametrize('name', ['random_world_translation',
+                                  'random_local_translation',
+                                  'random_local_rotation',
+                                  'random_local_scaling',
+                                  'random_world_frustum_dropout',
+                                  'random_local_frustum_dropout',
+                                  'random_local_pyramid_aug'])
+def test_ported_augmentations_build(name, tmp_path):
+    """The augmentations of pointpillar_newaugs.yaml and
+    pointpillar_pyramid_aug.yaml each build into the queue (their values
+    are held against glenet_tpu in test_torch_augmentations.py)."""
+    from glenet_tpu_torch.config import Cfg
+    from glenet_tpu_torch.datasets.augmentor import DataAugmentor
+    cfg = Cfg({'DISABLE_AUG_LIST': ['placeholder'],
+               'AUG_CONFIG_LIST': [{'NAME': name},
+                                   {'NAME': 'random_world_flip',
+                                    'ALONG_AXIS_LIST': ['x']}]})
+    assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 2
+
+
 @pytest.mark.parametrize('section,key,value,match', [
-    ('DENSE_HEAD', 'NAME', 'AnchorHeadMulti', 'AnchorHeadMulti'),
-    ('', 'NAME', 'SECONDNetIoU', 'SECONDNetIoU'),
-    ('POST_PROCESSING.NMS_CONFIG', 'MULTI_CLASSES_NMS', True,
-     'multi-class')])
+    ('DENSE_HEAD', 'NAME', 'CenterHead', 'CenterHead'),
+    ('', 'NAME', 'PVRCNN', 'PVRCNN'),
+    ('POST_PROCESSING.NMS_CONFIG', 'NMS_TYPE', 'soft_nms', 'soft_nms')])
 def test_single_stage_refusals(section, key, value, match):
-    """What the single-stage family of the JAX package has and the port
-    does not (the multi-head, SECOND-IoU, multi-class final NMS) raises
-    naming itself, at build time or at the first predict."""
+    """What the JAX package has around the single-stage family and the
+    port does not (CenterPoint's head, PV-RCNN, soft-NMS) raises naming
+    itself, at build time or at the first predict."""
     import torch_parity as tp
 
     from glenet_tpu_torch.models.detectors import build_detector
@@ -227,13 +264,15 @@ def test_camera_items_raise(item, tmp_path):
 
 
 @pytest.mark.parametrize('section,name', [
-    ('VFE', 'PillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
+    ('VFE', 'DynamicPillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
     ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
     ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PVRCNNHead')])
 def test_converter_refuses_other_families(section, name):
-    """The port's converter of reference checkpoints covers the families
-    the port runs (VoxelRCNN, single-stage SECONDNet); any other module
-    raises naming itself, before it reads a key."""
+    """The port's converter of reference checkpoints covers what
+    glenet_tpu's covers of the families the port runs (VoxelRCNN,
+    SECONDNet, SECOND-IoU's stage 1, PointPillars); any other module, and
+    AnchorHeadMulti, which glenet_tpu does not convert either, raises
+    naming itself, before it reads a key."""
     import torch_parity as tp
 
     from glenet_tpu_torch.utils import weight_converter as wc

@@ -175,7 +175,7 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
         idx = np.flatnonzero(valid[b])[:4]
         gt[b, :len(idx), :7] = rois[b, idx]
         gt[b, :len(idx), 0] += 0.15
-        gt[b, :len(idx), 7] = 1
+        gt[b, :len(idx), 7] = out['proposals']['roi_labels'][b, idx].numpy()
         gt_mask[b, :len(idx)] = True
     unc = np.random.RandomState(11).uniform(0.02, 0.3, (batch_size, n_gt, 7))
     batch = dict(batch, gt_boxes=gt, gt_mask=gt_mask,
@@ -289,8 +289,10 @@ def tiny_single_stage_cfg(kind, max_voxels=512):
     fold has depth 2, as at full width), turned into a toy version of
     GLENet_S.yaml (kind 'S'), GLENet_C.yaml ('C': VoxelBackBone8xCiassd,
     SSFA, AnchorHeadKLLabelIoU) or second.yaml ('SECOND': Car, Pedestrian
-    and Cyclist with second.yaml's anchors and thresholds), each with its
-    published post-processing and the toy optimizer."""
+    and Cyclist with second.yaml's anchors and thresholds), and from
+    'SECOND' second_multihead.yaml ('MULTIHEAD'), second_iou.yaml ('IOU')
+    and pointpillar.yaml ('PILLAR'), each with its published
+    post-processing and the toy optimizer."""
     import copy
 
     from glenet_tpu.config import Cfg
@@ -301,14 +303,16 @@ def tiny_single_stage_cfg(kind, max_voxels=512):
         'train': max_voxels, 'test': max_voxels}
     cfg.OPTIMIZATION = Cfg(dict(TINY_OPTIMIZATION))
     head, post = cfg.MODEL.DENSE_HEAD, cfg.MODEL.POST_PROCESSING
-    if kind == 'SECOND':
+    if kind in THREE_CLASS_KINDS:
         cfg.CLASS_NAMES = [a[0] for a in SECOND_ANCHORS]
         head.ANCHOR_GENERATOR_CONFIG = [Cfg({
             'class_name': name, 'anchor_sizes': [size],
             'anchor_rotations': [0, 1.57], 'anchor_bottom_heights': [z],
-            'align_center': False, 'feature_map_stride': 8,
+            'align_center': False,
+            'feature_map_stride': 2 if kind == 'PILLAR' else 8,
             'matched_threshold': hi, 'unmatched_threshold': lo})
             for name, size, z, hi, lo in SECOND_ANCHORS]
+        THREE_CLASS_KINDS[kind](cfg)
         return cfg
     head.TARGET_ASSIGNER_CONFIG.NAME = 'WeightedAxisAlignedTargetAssigner'
     post.NMS_CONFIG.NMS_TYPE = 'new_nms_gpu'
@@ -323,6 +327,75 @@ def tiny_single_stage_cfg(kind, max_voxels=512):
         head.update(PRE_CLS_THRESH=0.0, PRE_IOU_THRESH=0.0, POW=4)
         post.SCORE_THRESH = 0.055
     return cfg
+
+
+def _multihead(cfg):
+    """second_multihead.yaml's head on the toy trunk: a 16-channel shared
+    conv, Car alone and Pedestrian with Cyclist in a second group (so one
+    head predicts two classes), per-class final NMS."""
+    from glenet_tpu.config import Cfg
+    cfg.MODEL.DENSE_HEAD.update(
+        NAME='AnchorHeadMulti', USE_MULTIHEAD=True, SEPARATE_MULTIHEAD=True,
+        SHARED_CONV_NUM_FILTER=16,
+        RPN_HEAD_CFGS=[Cfg({'HEAD_CLS_NAME': ['Car']}),
+                       Cfg({'HEAD_CLS_NAME': ['Pedestrian', 'Cyclist']})])
+    cfg.MODEL.POST_PROCESSING.NMS_CONFIG.MULTI_CLASSES_NMS = True
+
+
+def _second_iou(cfg):
+    """second_iou.yaml's SECONDHead on the toy trunk: 4 x 4 grid over the
+    stride-8 map (whose 4 x 4 cells put most rois across its edge), FCs of
+    32, toy proposal counts; DP_RATIO 0, so a train step has no random
+    draw besides the RoI sampling (fed from JAX)."""
+    from glenet_tpu.config import Cfg
+    cfg.MODEL.NAME = 'SECONDNetIoU'
+    cfg.MODEL.ROI_HEAD = Cfg({
+        'NAME': 'SECONDHead', 'CLASS_AGNOSTIC': True,
+        'SHARED_FC': [32, 32], 'IOU_FC': [32, 32], 'DP_RATIO': 0.0,
+        'NMS_CONFIG': {
+            'TRAIN': {'NMS_TYPE': 'nms_gpu', 'MULTI_CLASSES_NMS': False,
+                      'NMS_PRE_MAXSIZE': 512, 'NMS_POST_MAXSIZE': 64,
+                      'NMS_THRESH': 0.8},
+            'TEST': {'NMS_TYPE': 'nms_gpu', 'MULTI_CLASSES_NMS': False,
+                     'NMS_PRE_MAXSIZE': 256, 'NMS_POST_MAXSIZE': 32,
+                     'NMS_THRESH': 0.7}},
+        'ROI_GRID_POOL': {'GRID_SIZE': 4, 'IN_CHANNEL': 64,
+                          'DOWNSAMPLE_RATIO': 8},
+        'TARGET_CONFIG': {
+            'BOX_CODER': 'ResidualCoder', 'ROI_PER_IMAGE': 32,
+            'FG_RATIO': 0.5, 'SAMPLE_ROI_BY_EACH_CLASS': True,
+            'CLS_SCORE_TYPE': 'roi_iou', 'CLS_FG_THRESH': 0.75,
+            'CLS_BG_THRESH': 0.25, 'CLS_BG_THRESH_LO': 0.1,
+            'HARD_BG_RATIO': 0.8, 'REG_FG_THRESH': 0.55},
+        'LOSS_CONFIG': {'IOU_LOSS': 'BinaryCrossEntropy', 'LOSS_WEIGHTS': {
+            'rcnn_iou_weight': 1.0, 'code_weights': [1.0] * 7}}})
+
+
+def _pillar(cfg):
+    """pointpillar.yaml's topology on the toy range: 0.5 x 0.5 x 4 m
+    pillars (a 32 x 32 x 1 grid) of at most 4 points, two PFN layers (so
+    the concatenating layer runs too), a stride-2 BEV backbone, anchors at
+    feature_map_stride 2."""
+    from glenet_tpu.config import Cfg
+    proc = cfg.DATA_CONFIG.DATA_PROCESSOR[0]
+    proc.VOXEL_SIZE = [0.5, 0.5, 4.0]
+    proc.MAX_POINTS_PER_VOXEL = 4
+    m = cfg.MODEL
+    m.NAME = 'PointPillar'
+    del m['BACKBONE_3D']
+    m.VFE = Cfg({'NAME': 'PillarVFE', 'WITH_DISTANCE': False,
+                 'USE_ABSLOTE_XYZ': True, 'USE_NORM': True,
+                 'NUM_FILTERS': [16, 16]})
+    m.MAP_TO_BEV = Cfg({'NAME': 'PointPillarScatter', 'NUM_BEV_FEATURES': 16})
+    m.BACKBONE_2D = Cfg({'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [1, 1],
+                         'LAYER_STRIDES': [2, 2], 'NUM_FILTERS': [16, 32],
+                         'UPSAMPLE_STRIDES': [1, 2],
+                         'NUM_UPSAMPLE_FILTERS': [16, 16]})
+
+
+# the three-class kinds of tiny_single_stage_cfg and what each changes
+THREE_CLASS_KINDS = {'SECOND': lambda cfg: None, 'MULTIHEAD': _multihead,
+                     'IOU': _second_iou, 'PILLAR': _pillar}
 
 
 def zero_thresholds(cfg):
@@ -607,6 +680,16 @@ def run_single_stage_predicts(cfg, batch, variables=None):
             jvox.voxelize, voxel_size=det.voxel_size, pc_range=det.pc_range,
             grid_size=det.grid_size, max_voxels=det.max_voxels_test,
             max_points_per_voxel=det.max_points_per_voxel))(points, pmask)
+        if m.backbone_3d is None:           # PointPillars
+            b, v = vox['voxel_coords'].shape[:2]
+            feats = m.vfe(vox['voxels'].reshape(b * v, *vox['voxels'].shape[
+                2:]), vox['voxel_num_points'].reshape(b * v),
+                vox['voxel_coords'].reshape(b * v, 3), train=False).reshape(
+                b, v, -1)
+            bev = jax.vmap(lambda f, c, k: m.map_to_bev(f, c, k, train=False))(
+                feats, vox['voxel_coords'], vox['voxel_mask'])
+            return {'vox': vox, 'pillars': feats, 'multi_scale': {},
+                    'bev': bev, 'bev_2d': m.backbone_2d(bev, train=False)}
         feats = jax.vmap(lambda v, n: m.vfe(v, n, train=False))(
             vox['voxels'], vox['voxel_num_points'])
         sp = m.backbone_3d(feats, vox['voxel_coords'], vox['voxel_mask'],
@@ -635,7 +718,7 @@ def run_single_stage_predicts(cfg, batch, variables=None):
     with torch.no_grad():
         full = tdet.net(torch.from_numpy(batch['points']),
                         torch.from_numpy(batch['points_mask']))
-        got = {'full': full, 'pred': tdet.finalize(full),
+        got = {'full': full, 'pred': tdet.finalize(full), 'net': tdet.net,
                'pred_zero': build_detector(to_port_cfg(zero),
                                            device='cpu').finalize(full)}
     return ref, got, variables
@@ -661,6 +744,9 @@ def assert_single_stage_stages(predicts):
     st, full = ref['stages'], got['full']
     for k in ('voxel_coords', 'voxel_mask', 'voxel_num_points'):
         np.testing.assert_array_equal(full['vox'][k].numpy(), st['vox'][k])
+    if 'backbone_3d' not in full:           # PointPillars
+        _assert_pillar_stages(got['net'], full['vox'], st)
+        return
     ms = full['backbone_3d']['multi_scale']
     assert sorted(ms) == sorted(st['multi_scale'])
     for lvl, fields in st['multi_scale'].items():
@@ -693,3 +779,23 @@ def assert_single_stage_targets(step):
         range(1, len(tdet.anchor_set.class_names) + 1))
     for k in ('box_reg_targets', 'label_uncertainty', 'reg_weights'):
         assert_close(targets[k], ref['targets'][k], err_msg=k)
+
+
+def _assert_pillar_stages(net, vox, st):
+    """PointPillars' stages: the port's PillarVFE on the batch flattened
+    into the pillar axis, PointPillarScatter's canvas and the 2D backbone's
+    map against JAX's (rtol 1e-4 / atol 1e-5); empty canvas cells exactly
+    0 on both sides."""
+    import torch
+    b, v = vox['voxel_coords'].shape[:2]
+    with torch.no_grad():
+        feats = net.vfe(vox['voxels'].flatten(0, 1),
+                        vox['voxel_num_points'].flatten(0, 1),
+                        vox['voxel_coords'].flatten(0, 1)).reshape(b, v, -1)
+        bev = net.map_to_bev(feats, vox['voxel_coords'], vox['voxel_mask'])
+        bev_2d = net.backbone_2d(bev)
+    assert_close(feats, st['pillars'], err_msg='pillar features')
+    assert_close(bev, st['bev'], err_msg='canvas')
+    empty = ~np.asarray(st['bev'] != 0).any(-1)
+    assert empty.any() and not np.asarray(bev.numpy()[empty]).any()
+    assert_close(bev_2d, st['bev_2d'], err_msg='2D backbone')
