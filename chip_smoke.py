@@ -140,13 +140,41 @@ Phases, each of which exits non-zero on failure:
      then second_iou.yaml through convert_weights and `tools.test --ckpt`;
      (e) `tools.demo` over 2 scans of the tree with (d)'s checkpoint: the
      JSON lines and the HTML scenes;
- 12. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 12. PV-RCNN, [pv_rcnn] (launches counted from 0 just before and read
+     just after each call but the warm-up predicts): (a)
+     configs/kitti_models/pv_rcnn.yaml at full width with seeded weights
+     on B = 2 synthetic KITTI-like scenes: a warm-up predict that captures
+     its merge-resolve calls for phase 6, 3 predicts at the published
+     thresholds and 1 at zero thresholds, then a warm-up train step (also
+     captured) and 2 timed ones at B = 2 (BATCH_SIZE_PER_GPU) on
+     three-class scenes; per call ms, active sites against the four level
+     caps, keypoints (distinct against valid points, the rest repeated),
+     empty balls per source and radius, 4 merge-resolve launches, peak
+     memory and every loss term (point_loss_cls included); losses finite,
+     parameters and BN stats moved; (b) configs/waymo_models/pv_rcnn.yaml
+     on synthetic Waymo scenes of 170000 points: a warm-up predict, 1
+     predict and 1 at zero thresholds, 1 train step at B = 2, with the
+     same prints; (c) after phase 7, the card against the CPU on the toy
+     topology as PV-RCNN (tiny_pvrcnn_raw), f32 with TF32 off: a predict
+     (keypoint indices, every ball query's indices and empty flags, final
+     labels and valid flags equal, the first differing keypoint or ball
+     printed with its distances if not; floats as phase 7) and a train
+     step with fixed RoI targets and DP_RATIO 0, as phase 7 with [waymo]
+     (e)'s ReLU alignment; (d)
+     pv_rcnn.yaml through `tools.train` (B = 2, 1 epoch x 2 steps) on the
+     [three_class] tree and `tools.test` with Car, Pedestrian and Cyclist
+     AP keys (data ms and step ms), then a synthetic reference PV-RCNN
+     .pth through convert_weights (the stage-2 keys left unconsumed) and
+     `tools.test --ckpt`; phase 6 adds the 4 captured calls of the KITTI
+     PV-RCNN predict and train step;
+ 13. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
 from __future__ import annotations
 
 import json
+import math
 import sys
 import tempfile
 import time
@@ -427,18 +455,24 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
         pts = torch.from_numpy(tiny_batch(SEED + 7,
                                           features=n_features(cfg)))
         mask = torch.ones(pts.shape[:2], dtype=torch.bool)
-        outs = {}
+        outs, calls = {}, {}
         for dev in ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
-            with torch.no_grad():
-                full = det.net(pts.to(dev), mask.to(dev))
-                pred = det.finalize(full)
+            calls[dev], undo = record_ball_queries()
+            try:
+                with torch.no_grad():
+                    full = det.net(pts.to(dev), mask.to(dev))
+                    pred = det.finalize(full)
+            finally:
+                undo()
             outs[dev] = (full, pred)
     finally:
         (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     (fc, pc), (fg, pg) = outs['cpu'], outs['cuda']
+    if 'pfe' in fc:
+        check_point_decisions(fc, fg, calls, tag)
     # f32 on both devices, convolutions and sums in another order:
     # features rtol 1e-3 / atol 1e-4, final boxes and scores atol 1e-3
     exact = [('voxel_coords', fc['vox']['voxel_coords'],
@@ -457,6 +491,9 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
     close += [('final_boxes', pc['final_boxes'], pg['final_boxes'], 0, 1e-3),
               ('final_scores', pc['final_scores'], pg['final_scores'], 0,
                1e-3)]
+    if 'pfe' in fc:
+        close.append(('point_cls_preds', fc['pfe']['point_cls_preds'],
+                      fg['pfe']['point_cls_preds'], 1e-3, 1e-4))
     if 'rcnn' in fc:
         close.append(('rcnn_reg', fc['rcnn']['rcnn_reg'],
                       fg['rcnn']['rcnn_reg'], 1e-3, 1e-4))
@@ -1857,7 +1894,8 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
     """A synthetic reference .pth of `cfg_name` through the convert_weights
     CLI, then `tools.test --ckpt` on the tree at `cli_root`, in process;
     launches counted from 0 just before and read just after.  Every key is
-    consumed but SECONDHead's, which neither package converts."""
+    consumed but SECONDHead's and PV-RCNN's stage 2 (pfe.*, point_head.*,
+    roi_head.*), which neither package converts."""
     import math
 
     import numpy as np
@@ -1879,10 +1917,13 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
         '--cfg_file', cfg_file, '--torch_ckpt', str(pth),
         '--output_dir', str(out / 'ckpt')])
     t1 = time.perf_counter()
-    roi_keys = cfg.MODEL.get('ROI_HEAD', {}).get('NAME') == 'SECONDHead'
+    stage2 = {'SECONDHead': ('roi_head.',),
+              'PVRCNNHead': ('pfe.', 'point_head.', 'roi_head.')}.get(
+        cfg.MODEL.get('ROI_HEAD', {}).get('NAME'), ())
     left = report['unconsumed']
-    check((all(k.startswith('roi_head.') for k in left) and bool(left)
-           if roi_keys else left == [])
+    check((all(k.startswith(stage2) for k in left)
+           and {k.split('.')[0] + '.' for k in left} == set(stage2)
+           if stage2 else left == [])
           and Path(path).name == 'checkpoint_epoch_80.pth',
           f'convert_weights: {path}, {report}')
     predicts = []
@@ -1901,8 +1942,9 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
     check(res['frames'] == CLI_VAL and predicts == [4] * math.ceil(
         CLI_VAL / CLI_BATCH) and all(np.isfinite(res['ap'][k]) for k in keys),
         f'test --ckpt: {res["frames"]} frames, launches {predicts}')
-    consumed = (f'every key consumed but SECONDHead\'s {len(left)}'
-                if roi_keys else 'every key consumed')
+    consumed = ('every key consumed but the stage-2 ' + ', '.join(
+        f'{p}* {sum(k.startswith(p) for k in left)}' for p in stage2)
+        if stage2 else 'every key consumed')
     print(f'[{tag}] {cfg_name}: convert_weights ({len(report["converted"])} '
           f'subtrees, {consumed}) {t1 - t0:.2f} s -> '
           f'{Path(path).name}; test --ckpt on the tree: '
@@ -2835,7 +2877,7 @@ def phase_three_class(tmp):
     with PointPillars' augmentation variants and SECOND-IoU's converted
     weights, (e) the demo.  (b) and (c) run after the main paths (kernel
     check, GPU against CPU).  Returns (launches, SECOND-IoU's captured
-    predict and train step calls)."""
+    predict and train step calls, the three-class tree's root)."""
     launches, captured = 0, {}
     for i, name in enumerate(THREE_CLASS_CFGS):
         n, pred, step = phase_three_class_full(name, SEED + 110 + i,
@@ -2846,7 +2888,387 @@ def phase_three_class(tmp):
             captured = {'predict': pred, 'step': step}
     n, root, ckpt = phase_three_class_cli(tmp)
     phase_three_class_demo(root, ckpt, tmp)
-    return launches + n, captured
+    return launches + n, captured, root
+
+
+PV_RCNN_STEPS = 2
+
+
+def tiny_pvrcnn_raw():
+    """The toy topology as PV-RCNN: MODEL PVRCNN with AnchorHeadSingle,
+    VoxelSetAbstraction (64 keypoints; the BEV map, x_conv1..4 and the raw
+    points with two radii), PointHeadSimple (16) and PVRCNNHead (a 4^3
+    grid pooled by one radius, FCs of 32), the final nms_gpu at zero score
+    threshold."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    m = raw['MODEL']
+    m['NAME'] = 'PVRCNN'
+
+    def sa(radius, mlps=((8, 8),), nsample=(8,)):
+        return {'MLPS': [list(x) for x in mlps], 'POOL_RADIUS': list(radius),
+                'NSAMPLE': list(nsample)}
+
+    m['PFE'] = {
+        'NAME': 'VoxelSetAbstraction', 'POINT_SOURCE': 'raw_points',
+        'NUM_KEYPOINTS': 64, 'NUM_OUTPUT_FEATURES': 32,
+        'SAMPLE_METHOD': 'FPS',
+        'FEATURES_SOURCE': ['bev', 'x_conv1', 'x_conv2', 'x_conv3',
+                            'x_conv4', 'raw_points'],
+        'SA_LAYER': {'raw_points': sa((0.4, 0.8), ((8, 8), (8, 8)), (8, 16)),
+                     'x_conv1': sa((0.6,)), 'x_conv2': sa((1.0,)),
+                     'x_conv3': sa((2.0,)), 'x_conv4': sa((4.0,))}}
+    m['POINT_HEAD'] = {
+        'NAME': 'PointHeadSimple', 'CLS_FC': [16], 'CLASS_AGNOSTIC': True,
+        'USE_POINT_FEATURES_BEFORE_FUSION': True,
+        'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0}}}
+    roi = m['ROI_HEAD']
+    roi.update(NAME='PVRCNNHead', ROI_GRID_POOL={
+        'GRID_SIZE': 4, 'MLPS': [[8, 8]], 'POOL_RADIUS': [1.0],
+        'NSAMPLE': [8], 'POOL_METHOD': 'max_pool'})
+    roi['LOSS_CONFIG'] = {'CLS_LOSS': 'BinaryCrossEntropy',
+                          'REG_LOSS': 'smooth-l1',
+                          'CORNER_LOSS_REGULARIZATION': True,
+                          'LOSS_WEIGHTS': roi['LOSS_CONFIG']['LOSS_WEIGHTS']}
+    m['POST_PROCESSING'].update(SCORE_THRESH=0.0)
+    m['POST_PROCESSING']['NMS_CONFIG']['NMS_TYPE'] = 'nms_gpu'
+    return raw
+
+
+def watch_pvrcnn(det):
+    """Forward hooks recording, per call, the active sites of the four
+    backbone levels, the keypoint indices of the PFE and, per
+    StackSAModuleMSG and radius, the empty balls of each ball query.
+    Returns (record, undo)."""
+    from glenet_tpu_torch.models.pfe import StackSAModuleMSG
+    from glenet_tpu_torch.ops import pointnet2 as pn2
+    rec = {'sites': {}, 'keypoints': None, 'empty': []}
+    current = [None]
+
+    def sites(_mod, _inp, out):
+        ms = out['multi_scale']
+        rec['sites'] = {k: ms[k]['mask'].sum(1) for k in
+                        ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')}
+
+    def keypoints(_mod, _inp, out):
+        rec['keypoints'] = out['keypoint_idx']
+
+    hooks = [det.net.backbone_3d.register_forward_hook(sites),
+             det.net.pfe.register_forward_hook(keypoints)]
+    for name, mod in det.net.named_modules():
+        if isinstance(mod, StackSAModuleMSG):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda _m, _i, name=name: current.__setitem__(0, name)))
+    real = pn2.ball_query
+
+    def ball_query(radius, nsample, xyz, new_xyz, xyz_mask=None):
+        idx, empty = real(radius, nsample, xyz, new_xyz, xyz_mask)
+        rec['empty'].append((current[0], radius, empty))
+        return idx, empty
+
+    pn2.ball_query = ball_query
+
+    def undo():
+        pn2.ball_query = real
+        for h in hooks:
+            h.remove()
+    return rec, undo
+
+
+def pvrcnn_text(rec, budget, points_mask):
+    """Active sites against the level caps, keypoints (distinct against the
+    valid points; the rest repeat) and empty balls per source and radius
+    over the call just recorded; clears the ball-query record."""
+    from glenet_tpu_torch.ops import sparse
+    caps = sparse.level_caps(budget)
+    kp = rec['keypoints']
+    distinct = [len(set(r.tolist())) for r in kp]
+    n_valid = points_mask.sum(1).tolist()
+    empty = ', '.join(f'{name.replace("pfe.", "")} r{r:g} '
+                      f'{int(e.sum())}/{e.numel()}'
+                      for name, r, e in rec['empty'])
+    rec['empty'].clear()
+    return ('active sites ' + ', '.join(
+        f'{k} {v.tolist()}/{caps[i]}' for i, (k, v) in
+        enumerate(rec['sites'].items()))
+        + f'; keypoints {kp.shape[1]} per scene, distinct {distinct} of '
+        f'{n_valid} valid points (repeated '
+        f'{[kp.shape[1] - d for d in distinct]}); empty balls {empty}')
+
+
+def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
+    """[pv_rcnn] (a) / (b): configs/<models>/pv_rcnn.yaml at full width
+    with seeded weights: a warm-up predict, `n_predicts` predicts at B = 2
+    at the published thresholds and one at zero thresholds, then a warm-up
+    train step and `n_steps` timed ones at B = BATCH_SIZE_PER_GPU;
+    launches counted from 0 just before and read just after each call but
+    the warm-up predict, 4 per call.  Returns (launches, captured predict,
+    captured step) (the captured calls with `capture`)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / 'pv_rcnn.yaml'))
+    names = list(cfg.CLASS_NAMES)
+    tag = f'{models.split("_")[0]} {cfg.TAG}'
+    det = seeded_detector(cfg, 'cuda', seed)
+    rec, undo = watch_pvrcnn(det)
+    batches = batches_for(cfg, n_predicts + 1, SEED + 7, BATCH)
+    t0 = time.perf_counter()
+    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    print(f'[pv_rcnn] {tag}: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    rec['empty'].clear()
+    check(len(captured) == 4, f'{tag}: {len(captured)} merge-resolve '
+                              f'calls per predict')
+    post = det.model_cfg.POST_PROCESSING
+    launches, times = 0, []
+    for r, batch in enumerate(batches[1:] + batches[1:2]):
+        zero = r == n_predicts
+        saved = post.SCORE_THRESH
+        if zero:
+            post.SCORE_THRESH = 0.0
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pred = det.predict(batch)
+            torch.cuda.synchronize()
+        finally:
+            post.SCORE_THRESH = saved
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = mk.LAUNCHES
+        launches += n
+        check(n == 4, f'{tag} predict {r}: {n} merge-resolve launches')
+        k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape
+                  and bool(torch.isfinite(pred[key]).all()),
+                  f'{tag} predict {r}: {key} {tuple(pred[key].shape)} or '
+                  f'not finite')
+        labels, valid = pred['final_labels'], pred['final_valid']
+        check(int(labels.min()) >= 0 and int(labels.max()) <= len(names),
+              f'{tag}: labels {labels.unique().tolist()}')
+        if zero:
+            check(int(valid.sum()) > 0, f'{tag}: no box kept at zero '
+                                        f'thresholds')
+        else:
+            times.append(ms)
+        print(f'[pv_rcnn] {tag} predict {r}'
+              + (' at zero thresholds' if zero else '')
+              + f': {ms:.1f} ms; '
+              f'{pvrcnn_text(rec, det.max_voxels_test, batch["points_mask"])}'
+              f'; detections {valid.sum(1).tolist()} ('
+              f'{per_class(labels, valid, names)}); merge_resolve launches '
+              f'{n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    print(f'[pv_rcnn] {tag} predict B={BATCH} x '
+          f'{batches[1]["points"].shape[1]} points: mean '
+          f'{sum(times) / len(times):.1f} ms over {len(times)} requests')
+
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = batches_for(cfg, n_steps + 1, SEED + 8, b, train=True)
+    gt_labels = tbatches[0]['gt_boxes'][..., 7][tbatches[0]['gt_mask']]
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    times, captured_train = [], None
+    for i, batch in enumerate(tbatches):
+        label = 'warm-up step' if i == 0 else f'step {i - 1}'
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            captured_train, (state, metrics) = capture_calls(
+                lambda: train_step(state, batch))
+        else:
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        check(n == 4, f'{tag} train {label}: {n} merge-resolve launches')
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f'{tag} train {label}: {vals}')
+        check(vals.get('point_loss_cls', 0) > 0,
+              f'{tag} train {label}: no point_loss_cls in {vals}')
+        print(f'[pv_rcnn] {tag} {label} B={b}: {times[-1]:.1f} ms; '
+              + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+              + '; ' + pvrcnn_text(rec, det.max_voxels_train,
+                                   batch['points_mask'])
+              + f'; merge_resolve launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    undo()
+    check(len(captured_train) == 4, f'{tag}: {len(captured_train)} '
+                                    f'merge-resolve calls per train step')
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'{tag}: parameters unchanged by the steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'{tag}: BN running stats unchanged: {same}')
+    timed = times[1:] or times
+    print(f'[pv_rcnn] {tag} train B={b}: gt boxes per class '
+          + per_class(gt_labels, torch.ones_like(gt_labels, dtype=bool),
+                      names)
+          + f'; warm-up step {times[0]:.1f} ms, mean of {len(timed)} '
+          f'{"timed" if times[1:] else "(warm-up)"} steps '
+          f'{sum(timed) / len(timed):.1f} ms; {len(params) - len(still)} of '
+          f'{len(params)} parameter tensors and all {len(stats)} BN '
+          f'running-stat tensors changed')
+    del det, state
+    torch.cuda.empty_cache()
+    return launches, (captured if capture else None), (
+        captured_train if capture else None)
+
+
+def record_ball_queries():
+    """Wrap pointnet2.ball_query so that each call appends its inputs and
+    outputs, on the CPU; returns (record, undo)."""
+    from glenet_tpu_torch.ops import pointnet2 as pn2
+    real, calls = pn2.ball_query, []
+
+    def ball_query(radius, nsample, xyz, new_xyz, xyz_mask=None):
+        idx, empty = real(radius, nsample, xyz, new_xyz, xyz_mask)
+        calls.append((radius, xyz.detach().cpu(), new_xyz.detach().cpu(),
+                      idx.cpu(), empty.cpu()))
+        return idx, empty
+
+    pn2.ball_query = ball_query
+    return calls, lambda: setattr(pn2, 'ball_query', real)
+
+
+def check_point_decisions(fc, fg, calls, tag):
+    """The card's FPS keypoints and ball queries against the CPU's: equal,
+    or the first differing keypoint (its two candidates' running minimum
+    squared distances) or ball (the two differing points' squared
+    distances against radius^2) is printed and the run fails."""
+    import torch
+    kc, kg = fc['pfe']['keypoint_idx'], fg['pfe']['keypoint_idx'].cpu()
+    if not torch.equal(kc, kg):
+        b, k = [int(v) for v in torch.nonzero(kc != kg)[0]]
+        xyz = fc['pfe']['keypoints'][b, :k]
+        pts = calls['cpu'][0][1][b] if calls['cpu'] else None
+        if pts is not None:
+            d = [float(((pts[i] - xyz) ** 2).sum(-1).min())
+                 for i in (int(kc[b, k]), int(kg[b, k]))]
+            print(f'[{tag}] FPS differs first at scene {b} keypoint {k}: '
+                  f'CPU point {int(kc[b, k])} (min d^2 {d[0]:.9g}), card '
+                  f'point {int(kg[b, k])} (min d^2 {d[1]:.9g})')
+        check(False, f'GPU and CPU FPS keypoints differ at scene {b} '
+                     f'keypoint {k}')
+    check(len(calls['cpu']) == len(calls['cuda']) > 0,
+          f'ball queries: {len(calls["cpu"])} on the CPU, '
+          f'{len(calls["cuda"])} on the card')
+    n_empty = 0
+    for i, (c, g) in enumerate(zip(calls['cpu'], calls['cuda'])):
+        r, xyz, q, idx_c, empty_c = c
+        idx_g, empty_g = g[3], g[4]
+        n_empty += int(empty_c.sum())
+        if torch.equal(idx_c, idx_g) and torch.equal(empty_c, empty_g):
+            continue
+        bad = (idx_c != idx_g).any(-1) | (empty_c != empty_g)
+        b, m = [int(v) for v in torch.nonzero(bad)[0]]
+        s = int(torch.nonzero(idx_c[b, m] != idx_g[b, m])[0]) \
+            if not torch.equal(idx_c[b, m], idx_g[b, m]) else 0
+        pa, pb = int(idx_c[b, m, s]), int(idx_g[b, m, s])
+        d = [float(((xyz[b, p] - q[b, m]) ** 2).sum()) for p in (pa, pb)]
+        print(f'[{tag}] ball query {i} (radius {r}) differs first at scene '
+              f'{b} query {m} slot {s}: CPU point {pa} (d^2 {d[0]:.9g}), '
+              f'card point {pb} (d^2 {d[1]:.9g}), radius^2 '
+              f'{float(torch.tensor(r, dtype=torch.float32) ** 2):.9g}')
+        check(False, f'GPU and CPU ball queries differ (call {i})')
+    print(f'[{tag}] FPS keypoints {tuple(kc.shape)} and '
+          f'{len(calls["cpu"])} ball queries (indices and empty flags, '
+          f'{n_empty} empty balls) equal on both devices')
+
+
+def phase_pv_rcnn_cli(root, tmp):
+    """[pv_rcnn] (d): pv_rcnn.yaml through `tools.train` (B = 2, 1 epoch x
+    2 steps) on the synthetic three-class tree at `root` and `tools.test`
+    with the three-class KITTI evaluation, then a synthetic reference .pth
+    through convert_weights (the stage-2 keys left unconsumed) and
+    `tools.test --ckpt`.  Launches counted from 0 just before and read
+    just after.  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    cfg_file = str(ROOT / 'configs/kitti_models/pv_rcnn.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    out = tmp / f'out_{cfg.TAG}'
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(b)]
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = train_cli.main(common + ['--epochs', '1',
+                                   '--max_steps_per_epoch', '2'])
+    peak = torch.cuda.max_memory_allocated()
+    n_train = mk.LAUNCHES
+    check(n_train == 4 * 2, f'pv_rcnn CLI train: {n_train} merge-resolve '
+                            f'launches over 2 steps')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'pv_rcnn CLI step {r["it"]}: not finite: {bad}')
+        check(r.get('point_loss_cls', 0) > 0,
+              f'pv_rcnn CLI step {r["it"]}: {r}')
+        print(f'[pv_rcnn] {cfg.TAG} CLI train step {r["it"]} B={b}: data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, point_loss_cls {r["point_loss_cls"]:.4f}, '
+              f'rcnn_loss_cls {r["rcnn_loss_cls"]:.4f}, grad_norm '
+              f'{r["grad_norm"]:.3f}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+    mk.LAUNCHES = 0
+    results = test_cli.main(common)
+    n_test = mk.LAUNCHES
+    (path, res), = results.items()
+    keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
+    check(res['frames'] == TC_VAL and n_test == 4 * math.ceil(TC_VAL / b)
+          and all(np.isfinite(res['ap'][k]) for k in keys),
+          f'pv_rcnn test CLI: {res["frames"]} frames, {n_test} launches, '
+          f'{sorted(res["ap"])[:6]}')
+    print(f'[pv_rcnn] {cfg.TAG} test CLI on {Path(path).name}: '
+          f'{res["frames"]} val frames, {res["sec_per_frame"]:.4f} s/frame, '
+          f'KITTI evaluation {res["eval_sec"]:.3f} s; '
+          + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + '; merge_resolve launches: train '
+          f'{n_train}, test {n_test} (2 steps from random weights: only the '
+          f'keys are checked)')
+    return n_train + n_test + phase_weights_cli(root, tmp, 'pv_rcnn.yaml',
+                                                'pv_rcnn', SEED + 130)
+
+
+def phase_pv_rcnn(tmp, root):
+    """[pv_rcnn]: (a) KITTI's pv_rcnn.yaml at full width, (b) Waymo's, (d)
+    the CLIs and converted weights on the three-class tree at `root`.  (c)
+    and the kernel check of the captured calls run after the main paths.
+    Returns (launches, captured predict and train step calls)."""
+    launches, pred, step = phase_pv_rcnn_full('kitti_models', SEED + 120,
+                                              N_REQUESTS, PV_RCNN_STEPS,
+                                              capture=True)
+    n, _, _ = phase_pv_rcnn_full('waymo_models', SEED + 121, 1, 0)
+    launches += n + phase_pv_rcnn_cli(root, tmp)
+    return launches, {'predict': pred, 'step': step}
 
 
 def main():
@@ -2873,7 +3295,9 @@ def main():
                                                             cli_root)
             launches_waymo, captured_waymo, captured_waymo_train = \
                 phase_waymo(Path(tmp))
-            launches_three, captured_three = phase_three_class(Path(tmp))
+            launches_three, captured_three, tc_root = phase_three_class(
+                Path(tmp))
+            launches_pv, captured_pv = phase_pv_rcnn(Path(tmp), tc_root)
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -2882,6 +3306,9 @@ def main():
                                'SECOND-IoU predict')
         three_train = check_captured(captured_three['step'],
                                      'SECOND-IoU train step')
+        pv = check_captured(captured_pv['predict'], 'PV-RCNN predict')
+        pv_train = check_captured(captured_pv['step'],
+                                  'PV-RCNN train step')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -2901,6 +3328,13 @@ def main():
             phase_gpu_vs_cpu(raw, tag)
             phase_gpu_vs_cpu_train(raw, tag, tiny_train_batch if kind == 'iou'
                                    else tiny_single_batch)
+        pv_raw = tiny_pvrcnn_raw()
+        phase_gpu_vs_cpu(pv_raw, 'pv_rcnn] [gpu-vs-cpu')
+        # a ReLU input within f32 rounding of 0 (reg_fc_bn0's, 1e-6 of its
+        # largest |output|, on the card) flips and moves the head's
+        # gradients: the CPU takes the card's side there, as [waymo]'s
+        phase_gpu_vs_cpu_train(pv_raw, 'pv_rcnn] [gpu-vs-cpu',
+                               align_relu=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -2912,7 +3346,7 @@ def main():
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
                      + launches_weights + launches_single + launches_waymo
-                     + launches_three),
+                     + launches_three + launches_pv),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -2925,6 +3359,7 @@ def main():
         'launches_single': launches_single,
         'launches_waymo': launches_waymo,
         'launches_three_class': launches_three,
+        'launches_pv_rcnn': launches_pv,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -2953,7 +3388,9 @@ def main():
         'waymo_train_library_device_ms': waymo_train['library_device_ms'],
         **{f'{pre}_{k}': r[k] for pre, r in (('second_iou', three),
                                              ('second_iou_train',
-                                              three_train))
+                                              three_train),
+                                             ('pv_rcnn', pv),
+                                             ('pv_rcnn_train', pv_train))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -2975,10 +3412,15 @@ def main():
           f'(second_multihead.yaml and second_iou.yaml: {N_REQUESTS + 1} '
           f'predicts and {THREE_CLASS_STEPS} train steps each; '
           f'pointpillar.yaml and its CLIs: none; second_iou.yaml test '
-          f'--ckpt: 1 predict); single_* per GLENet-C predict, waymo_* per '
+          f'--ckpt: 1 predict) and the PV-RCNN phase (KITTI: '
+          f'{N_REQUESTS + 1} predicts, {PV_RCNN_STEPS + 1} train steps; '
+          f'Waymo: 2 predicts, 1 train step; the CLIs: 2 train steps, '
+          f'{math.ceil(TC_VAL / 2)} predicts; test --ckpt: 1 predict); '
+          f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
-          f'second_iou_* per SECOND-IoU predict and second_iou_train_* per '
-          f'SECOND-IoU train step')
+          f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '
+          f'SECOND-IoU train step, pv_rcnn_* per KITTI PV-RCNN predict and '
+          f'pv_rcnn_train_* per KITTI PV-RCNN train step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

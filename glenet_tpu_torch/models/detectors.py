@@ -15,7 +15,13 @@ for these topologies:
     regression loss) or the KL-label family -> final NMS over the dense
     head's decoded anchors (per class with MULTI_CLASSES_NMS);
   - PointPillar: voxelize into pillars -> PillarVFE -> PointPillarScatter
-    -> BaseBEVBackbone -> AnchorHeadSingle -> final NMS.
+    -> BaseBEVBackbone -> AnchorHeadSingle -> final NMS;
+  - PVRCNN: VoxelRCNN's stage 1 with AnchorHeadSingle; before the
+    proposals, VoxelSetAbstraction keypoints (FPS over the raw points,
+    features from the BEV map, the raw points and the backbone levels) and
+    PointHeadSimple's foreground score, which weighs the keypoint features
+    that PVRCNNHead pools into each RoI's grid; its segmentation loss adds
+    `point_loss_cls`.
 
 The dense head's targets come from the axis-aligned assigner or ATSS, on
 nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
@@ -49,10 +55,12 @@ from ..ops import voxelize as vox_ops
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
 from . import anchor_heads, anchors, target_assigner
+from . import pfe as pfe_lib
 from . import roi_heads as roi_lib
 from .bev_backbone import SSFA, BaseBEVBackbone
 from .map_to_bev import PointPillarScatter
-from .roi_heads import SECONDHead, VoxelRCNNHead, decode_rcnn_boxes
+from .roi_heads import (PVRCNNHead, SECONDHead, VoxelRCNNHead,
+                        decode_rcnn_boxes)
 from .spconv_backbone import build_backbone_3d
 from .vfe import MeanVFE, PillarVFE
 
@@ -63,12 +71,16 @@ def _require(cond, what):
 
 
 # the MODEL names the port builds
-FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar')
+FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
+            'PVRCNN')
+# MODEL name -> the ROI_HEAD names it builds (the others: none)
+_ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
+              'SECONDNetIoU': ('SECONDHead',), 'PVRCNN': ('PVRCNNHead',)}
 
 
 class DetectorNet(nn.Module):
-    """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet
-    or PointPillar detector."""
+    """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
+    PointPillar or PVRCNN detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -79,7 +91,7 @@ class DetectorNet(nn.Module):
         name = mcfg.get('NAME')             # one of FAMILIES (Detector)
         roi_cfg = mcfg.get('ROI_HEAD')
         roi_name = None if roi_cfg is None else roi_cfg.NAME
-        two_stage = name in ('VoxelRCNN', 'SECONDNetIoU')
+        two_stage = name in _ROI_HEADS
         _require(two_stage == (roi_cfg is not None),
                  f'MODEL {name} with ROI_HEAD {roi_name}')
         pillars = name == 'PointPillar'
@@ -100,15 +112,21 @@ class DetectorNet(nn.Module):
                               'WeightedAxisAlignedTargetAssigner',
                               'ATSSTargetAssigner'), assigner)
         if roi_cfg is not None:
-            _require(roi_name in (('SECONDHead',) if name == 'SECONDNetIoU'
-                                  else ('VoxelRCNNKLLabelIoUHead',
-                                        'VoxelRCNNHead')),
-                     f'ROI_HEAD {roi_name}')
+            _require(roi_name in _ROI_HEADS[name], f'ROI_HEAD {roi_name}')
             score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
                 'CLS_SCORE_TYPE', 'roi_iou')
             _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
-        for absent in ('PFE', 'POINT_HEAD'):
-            _require(absent not in mcfg, absent)
+        pfe_cfg, ph_cfg = mcfg.get('PFE'), mcfg.get('POINT_HEAD')
+        if name == 'PVRCNN':
+            _require(pfe_cfg is not None
+                     and pfe_cfg.NAME == 'VoxelSetAbstraction',
+                     f'PFE {None if pfe_cfg is None else pfe_cfg.NAME}')
+            _require(ph_cfg is not None and ph_cfg.NAME == 'PointHeadSimple',
+                     f'POINT_HEAD {None if ph_cfg is None else ph_cfg.NAME}'
+                     ' on PVRCNN')
+        else:
+            for absent in ('PFE', 'POINT_HEAD'):
+                _require(absent not in mcfg, absent)
 
         self.model_cfg = mcfg
         self.grid_size, self.voxel_size = tuple(grid_size), tuple(voxel_size)
@@ -131,8 +149,9 @@ class DetectorNet(nn.Module):
             c_bev = self.vfe.num_out_features
         else:
             self.vfe = MeanVFE()
-            self.backbone_3d = build_backbone_3d(mcfg.BACKBONE_3D, grid_size,
-                                                 num_point_features)
+            self.backbone_3d = build_backbone_3d(
+                mcfg.BACKBONE_3D, grid_size, num_point_features,
+                site_lists=pfe_cfg is not None)
             c_bev = self.backbone_3d.num_bev_features
         bb = mcfg.BACKBONE_2D
         if bb.NAME == 'SSFA':
@@ -169,8 +188,25 @@ class DetectorNet(nn.Module):
                 head_cfg.NAME, c_2d, num_class,
                 anchor_set.num_anchors_per_location, box_coder.code_size,
                 self.num_dir_bins)
+        self.pfe = self.point_head_simple = None
+        if pfe_cfg is not None:
+            self.pfe = pfe_lib.VoxelSetAbstraction(
+                pfe_cfg, voxel_size, pc_range, c_bev, num_point_features,
+                self.backbone_3d.level_channels)
+            self.use_features_before_fusion = bool(ph_cfg.get(
+                'USE_POINT_FEATURES_BEFORE_FUSION', True))
+            self.point_head_simple = pfe_lib.PointHeadSimple(
+                self.pfe.num_features_before_fusion
+                if self.use_features_before_fusion
+                else int(pfe_cfg.NUM_OUTPUT_FEATURES),
+                1 if ph_cfg.get('CLASS_AGNOSTIC', True) else num_class,
+                tuple(ph_cfg.CLS_FC))
         if roi_cfg is None:
             self.roi_head = None
+        elif name == 'PVRCNN':
+            self.roi_head = PVRCNNHead(roi_cfg,
+                                       int(pfe_cfg.NUM_OUTPUT_FEATURES),
+                                       code_size=box_coder.code_size)
         elif name == 'SECONDNetIoU':
             self.roi_head = SECONDHead(roi_cfg, voxel_size, pc_range, c_2d,
                                        code_size=box_coder.code_size)
@@ -225,6 +261,10 @@ class DetectorNet(nn.Module):
         out['dense_head'] = self.dense_head(spatial_2d, train)
         if self.roi_head is None:
             return out
+        if self.pfe is not None:
+            # before the proposals, as glenet_tpu's plain PV-RCNN
+            kp_weighted = self._keypoints(points, points_mask, sp_out, out,
+                                          train)
 
         if roi_targets is None or not train:
             # proposals carry no gradient, as in the reference's no_grad
@@ -241,11 +281,31 @@ class DetectorNet(nn.Module):
             roi_in = roi_targets['rois']
         else:
             roi_in = out['proposals']['rois']
-        features = (spatial_2d if isinstance(self.roi_head, SECONDHead)
-                    else sp_out['multi_scale'])
-        out['rcnn'] = self.roi_head(roi_in, features, train, generator)
+        if self.pfe is not None:
+            out['rcnn'] = self.roi_head(roi_in, out['pfe']['keypoints'],
+                                        kp_weighted, train, generator)
+        else:
+            features = (spatial_2d if isinstance(self.roi_head, SECONDHead)
+                        else sp_out['multi_scale'])
+            out['rcnn'] = self.roi_head(roi_in, features, train, generator)
         out['rcnn']['rois'] = roi_in
         return out
+
+    def _keypoints(self, points, points_mask, sp_out, out, train):
+        """VoxelSetAbstraction and PointHeadSimple: sets out['pfe']
+        (keypoints, keypoint_idx, point_cls_preds) and returns the fused
+        keypoint features times the sigmoid of their best foreground
+        logit."""
+        vsa = self.pfe(points, points_mask, sp_out['multi_scale'],
+                       sp_out['bev_features'], 8, train)
+        cls = self.point_head_simple(
+            vsa['point_features_before_fusion']
+            if self.use_features_before_fusion else vsa['point_features'],
+            train)
+        out['pfe'] = {'keypoints': vsa['keypoints'],
+                      'keypoint_idx': vsa['keypoint_idx'],
+                      'point_cls_preds': cls}
+        return vsa['point_features'] * torch.sigmoid(cls).amax(-1)[..., None]
 
     def _proposals(self, dense_head_out, train):
         decoded = anchor_heads.decode_predictions(
@@ -392,7 +452,8 @@ class Detector:
     def compute_loss(self, full_out, batch):
         """Anchor-head losses (focal cls; KL-label, KL, od-IoU or
         sin-difference smooth-L1 regression; direction bins; the IoU
-        branch) and, in VoxelRCNN, the RCNN losses -> (total, metrics)."""
+        branch), in PVRCNN the keypoint segmentation loss and in the
+        two-stage families the RCNN losses -> (total, metrics)."""
         with torch.no_grad():
             per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
                           zip(batch['gt_boxes'], batch['gt_mask'],
@@ -448,12 +509,33 @@ class Detector:
                 self.net.flat_anchors, self.box_coder)
             metrics['loss_iou'] = i_loss
             total = total + i_loss
+        if 'pfe' in full_out:
+            seg = self._pfe_loss(full_out, batch)
+            metrics['point_loss_cls'] = seg
+            total = total + seg
         if 'rcnn' in full_out:
             rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
             total = total + rcnn_total
             metrics.update(rcnn_metrics)
         metrics['loss'] = total
         return total, metrics
+
+    def _pfe_loss(self, full_out, batch):
+        """PointHeadSimple's focal loss on the keypoints' foreground labels
+        (inside a gt box, ignored in its GT_EXTRA_WIDTH shell), normalised
+        over the batch, times point_cls_weight."""
+        ph_cfg = self.model_cfg.POINT_HEAD
+        extra = tuple(ph_cfg.TARGET_CONFIG.get('GT_EXTRA_WIDTH',
+                                               [0.2, 0.2, 0.2]))
+        with torch.no_grad():
+            labels = pfe_lib.assign_keypoint_seg_targets(
+                full_out['pfe']['keypoints'], batch['gt_boxes'],
+                batch['gt_mask'], extra)
+        preds = full_out['pfe']['point_cls_preds']
+        seg = pfe_lib.keypoint_seg_loss(preds.reshape(-1, preds.shape[-1]),
+                                        labels.reshape(-1), preds.shape[-1])
+        return seg * ph_cfg.LOSS_CONFIG.LOSS_WEIGHTS.get('point_cls_weight',
+                                                         1.0)
 
     def _rcnn_loss(self, full_out):
         """BCE cls on the IoU labels, KL-label (or, for the plain head,

@@ -1,8 +1,9 @@
-"""RoI stage of GLENet-VR, Voxel R-CNN and SECOND-IoU (torch counterpart
-of the VoxelRCNN and SECONDHead parts of glenet_tpu/models/roi_heads.py):
-train-time RoI target sampling, VoxelRCNNHead with or without its
-KL-label branches, SECONDHead (IoU scoring of BEV-sampled rois), and the
-RCNN losses.
+"""RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU and PV-RCNN (torch
+counterpart of the VoxelRCNN, PVRCNNHead and SECONDHead parts of
+glenet_tpu/models/roi_heads.py): train-time RoI target sampling,
+VoxelRCNNHead with or without its KL-label branches, PVRCNNHead (RoI-grid
+pooling of the keypoint features), SECONDHead (IoU scoring of BEV-sampled
+rois), and the RCNN losses.
 
 POOL_MODE picks how each of the G^3 grid points of a roi pools a feature
 level:
@@ -30,6 +31,7 @@ from torch import nn
 from ..ops import iou3d
 from ..utils import common, losses
 from .layers import MaskedBatchNorm
+from .pfe import StackSAModuleMSG, bilinear_interpolate
 
 _BIG = 1e9
 # exclusive upper bound of the integer draws of the bg picks
@@ -435,7 +437,35 @@ def level_slot_table(level):
 POOL_MODES = ('corner', 'voxel_query')
 
 
-class VoxelRCNNHead(nn.Module):
+class _FCStacks(nn.Module):
+    """The SHARED_FC, CLS_FC and REG_FC stacks of a grid-pooling RoI head:
+    attributes `<stack>_<i>` (Linear without bias) and `<stack>_bn<i>`
+    (MaskedBatchNorm at torch's default eps 1e-5: the reference head FCs
+    use BatchNorm1d), each followed by ReLU; DP_RATIO dropout after the
+    first of each stack in train mode."""
+
+    def _build_fc_stacks(self, model_cfg, c_in):
+        self.fc_names = {}
+        for stack, key in (('shared', 'SHARED_FC'), ('cls_fc', 'CLS_FC'),
+                           ('reg_fc', 'REG_FC')):
+            c = c_in if stack == 'shared' else int(model_cfg.SHARED_FC[-1])
+            self.fc_names[stack] = []
+            for i, s in enumerate(model_cfg[key]):
+                setattr(self, f'{stack}_{i}', nn.Linear(c, s, bias=False))
+                setattr(self, f'{stack}_bn{i}', MaskedBatchNorm(s, eps=1e-5))
+                self.fc_names[stack].append((f'{stack}_{i}', f'{stack}_bn{i}'))
+                c = s
+
+    def _fc_stack(self, x, stack, train, generator):
+        for i, (lin, bn) in enumerate(self.fc_names[stack]):
+            x = F.relu(getattr(self, bn)(getattr(self, lin)(x),
+                                         use_running_average=not train))
+            if i == 0 and train and self.dp_ratio > 0:
+                x = dropout(x, self.dp_ratio, generator)
+        return x
+
+
+class VoxelRCNNHead(_FCStacks):
     """RoI refinement head: VoxelRCNNKLLabelIoUHead (kl_label, with the
     reg_std and variance -> confidence branches) or the plain
     VoxelRCNNHead (rcnn_cls is the raw logit), with either POOL_MODE.  In
@@ -471,23 +501,9 @@ class VoxelRCNNHead(nn.Module):
                 pool = CornerAggregation(level_channels[src], mid, out)
             setattr(self, f'pool_{src}', pool)
             c_pooled += out
-        c = c_pooled * self.grid ** 3
-        self.fc_names = {}
-        for stack, key in (('shared', 'SHARED_FC'), ('cls_fc', 'CLS_FC'),
-                           ('reg_fc', 'REG_FC')):
-            c_in = c if stack == 'shared' else int(model_cfg.SHARED_FC[-1])
-            names = []
-            for i, s in enumerate(model_cfg[key]):
-                # torch-default eps: the reference head FCs use BatchNorm1d
-                bn = f'{stack}_bn{i}'
-                setattr(self, f'{stack}_{i}', nn.Linear(c_in, s, bias=False))
-                setattr(self, bn, MaskedBatchNorm(s, eps=1e-5))
-                names.append((f'{stack}_{i}', bn))
-                c_in = s
-            self.fc_names[stack] = names
-        c_cls = int(model_cfg.CLS_FC[-1])
+        self._build_fc_stacks(model_cfg, c_pooled * self.grid ** 3)
         c_reg = int(model_cfg.REG_FC[-1])
-        self.cls_pred = nn.Linear(c_cls, 1)
+        self.cls_pred = nn.Linear(int(model_cfg.CLS_FC[-1]), 1)
         self.reg_pred = nn.Linear(c_reg, code_size)
         nn.init.normal_(self.reg_pred.weight, std=0.001)
         if not kl_label:
@@ -501,14 +517,6 @@ class VoxelRCNNHead(nn.Module):
         for lin in (self.reg_std, self.std_fc1, self.std_fc2):
             nn.init.normal_(lin.weight, std=0.0001)
             nn.init.zeros_(lin.bias)
-
-    def _fc_stack(self, x, stack, train, generator):
-        for i, (lin, bn) in enumerate(self.fc_names[stack]):
-            x = F.relu(getattr(self, bn)(getattr(self, lin)(x),
-                                         use_running_average=not train))
-            if i == 0 and train and self.dp_ratio > 0:
-                x = dropout(x, self.dp_ratio, generator)
-        return x
 
     def pool_level(self, src, grid_pts, level, train: bool = False):
         """Pool one FEATURES_SOURCE level at grid_pts (B, Q, 3) -> (B * Q,
@@ -561,21 +569,47 @@ class VoxelRCNNHead(nn.Module):
                 'rcnn_reg': self.reg_pred(reg_feat), 'rcnn_reg_std': reg_std}
 
 
-def bilinear_interpolate(im, x, y):
-    """im (H, W, C), x (N,), y (N,) pixel coordinates -> (N, C).  The corner
-    indices are clamped to the map but the weights come from the unclamped
-    corners (clamp-to-edge, as the reference's voxel_set_abstraction)."""
-    h, w = im.shape[:2]
-    x0, y0 = torch.floor(x).long(), torch.floor(y).long()
-    x1, y1 = x0 + 1, y0 + 1
-    x0c, x1c = x0.clamp(0, w - 1), x1.clamp(0, w - 1)
-    y0c, y1c = y0.clamp(0, h - 1), y1.clamp(0, h - 1)
-    wa = (x1 - x) * (y1 - y)
-    wb = (x1 - x) * (y - y0)
-    wc = (x - x0) * (y1 - y)
-    wd = (x - x0) * (y - y0)
-    return (im[y0c, x0c] * wa[:, None] + im[y1c, x0c] * wb[:, None]
-            + im[y0c, x1c] * wc[:, None] + im[y1c, x1c] * wd[:, None])
+class PVRCNNHead(_FCStacks):
+    """PV-RCNN's RoI head: GRID_SIZE^3 grid points per roi pool the
+    keypoint features (already weighted by the keypoints' foreground
+    score) by StackSAModuleMSG `roi_grid_pool` over every keypoint, then
+    the shared / cls / reg FC stacks of VoxelRCNNHead's shape (BN eps
+    1e-5, DP_RATIO dropout after the first FC of each in train mode),
+    `cls_pred` (the raw logit) and `reg_pred`."""
+
+    def __init__(self, model_cfg, in_channels: int, code_size: int = 7):
+        super().__init__()
+        pool = model_cfg.ROI_GRID_POOL
+        if pool.get('NAME', '') == 'VectorPoolAggregationModuleMSG':
+            raise NotImplementedError(
+                'VectorPoolAggregationModuleMSG (ROI_GRID_POOL) is not '
+                'ported yet')
+        self.grid = int(pool.GRID_SIZE)
+        self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
+        self.roi_grid_pool = StackSAModuleMSG(in_channels, pool.POOL_RADIUS,
+                                              pool.NSAMPLE, pool.MLPS)
+        self._build_fc_stacks(
+            model_cfg, self.roi_grid_pool.out_channels * self.grid ** 3)
+        self.cls_pred = nn.Linear(int(model_cfg.CLS_FC[-1]), 1)
+        self.reg_pred = nn.Linear(int(model_cfg.REG_FC[-1]), code_size)
+        nn.init.normal_(self.reg_pred.weight, std=0.001)
+
+    def forward(self, rois, kp_xyz, kp_feats, train: bool = False,
+                generator=None):
+        """rois (B, R, 7), kp_xyz (B, K, 3), kp_feats (B, K, C) -> rcnn_cls
+        (B*R, 1), rcnn_reg (B*R, code_size).  `generator` feeds the dropout
+        draws."""
+        g = self.grid
+        b, r = rois.shape[:2]
+        grid_pts = roi_grid_points(rois.reshape(b * r, -1), g).reshape(
+            b, r * g ** 3, 3)
+        pooled = self.roi_grid_pool(grid_pts, kp_xyz, kp_feats, None, train)
+        feats = pooled.reshape(b * r, -1)
+        shared = self._fc_stack(feats, 'shared', train, generator)
+        cls_feat = self._fc_stack(shared, 'cls_fc', train, generator)
+        reg_feat = self._fc_stack(shared, 'reg_fc', train, generator)
+        return {'rcnn_cls': self.cls_pred(cls_feat),
+                'rcnn_reg': self.reg_pred(reg_feat)}
 
 
 class SECONDHead(nn.Module):
@@ -686,16 +720,26 @@ def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
     plain head), the weighted smooth-L1 alone."""
     b, r = rois.shape[:2]
     n = b * r
-    flat_rois = rois.reshape(n, -1)[:, :box_coder.code_size]
+    fg = reg_valid_mask.reshape(n) > 0
+    fg_sum = fg.sum().clamp_min(1).to(torch.float32)
+    gt_src = gt_of_rois_src.reshape(n, -1)[:, :7]
+    # background rows take their gt as roi, a zero residual and their own
+    # prediction as target, so they add exactly 0 to the losses and to the
+    # gradients, as in the reference's fg-only losses.  glenet_tpu
+    # multiplies them by 0 instead, which gives NaN once a background roi
+    # from a diverging dense head overflows (sizes ~1e20 square to inf).
+    flat_rois = torch.where(fg[:, None],
+                            rois.reshape(n, -1)[:, :box_coder.code_size],
+                            gt_src)
+    rcnn_reg = rcnn_reg.reshape(n, -1)
     zeros3 = torch.zeros_like(flat_rois[:, :3])
     rois_anchor = torch.cat([zeros3, flat_rois[:, 3:6],
                              torch.zeros_like(flat_rois[:, 6:7]),
                              flat_rois[:, 7:]], dim=1)
-    reg_targets = box_coder.encode(gt_of_rois_ct.reshape(n, -1)[:, :7],
-                                   rois_anchor)
-    fg = reg_valid_mask.reshape(n) > 0
-    fg_sum = fg.sum().clamp_min(1).to(torch.float32)
-    rcnn_reg = rcnn_reg.reshape(n, -1)
+    reg_targets = torch.where(
+        fg[:, None],
+        box_coder.encode(gt_of_rois_ct.reshape(n, -1)[:, :7], rois_anchor),
+        rcnn_reg.detach())
 
     l1 = losses.weighted_smooth_l1(rcnn_reg[None], reg_targets[None],
                                    code_weights=code_weights)[0]
@@ -716,11 +760,11 @@ def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
 
     # corner loss of the decoded global boxes on fg rois
     local_anchor = torch.cat([zeros3, flat_rois[:, 3:]], dim=1)
-    dec = box_coder.decode(rcnn_reg, local_anchor)
+    dec = box_coder.decode(torch.where(fg[:, None], rcnn_reg, 0.0),
+                           local_anchor)
     dec = common.rotate_points_along_z(dec[:, None, :], flat_rois[:, 6])[:, 0]
     dec = torch.cat([dec[:, 0:3] + flat_rois[:, 0:3], dec[:, 3:]], dim=1)
-    corner = losses.corner_loss_lidar(
-        dec[:, :7], gt_of_rois_src.reshape(n, -1)[:, :7])
+    corner = losses.corner_loss_lidar(dec[:, :7], gt_src)
     corner = (corner * fg).sum() / fg_sum * corner_weight
     metrics['rcnn_loss_corner'] = corner
     return reg_loss + corner, metrics

@@ -124,9 +124,11 @@ class VoxelBackBone8x(nn.Module):
     Levels 1-2 and conv3_down run sparse, the rest dense (dense_from=3)."""
 
     def __init__(self, grid_size, in_channels: int = 4,
-                 subm_per_block=(2, 2, 2), out_channels: int = 128):
+                 subm_per_block=(2, 2, 2), out_channels: int = 128,
+                 site_lists: bool = False):
         super().__init__()
         self.grid_size = tuple(grid_size)
+        self.site_lists = site_lists
         c1, c2, c3, c4 = CHANNELS
         self.conv_input = SubMConvBN(in_channels, c1)
         self.conv1_0 = SubMConvBN(c1, c1)
@@ -164,7 +166,8 @@ class VoxelBackBone8x(nn.Module):
         the level caps.
 
         Returns dict: bev_features (B, ny8, nx8, C_bev) (a channels-last
-        view), multi_scale {x_conv1..4} for the RoI stack.
+        view), multi_scale {x_conv1..4} for the RoI stack (x_conv3 with its
+        active-site list; x_conv4 with one when built with site_lists).
         """
         grid1 = self.sparse_grid
         nx, ny, nz = grid1
@@ -207,6 +210,14 @@ class VoxelBackBone8x(nn.Module):
         ms['x_conv4'] = {'kind': 'dense',
                          'features': xd.permute(0, 2, 3, 4, 1), 'occ': occ,
                          'grid': grid4, 'stride': 8}
+        if self.site_lists:
+            # the active sites of the stride-8 level by the spconv rule
+            # conv4_down applies to occ, for the keypoint path (PV-RCNN)
+            sites = [sparse.strided_output_sites(
+                ids3[i], mask3[i], grid3, 3, 2, (0, 1, 1), caps[3])
+                for i in range(ids3.shape[0])]
+            ms['x_conv4'].update(ids=torch.stack([s[0] for s in sites]),
+                                 mask=torch.stack([s[1] for s in sites]))
 
         xd, occ = self.conv_out(xd, occ, train)
         # HeightCompression: fold z into channels, z-outer / channel-inner
@@ -221,10 +232,14 @@ VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), 128),
             'VoxelBackBone8xCiassd': ((2, 3, 3), 64)}
 
 
-def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4):
+def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4,
+                      site_lists: bool = False):
+    """`site_lists` adds x_conv4's active-site list (ids, mask) to the
+    outputs, which only the PV-RCNN keypoint path reads."""
     if bb3d_cfg.NAME in VARIANTS:
         subm, out_channels = VARIANTS[bb3d_cfg.NAME]
         return VoxelBackBone8x(grid_size=tuple(grid_size),
                                in_channels=in_channels, subm_per_block=subm,
-                               out_channels=out_channels)
+                               out_channels=out_channels,
+                               site_lists=site_lists)
     raise NotImplementedError(f'BACKBONE_3D {bb3d_cfg.NAME} is not ported yet')

@@ -4,8 +4,8 @@
 
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
-two-stage second_iou.yaml, or pointpillar.yaml) at full width, seeded
-random weights,
+two-stage second_iou.yaml or pv_rcnn.yaml, or pointpillar.yaml) at full
+width, seeded random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
 features; utils/synthetic.py), one warm-up predict, then:
@@ -16,7 +16,10 @@ features; utils/synthetic.py), one warm-up predict, then:
      voxelize + MeanVFE and the 3D backbone (PointPillars: voxelize,
      PillarVFE, PointPillarScatter), the 2D backbone, the dense head,
      then two-stage decode + proposal NMS, the RoI head and decode +
-     final NMS, or single-stage decode + final NMS; within the final
+     final NMS, or single-stage decode + final NMS; for PV-RCNN also the
+     keypoint stages (FPS, the set abstraction of each source, BEV
+     interpolation with the fusion, PointHeadSimple) and, within
+     PVRCNNHead, the RoI-grid pool and the FCs; within the final
      NMS, the time of its rotated-IoU matrix (`boxes_iou_bev_blocked`)
      and of its greedy keep rounds (`greedy_keep`);
   3. a torch.profiler window over 3 requests without those synchronises:
@@ -35,6 +38,7 @@ import torch
 from .config import cfg_from_yaml_file
 from .ops import iou3d
 from .ops import nms as nms_ops
+from .ops import pointnet2
 from .utils.cuda_timing import card_line, profile_window
 from .utils.synthetic import batches_for, seeded_detector
 
@@ -54,17 +58,27 @@ def _stage_times(det, batch):
 
     two_stage = det.net.roi_head is not None
     pillars = det.net.backbone_3d is None
+    pv = det.net.pfe is not None
     names = (('vfe', 'map_to_bev') if pillars else ('backbone_3d',)) + (
         'backbone_2d', 'dense_head') + (('roi_head',) if two_stage else ())
+    mods = {n: getattr(det.net, n) for n in names}
+    sa_names = []
+    if pv:
+        sa_names = [n for n, _ in det.net.pfe.named_children()
+                    if n.startswith('sa_')]
+        mods.update(pfe=det.net.pfe,
+                    point_head_simple=det.net.point_head_simple,
+                    roi_grid_pool=det.net.roi_head.roi_grid_pool,
+                    **{n: getattr(det.net.pfe, n) for n in sa_names})
     hooks = []
-    for name in names:
-        mod = getattr(det.net, name)
+    for name, mod in mods.items():
         hooks.append(mod.register_forward_pre_hook(mark(f'{name}>')))
         hooks.append(mod.register_forward_hook(mark(f'{name}<')))
     calls = []
     undo = [_timed(iou3d, 'boxes_iou_bev_blocked', 'rotated-IoU matrix',
                    calls),
-            _timed(nms_ops, 'greedy_keep', 'greedy keep rounds', calls)]
+            _timed(nms_ops, 'greedy_keep', 'greedy keep rounds', calls),
+            _timed(pointnet2, 'farthest_point_sample', 'FPS', calls)]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -91,11 +105,24 @@ def _stage_times(det, batch):
         mcfg.DENSE_HEAD.NAME: t['dense_head<'] - t['dense_head>']})
     nms = ('variance-voting' if mcfg.POST_PROCESSING.NMS_CONFIG.NMS_TYPE
            != 'nms_gpu' else 'greedy')
+    if pv:
+        fps = sum(end - start for lab, start, end in calls if lab == 'FPS')
+        sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
+        spans['PFE: FPS'] = fps
+        spans.update({f'PFE: {n}': v for n, v in sa.items()})
+        spans['PFE: BEV interpolation + fusion'] = (
+            t['pfe<'] - t['pfe>'] - fps - sum(sa.values()))
+        spans['PointHeadSimple'] = (t['point_head_simple<']
+                                    - t['point_head_simple>'])
     if two_stage:
-        spans.update({
-            'decode + proposal NMS': t['roi_head>'] - t['dense_head<'],
-            mcfg.ROI_HEAD.NAME: t['roi_head<'] - t['roi_head>'],
-            f'decode + {nms} NMS': t_end - t['roi_head<']})
+        spans['decode + proposal NMS'] = t['roi_head>'] - t[
+            'point_head_simple<' if pv else 'dense_head<']
+        spans[mcfg.ROI_HEAD.NAME] = t['roi_head<'] - t['roi_head>']
+        if pv:
+            pool = t['roi_grid_pool<'] - t['roi_grid_pool>']
+            spans['  of it RoI-grid pool'] = pool
+            spans['  of it the FCs'] = spans[mcfg.ROI_HEAD.NAME] - pool
+        spans[f'decode + {nms} NMS'] = t_end - t['roi_head<']
     else:
         spans[f'decode + {nms} NMS'] = t_end - t['dense_head<']
     final = t['roi_head<' if two_stage else 'dense_head<']

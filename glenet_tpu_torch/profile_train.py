@@ -4,8 +4,8 @@
 
 configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
 voxel-query RoI pooling, a single-stage GLENet_S.yaml, GLENet_C.yaml,
-second.yaml or second_multihead.yaml, second_iou.yaml, pointpillar.yaml) at
-full width, seeded random weights,
+second.yaml or second_multihead.yaml, second_iou.yaml, pv_rcnn.yaml,
+pointpillar.yaml) at full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
 points with gt boxes at their clusters (Car; for a Car, Pedestrian and
 Cyclist config objects of the three classes at KITTI's label ratios; for a
@@ -18,7 +18,10 @@ One warm-up step, then:
      step): two-stage, forward to the dense head, train NMS, RoI sampling,
      RoI head forward, loss (anchor targets and every loss term),
      backward, optimizer (clip and adam_onecycle); single-stage, forward,
-     targets + loss, backward, optimizer;
+     targets + loss, backward, optimizer; for PV-RCNN the forward to the
+     dense head, the keypoint stages (FPS, the set abstraction of each
+     source, BEV interpolation with the fusion, PointHeadSimple) before
+     the train NMS, and within the RoI head forward the RoI-grid pool;
   2. a torch.profiler window over 3 steps without those synchronises: the
      device busy share (summed device time of the kernels over the window's
      wall time) and the top 30 device operators;
@@ -35,6 +38,7 @@ from pathlib import Path
 import torch
 
 from .config import cfg_from_yaml_file
+from .ops import pointnet2
 from .train import optim
 from .train import state as train_state
 from .utils.cuda_timing import card_line, profile_window
@@ -100,8 +104,33 @@ def stage_times(det, tx, state, train_step, batch):
     {stage: ms}, step ms)."""
     marks = []
     two_stage = det.net.roi_head is not None
+    pv = det.net.pfe is not None
     undo = [_wrap(marks, det, 'compute_loss', 'loss>', 'loss<'),
             _wrap(marks, tx, 'update', 'backward<', 'update<')]
+    sa_names, hooks = [], []
+    if pv:
+        sa_names = [n for n, _ in det.net.pfe.named_children()
+                    if n.startswith('sa_')]
+        mods = dict(pfe=det.net.pfe,
+                    point_head_simple=det.net.point_head_simple,
+                    roi_grid_pool=det.net.roi_head.roi_grid_pool,
+                    **{n: getattr(det.net.pfe, n) for n in sa_names})
+        for name, mod in mods.items():
+            hooks.append(mod.register_forward_pre_hook(
+                lambda *_, name=name: _mark(marks, f'{name}>')))
+            hooks.append(mod.register_forward_hook(
+                lambda *_, name=name: _mark(marks, f'{name}<')))
+        real_fps = pointnet2.farthest_point_sample
+
+        def fps(*args, **kwargs):
+            _mark(marks, 'fps>')
+            out = real_fps(*args, **kwargs)
+            _mark(marks, 'fps<')
+            return out
+
+        pointnet2.farthest_point_sample = fps
+        undo += [lambda: setattr(pointnet2, 'farthest_point_sample',
+                                 real_fps)] + [h.remove for h in hooks]
     if two_stage:
         undo += [_wrap(marks, det.net, '_proposals', 'nms>', 'nms<'),
                  _wrap(marks, det.net, '_sample_roi_targets', None,
@@ -118,11 +147,23 @@ def stage_times(det, tx, state, train_step, batch):
             u()
     t = dict(marks)
     if two_stage:
-        spans = {'forward to the dense head': t['nms>'] - t0,
-                 'train NMS': t['nms<'] - t['nms>'],
-                 'RoI sampling': t['sample<'] - t['nms<'],
-                 'RoI head forward': t['head<'] - t['sample<'],
-                 'loss': t['loss<'] - t['head<']}
+        spans = {'forward to the dense head': t['pfe>' if pv else 'nms>'] - t0}
+        if pv:
+            sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
+            fps = t['fps<'] - t['fps>']
+            spans['PFE: FPS'] = fps
+            spans.update({f'PFE: {n}': v for n, v in sa.items()})
+            spans['PFE: BEV interpolation + fusion'] = (
+                t['pfe<'] - t['pfe>'] - fps - sum(sa.values()))
+            spans['PointHeadSimple'] = (t['point_head_simple<']
+                                        - t['point_head_simple>'])
+        spans.update({'train NMS': t['nms<'] - t['nms>'],
+                      'RoI sampling': t['sample<'] - t['nms<'],
+                      'RoI head forward': t['head<'] - t['sample<']})
+        if pv:
+            spans['  of it RoI-grid pool'] = (t['roi_grid_pool<']
+                                              - t['roi_grid_pool>'])
+        spans['loss'] = t['loss<'] - t['head<']
     else:
         spans = {'forward': t['loss>'] - t0,
                  'targets + loss': t['loss<'] - t['loss>']}

@@ -1,6 +1,7 @@
-"""3D box corners and axis-aligned BEV IoU (torch counterparts of
-glenet_tpu/utils/box_utils.py), and the numpy helpers of the host data
-pipeline: range masks, points in boxes, KITTI camera <-> lidar boxes.
+"""3D box corners, axis-aligned BEV IoU and points in boxes (torch
+counterparts of glenet_tpu/utils/box_utils.py), and the numpy helpers of
+the host data pipeline: range masks, points in boxes, KITTI camera <->
+lidar boxes.
 
 Box convention: (x, y, z, dx, dy, dz, heading), heading CCW about +z.
 """
@@ -76,6 +77,19 @@ def boxes3d_nearest_bev_iou(boxes_a, boxes_b):
 # ---------------------------------------------------------------------------
 # host-side numpy (data pipeline, data preparation, evaluation)
 # ---------------------------------------------------------------------------
+
+def points_in_boxes(points, boxes):
+    """(..., N, 3+) points x (..., M, 7) boxes -> (..., N, M) bool: inside
+    the rotated box, the z test |dz| <= dz / 2 about the box centre."""
+    shift = points[..., :, None, :3] - boxes[..., None, :, 0:3]
+    cosa = torch.cos(-boxes[..., 6])[..., None, :]
+    sina = torch.sin(-boxes[..., 6])[..., None, :]
+    local_x = shift[..., 0] * cosa - shift[..., 1] * sina
+    local_y = shift[..., 0] * sina + shift[..., 1] * cosa
+    return ((local_x.abs() <= boxes[..., None, :, 3] / 2)
+            & (local_y.abs() <= boxes[..., None, :, 4] / 2)
+            & (shift[..., 2].abs() <= boxes[..., None, :, 5] / 2))
+
 
 def boxes_to_corners_3d_np(boxes3d: np.ndarray) -> np.ndarray:
     """(N, 7) boxes -> (N, 8, 3) corners."""

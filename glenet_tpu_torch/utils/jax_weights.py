@@ -27,8 +27,12 @@ PointPillars' `vfe.PFNLayer_<i>.Dense_0` / `MaskedBatchNorm_0`,
 SECOND-multihead's `dense_head.shared_conv` (a ConvBlock) and
 `head<i>_conv_cls` / `_conv_box` / `_conv_dir_cls`, SECOND-IoU's
 `roi_head.shared_<i>` / `shared_bn<i>` / `iou_<i>` / `iou_bn<i>` /
-`iou_pred`.  It raises on any leaf it does not consume and on any port
-parameter or buffer it does not set.  `port_to_jax_variables` applies the rules the
+`iou_pred`, PV-RCNN's `pfe.sa_<source>.mlp_r<i>.{mlp_<j>, bn_<j>}`,
+`pfe.fusion` / `fusion_bn`, `point_head_simple.{cls_<i>, cls_bn<i>,
+cls_out}` and `roi_head.roi_grid_pool.mlp_r<i>.*`, `shared_<i>`,
+`cls_fc_<i>`, `reg_fc_<i>` with their `_bn<i>`, `cls_pred`, `reg_pred`.
+It raises on any leaf it does not consume and on any port parameter or
+buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.
 """
 from __future__ import annotations

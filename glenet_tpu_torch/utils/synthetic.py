@@ -205,7 +205,7 @@ def _pcdet_backbone(subm_per_block, out_channels):
 def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     """A state dict of random tensors under the key names and layouts of
     the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN, SECONDNet,
-    SECONDNetIoU or PointPillar: MeanVFE (no parameters) or PillarVFE
+    SECONDNetIoU, PointPillar or PVRCNN: MeanVFE (no parameters) or PillarVFE
     (vfe.pfn_layers.{i}.linear without bias and .norm), VoxelBackBone8x or
     VoxelBackBone8xCiassd
     (spconv 2.x weights (O, kz, ky, kx, I); conv{L}.{block}.{0 conv, 1
@@ -224,7 +224,8 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     ReLU (and Dropout after every Linear but the last when DP_RATIO > 0),
     cls_pred_layer, reg_pred_layer and, for VoxelRCNNKLLabelIoUHead,
     reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2;
-    in SECONDNetIoU the roi head of _pcdet_second_head.
+    in SECONDNetIoU the roi head of _pcdet_second_head, in PVRCNN the
+    stage 2 of _pcdet_pvrcnn_stage2.
     Every BN comes with running stats and num_batches_tracked.  Weights ~
     N(0, 1/fan_in), biases and running means ~ N(0, 0.1), BN scales and
     running variances ~ U(0.5, 1.5).  The input convolution takes
@@ -283,6 +284,7 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
                         ((3, 1, 1), (2, 1, 1), 0)):
             g = sparse.out_grid_size(g, k, s, p)
         c_in = g[2] * c_out
+    c_height = c_in
 
     bb = mcfg.BACKBONE_2D
     if bb.NAME == 'SSFA':
@@ -344,6 +346,10 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     roi = mcfg.ROI_HEAD
     if roi.NAME == 'SECONDHead':
         _pcdet_second_head(roi, weight, bn, bias)
+        return _tensors(sd)
+    if roi.NAME == 'PVRCNNHead':
+        _pcdet_pvrcnn_stage2(mcfg, num_point_features, c_height, weight, bn,
+                             bias)
         return _tensors(sd)
     pool = roi.ROI_GRID_POOL
     channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64}
@@ -414,6 +420,77 @@ def _pcdet_second_head(roi, weight, bn, bias):
         seq += 4 if k == 0 and roi.DP_RATIO >= 0 else 3
     weight(f'roi_head.iou_layers.{seq}.weight', (1, c, 1), c)
     bias(f'roi_head.iou_layers.{seq}.bias', 1)
+
+
+def _pcdet_pvrcnn_stage2(mcfg, num_point_features, c_bev, weight, bn, bias):
+    """PV-RCNN's stage-2 keys: pfe.SA_layers.{k} (the backbone levels of
+    FEATURES_SOURCE in order) and pfe.SA_rawpoints, each mlps.{i} = Conv2d
+    1x1 without bias, BN2d, ReLU per MLPS entry (on 3 + C inputs);
+    pfe.vsa_point_feature_fusion (Linear without bias, BN1d);
+    point_head.cls_layers (Linear without bias, BN1d, ReLU per CLS_FC
+    entry, then a Linear with bias); roi_head.roi_grid_pool_layer.mlps.{i}
+    as the SA layers', shared_fc_layer (Conv1d k1 without bias, BN1d, ReLU
+    per SHARED_FC entry, a Dropout after each but the last when DP_RATIO >
+    0), cls_layers and reg_layers (RoIHeadTemplate.make_fc_layers: the same
+    per entry, a Dropout after the first when DP_RATIO >= 0, then a Conv1d
+    k1 with bias)."""
+    channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64,
+                'raw_points': num_point_features - 3}
+
+    def sa_layer(prefix, cin, mlps):
+        c_out = 0
+        for i, m in enumerate(mlps):
+            c = cin + 3
+            for j, f in enumerate(m):
+                weight(f'{prefix}.mlps.{i}.{3 * j}.weight', (f, c, 1, 1), c)
+                bn(f'{prefix}.mlps.{i}.{3 * j + 1}', f)
+                c = f
+            c_out += c
+        return c_out
+
+    pfe = mcfg.PFE
+    c_fused = c_bev if 'bev' in pfe.FEATURES_SOURCE else 0
+    levels = [s for s in pfe.FEATURES_SOURCE
+              if s not in ('bev', 'raw_points')]
+    for k, src in enumerate(levels):
+        c_fused += sa_layer(f'pfe.SA_layers.{k}', channels[src],
+                            pfe.SA_LAYER[src].MLPS)
+    if 'raw_points' in pfe.FEATURES_SOURCE:
+        c_fused += sa_layer('pfe.SA_rawpoints', channels['raw_points'],
+                            pfe.SA_LAYER['raw_points'].MLPS)
+    c_kp = int(pfe.NUM_OUTPUT_FEATURES)
+    weight('pfe.vsa_point_feature_fusion.0.weight', (c_kp, c_fused), c_fused)
+    bn('pfe.vsa_point_feature_fusion.1', c_kp)
+    c = c_fused
+    for j, f in enumerate(mcfg.POINT_HEAD.CLS_FC):
+        weight(f'point_head.cls_layers.{3 * j}.weight', (f, c), c)
+        bn(f'point_head.cls_layers.{3 * j + 1}', f)
+        c = f
+    n = 3 * len(mcfg.POINT_HEAD.CLS_FC)
+    weight(f'point_head.cls_layers.{n}.weight', (1, c), c)
+    bias(f'point_head.cls_layers.{n}.bias', 1)
+
+    roi = mcfg.ROI_HEAD
+    pool = roi.ROI_GRID_POOL
+    c = sa_layer('roi_head.roi_grid_pool_layer', c_kp, pool.MLPS) * int(
+        pool.GRID_SIZE) ** 3
+    seq = 0
+    for k, f in enumerate(roi.SHARED_FC):
+        weight(f'roi_head.shared_fc_layer.{seq}.weight', (f, c, 1), c)
+        bn(f'roi_head.shared_fc_layer.{seq + 1}', f)
+        c = f
+        seq += 4 if k < len(roi.SHARED_FC) - 1 and roi.DP_RATIO > 0 else 3
+    c_shared = c
+    for name, sizes, n_out in (('cls_layers', roi.CLS_FC, 1),
+                               ('reg_layers', roi.REG_FC, 7)):
+        c, seq = c_shared, 0
+        for k, f in enumerate(sizes):
+            weight(f'roi_head.{name}.{seq}.weight', (f, c, 1), c)
+            bn(f'roi_head.{name}.{seq + 1}', f)
+            c = f
+            seq += 4 if k == 0 and roi.DP_RATIO >= 0 else 3
+        weight(f'roi_head.{name}.{seq}.weight', (n_out, c, 1), c)
+        bias(f'roi_head.{name}.{seq}.bias', n_out)
 
 
 def _tensors(sd):

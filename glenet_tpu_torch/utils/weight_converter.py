@@ -4,7 +4,8 @@ families the port runs: MeanVFE + VoxelBackBone8x or VoxelBackBone8xCiassd
 BaseBEVBackbone or SSFA + AnchorHeadSingle or the KL-label heads, and for
 VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi head; SECONDNet
 (GLENet-S, GLENet-C, plain SECOND) and PointPillar have none, and
-SECOND-IoU's SECONDHead is not converted (its keys are reported
+SECOND-IoU's SECONDHead and PV-RCNN's stage 2 (VoxelSetAbstraction,
+PointHeadSimple, PVRCNNHead) are not converted (their keys are reported
 unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti has no
 conversion, in glenet_tpu either.  The port's
 own copy of the matching part of glenet_tpu/utils/weight_converter.py,
@@ -416,10 +417,11 @@ _DENSE_HEADS = ('AnchorHeadSingle', 'AnchorHeadKLLabel', 'AnchorHeadKL',
                 'AnchorHeadKLLabelIoU', 'AnchorHeadKLLabelIoUGuide',
                 'AnchorHeadIoU')
 # MODEL name -> the ROI_HEAD names it may have (None: none); SECONDHead's
-# keys are not converted (as in glenet_tpu) and land in `unconsumed`
+# keys, and PV-RCNN's pfe.*, point_head.* and roi_head.* keys, are not
+# converted (as in glenet_tpu) and land in `unconsumed`
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
               'SECONDNetIoU': ('SECONDHead',), 'SECONDNet': (None,),
-              'PointPillar': (None,)}
+              'PointPillar': (None,), 'PVRCNN': ('PVRCNNHead',)}
 
 
 def convert_full_model(cfg, state_dict, variables):

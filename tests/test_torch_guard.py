@@ -51,7 +51,7 @@ def test_build_detector_needs_a_device():
             build_detector(cfg)
 
 
-@pytest.mark.parametrize('name', ['PartA2.yaml', 'pv_rcnn.yaml',
+@pytest.mark.parametrize('name', ['PartA2.yaml', 'PartA2_free.yaml',
                                   'pointrcnn.yaml'])
 def test_other_families_raise(name):
     from glenet_tpu_torch.config import cfg_from_yaml_file
@@ -63,10 +63,10 @@ def test_other_families_raise(name):
 
 
 @pytest.mark.parametrize('name', ['second_multihead.yaml', 'second_iou.yaml',
-                                  'pointpillar.yaml'])
+                                  'pointpillar.yaml', 'pv_rcnn.yaml'])
 def test_three_class_families_need_a_card(name):
-    """KITTI's three-class families build on the GPU by default and on the
-    CPU when asked; without a card the default raises."""
+    """KITTI's three-class families (PV-RCNN too) build on the GPU by
+    default and on the CPU when asked; without a card the default raises."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
@@ -266,11 +266,12 @@ def test_camera_items_raise(item, tmp_path):
 @pytest.mark.parametrize('section,name', [
     ('VFE', 'DynamicPillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
     ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
-    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PVRCNNHead')])
+    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PartA2FCHead')])
 def test_converter_refuses_other_families(section, name):
     """The port's converter of reference checkpoints covers what
     glenet_tpu's covers of the families the port runs (VoxelRCNN,
-    SECONDNet, SECOND-IoU's stage 1, PointPillars); any other module, and
+    SECONDNet, SECOND-IoU's and PV-RCNN's stage 1, PointPillars); any other
+    module, and
     AnchorHeadMulti, which glenet_tpu does not convert either, raises
     naming itself, before it reads a key."""
     import torch_parity as tp
@@ -280,6 +281,60 @@ def test_converter_refuses_other_families(section, name):
     cfg.MODEL[section].NAME = name
     with pytest.raises(NotImplementedError, match=name):
         wc.convert_full_model(cfg, {}, {'params': {}})
+
+
+def test_waymo_pvrcnn_needs_a_card():
+    """Waymo's PV-RCNN builds on the GPU by default and on the CPU when
+    asked; without a card the default raises."""
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/pv_rcnn.yaml'))
+    assert build_detector(cfg, device='cpu').device.type == 'cpu'
+    if torch.cuda.is_available():
+        assert build_detector(cfg).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build_detector(cfg)
+
+
+def test_pvrcnn_plusplus_raises():
+    """configs/waymo_models/pv_rcnn_plusplus.yaml is refused by its
+    MODEL name."""
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/'
+                                        'pv_rcnn_plusplus.yaml'))
+    with pytest.raises(NotImplementedError, match='PVRCNNPlusPlus'):
+        build_detector(cfg, device='cpu')
+
+
+@pytest.mark.parametrize('section,key,value,match', [
+    ('PFE', 'SAMPLE_METHOD', 'SPC', 'SAMPLE_METHOD SPC'),
+    ('PFE.SA_LAYER.x_conv3', 'NAME', 'VectorPoolAggregationModuleMSG',
+     'VectorPoolAggregationModuleMSG'),
+    ('ROI_HEAD.ROI_GRID_POOL', 'NAME', 'VectorPoolAggregationModuleMSG',
+     'VectorPoolAggregationModuleMSG'),
+    ('PFE.SA_LAYER.raw_points', 'FILTER_NEIGHBOR_WITH_ROI', True,
+     'FILTER_NEIGHBOR_WITH_ROI'),
+    ('POINT_HEAD', 'NAME', 'PointHeadBox', 'POINT_HEAD PointHeadBox')])
+def test_pvrcnn_plusplus_options_raise(section, key, value, match):
+    """What PV-RCNN++ adds to PV-RCNN (sectorized proposal-centric
+    keypoints, vector-pool aggregation, RoI-filtered neighbours), and any
+    point head other than PointHeadSimple, raise naming themselves when
+    the detector is built."""
+    import torch_parity as tp
+
+    from glenet_tpu_torch.models.detectors import build_detector
+
+    cfg = tp.to_port_cfg(tp.tiny_pvrcnn_cfg())
+    node = cfg.MODEL
+    for part in section.split('.'):
+        node = node[part]
+    node[key] = value
+    with pytest.raises(NotImplementedError, match=match):
+        build_detector(cfg, device='cpu')
 
 
 def _waymo_sdk_calls(tmp_path):

@@ -71,9 +71,10 @@ def plain_voxel_rcnn_cfg(cfg):
 
 
 def run_predicts(cfg, variables=None, batch_size=2, n_points=1024, seed=3,
-                 weights_seed=1, tdet=None):
+                 weights_seed=1, tdet=None, points=None):
     """glenet_tpu's and the port's predict on one config, with the same
-    numpy-drawn weights (or `variables`) and points; the port's detector is
+    numpy-drawn weights (or `variables`) and points (or `points`, all
+    valid); the port's detector is
     built and given the variables unless `tdet` is passed.  Returns (JAX's
     full forward outputs, JAX's predict, the port's full outputs, the
     port's predict, the variables); call inside pinned_f32()."""
@@ -88,6 +89,9 @@ def run_predicts(cfg, variables=None, batch_size=2, n_points=1024, seed=3,
     from glenet_tpu_torch.utils.jax_weights import load_jax_variables
     batch = _make_batch(batch_size, n_points=n_points, seed=seed,
                         pc_range=tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE))
+    if points is not None:
+        batch = dict(batch, points=jnp.asarray(points),
+                     points_mask=jnp.ones(points.shape[:2], bool))
     det = jax_build(cfg)
     if variables is None:
         shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0), batch)
@@ -131,9 +135,10 @@ def assert_predict_equal(pred, ref):
 
 
 def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
-                    total_steps=100):
+                    total_steps=100, points=None):
     """One train step of glenet_tpu and one of the port on `cfg` (DP_RATIO
-    should be 0), same numpy-drawn weights and points, gt boxes 0.15 m off
+    should be 0), same numpy-drawn weights and points (or `points`, all
+    valid), gt boxes 0.15 m off
     the first 4 train-mode proposals of each sample, and the JAX step's own
     sampled RoI targets fed to the port (the RNG streams differ), as
     tests/test_torch_train_step.py does.  Returns (JAX's metrics, grads,
@@ -155,6 +160,9 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
     batch = {k: np.array(v) for k, v in _make_batch(
         batch_size, n_points=n_points, n_gt=n_gt, seed=seed,
         pc_range=tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)).items()}
+    if points is not None:
+        batch.update(points=points,
+                     points_mask=np.ones(points.shape[:2], bool))
     det = jax_build(cfg)
     shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
                             jax.tree.map(jnp.asarray, batch))
@@ -266,6 +274,27 @@ def pinned_f32():
                           (tbb, 'DENSE_MXU_DTYPE')):
             mp.setattr(mod, name, None)
         yield
+
+
+def tiny_pvrcnn_cfg():
+    """tests/test_pvrcnn.py's toy PV-RCNN (make_pvrcnn_cfg: 64 keypoints,
+    a 4^3 RoI grid, FCs of 32) with x_conv1 among FEATURES_SOURCE, so all
+    six sources run, two radii on the raw points (multi-scale grouping),
+    and the toy optimizer."""
+    from glenet_tpu.config import Cfg
+    from test_pvrcnn import make_pvrcnn_cfg
+    cfg = make_pvrcnn_cfg()
+    pfe = cfg.MODEL.PFE
+    pfe.FEATURES_SOURCE = ['bev', 'x_conv1', 'x_conv2', 'x_conv3',
+                           'x_conv4', 'raw_points']
+    pfe.SA_LAYER['x_conv1'] = Cfg({'DOWNSAMPLE_FACTOR': 1,
+                                   'MLPS': [[8, 8]], 'POOL_RADIUS': [0.6],
+                                   'NSAMPLE': [8]})
+    pfe.SA_LAYER['raw_points'] = Cfg({'MLPS': [[8, 8], [8, 8]],
+                                      'POOL_RADIUS': [0.4, 0.8],
+                                      'NSAMPLE': [8, 16]})
+    cfg.OPTIMIZATION = Cfg(dict(TINY_OPTIMIZATION))
+    return cfg
 
 
 # ---------------------------------------------------------------------------
