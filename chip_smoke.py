@@ -116,8 +116,13 @@ Phases, each of which exits non-zero on failure:
      each within 1e-4 of its BN's largest |output| on both; a larger flip
      fails) the CPU run takes the card's side; (f) the Waymo
      evaluation on the card against its CPU run, timed at 300 frames and
-     projected to the val split's ~40 k; phase 6 adds the 4 captured calls
-     of a Waymo predict and of a Waymo train step;
+     projected to the val split's ~40 k; (g) configs/waymo_models/
+     pointpillar_1x.yaml at full width (468 x 468 pillars of 0.32 m, a
+     150000-pillar budget, 1.31 M anchors per scene) with seeded weights: a
+     warm-up and a timed predict at B = 2, a warm-up and a timed train step
+     at B = 2 (ms, pillars against the budget, anchors, peak memory, no
+     merge-resolve launch); phase 6 adds the 4 captured calls of a Waymo
+     predict and of a Waymo train step;
  11. KITTI's three-class detectors, [three_class] (launches counted from
      0 just before and read just after each call): (a) second_multihead.yaml,
      second_iou.yaml and pointpillar.yaml at full width with seeded weights:
@@ -167,7 +172,21 @@ Phases, each of which exits non-zero on failure:
      .pth through convert_weights (the stage-2 keys left unconsumed) and
      `tools.test --ckpt`; phase 6 adds the 4 captured calls of the KITTI
      PV-RCNN predict and train step;
- 13. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 13. the convergence harness, [convergence] (launches counted from 0 just
+     before and read just after each tool's run, and per predict and per
+     train-mode forward): glenet_tpu_torch.tools.convergence_ap on
+     pointpillar.yaml at its full 700 steps (the last printed loss below
+     the first) and on GLENet_VR.yaml for 20 steps with 2 held-out scenes;
+     tools.stage2_recovery for 5 steps from that run's checkpoint (every
+     stage-1 tensor equal to its checkpointed value times prod(1 - lr_t *
+     0.01) within 1e-6 relative: AdamW's decay alone); tools.
+     convergence_waymo on configs/waymo_models/GLENet_S.yaml for 10 steps
+     and a 5-step frozen-BN tail, with its active-site lines.  Per run the
+     card, ms per step, peak memory, final loss and AP (printed, not
+     gated); checks finite losses, the evaluators' keys and 4
+     merge-resolve launches per call on the sparse families (0 on
+     PointPillars);
+ 14. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -2294,6 +2313,83 @@ def phase_waymo_second():
     return r['n_predict'] + r['n_step']
 
 
+def phase_waymo_pointpillar():
+    """(g): configs/waymo_models/pointpillar_1x.yaml at full width with
+    seeded weights: a warm-up and a timed predict at B = 2, then a warm-up
+    and a timed train step at B = BATCH_SIZE_PER_GPU = 2, on synthetic
+    Waymo scenes; pillars against the 150000 budget, anchors, peak memory;
+    no merge-resolve launch (pillars, no sparse backbone)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import (seeded_detector,
+                                                  waymo_scene_batches)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/'
+                                        'pointpillar_1x.yaml'))
+    det = seeded_detector(cfg, 'cuda', SEED + 93)
+    n_anchors = det.anchor_set.anchors.size // 7
+    check(tuple(det.grid_size) == (468, 468, 1) and det.num_point_features
+          == 5 and n_anchors == 468 * 468 * 6,
+          f'Waymo PointPillars built with grid {det.grid_size}, '
+          f'{n_anchors} anchors')
+    pillars = []
+    hook = det.net.map_to_bev.register_forward_hook(
+        lambda _m, inp, _o: pillars.append(inp[2].sum(1).tolist()))
+    budget = det.max_voxels_test
+    batches = waymo_scene_batches(2, SEED + 94, BATCH)
+    det.predict(batches[0])
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = det.predict(batches[1])
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    n = mk.LAUNCHES
+    k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    check(n == 0 and tuple(pred['final_boxes'].shape) == (BATCH, k, 7)
+          and bool(torch.isfinite(pred['final_boxes']).all()),
+          f'Waymo PointPillars predict: {n} launches, boxes '
+          f'{tuple(pred["final_boxes"].shape)}')
+    check(max(pillars[-1]) <= budget, f'pillars {pillars[-1]} > {budget}')
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    print(f'[waymo] pointpillar_1x.yaml predict B={BATCH}: {predict_ms:.1f} '
+          f'ms; pillars {pillars[-1]}/{budget}; anchors {n_anchors} per '
+          f'scene (top {nms.NMS_PRE_MAXSIZE} to nms_gpu); valid final boxes '
+          f'{pred["final_valid"].sum(1).tolist()}; merge_resolve launches '
+          f'{n}; max_memory_allocated '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = waymo_scene_batches(2, SEED + 95, b, train=True)
+    state, _ = train_step(state, tbatches[0])
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = train_step(state, tbatches[1])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    n_step = mk.LAUNCHES
+    hook.remove()
+    vals = {key: float(v) for key, v in metrics.items()}
+    check(n_step == 0 and all(math.isfinite(v) for v in vals.values()),
+          f'Waymo PointPillars train step: {n_step} launches, {vals}')
+    print(f'[waymo] pointpillar_1x.yaml train step B={b}: {step_ms:.1f} ms '
+          f'(after a warm-up step); pillars {pillars[-1]}/'
+          f'{det.max_voxels_train}; loss {vals["loss"]:.4f}, grad_norm '
+          f'{vals["grad_norm"]:.4f}; merge_resolve launches {n_step}; '
+          f'max_memory_allocated '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    del det, state
+    torch.cuda.empty_cache()
+    return n + n_step
+
+
 def phase_waymo_msgpack(tmp, root):
     """(d): a port train state of Waymo's GLENet-S after 2 steps written as
     a glenet_tpu checkpoint (jax_weights.port_to_jax_variables and the
@@ -2466,14 +2562,16 @@ def phase_waymo_eval():
 
 def phase_waymo(tmp):
     """[waymo]: (a) GLENet-S on Waymo at full width, (b) the CLIs on a
-    synthetic Waymo tree, (c) second.yaml on Waymo, (d) the .msgpack
-    resume, (f) the Waymo evaluation on the card; (e), the card against
+    synthetic Waymo tree, (c) second.yaml on Waymo, (g) pointpillar_1x.yaml
+    on Waymo, (d) the .msgpack resume, (f) the Waymo evaluation on the
+    card; (e), the card against
     the CPU, runs after the kernel check.  Returns (launches, the captured
     predict calls, the captured train-step calls)."""
     launches, captured, captured_train, step_ms = phase_waymo_full(SEED + 85)
     n, root = phase_waymo_cli(tmp, step_ms)
     launches += n
     launches += phase_waymo_second()
+    launches += phase_waymo_pointpillar()
     launches += phase_waymo_msgpack(tmp, root)
     phase_waymo_eval()
     return launches, captured, captured_train
@@ -3271,6 +3369,202 @@ def phase_pv_rcnn(tmp, root):
     return launches, {'predict': pred, 'step': step}
 
 
+# ---------------------------------------------------------------------------
+# [convergence]: the synthetic convergence harness
+# (glenet_tpu_torch/tools/convergence_ap.py, convergence_waymo.py,
+# stage2_recovery.py)
+# ---------------------------------------------------------------------------
+
+CONV_PILLAR_STEPS = 700                  # PointPillars' full harness run
+CONV_VR_STEPS, CONV_VR_HOLDOUT, CONV_VR_TEST_BUDGET = 20, 2, 40000
+CONV_STAGE2_STEPS = 5
+CONV_WAYMO_STEPS, CONV_WAYMO_TAIL = 10, 5
+
+
+class _Tee:
+    """Write to stdout and keep a copy."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return ''.join(self.parts)
+
+
+def run_tool(tag, main, argv):
+    """One harness tool's main(argv) as a user runs it, its output shown
+    with a [convergence] prefix; launches counted from 0 just before and
+    read just after, per predict and per train-mode forward (loss_fn: the
+    steps and the BN refresh).  Returns (its result, its output, the
+    launches, {'predict': [...], 'loss_fn': [...]} per call)."""
+    import contextlib
+
+    from glenet_tpu_torch.models.detectors import Detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    per_call = {'predict': [], 'loss_fn': []}
+    undo = [count_launches(Detector, name, calls)
+            for name, calls in per_call.items()]
+    tee = _Tee(sys.stdout)
+    mk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            result = main(argv)
+    finally:
+        for u in undo:
+            u()
+    n = mk.LAUNCHES
+    text = tee.text()
+    print(f'[convergence] {tag}: {time.perf_counter() - t0:.1f} s of '
+          f'command time; merge_resolve launches {n} over '
+          f'{len(per_call["loss_fn"])} train-mode forwards and '
+          f'{len(per_call["predict"])} predicts')
+    return result, text, n, per_call
+
+
+def printed_losses(text):
+    """The losses of the one-cycle `step i:` lines of a harness run."""
+    import re
+    return [float(v) for v in re.findall(r'^step \d+: loss=(\S+) ', text,
+                                         re.M)]
+
+
+def check_launches(tag, per_call, expected):
+    for name, calls in per_call.items():
+        check(calls and all(c == expected for c in calls),
+              f'{tag}: merge_resolve launches per {name} {calls}, expected '
+              f'{expected}')
+
+
+def conv_line(tag, entry, keys):
+    print(f'[convergence] {tag}: card {entry["device"]}; '
+          f'{entry["ms_per_step"]} ms per step; peak {entry["peak_gib"]} '
+          f'GiB; final loss {entry["final_loss"]:.4f}; ' + ', '.join(
+              f'{k} {entry[k]}' for k in keys))
+
+
+def phase_convergence(tmp):
+    """[convergence]: (a) PointPillars (pointpillar.yaml) through the
+    harness at its full 700 steps; (b) GLENet-VR for CONV_VR_STEPS steps
+    with CONV_VR_HOLDOUT held-out scenes, whose checkpoint feeds (c) a
+    CONV_STAGE2_STEPS-step stage2_recovery, after which every stage-1
+    tensor must equal its checkpointed value times prod(1 - lr_t * 0.01),
+    AdamW's decay alone, within 1e-6 relative; (d) Waymo GLENet-S for
+    CONV_WAYMO_STEPS steps and a CONV_WAYMO_TAIL-step frozen-BN tail, with
+    its active-site lines.  Results go to a file in `tmp`, dumps to `tmp`.
+    Checks finite losses, the last loss below the first (PointPillars), 4
+    merge-resolve launches per train-mode forward and per predict on the
+    sparse families (0 on PointPillars) and the evaluators' keys; the AP
+    is printed, not gated.  Returns the launches."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.tools import convergence_ap as ca
+    from glenet_tpu_torch.tools import convergence_waymo as cw
+    from glenet_tpu_torch.tools import stage2_recovery as s2
+    from glenet_tpu_torch.train import checkpoint
+    out = str(tmp / 'convergence.json')
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = str(tmp)
+    try:
+        entry, text, launches, per_call = run_tool(
+            'pointpillar', ca.main,
+            [str(CONV_PILLAR_STEPS), '1e-3',
+             'configs/kitti_models/pointpillar.yaml', '--out', out])
+        losses = printed_losses(text)
+        check_launches('pointpillar', per_call, 0)
+        check(all(math.isfinite(v) for v in losses)
+              and math.isfinite(entry['final_loss']) and losses[-1] <
+              losses[0], f'pointpillar harness losses {losses}')
+        check(entry['Car_3d_moderate_R40'] is not None
+              and entry['Car_bev_moderate_R40'] is not None,
+              f'pointpillar: KITTI AP keys missing: {entry}')
+        conv_line(f'pointpillar {CONV_PILLAR_STEPS} steps (losses '
+                  f'{losses[0]:.3f} -> {losses[-1]:.3f})', entry,
+                  ('Car_3d_moderate_R40', 'Car_bev_moderate_R40'))
+
+        entry, _, n, per_call = run_tool(
+            'GLENet_VR', ca.main,
+            [str(CONV_VR_STEPS), '1e-3',
+             'configs/kitti_models/GLENet_VR.yaml', str(CONV_VR_TEST_BUDGET),
+             str(CONV_VR_HOLDOUT), '--out', out])
+        launches += n
+        check_launches('GLENet_VR', per_call, 4)
+        check(math.isfinite(entry['final_loss'])
+              and entry['val_Car_3d_moderate_R40'] is not None
+              and entry['Car_3d_moderate_R40'] is not None,
+              f'GLENet_VR harness: {entry}')
+        conv_line(f'GLENet_VR {CONV_VR_STEPS} steps, {CONV_VR_HOLDOUT} '
+                  f'held out', entry, ('Car_3d_moderate_R40',
+                                       'Car_bev_moderate_R40',
+                                       'val_Car_3d_moderate_R40'))
+
+        ckpt = checkpoint.load_checkpoint(checkpoint.find_latest_checkpoint(
+            s2.checkpoint_sources()[0]))['model_state']
+        (entry, det), _, n, per_call = run_tool(
+            'stage2_recovery', s2.main,
+            [str(CONV_STAGE2_STEPS), '1e-3', '--out', out])
+        launches += n
+        check_launches('stage2_recovery', per_call, 4)
+        check(math.isfinite(entry['final_loss'])
+              and entry['Car_3d_moderate_R40'] is not None,
+              f'stage2_recovery: {entry}')
+        lr = ca.harness_optimizer(CONV_STAGE2_STEPS, 1e-3).lr
+        decay = float(np.prod([1.0 - lr(t) * ca.WEIGHT_DECAY
+                               for t in range(CONV_STAGE2_STEPS)]))
+        worst, n_stage1, moved = 0.0, 0, []
+        for name, p in det.net.named_parameters():
+            if name.startswith(s2.STAGE2):
+                if not torch.equal(p.detach().cpu(), ckpt[name]):
+                    moved.append(name)
+                continue
+            want = ckpt[name].double() * decay
+            err = (p.detach().cpu().double() - want).abs()
+            check(bool((err <= 1e-6 * want.abs()).all()),
+                  f'stage2_recovery moved {name} beyond the decay')
+            worst = max(worst, float((err / want.abs().clamp_min(1e-30))
+                                     .max()))
+            n_stage1 += 1
+        check(moved, 'stage2_recovery left the RoI head as checkpointed')
+        conv_line(f'stage2_recovery {CONV_STAGE2_STEPS} steps (stage 1: '
+                  f'{n_stage1} tensors = checkpoint x {decay:.9f}, worst '
+                  f'relative error {worst:.2e}; {len(moved)} RoI-head '
+                  f'tensors moved)', entry,
+                  ('Car_3d_moderate_R40', 'Car_bev_moderate_R40'))
+        del det
+        torch.cuda.empty_cache()
+
+        entry, text, n, per_call = run_tool(
+            'GLENet_S_waymo', cw.main,
+            [str(CONV_WAYMO_STEPS), '1e-3',
+             'configs/waymo_models/GLENet_S.yaml', str(CONV_WAYMO_TAIL),
+             '--out', out])
+        launches += n
+        check_launches('GLENet_S_waymo', per_call, 4)
+        check(text.count('active sites max=') == 4
+              and math.isfinite(entry['final_loss'])
+              and entry['Vehicle_L1_AP'] is not None
+              and entry['Vehicle_L1_APH'] is not None,
+              f'GLENet_S_waymo harness: {entry}')
+        conv_line(f'GLENet_S_waymo {CONV_WAYMO_STEPS} + {CONV_WAYMO_TAIL} '
+                  f'frozen-BN steps', entry,
+                  ('Vehicle_L1_AP', 'Vehicle_L1_APH'))
+    finally:
+        tempfile.tempdir = saved_tmp
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3298,6 +3592,7 @@ def main():
             launches_three, captured_three, tc_root = phase_three_class(
                 Path(tmp))
             launches_pv, captured_pv = phase_pv_rcnn(Path(tmp), tc_root)
+            launches_conv = phase_convergence(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -3346,7 +3641,7 @@ def main():
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
                      + launches_weights + launches_single + launches_waymo
-                     + launches_three + launches_pv),
+                     + launches_three + launches_pv + launches_conv),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -3360,6 +3655,7 @@ def main():
         'launches_waymo': launches_waymo,
         'launches_three_class': launches_three,
         'launches_pv_rcnn': launches_pv,
+        'launches_convergence': launches_conv,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -3415,7 +3711,13 @@ def main():
           f'--ckpt: 1 predict) and the PV-RCNN phase (KITTI: '
           f'{N_REQUESTS + 1} predicts, {PV_RCNN_STEPS + 1} train steps; '
           f'Waymo: 2 predicts, 1 train step; the CLIs: 2 train steps, '
-          f'{math.ceil(TC_VAL / 2)} predicts; test --ckpt: 1 predict); '
+          f'{math.ceil(TC_VAL / 2)} predicts; test --ckpt: 1 predict) and '
+          f'the convergence phase (GLENet-VR: {CONV_VR_STEPS} steps, 8 '
+          f'BN-refresh forwards, 9 predicts; stage 2: '
+          f'{CONV_STAGE2_STEPS} steps, 8 BN-refresh forwards, 8 predicts; '
+          f'Waymo GLENet-S: {CONV_WAYMO_STEPS + CONV_WAYMO_TAIL} steps, 8 '
+          f'BN-refresh forwards, 8 predicts; PointPillars and Waymo '
+          f'PointPillars: none); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '

@@ -18,9 +18,11 @@ wd * param, and the LR scales the sum.  The schedules are evaluated at the
 count of updates made so far, as optax.inject_hyperparams does.
 
 adam is optax.adamw (b1 0.9, b2 0.999, eps 1e-8, decoupled decay added to
-the Adam update before the LR scale); sgd is optax's add_decayed_weights
-then sgd with momentum (the decay joins the gradient before the momentum
-trace).  Both run at a constant LR.
+the Adam update before the LR scale, on every parameter); sgd is optax's
+add_decayed_weights then sgd with momentum (the decay joins the gradient
+before the momentum trace).  The CLIs run both at a constant LR; adam also
+takes a schedule (the convergence harness's cosine_onecycle_schedule),
+read at the count of updates made so far.
 """
 from __future__ import annotations
 
@@ -61,6 +63,36 @@ def onecycle_lr_schedule(lr_max: float, total_steps: int, div_factor: float,
 
 def onecycle_mom_schedule(moms, total_steps: int, pct_start: float):
     return _one_cycle(moms[0], moms[1], moms[0], total_steps, pct_start)
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float,
+                             pct_start: float = 0.3, div_factor: float = 25.0,
+                             final_div_factor: float = 1e4):
+    """optax.cosine_onecycle_schedule: cosine from peak / div_factor up to
+    peak at step int(pct_start * T), then down to peak / (div_factor *
+    final_div_factor) at T, held after T.  Rounded as optax's float32 trace
+    rounds it: the segment ends and half-spans are float64 numpy values
+    cast to f32, the fraction and the interpolation f32."""
+    if transition_steps <= 0:
+        raise ValueError('a onecycle schedule needs transition_steps > 0')
+    bounds = (0, int(pct_start * transition_steps), int(transition_steps))
+    values = np.cumprod([peak_value / div_factor, div_factor,
+                         1.0 / (div_factor * final_div_factor)])
+    ends = values[1:].astype(np.float32)
+    half = ((values[:-1] - values[1:]) / 2.0).astype(np.float32)
+    last = float(np.float32(values[-1]))
+
+    def schedule(count: int) -> float:
+        for i in (0, 1):
+            lo, hi = bounds[i], bounds[i + 1]
+            if lo <= count < hi:
+                pct = np.float32(count - lo) / np.float32(hi - lo)
+                arg = np.float32(np.float32(math.pi) * pct)
+                cos = np.float32(math.cos(float(arg)))
+                return float(ends[i] + half[i] * (cos + np.float32(1.0)))
+        return last if count >= bounds[-1] else 0.0
+
+    return schedule
 
 
 def global_norm(tensors):
@@ -129,12 +161,17 @@ class AdamOneCycle:
 
 
 class Adam:
-    """optax.adamw at a constant LR behind the clip.  State: the moments,
-    the update count."""
+    """optax.adamw behind the clip, at a constant LR or at a schedule's
+    (a callable of the update count).  State: the moments, the update
+    count."""
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, lr: float, weight_decay: float, max_norm: float):
+    def __init__(self, lr, weight_decay: float, max_norm: float):
         self.lr, self.weight_decay, self.max_norm = lr, weight_decay, max_norm
+
+    def lr_at(self, count: int) -> float:
+        """The LR of the update made after `count` updates."""
+        return self.lr(count) if callable(self.lr) else self.lr
 
     def init(self, params):
         return {'count': 0,
@@ -144,6 +181,7 @@ class Adam:
     @torch.no_grad()
     def update(self, params, grads, state):
         grads, norm = clip_by_global_norm(grads, self.max_norm)
+        lr = self.lr_at(state['count'])
         state['count'] += 1
         t = state['count']
         mu, nu = state['mu'], state['nu']
@@ -158,7 +196,7 @@ class Adam:
         upd = torch._foreach_div(mu_hat, denom)
         if self.weight_decay:
             torch._foreach_add_(upd, params, alpha=self.weight_decay)
-        torch._foreach_add_(params, upd, alpha=-self.lr)
+        torch._foreach_add_(params, upd, alpha=-lr)
         return norm
 
 

@@ -1,6 +1,8 @@
 """Guards of the port: glenet_tpu_torch and chip_smoke.py import neither
 JAX nor glenet_tpu nor scikit-learn (the machine with the card has none of
-them), the port never quietly defaults to the CPU, and what
+them) nor the repository's root tools (nor the bare convergence_ap,
+convergence_waymo and stage2_recovery those import through sys.path), the
+port never quietly defaults to the CPU, and what
 is not ported yet (augmentations, datasets, camera items, CLI flags)
 raises NotImplementedError naming itself."""
 import pickle
@@ -26,7 +28,9 @@ for m in pkgutil.walk_packages(glenet_tpu_torch.__path__, 'glenet_tpu_torch.'):
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
-                                    'glenet_tpu', 'sklearn'))
+                                    'glenet_tpu', 'sklearn', 'tools',
+                                    'convergence_ap', 'convergence_waymo',
+                                    'stage2_recovery'))
 print('BAD', bad)
 """
 
@@ -447,3 +451,13 @@ def test_weights_modules_in_import_probe(module):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             top.add(node.module.split('.')[0])
     assert not top & {'tensorflow', 'waymo_open_dataset'}
+
+
+def test_convergence_waymo_default_raises_naming_centerpoint(tmp_path):
+    """The Waymo harness's default config is CenterPoint's, which the port
+    does not build yet: it raises naming it, before it writes anything."""
+    from glenet_tpu_torch.tools import convergence_waymo
+    out = tmp_path / 'results.json'
+    with pytest.raises(NotImplementedError, match='CenterPoint'):
+        convergence_waymo.main(['--device', 'cpu', '--out', str(out)])
+    assert not out.exists()
