@@ -186,7 +186,29 @@ Phases, each of which exits non-zero on failure:
      gated); checks finite losses, the evaluators' keys and 4
      merge-resolve launches per call on the sparse families (0 on
      PointPillars);
- 14. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 14. PartA2 and PartA2-free, [parta2] (launches counted from 0 just
+     before and read just after each call but the warm-up predicts): (a)
+     configs/kitti_models/PartA2.yaml at full width (UNetV2 sparse at all
+     four levels: 7 merge-resolve launches per call) with seeded weights
+     on B = 2 synthetic KITTI-like scenes of 32768 points (test budget
+     40000): a warm-up predict that captures its merge-resolve calls for
+     phase 6, 3 predicts at the published thresholds and 1 at zero
+     thresholds, then a warm-up train step (also captured) and 3 timed ones
+     at B = 4 (train budget 16000) on three-class scenes; per call ms,
+     active sites against the four level caps, valid proposals,
+     detections per class, 7 merge-resolve launches, peak memory and every
+     loss term (the part head's and the RCNN's included); losses finite,
+     parameters and BN stats moved; (b) PartA2_free.yaml the same way;
+     (c) configs/waymo_models/PartA2.yaml on synthetic Waymo scenes of
+     170000 points: a warm-up, 2 predicts and 1 at zero thresholds, a
+     warm-up and 2 train steps at B = 2; (d) PartA2.yaml through
+     `tools.train` (B = 4, 1 epoch x 2 steps) on the [three_class] tree
+     and `tools.test` with Car, Pedestrian and Cyclist AP keys; (e) after
+     phase 7, the card against the CPU on the toy topology as PartA2 and
+     as PartA2-free (tiny_parta2_raw), as phase 7 with [waymo] (e)'s ReLU
+     alignment in the train step; phase 6 adds the 7
+     captured calls of the KITTI PartA2 predict and train step;
+ 15. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -393,19 +415,21 @@ def max_abs_err(got, ref):
                zip(got, ref))
 
 
-def check_captured(captured, what):
-    """Kernel == plain on the 4 captured calls of one predict or train step;
+def check_captured(captured, what, names=None):
+    """Kernel == plain on the captured calls of one predict or train step
+    (4 of VoxelBackBone8x, CALL_NAMES, unless `names` says otherwise);
     their summed times."""
     from glenet_tpu_torch.bench_merge import CALL_NAMES, fmt, measure_call
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.utils import cuda_timing as ct
-    check(len(captured) == 4, f'expected 4 table builds per {what}, saw '
-                              f'{len(captured)}')
+    names = names or CALL_NAMES
+    check(len(captured) == len(names), f'expected {len(names)} table builds '
+                                       f'per {what}, saw {len(captured)}')
     keys = ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
             'library_ms', 'library_device_ms', 'bound_ms')
     tot = dict.fromkeys(keys, 0.0)
     bound_by = set()
-    for name, (ids, q) in zip(CALL_NAMES, captured):
+    for name, (ids, q) in zip(names, captured):
         got, wide, glob = mk.resolve_sorted_queries_counted(ids, q)
         err = max_abs_err(got, mk.resolve_sorted_queries_plain(ids, q))
         check(err == 0, f'merge_resolve differs on captured {what} call '
@@ -426,8 +450,8 @@ def check_captured(captured, what):
               f'({r["bound_by"]})')
         for k in keys:
             tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r[k]
-    print(f'[kernel] merge_resolve per {what} (4 calls): ' + ', '.join(
-        f'{k} {fmt(v)}' for k, v in tot.items()))
+    print(f'[kernel] merge_resolve per {what} ({len(names)} calls): '
+          + ', '.join(f'{k} {fmt(v)}' for k, v in tot.items()))
     return {'bound_by': '/'.join(sorted(bound_by)), **tot}
 
 
@@ -3370,6 +3394,318 @@ def phase_pv_rcnn(tmp, root):
 
 
 # ---------------------------------------------------------------------------
+# [parta2]: PartA2 and PartA2-free (UNetV2 sparse at all four levels, its
+# UR-block decoder with inverse convs, the intra-part point head, RoI-aware
+# pooling and PartA2FCHead)
+# ---------------------------------------------------------------------------
+
+PARTA2_STEPS = 3
+# UNetV2's merge-resolve calls in order: the x-block tables of its four
+# levels and of its three 3^3 strided convs (conv_out and the inverse convs
+# build row tables by searchsorted)
+UNET_CALL_NAMES = ('subm L1', 'conv2_down', 'subm L2', 'conv3_down',
+                   'subm L3', 'conv4_down', 'subm L4')
+UNET_LAUNCHES = len(UNET_CALL_NAMES)
+
+
+def tiny_parta2_raw(free=False):
+    """The toy topology as PartA2 (tests/test_parta2.py's make_parta2_cfg
+    on TINY_CFG's trunk): UNetV2, PointIntraPartOffsetHead without FCs,
+    PartA2FCHead (4^3 RoI-aware grids, 32 features, FCs of 32 / 16); with
+    `free` as PartA2-free (make_parta2_free_cfg): MODEL PointRCNN without
+    BEV stages, the part head's box branch (PointResidualCoder, FCs of 16)
+    as stage 1, DISABLE_PART.  Final nms_gpu at zero score threshold."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    m = raw['MODEL']
+    m.update(NAME='PartA2Net', BACKBONE_3D={'NAME': 'UNetV2'})
+    m['POINT_HEAD'] = {
+        'NAME': 'PointIntraPartOffsetHead', 'CLS_FC': [], 'PART_FC': [],
+        'CLASS_AGNOSTIC': True,
+        'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0,
+                                         'point_part_weight': 1.0}}}
+    roi = m['ROI_HEAD']
+    del roi['ROI_GRID_POOL']
+    roi.update(NAME='PartA2FCHead', SHARED_FC=[32, 32], CLS_FC=[16],
+               REG_FC=[16], SEG_MASK_SCORE_THRESH=0.3,
+               ROI_AWARE_POOL={'POOL_SIZE': 4, 'NUM_FEATURES': 32,
+                               'MAX_POINTS_PER_VOXEL': 128})
+    roi['TARGET_CONFIG']['ROI_PER_IMAGE'] = 16
+    roi['LOSS_CONFIG'] = {'CLS_LOSS': 'BinaryCrossEntropy',
+                          'REG_LOSS': 'smooth-l1',
+                          'CORNER_LOSS_REGULARIZATION': True,
+                          'LOSS_WEIGHTS': roi['LOSS_CONFIG']['LOSS_WEIGHTS']}
+    m['POST_PROCESSING'].update(SCORE_THRESH=0.0)
+    m['POST_PROCESSING']['NMS_CONFIG']['NMS_TYPE'] = 'nms_gpu'
+    if free:
+        m['NAME'] = 'PointRCNN'
+        for key in ('DENSE_HEAD', 'MAP_TO_BEV', 'BACKBONE_2D'):
+            del m[key]
+        m['POINT_HEAD'] = {
+            'NAME': 'PointIntraPartOffsetHead', 'CLS_FC': [16],
+            'PART_FC': [16], 'REG_FC': [16], 'CLASS_AGNOSTIC': False,
+            'TARGET_CONFIG': {
+                'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2],
+                'BOX_CODER': 'PointResidualCoder',
+                'BOX_CODER_CONFIG': {'use_mean_size': True,
+                                     'mean_size': [[3.9, 1.6, 1.56]]}},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'point_cls_weight': 1.0, 'point_box_weight': 1.0,
+                'point_part_weight': 1.0, 'code_weights': [1.0] * 8}}}
+        roi.update(DISABLE_PART=True, SEG_MASK_SCORE_THRESH=0.0)
+    return raw
+
+
+def watch_unet(det):
+    """A forward hook recording the active sites of UNetV2's four levels
+    and the valid proposals of each call.  Returns (record, undo)."""
+    rec = {}
+
+    def sites(_mod, _inp, out):
+        ms = out['multi_scale']
+        rec['sites'] = {k: ms[k]['mask'].sum(1) for k in
+                        ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')}
+
+    def proposals(_mod, _inp, out):
+        rec['proposals'] = out['proposals']['roi_valid'].sum(1)
+
+    hooks = [det.net.backbone_3d.register_forward_hook(sites),
+             det.net.register_forward_hook(proposals)]
+    return rec, lambda: [h.remove() for h in hooks]
+
+
+def unet_text(rec, budget):
+    """Active sites of the four levels against their caps and the valid
+    proposals of the call just recorded."""
+    from glenet_tpu_torch.ops import sparse
+    caps = sparse.level_caps(budget)
+    return ('active sites ' + ', '.join(
+        f'{k} {v.tolist()}/{caps[i]}' for i, (k, v) in
+        enumerate(rec['sites'].items()))
+        + f'; valid proposals {rec["proposals"].tolist()}')
+
+
+def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
+                      capture=False):
+    """[parta2] (a) / (b) / (c): configs/<models>/<cfg_name> at full width
+    with seeded weights: a warm-up predict, `n_predicts` predicts at B = 2
+    at the published thresholds and one at zero thresholds, then a warm-up
+    train step and `n_steps` timed ones at B = BATCH_SIZE_PER_GPU;
+    launches counted from 0 just before and read just after each call but
+    the warm-up predict, 7 per call.  Returns (launches, captured predict,
+    captured step (both with `capture`), mean predict ms, mean step ms)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
+    names = list(cfg.CLASS_NAMES)
+    tag = f'{models.split("_")[0]} {cfg.TAG}'
+    det = seeded_detector(cfg, 'cuda', seed)
+    rec, undo = watch_unet(det)
+    batches = batches_for(cfg, n_predicts + 1, SEED + 9, BATCH)
+    t0 = time.perf_counter()
+    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    print(f'[parta2] {tag}: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    check(len(captured) == UNET_LAUNCHES, f'{tag}: {len(captured)} '
+                                          f'merge-resolve calls per predict')
+    post = det.model_cfg.POST_PROCESSING
+    launches, times = 0, []
+    for r, batch in enumerate(batches[1:] + batches[1:2]):
+        zero = r == n_predicts
+        saved = post.SCORE_THRESH
+        if zero:
+            post.SCORE_THRESH = 0.0
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            pred = det.predict(batch)
+            torch.cuda.synchronize()
+        finally:
+            post.SCORE_THRESH = saved
+        ms = 1e3 * (time.perf_counter() - t0)
+        n = mk.LAUNCHES
+        launches += n
+        check(n == UNET_LAUNCHES, f'{tag} predict {r}: {n} merge-resolve '
+                                  f'launches')
+        k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape
+                  and bool(torch.isfinite(pred[key]).all()),
+                  f'{tag} predict {r}: {key} {tuple(pred[key].shape)} or '
+                  f'not finite')
+        labels, valid = pred['final_labels'], pred['final_valid']
+        check(int(labels.min()) >= 0 and int(labels.max()) <= len(names),
+              f'{tag}: labels {labels.unique().tolist()}')
+        if zero:
+            check(int(valid.sum()) > 0, f'{tag}: no box kept at zero '
+                                        f'thresholds')
+        else:
+            times.append(ms)
+        print(f'[parta2] {tag} predict {r}'
+              + (' at zero thresholds' if zero else '')
+              + f': {ms:.1f} ms; {unet_text(rec, det.max_voxels_test)}; '
+              f'detections {valid.sum(1).tolist()} ('
+              f'{per_class(labels, valid, names)}); merge_resolve launches '
+              f'{n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    pred_ms = sum(times) / len(times)
+    print(f'[parta2] {tag} predict B={BATCH} x '
+          f'{batches[1]["points"].shape[1]} points: mean {pred_ms:.1f} ms '
+          f'over {len(times)} requests')
+
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = batches_for(cfg, n_steps + 1, SEED + 10, b, train=True)
+    gt_labels = tbatches[0]['gt_boxes'][..., 7][tbatches[0]['gt_mask']]
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    times, captured_train = [], None
+    for i, batch in enumerate(tbatches):
+        label = 'warm-up step' if i == 0 else f'step {i - 1}'
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            captured_train, (state, metrics) = capture_calls(
+                lambda: train_step(state, batch))
+        else:
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        check(n == UNET_LAUNCHES, f'{tag} train {label}: {n} merge-resolve '
+                                  f'launches')
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values()),
+              f'{tag} train {label}: {vals}')
+        check(vals.get('point_loss_part', 0) > 0
+              and 'rcnn_loss_cls' in vals,
+              f'{tag} train {label}: no part or RCNN loss in {vals}')
+        print(f'[parta2] {tag} {label} B={b}: {times[-1]:.1f} ms; '
+              + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+              + f'; {unet_text(rec, det.max_voxels_train)}; merge_resolve '
+              f'launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    undo()
+    check(len(captured_train) == UNET_LAUNCHES,
+          f'{tag}: {len(captured_train)} merge-resolve calls per train step')
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'{tag}: parameters unchanged by the steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'{tag}: BN running stats unchanged: {same}')
+    timed = times[1:] or times
+    step_ms = sum(timed) / len(timed)
+    print(f'[parta2] {tag} train B={b}: gt boxes per class '
+          + per_class(gt_labels, torch.ones_like(gt_labels, dtype=bool),
+                      names)
+          + f'; warm-up step {times[0]:.1f} ms, mean of {len(timed)} '
+          f'{"timed" if times[1:] else "(warm-up)"} steps {step_ms:.1f} ms; '
+          f'{len(params) - len(still)} of {len(params)} parameter tensors '
+          f'and all {len(stats)} BN running-stat tensors changed')
+    del det, state
+    torch.cuda.empty_cache()
+    return (launches, captured if capture else None,
+            captured_train if capture else None, pred_ms, step_ms)
+
+
+def phase_parta2_cli(root, tmp):
+    """[parta2] (d): PartA2.yaml through `tools.train` (B = 4, 1 epoch x 2
+    steps) on the synthetic three-class tree at `root` and `tools.test`
+    with the three-class KITTI evaluation.  Launches counted from 0 just
+    before and read just after each.  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    cfg_file = str(ROOT / 'configs/kitti_models/PartA2.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    out = tmp / f'out_{cfg.TAG}'
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(b)]
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = train_cli.main(common + ['--epochs', '1',
+                                   '--max_steps_per_epoch', '2'])
+    peak = torch.cuda.max_memory_allocated()
+    n_train = mk.LAUNCHES
+    check(n_train == UNET_LAUNCHES * 2, f'PartA2 CLI train: {n_train} '
+                                        f'merge-resolve launches over 2 steps')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'PartA2 CLI step {r["it"]}: not finite: {bad}')
+        print(f'[parta2] {cfg.TAG} CLI train step {r["it"]} B={b}: data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, point_loss_cls {r["point_loss_cls"]:.4f}, '
+              f'point_loss_part {r["point_loss_part"]:.4f}, rcnn_loss_cls '
+              f'{r["rcnn_loss_cls"]:.4f}, grad_norm {r["grad_norm"]:.3f}; '
+              f'max_memory_allocated {peak / 2**30:.2f} GiB')
+    mk.LAUNCHES = 0
+    results = test_cli.main(common)
+    n_test = mk.LAUNCHES
+    (path, res), = results.items()
+    keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
+    check(res['frames'] == TC_VAL
+          and n_test == UNET_LAUNCHES * math.ceil(TC_VAL / b)
+          and all(np.isfinite(res['ap'][k]) for k in keys),
+          f'PartA2 test CLI: {res["frames"]} frames, {n_test} launches, '
+          f'{sorted(res["ap"])[:6]}')
+    print(f'[parta2] {cfg.TAG} test CLI on {Path(path).name}: '
+          f'{res["frames"]} val frames, {res["sec_per_frame"]:.4f} s/frame, '
+          f'KITTI evaluation {res["eval_sec"]:.3f} s; '
+          + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + f'; merge_resolve launches: train {n_train}, test {n_test} (2 '
+          f'steps from random weights: only the keys are checked)')
+    return n_train + n_test
+
+
+def phase_parta2(tmp, root):
+    """[parta2]: (a) KITTI's PartA2.yaml and (b) PartA2_free.yaml at full
+    width, (c) Waymo's PartA2.yaml, (d) the CLIs on the three-class tree
+    at `root`.  (e) and the kernel check of the captured calls run after
+    the main paths.  Returns (launches, captured predict and train step
+    calls of (a), mean ms of each (a), (b), (c) predict and step)."""
+    launches, pred, step, *ms = phase_parta2_full(
+        'kitti_models', 'PartA2.yaml', SEED + 140, N_REQUESTS, PARTA2_STEPS,
+        capture=True)
+    times = {'PartA2': ms}
+    n, _, _, *times['PartA2_free'] = phase_parta2_full(
+        'kitti_models', 'PartA2_free.yaml', SEED + 141, N_REQUESTS,
+        PARTA2_STEPS)
+    launches += n
+    n, _, _, *times['waymo_PartA2'] = phase_parta2_full(
+        'waymo_models', 'PartA2.yaml', SEED + 142, 2, 2)
+    launches += n + phase_parta2_cli(root, tmp)
+    print('[parta2] mean predict / train step ms: ' + ', '.join(
+        f'{k} {p:.1f} / {t:.1f}' for k, (p, t) in times.items()))
+    return launches, {'predict': pred, 'step': step}, times
+
+
+# ---------------------------------------------------------------------------
 # [convergence]: the synthetic convergence harness
 # (glenet_tpu_torch/tools/convergence_ap.py, convergence_waymo.py,
 # stage2_recovery.py)
@@ -3593,6 +3929,8 @@ def main():
                 Path(tmp))
             launches_pv, captured_pv = phase_pv_rcnn(Path(tmp), tc_root)
             launches_conv = phase_convergence(Path(tmp))
+            launches_parta2, captured_parta2, _ = phase_parta2(Path(tmp),
+                                                               tc_root)
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -3604,6 +3942,10 @@ def main():
         pv = check_captured(captured_pv['predict'], 'PV-RCNN predict')
         pv_train = check_captured(captured_pv['step'],
                                   'PV-RCNN train step')
+        parta2 = check_captured(captured_parta2['predict'], 'PartA2 predict',
+                                UNET_CALL_NAMES)
+        parta2_train = check_captured(captured_parta2['step'],
+                                      'PartA2 train step', UNET_CALL_NAMES)
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -3630,6 +3972,15 @@ def main():
         # gradients: the CPU takes the card's side there, as [waymo]'s
         phase_gpu_vs_cpu_train(pv_raw, 'pv_rcnn] [gpu-vs-cpu',
                                align_relu=True)
+        # the decoder's ReLU outputs tie at 0 in RoI-aware max pooling, so
+        # one ReLU input within rounding of 0 moves a pooled cell's
+        # gradient to another point: the CPU takes the card's side of the
+        # kink, as [waymo]'s
+        for free in (False, True):
+            raw = tiny_parta2_raw(free)
+            tag = f'parta2] [gpu-vs-cpu {"free" if free else "PartA2"}'
+            phase_gpu_vs_cpu(raw, tag)
+            phase_gpu_vs_cpu_train(raw, tag, align_relu=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -3641,7 +3992,8 @@ def main():
         'replaces': 'glenet_tpu/ops/merge_kernel.py:95',
         'launches': (launches + launches_train + launches_cli + launches_cvae
                      + launches_weights + launches_single + launches_waymo
-                     + launches_three + launches_pv + launches_conv),
+                     + launches_three + launches_pv + launches_conv
+                     + launches_parta2),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -3656,6 +4008,7 @@ def main():
         'launches_three_class': launches_three,
         'launches_pv_rcnn': launches_pv,
         'launches_convergence': launches_conv,
+        'launches_parta2': launches_parta2,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -3686,7 +4039,9 @@ def main():
                                              ('second_iou_train',
                                               three_train),
                                              ('pv_rcnn', pv),
-                                             ('pv_rcnn_train', pv_train))
+                                             ('pv_rcnn_train', pv_train),
+                                             ('parta2', parta2),
+                                             ('parta2_train', parta2_train))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -3717,12 +4072,18 @@ def main():
           f'{CONV_STAGE2_STEPS} steps, 8 BN-refresh forwards, 8 predicts; '
           f'Waymo GLENet-S: {CONV_WAYMO_STEPS + CONV_WAYMO_TAIL} steps, 8 '
           f'BN-refresh forwards, 8 predicts; PointPillars and Waymo '
-          f'PointPillars: none); '
+          f'PointPillars: none) and the PartA2 phase (KITTI PartA2 and '
+          f'PartA2-free: {N_REQUESTS + 1} predicts and {PARTA2_STEPS + 1} '
+          f'train steps each; Waymo PartA2: 3 predicts, 3 train steps; the '
+          f'CLIs: 2 train steps, {math.ceil(TC_VAL / 4)} predicts; '
+          f'{UNET_LAUNCHES} launches per call); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '
-          f'SECOND-IoU train step, pv_rcnn_* per KITTI PV-RCNN predict and '
-          f'pv_rcnn_train_* per KITTI PV-RCNN train step')
+          f'SECOND-IoU train step, pv_rcnn_* per KITTI PV-RCNN predict, '
+          f'pv_rcnn_train_* per KITTI PV-RCNN train step, parta2_* per '
+          f'KITTI PartA2 predict (sum of its {UNET_LAUNCHES} calls) and '
+          f'parta2_train_* per KITTI PartA2 train step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

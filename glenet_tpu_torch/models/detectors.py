@@ -21,7 +21,17 @@ for these topologies:
     features from the BEV map, the raw points and the backbone levels) and
     PointHeadSimple's foreground score, which weighs the keypoint features
     that PVRCNNHead pools into each RoI's grid; its segmentation loss adds
-    `point_loss_cls`.
+    `point_loss_cls`;
+  - PartA2Net (PartA2): voxelize -> MeanVFE -> UNetV2 (sparse encoder,
+    HeightCompression of its encoded tensor into the BEV stages and the
+    anchor head; UR-block decoder to per-voxel features) ->
+    PointIntraPartOffsetHead (segmentation and part offsets of the level-1
+    voxel centres) -> proposal NMS -> PartA2FCHead over RoI-aware pooled
+    voxel features and part features -> final NMS;
+  - PointRCNN in its PartA2-free form (a UNetV2 backbone, no DENSE_HEAD):
+    the part head's box branch (PointResidualCoder) gives anchor-free
+    proposals, PartA2FCHead with DISABLE_PART refines them.  PointRCNN with
+    PointNet2MSG (pointrcnn.yaml) is not ported.
 
 The dense head's targets come from the axis-aligned assigner or ATSS, on
 nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
@@ -56,10 +66,11 @@ from ..utils import box_coder as box_coder_lib
 from ..utils import common
 from . import anchor_heads, anchors, target_assigner
 from . import pfe as pfe_lib
+from . import point_heads
 from . import roi_heads as roi_lib
 from .bev_backbone import SSFA, BaseBEVBackbone
 from .map_to_bev import PointPillarScatter
-from .roi_heads import (PVRCNNHead, SECONDHead, VoxelRCNNHead,
+from .roi_heads import (PartA2FCHead, PVRCNNHead, SECONDHead, VoxelRCNNHead,
                         decode_rcnn_boxes)
 from .spconv_backbone import build_backbone_3d
 from .vfe import MeanVFE, PillarVFE
@@ -72,61 +83,85 @@ def _require(cond, what):
 
 # the MODEL names the port builds
 FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
-            'PVRCNN')
+            'PVRCNN', 'PartA2Net', 'PointRCNN')
 # MODEL name -> the ROI_HEAD names it builds (the others: none)
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
-              'SECONDNetIoU': ('SECONDHead',), 'PVRCNN': ('PVRCNNHead',)}
+              'SECONDNetIoU': ('SECONDHead',), 'PVRCNN': ('PVRCNNHead',),
+              'PartA2Net': ('PartA2FCHead',), 'PointRCNN': ('PartA2FCHead',)}
+# MODEL name -> the POINT_HEAD it needs (the others: none)
+_POINT_HEADS = {'PVRCNN': 'PointHeadSimple',
+                'PartA2Net': 'PointIntraPartOffsetHead',
+                'PointRCNN': 'PointIntraPartOffsetHead'}
+
+
+def _is_part_free(model_cfg):
+    """PointRCNN is built only in its PartA2-free form: a UNetV2 backbone
+    and no DENSE_HEAD (glenet_tpu picks the topology the same way)."""
+    if model_cfg.get('NAME') != 'PointRCNN':
+        return False
+    bb = (model_cfg.get('BACKBONE_3D') or {}).get('NAME')
+    _require(bb == 'UNetV2' and 'DENSE_HEAD' not in model_cfg,
+             f'MODEL PointRCNN with BACKBONE_3D {bb}')
+    return True
 
 
 class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
-    PointPillar or PVRCNN detector."""
+    PointPillar, PVRCNN, PartA2Net or PartA2-free PointRCNN detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
                  max_points_per_voxel: int, num_class: int, anchor_set,
-                 box_coder, num_point_features: int = 4):
+                 box_coder, num_point_features: int = 4, point_coder=None):
         super().__init__()
         mcfg = Cfg(model_cfg)
         name = mcfg.get('NAME')             # one of FAMILIES (Detector)
+        self.part_free = _is_part_free(mcfg)
         roi_cfg = mcfg.get('ROI_HEAD')
         roi_name = None if roi_cfg is None else roi_cfg.NAME
         two_stage = name in _ROI_HEADS
         _require(two_stage == (roi_cfg is not None),
                  f'MODEL {name} with ROI_HEAD {roi_name}')
         pillars = name == 'PointPillar'
-        vfe_cfg, m2b = mcfg.VFE, mcfg.MAP_TO_BEV
-        _require(vfe_cfg.NAME == ('PillarVFE' if pillars else 'MeanVFE'),
-                 f'VFE {vfe_cfg.NAME}')
-        _require(m2b.NAME == ('PointPillarScatter' if pillars
-                              else 'HeightCompression'),
-                 f'MAP_TO_BEV {m2b.NAME}')
+        _require(mcfg.VFE.NAME == ('PillarVFE' if pillars else 'MeanVFE'),
+                 f'VFE {mcfg.VFE.NAME}')
         _require(pillars == ('BACKBONE_3D' not in mcfg),
                  f'MODEL {name} with BACKBONE_3D')
-        _require(mcfg.BACKBONE_2D.NAME in ('BaseBEVBackbone', 'SSFA'),
-                 f'BACKBONE_2D {mcfg.BACKBONE_2D.NAME}')
-        head_cfg = mcfg.DENSE_HEAD
-        ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
-        assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
-        _require(assigner in ('AxisAlignedTargetAssigner',
-                              'WeightedAxisAlignedTargetAssigner',
-                              'ATSSTargetAssigner'), assigner)
+        bb3d = None if pillars else mcfg.BACKBONE_3D.NAME
+        unet = bb3d == 'UNetV2'
+        _require(unet == (name in ('PartA2Net', 'PointRCNN')),
+                 f'BACKBONE_3D {bb3d} in {name}')
+        if not self.part_free:
+            m2b = mcfg.MAP_TO_BEV
+            _require(m2b.NAME == ('PointPillarScatter' if pillars
+                                  else 'HeightCompression'),
+                     f'MAP_TO_BEV {m2b.NAME}')
+            _require(mcfg.BACKBONE_2D.NAME in ('BaseBEVBackbone', 'SSFA'),
+                     f'BACKBONE_2D {mcfg.BACKBONE_2D.NAME}')
+            head_cfg = mcfg.DENSE_HEAD
+            ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
+            assigner = ta_cfg.get('NAME', 'AxisAlignedTargetAssigner')
+            _require(assigner in ('AxisAlignedTargetAssigner',
+                                  'WeightedAxisAlignedTargetAssigner',
+                                  'ATSSTargetAssigner'), assigner)
         if roi_cfg is not None:
             _require(roi_name in _ROI_HEADS[name], f'ROI_HEAD {roi_name}')
             score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
                 'CLS_SCORE_TYPE', 'roi_iou')
             _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
         pfe_cfg, ph_cfg = mcfg.get('PFE'), mcfg.get('POINT_HEAD')
-        if name == 'PVRCNN':
-            _require(pfe_cfg is not None
-                     and pfe_cfg.NAME == 'VoxelSetAbstraction',
-                     f'PFE {None if pfe_cfg is None else pfe_cfg.NAME}')
-            _require(ph_cfg is not None and ph_cfg.NAME == 'PointHeadSimple',
-                     f'POINT_HEAD {None if ph_cfg is None else ph_cfg.NAME}'
-                     ' on PVRCNN')
-        else:
-            for absent in ('PFE', 'POINT_HEAD'):
-                _require(absent not in mcfg, absent)
+        _require((pfe_cfg is not None) == (name == 'PVRCNN')
+                 and (pfe_cfg is None
+                      or pfe_cfg.NAME == 'VoxelSetAbstraction'),
+                 f'PFE {None if pfe_cfg is None else pfe_cfg.NAME} in {name}')
+        ph_name = None if ph_cfg is None else ph_cfg.NAME
+        _require(ph_name == _POINT_HEADS.get(name),
+                 f'POINT_HEAD {ph_name} in {name}')
+        if self.part_free:
+            _require(ph_cfg.get('REG_FC') is not None
+                     and point_coder is not None,
+                     'a PartA2-free POINT_HEAD without REG_FC and '
+                     'TARGET_CONFIG.BOX_CODER')
 
         self.model_cfg = mcfg
         self.grid_size, self.voxel_size = tuple(grid_size), tuple(voxel_size)
@@ -137,7 +172,28 @@ class DetectorNet(nn.Module):
         self.anchor_set = anchor_set
         self.box_coder = box_coder
 
+        self.point_coder = point_coder
+        self.vfe = MeanVFE()
+        self.backbone_2d = self.dense_head = self.part_head = None
+        self.pfe = self.point_head_simple = self.roi_head = None
+        if unet:
+            self.backbone_3d = build_backbone_3d(
+                mcfg.BACKBONE_3D, grid_size, num_point_features,
+                voxel_size=voxel_size, pc_range=pc_range)
+            self.part_head = point_heads.PointIntraPartOffsetHead(
+                self.backbone_3d.level_channels['x_conv1'],
+                1 if ph_cfg.get('CLASS_AGNOSTIC', True) else num_class,
+                tuple(ph_cfg.get('CLS_FC', ())),
+                tuple(ph_cfg.get('PART_FC', ())),
+                tuple(ph_cfg.get('REG_FC', ()) if self.part_free else ()),
+                point_coder.code_size if self.part_free else 0)
+            self.roi_head = PartA2FCHead(
+                roi_cfg, self.backbone_3d.level_channels['x_conv1'],
+                code_size=box_coder.code_size)
+        if self.part_free:
+            return
         if pillars:
+            vfe_cfg = mcfg.VFE
             self.vfe = PillarVFE(
                 num_point_features, vfe_cfg.NUM_FILTERS, voxel_size,
                 pc_range,
@@ -148,10 +204,10 @@ class DetectorNet(nn.Module):
             self.map_to_bev = PointPillarScatter(grid_size)
             c_bev = self.vfe.num_out_features
         else:
-            self.vfe = MeanVFE()
-            self.backbone_3d = build_backbone_3d(
-                mcfg.BACKBONE_3D, grid_size, num_point_features,
-                site_lists=pfe_cfg is not None)
+            if not unet:
+                self.backbone_3d = build_backbone_3d(
+                    mcfg.BACKBONE_3D, grid_size, num_point_features,
+                    site_lists=pfe_cfg is not None)
             c_bev = self.backbone_3d.num_bev_features
         bb = mcfg.BACKBONE_2D
         if bb.NAME == 'SSFA':
@@ -188,7 +244,6 @@ class DetectorNet(nn.Module):
                 head_cfg.NAME, c_2d, num_class,
                 anchor_set.num_anchors_per_location, box_coder.code_size,
                 self.num_dir_bins)
-        self.pfe = self.point_head_simple = None
         if pfe_cfg is not None:
             self.pfe = pfe_lib.VoxelSetAbstraction(
                 pfe_cfg, voxel_size, pc_range, c_bev, num_point_features,
@@ -201,8 +256,8 @@ class DetectorNet(nn.Module):
                 else int(pfe_cfg.NUM_OUTPUT_FEATURES),
                 1 if ph_cfg.get('CLASS_AGNOSTIC', True) else num_class,
                 tuple(ph_cfg.CLS_FC))
-        if roi_cfg is None:
-            self.roi_head = None
+        if roi_cfg is None or unet:             # PartA2FCHead: built above
+            pass
         elif name == 'PVRCNN':
             self.roi_head = PVRCNNHead(roi_cfg,
                                        int(pfe_cfg.NUM_OUTPUT_FEATURES),
@@ -242,6 +297,24 @@ class DetectorNet(nn.Module):
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
         vox = self.voxelize(points, points_mask, max_voxels)
         out = {'vox': vox}
+        if self.part_free:
+            feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
+            sp_out = self.backbone_3d(feats, vox['voxel_coords'],
+                                      vox['voxel_mask'], train)
+            out['backbone_3d'] = sp_out
+            out['part_head'] = self._part_head(sp_out, train)
+            if roi_targets is None or not train:
+                with torch.no_grad():
+                    out['proposals'] = self._point_proposals(
+                        out['part_head'], train)
+            roi_in = self._roi_input(out, train, gt_boxes, gt_mask,
+                                     gt_uncertainty, generator, roi_targets)
+            out['rcnn'] = self._part_roi_head(
+                roi_in, sp_out, out['part_head'], train, generator,
+                use_coords=self.model_cfg.ROI_HEAD.get('DISABLE_PART',
+                                                       False))
+            out['rcnn']['rois'] = roi_in
+            return out
         if self.backbone_3d is None:
             # PointPillars: the batch flattened into the pillar axis, so the
             # VFE's BN statistics span the batch
@@ -259,6 +332,8 @@ class DetectorNet(nn.Module):
             bev = sp_out['bev_features']
         spatial_2d = self.backbone_2d(bev, train)
         out['dense_head'] = self.dense_head(spatial_2d, train)
+        if self.part_head is not None:
+            out['part_head'] = self._part_head(sp_out, train)
         if self.roi_head is None:
             return out
         if self.pfe is not None:
@@ -271,17 +346,13 @@ class DetectorNet(nn.Module):
             # proposal layer
             with torch.no_grad():
                 out['proposals'] = self._proposals(out['dense_head'], train)
-        if train:
-            if roi_targets is None:
-                prop = out['proposals']
-                roi_targets = self._sample_roi_targets(
-                    prop['rois'], prop['roi_scores'], prop['roi_labels'],
-                    gt_boxes, gt_mask, gt_uncertainty, generator)
-            out['roi_targets'] = roi_targets
-            roi_in = roi_targets['rois']
-        else:
-            roi_in = out['proposals']['rois']
-        if self.pfe is not None:
+        roi_in = self._roi_input(out, train, gt_boxes, gt_mask,
+                                 gt_uncertainty, generator, roi_targets)
+        if self.part_head is not None:
+            out['rcnn'] = self._part_roi_head(roi_in, sp_out,
+                                              out['part_head'], train,
+                                              generator, use_coords=False)
+        elif self.pfe is not None:
             out['rcnn'] = self.roi_head(roi_in, out['pfe']['keypoints'],
                                         kp_weighted, train, generator)
         else:
@@ -290,6 +361,63 @@ class DetectorNet(nn.Module):
             out['rcnn'] = self.roi_head(roi_in, features, train, generator)
         out['rcnn']['rois'] = roi_in
         return out
+
+    def _roi_input(self, out, train, gt_boxes, gt_mask, gt_uncertainty,
+                   generator, roi_targets):
+        """The rois the RoI head refines: in train mode the sampled (or the
+        given) RoI targets' rois, which also go to out['roi_targets'];
+        else the proposals."""
+        if not train:
+            return out['proposals']['rois']
+        if roi_targets is None:
+            prop = out['proposals']
+            roi_targets = self._sample_roi_targets(
+                prop['rois'], prop['roi_scores'], prop['roi_labels'],
+                gt_boxes, gt_mask, gt_uncertainty, generator)
+        out['roi_targets'] = roi_targets
+        return roi_targets['rois']
+
+    def _part_head(self, sp_out, train):
+        """PointIntraPartOffsetHead on UNetV2's voxel-point features, with
+        the voxel centres and mask it ran on."""
+        part = self.part_head(sp_out['point_features'], sp_out['point_mask'],
+                              train)
+        part['point_coords'] = sp_out['point_coords']
+        part['point_mask'] = sp_out['point_mask']
+        return part
+
+    def _part_roi_head(self, roi_in, sp_out, part, train, generator,
+                       use_coords):
+        """PartA2FCHead over the part features (partA2_head.py:118-126):
+        the sigmoid part offsets (the voxel centres with DISABLE_PART) and
+        the detached best segmentation score, the first three zeroed below
+        SEG_MASK_SCORE_THRESH."""
+        thresh = float(self.model_cfg.ROI_HEAD.get('SEG_MASK_SCORE_THRESH',
+                                                   0.3))
+        score = torch.sigmoid(part['point_cls_preds']).amax(-1).detach()
+        first3 = (part['point_coords'] if use_coords
+                  else torch.sigmoid(part['point_part_preds']))
+        first3 = torch.where((score >= thresh)[..., None], first3, 0.0)
+        part_feats = torch.cat([first3, score[..., None]], dim=-1)
+        return self.roi_head(roi_in, sp_out['point_coords'],
+                             sp_out['point_features'], part_feats,
+                             sp_out['point_mask'], train, generator)
+
+    def _point_proposals(self, part, train):
+        """PartA2-free stage 1: each voxel centre's box from the part head's
+        box branch, decoded with its best class, scored by the best sigmoid
+        class score, through the proposal NMS."""
+        cls = torch.sigmoid(part['point_cls_preds'])
+        cls = torch.where(part['point_mask'][..., None], cls, 0.0)
+        best_scores, best_labels = cls.max(dim=-1)
+        boxes = self.point_coder.decode(part['point_box_preds'],
+                                        part['point_coords'], best_labels + 1)
+        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
+            'TRAIN' if train else 'TEST']
+        rois, roi_scores, roi_labels, roi_valid = self._nms_proposals(
+            boxes, best_scores, best_labels + 1, nms_cfg)
+        return {'rois': rois, 'roi_scores': roi_scores,
+                'roi_labels': roi_labels, 'roi_valid': roi_valid}
 
     def _keypoints(self, points, points_mask, sp_out, out, train):
         """VoxelSetAbstraction and PointHeadSimple: sets out['pfe']
@@ -369,6 +497,7 @@ class Detector:
         # before any slot is read: a point-based family has no DENSE_HEAD
         _require(model_cfg.get('NAME') in FAMILIES,
                  f'MODEL {model_cfg.get("NAME")}')
+        self.part_free = _is_part_free(model_cfg)
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.num_class = num_class
@@ -387,13 +516,22 @@ class Detector:
                                     else mv)
         self.max_voxels_test = int(mv['test'] if isinstance(mv, dict) else mv)
 
-        head_cfg = model_cfg.DENSE_HEAD
+        ph_cfg = model_cfg.get('POINT_HEAD') or {}
+        pt_coder = (ph_cfg.get('TARGET_CONFIG', {}) or {}).get('BOX_CODER')
+        self.point_coder = None if pt_coder is None else \
+            box_coder_lib.build_box_coder(
+                pt_coder, **ph_cfg.TARGET_CONFIG.get('BOX_CODER_CONFIG', {}))
+        # PartA2-free has no dense head: the RCNN stage decodes with the
+        # ResidualCoder, as glenet_tpu's stand-in head config gives it
+        head_cfg = (Cfg({'NAME': 'PointHead'}) if self.part_free
+                    else model_cfg.DENSE_HEAD)
         ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
         self.box_coder = box_coder_lib.build_box_coder(
             ta_cfg.get('BOX_CODER', 'ResidualCoder'),
             **ta_cfg.get('BOX_CODER_CONFIG', {}))
-        self.anchor_set = anchors.generate_anchors(
-            head_cfg.ANCHOR_GENERATOR_CONFIG, self.grid_size, self.pc_range)
+        self.anchor_set = None if self.part_free else \
+            anchors.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
+                                     self.grid_size, self.pc_range)
         # predict-only configs may leave the loss weights out
         self.loss_weights = (head_cfg.get('LOSS_CONFIG', {}) or {}).get(
             'LOSS_WEIGHTS', {})
@@ -416,7 +554,8 @@ class Detector:
             model_cfg, self.grid_size, self.voxel_size, self.pc_range,
             self.max_voxels_train, self.max_voxels_test,
             self.max_points_per_voxel, num_class, self.anchor_set,
-            self.box_coder, self.num_point_features).to(self.device).eval()
+            self.box_coder, self.num_point_features,
+            self.point_coder).to(self.device).eval()
 
     @torch.no_grad()
     def predict(self, batch):
@@ -452,8 +591,11 @@ class Detector:
     def compute_loss(self, full_out, batch):
         """Anchor-head losses (focal cls; KL-label, KL, od-IoU or
         sin-difference smooth-L1 regression; direction bins; the IoU
-        branch), in PVRCNN the keypoint segmentation loss and in the
-        two-stage families the RCNN losses -> (total, metrics)."""
+        branch), in PartA2 the part head's losses, in PVRCNN the keypoint
+        segmentation loss and in the two-stage families the RCNN losses ->
+        (total, metrics).  PartA2-free: _part_free_loss."""
+        if self.part_free:
+            return self._part_free_loss(full_out, batch)
         with torch.no_grad():
             per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
                           zip(batch['gt_boxes'], batch['gt_mask'],
@@ -509,10 +651,68 @@ class Detector:
                 self.net.flat_anchors, self.box_coder)
             metrics['loss_iou'] = i_loss
             total = total + i_loss
+        if 'part_head' in full_out:
+            c_l, p_l = self._part_loss(full_out['part_head'], batch)
+            metrics['point_loss_cls'] = c_l
+            metrics['point_loss_part'] = p_l
+            total = total + c_l + p_l
         if 'pfe' in full_out:
             seg = self._pfe_loss(full_out, batch)
             metrics['point_loss_cls'] = seg
             total = total + seg
+        if 'rcnn' in full_out:
+            rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
+            total = total + rcnn_total
+            metrics.update(rcnn_metrics)
+        metrics['loss'] = total
+        return total, metrics
+
+    def _point_head_cfg(self):
+        ph_cfg = self.model_cfg.POINT_HEAD
+        extra = tuple(ph_cfg.TARGET_CONFIG.get('GT_EXTRA_WIDTH',
+                                               [0.2, 0.2, 0.2]))
+        return extra, ph_cfg.LOSS_CONFIG.LOSS_WEIGHTS
+
+    def _part_loss(self, po, batch):
+        """PartA2's part head: focal segmentation loss over the voxel
+        centres (class-agnostic labels, ignored in the GT_EXTRA_WIDTH shell)
+        and the part-location BCE over the foreground."""
+        extra, lw = self._point_head_cfg()
+        with torch.no_grad():
+            seg, part, fg = point_heads.assign_part_targets(
+                po['point_coords'], po['point_mask'], batch['gt_boxes'],
+                batch['gt_mask'], extra)
+        flat = {'point_cls_preds': po['point_cls_preds'].reshape(
+                    -1, po['point_cls_preds'].shape[-1]),
+                'point_part_preds': po['point_part_preds'].reshape(-1, 3)}
+        return point_heads.intra_part_loss(
+            flat, seg.reshape(-1), part.reshape(-1, 3), fg.reshape(-1), lw)
+
+    def _part_free_loss(self, full_out, batch):
+        """PartA2-free: multi-class focal cls and smooth-L1 box loss of the
+        anchor-free branch (loss_cls, loss_loc), the part-location BCE over
+        the foreground (point_loss_part) and the RCNN losses."""
+        po = full_out['part_head']
+        extra, lw = self._point_head_cfg()
+        coords, pmask = po['point_coords'], po['point_mask']
+        with torch.no_grad():
+            cls_l, box_t, fg = point_heads.assign_point_targets(
+                coords, pmask, batch['gt_boxes'], batch['gt_mask'],
+                self.point_coder, extra)
+            _, part_t, fg_p = point_heads.assign_part_targets(
+                coords, pmask, batch['gt_boxes'], batch['gt_mask'], extra)
+        nc = po['point_cls_preds'].shape[-1]
+        flat = {'point_cls_preds': po['point_cls_preds'].reshape(-1, nc),
+                'point_box_preds': po['point_box_preds'].reshape(
+                    -1, po['point_box_preds'].shape[-1])}
+        c_l, b_l = point_heads.point_head_loss(
+            flat, cls_l.reshape(-1), box_t.reshape(-1, box_t.shape[-1]),
+            fg.reshape(-1), nc, lw)
+        p_l = point_heads.part_bce_loss(
+            po['point_part_preds'].reshape(-1, 3), part_t.reshape(-1, 3),
+            fg_p.reshape(-1)) * lw.get('point_part_weight', 1.0)
+        total = c_l + b_l + p_l
+        metrics = {'loss_cls': c_l, 'loss_loc': b_l, 'point_loss_part': p_l}
         if 'rcnn' in full_out:
             rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
             total = total + rcnn_total

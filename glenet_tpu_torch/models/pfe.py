@@ -23,7 +23,7 @@ from torch import nn
 
 from ..ops import pointnet2 as pn2
 from ..ops import sparse
-from ..utils import box_utils, losses
+from . import point_heads
 from .layers import MaskedBatchNorm
 from .pointnet2_backbone import SharedMLP
 
@@ -191,14 +191,10 @@ def assign_keypoint_seg_targets(kp_xyz, gt_boxes, gt_mask,
     """Class-agnostic keypoint labels: 1 inside a gt box, -1 in its shell
     enlarged by `extra_width`, 0 elsewhere.  kp_xyz (..., K, 3), gt_boxes
     (..., M, 8), gt_mask (..., M) -> (..., K) int64."""
-    boxes = gt_boxes[..., :7]
-    inside = box_utils.points_in_boxes(kp_xyz, boxes) & gt_mask[..., None, :]
-    grow = torch.zeros(7, dtype=boxes.dtype, device=boxes.device)
-    grow[3:6] = torch.tensor(extra_width, dtype=boxes.dtype)
-    inside_big = (box_utils.points_in_boxes(kp_xyz, boxes + grow)
-                  & gt_mask[..., None, :])
-    is_fg = inside.any(-1)
-    is_ignore = inside_big.any(-1) & ~is_fg
+    _, is_fg, is_ignore = point_heads.box_membership(
+        kp_xyz, torch.ones(kp_xyz.shape[:-1], dtype=torch.bool,
+                           device=kp_xyz.device),
+        gt_boxes, gt_mask, extra_width)
     return torch.where(is_ignore, -1, is_fg.long())
 
 
@@ -206,13 +202,8 @@ def keypoint_seg_loss(cls_preds, cls_labels, num_class: int = 1):
     """Sigmoid focal loss over the keypoints of the whole batch, normalised
     by max(#foreground, 1); label -1 is ignored.  cls_preds (N, num_class),
     cls_labels (N,)."""
-    cared = cls_labels >= 0
-    pos = cls_labels > 0
-    one_hot = F.one_hot(cls_labels.long().clamp_min(0), num_class + 1)[:, 1:]
-    w = cared.float() / pos.sum().float().clamp_min(1.0)
-    return losses.sigmoid_focal_loss(cls_preds[None],
-                                     one_hot.to(cls_preds.dtype)[None],
-                                     w[None]).sum()
+    return point_heads.focal_cls_loss(cls_preds, cls_labels.long(),
+                                      num_class)
 
 
 class PointHeadSimple(nn.Module):

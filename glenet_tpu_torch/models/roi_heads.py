@@ -1,9 +1,10 @@
-"""RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU and PV-RCNN (torch
-counterpart of the VoxelRCNN, PVRCNNHead and SECONDHead parts of
-glenet_tpu/models/roi_heads.py): train-time RoI target sampling,
-VoxelRCNNHead with or without its KL-label branches, PVRCNNHead (RoI-grid
-pooling of the keypoint features), SECONDHead (IoU scoring of BEV-sampled
-rois), and the RCNN losses.
+"""RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU, PV-RCNN and PartA2
+(torch counterpart of the VoxelRCNN, PVRCNNHead, SECONDHead and
+PartA2FCHead parts of glenet_tpu/models/roi_heads.py): train-time RoI
+target sampling, VoxelRCNNHead with or without its KL-label branches,
+PVRCNNHead (RoI-grid pooling of the keypoint features), SECONDHead (IoU
+scoring of BEV-sampled rois), PartA2FCHead (RoI-aware pooling of UNetV2's
+voxel-point and part features), and the RCNN losses.
 
 POOL_MODE picks how each of the G^3 grid points of a roi pools a feature
 level:
@@ -28,10 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import iou3d
+from ..ops import iou3d, roiaware_pool
 from ..utils import common, losses
 from .layers import MaskedBatchNorm
 from .pfe import StackSAModuleMSG, bilinear_interpolate
+from .spconv_backbone import DenseConvBN
 
 _BIG = 1e9
 # exclusive upper bound of the integer draws of the bg picks
@@ -683,6 +685,86 @@ class SECONDHead(nn.Module):
         return {'rcnn_cls': self.iou_pred(x),
                 'rcnn_reg': x.new_zeros((x.shape[0], self.code_size)),
                 'no_reg_loss': True}
+
+
+class PartA2FCHead(nn.Module):
+    """PartA2's part-aggregation RoI head (reference partA2_head.py:10-224):
+    RoI-aware pooling of the part features (avg) and of UNetV2's voxel-point
+    features (max) into per-roi (G, G, G) grids, two occupancy-masked dense
+    conv stacks over them (conv_part_<i>, conv_rpn_<i>; occupancy from the
+    part grid), the two concatenated and flattened channels-last with the
+    grid axes (x, y, z), then SHARED_FC (DP_RATIO dropout after each but the
+    last in train mode), CLS_FC and REG_FC (dropout after their first), and
+    cls_pred / reg_pred.  Every BN uses the JAX package's eps 1e-3."""
+
+    def __init__(self, model_cfg, point_channels: int, code_size: int = 7):
+        super().__init__()
+        pool_cfg = model_cfg.ROI_AWARE_POOL
+        self.grid = int(pool_cfg.POOL_SIZE)
+        c0 = int(pool_cfg.NUM_FEATURES) // 2
+        self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
+        for name, cin in (('conv_part', 4), ('conv_rpn', point_channels)):
+            setattr(self, f'{name}_0', DenseConvBN(cin, 64))
+            setattr(self, f'{name}_1', DenseConvBN(64, c0))
+        self.fc = []
+        c_in = 2 * c0 * self.grid ** 3
+        for stack, key in (('shared', 'SHARED_FC'), ('cls_fc', 'CLS_FC'),
+                           ('reg_fc', 'REG_FC')):
+            c = c_in if stack == 'shared' else int(model_cfg.SHARED_FC[-1])
+            n = len(model_cfg[key])
+            layers = []
+            for i, s in enumerate(model_cfg[key]):
+                setattr(self, f'{stack}_{i}', nn.Linear(c, s, bias=False))
+                setattr(self, f'{stack}_bn{i}', MaskedBatchNorm(s))
+                drop = i < n - 1 if stack == 'shared' else i == 0
+                layers.append((f'{stack}_{i}', f'{stack}_bn{i}', drop))
+                c = s
+            self.fc.append(layers)
+        self.cls_pred = nn.Linear(int(model_cfg.CLS_FC[-1]), 1)
+        self.reg_pred = nn.Linear(int(model_cfg.REG_FC[-1]), code_size)
+        nn.init.normal_(self.reg_pred.weight, std=0.001)
+
+    def pool(self, rois, point_coords, point_feats, part_feats, point_mask):
+        """-> (pooled part grids, pooled feature grids), each (B*R, C, G, G,
+        G) with the grid axes (x, y, z), and the occupancy (B*R, G, G, G)."""
+        g, r = self.grid, rois.shape[1]
+        part, rpn = [], []
+        for i in range(rois.shape[0]):
+            cells = roiaware_pool.roi_cells(point_coords[i], rois[i], g,
+                                            point_mask[i])
+            part.append(roiaware_pool.pool_cells(part_feats[i], *cells, r, g,
+                                                 'avg'))
+            rpn.append(roiaware_pool.pool_cells(point_feats[i], *cells, r, g,
+                                                'max'))
+        part = torch.cat(part)
+        rpn = torch.cat(rpn)
+        occ = (part != 0).any(dim=-1)
+        return (part.permute(0, 4, 1, 2, 3), rpn.permute(0, 4, 1, 2, 3),
+                occ)
+
+    def forward(self, rois, point_coords, point_feats, part_feats,
+                point_mask, train: bool = False, generator=None):
+        """rois (B, R, 7); point_coords (B, V, 3); point_feats (B, V, C);
+        part_feats (B, V, 4); point_mask (B, V) -> rcnn_cls (B*R, 1),
+        rcnn_reg (B*R, code_size).  `generator` feeds the dropout draws."""
+        x_part, x_rpn, occ = self.pool(rois, point_coords, point_feats,
+                                       part_feats, point_mask)
+        for i in range(2):
+            x_part, _ = getattr(self, f'conv_part_{i}')(x_part, occ, train)
+            x_rpn, _ = getattr(self, f'conv_rpn_{i}')(x_rpn, occ, train)
+        x = torch.cat([x_rpn, x_part], dim=1).permute(0, 2, 3, 4, 1)
+        x = x.reshape(x.shape[0], -1)
+        outs = []
+        for layers in self.fc:
+            h = x if not outs else outs[0]
+            for lin, bn, drop in layers:
+                h = F.relu(getattr(self, bn)(getattr(self, lin)(h),
+                                             use_running_average=not train))
+                if drop and train and self.dp_ratio > 0:
+                    h = dropout(h, self.dp_ratio, generator)
+            outs.append(h)
+        return {'rcnn_cls': self.cls_pred(outs[1]),
+                'rcnn_reg': self.reg_pred(outs[2])}
 
 
 def decode_rcnn_boxes(rois, rcnn_reg, box_coder):

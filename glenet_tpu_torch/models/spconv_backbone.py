@@ -41,28 +41,36 @@ def _sparse_kernel(k_vol, cin, cout):
 
 
 class SubMConvBN(nn.Module):
-    """Submanifold sparse conv + BN + ReLU over an x-block (q, tbl) table,
+    """Submanifold sparse conv + BN (+ ReLU) over an x-block (q, tbl) table,
     with the gather-only backward."""
 
-    def __init__(self, cin: int, features: int):
+    def __init__(self, cin: int, features: int, use_relu: bool = True):
         super().__init__()
         self.kernel = _sparse_kernel(27, cin, features)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
+        self.use_relu = use_relu
 
     def forward(self, feats, nbr, mask, train: bool = False):
         out = sparse.subm_gather_gemm_xblocks_b(feats, nbr[0], nbr[1],
                                                 self.kernel)
         out = self.MaskedBatchNorm_0(out, mask=mask,
                                      use_running_average=not train)
-        return torch.where(mask[..., None], F.relu(out), 0.0)
+        if self.use_relu:
+            out = F.relu(out)
+        return torch.where(mask[..., None], out, 0.0)
 
 
 class SparseConvBN(nn.Module):
-    """Strided 3^3 sparse conv + BN + ReLU (changes the active-site table)."""
+    """Strided sparse conv + BN + ReLU (changes the active-site table).  A
+    3^3 kernel runs over an x-block table; any other (UNetV2's (3, 1, 1)
+    conv_out) over a row table."""
 
-    def __init__(self, cin: int, features: int, stride, padding):
+    def __init__(self, cin: int, features: int, stride, padding,
+                 kernel_size=3):
         super().__init__()
-        self.kernel = _sparse_kernel(27, cin, features)
+        self.kernel_size = sparse._as3(kernel_size)
+        self.kernel = _sparse_kernel(math.prod(self.kernel_size), cin,
+                                     features)
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
         self.stride, self.padding = stride, padding
 
@@ -70,19 +78,53 @@ class SparseConvBN(nn.Module):
                 train: bool = False):
         """Returns (out_feats, out_ids, out_mask, out_grid); at most
         `out_cap` output sites."""
+        ks, st, pad = self.kernel_size, self.stride, self.padding
         sites = [sparse.strided_output_sites(
-            ids[i], mask[i], grid, 3, self.stride, self.padding, out_cap)
+            ids[i], mask[i], grid, ks, st, pad, out_cap)
             for i in range(ids.shape[0])]
         out_ids = torch.stack([s[0] for s in sites])
         out_mask = torch.stack([s[1] for s in sites])
-        q, tbl = sparse.strided_xblock_table_b(
-            ids, mask, out_ids, out_mask, grid, self.stride, self.padding)
-        out = sparse.gather_gemm_xblocks_b(feats, q, tbl, self.kernel)
+        if ks == (3, 3, 3):
+            q, tbl = sparse.strided_xblock_table_b(
+                ids, mask, out_ids, out_mask, grid, st, pad)
+            out = sparse.gather_gemm_xblocks_b(feats, q, tbl, self.kernel)
+        else:
+            table = torch.stack([sparse.strided_gather_table(
+                ids[i], mask[i], out_ids[i], out_mask[i], grid, ks, st, pad)
+                for i in range(ids.shape[0])])
+            out = sparse.gather_gemm_b(feats, table, self.kernel)
         out = self.MaskedBatchNorm_0(out, mask=out_mask,
                                      use_running_average=not train)
         out = torch.where(out_mask[..., None], F.relu(out), 0.0)
-        ogrid = sparse.out_grid_size(grid, 3, self.stride, self.padding)
+        ogrid = sparse.out_grid_size(grid, ks, st, pad)
         return out, out_ids, out_mask, ogrid
+
+
+class InverseConvBN(nn.Module):
+    """Inverse sparse conv + BN + ReLU: coarse-level features gathered back
+    onto the fine level's active sites (spconv SparseInverseConv3d with
+    indice-key reuse)."""
+
+    def __init__(self, cin: int, features: int, kernel_size, stride,
+                 padding):
+        super().__init__()
+        self.kernel_size = sparse._as3(kernel_size)
+        self.kernel = _sparse_kernel(math.prod(self.kernel_size), cin,
+                                     features)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
+        self.stride, self.padding = stride, padding
+
+    def forward(self, coarse_feats, coarse_ids, coarse_mask, fine_ids,
+                fine_mask, fine_grid, train: bool = False):
+        """-> (B, V_fine, C_out) features on the fine active set."""
+        table = torch.stack([sparse.inverse_gather_table(
+            fine_ids[i], fine_mask[i], coarse_ids[i], coarse_mask[i],
+            fine_grid, self.kernel_size, self.stride, self.padding)
+            for i in range(fine_ids.shape[0])])
+        out = sparse.gather_gemm_b(coarse_feats, table, self.kernel)
+        out = self.MaskedBatchNorm_0(out, mask=fine_mask,
+                                     use_running_average=not train)
+        return torch.where(fine_mask[..., None], F.relu(out), 0.0)
 
 
 class DenseConvBN(nn.Module):
@@ -227,15 +269,160 @@ class VoxelBackBone8x(nn.Module):
                 'num_bev_features': nz5 * c}
 
 
+class UNetV2(nn.Module):
+    """Sparse-conv U-Net of PartA2 (reference spconv_unet.py:49-212): the
+    VoxelBackBone8x encoder kept sparse at every level, the encoded
+    (3, 1, 1) conv_out folded to BEV, and a decoder of UR blocks (lateral
+    SparseBasicBlock, concat with the bottom-up stream, merge subm conv plus
+    the channel-reduction residual, inverse sparse conv up one level).
+
+    Outputs: bev_features, multi_scale (x_conv1..4, all sparse), and the
+    per-voxel decoder features on the level-1 active set (point_features
+    (B, V, 16), point_coords (B, V, 3) voxel centres, point_mask).
+    """
+
+    def __init__(self, grid_size, voxel_size, pc_range, in_channels: int = 4,
+                 out_channels: int = 128):
+        super().__init__()
+        self.grid_size = tuple(grid_size)
+        self.voxel_size = tuple(voxel_size)
+        self.pc_range = tuple(pc_range)
+        c1, c2, c3, c4 = CHANNELS
+        self.conv_input = SubMConvBN(in_channels, c1)
+        self.conv1_0 = SubMConvBN(c1, c1)
+        self.conv2_down = SparseConvBN(c1, c2, 2, 1)
+        self.conv3_down = SparseConvBN(c2, c3, 2, 1)
+        self.conv4_down = SparseConvBN(c3, c4, 2, (0, 1, 1))
+        for lvl, ch in ((2, c2), (3, c3), (4, c4)):
+            for j in range(2):
+                setattr(self, f'conv{lvl}_{j}', SubMConvBN(ch, ch))
+        self.conv_out = SparseConvBN(c4, out_channels, (2, 1, 1), 0,
+                                     kernel_size=(3, 1, 1))
+        # UR blocks (reference channel flow, spconv_unet.py:113-135): name,
+        # lateral channels (the bottom stream's too, so the merge conv takes
+        # twice them), out channels, the inverse conv's (channels, padding)
+        # or None for the last level's subm conv
+        for name, lat, out, inv in (('up4', c4, c4, (c4, (0, 1, 1))),
+                                    ('up3', c3, c3, (c2, 1)),
+                                    ('up2', c2, c2, (c1, 1)),
+                                    ('up1', c1, c1, None)):
+            setattr(self, f'{name}_t_c1', SubMConvBN(lat, lat))
+            setattr(self, f'{name}_t_c2', SubMConvBN(lat, lat,
+                                                      use_relu=False))
+            setattr(self, f'{name}_m', SubMConvBN(2 * lat, out))
+            if inv is None:
+                setattr(self, f'{name}_inv', SubMConvBN(out, out))
+            else:
+                setattr(self, f'{name}_inv',
+                        InverseConvBN(out, inv[0], 3, 2, inv[1]))
+        self.level_channels = {'x_conv1': c1, 'x_conv2': c2, 'x_conv3': c3,
+                               'x_conv4': c4}
+        g = self.sparse_grid
+        for stride, pad in ((2, 1), (2, 1), (2, (0, 1, 1))):
+            g = sparse.out_grid_size(g, 3, stride, pad)
+        g = sparse.out_grid_size(g, (3, 1, 1), (2, 1, 1), 0)
+        self.num_bev_features = g[2] * out_channels
+
+    @property
+    def sparse_grid(self):
+        nx, ny, nz = self.grid_size
+        return (nx, ny, nz + 1)
+
+    def encode(self, feats, coords, mask, train: bool = False):
+        """The encoder and the BEV fold: (x_conv1..4 levels as
+        (features, ids, mask, grid, nbr), bev_features, num_bev_features)."""
+        grid1 = self.sparse_grid
+        nx, ny, nz = grid1
+        ids = torch.where(
+            mask, coords[..., 0] * (ny * nx) + coords[..., 1] * nx
+            + coords[..., 2], nx * ny * nz).to(torch.int32)
+        caps = sparse.level_caps(feats.shape[1])
+        nbr = sparse.subm_xblock_table_b(ids, mask, grid1)
+        x = self.conv_input(feats, nbr, mask, train)
+        x = self.conv1_0(x, nbr, mask, train)
+        levels = [(x, ids, mask, grid1, nbr)]
+        for lvl in (2, 3, 4):
+            x, ids, mask, grid = getattr(self, f'conv{lvl}_down')(
+                x, ids, mask, levels[-1][3], caps[lvl - 1], train)
+            nbr = sparse.subm_xblock_table_b(ids, mask, grid)
+            for j in range(2):
+                x = getattr(self, f'conv{lvl}_{j}')(x, nbr, mask, train)
+            levels.append((x, ids, mask, grid, nbr))
+        xo, ids5, mask5, grid5 = self.conv_out(x, ids, mask, grid, caps[3],
+                                               train)
+        dense5 = torch.stack([sparse.to_dense(xo[i], ids5[i], mask5[i],
+                                              grid5)
+                              for i in range(xo.shape[0])])
+        b, nz5, ny5, nx5, co = dense5.shape
+        bev = dense5.permute(0, 2, 3, 1, 4).reshape(b, ny5, nx5, nz5 * co)
+        return levels, bev, nz5 * co
+
+    def _ur_block(self, name, lateral, bottom, nbr, mask, train, inv=None):
+        """lateral SparseBasicBlock, merge conv + channel reduction (channel
+        c * n_grp + g of the concat sums into c), then the inverse conv
+        (inv = (coarse ids, coarse mask, fine ids, fine mask, fine grid))
+        or, at the last level, a subm conv."""
+        h = getattr(self, f'{name}_t_c1')(lateral, nbr, mask, train)
+        h = getattr(self, f'{name}_t_c2')(h, nbr, mask, train)
+        trans = torch.where(mask[..., None], F.relu(h + lateral), 0.0)
+        cat = torch.cat([bottom, trans], dim=-1)
+        merge = getattr(self, f'{name}_m')
+        ch_out = merge.kernel.shape[-1]
+        reduced = cat.reshape(*cat.shape[:-1], ch_out, -1).sum(-1)
+        fused = merge(cat, nbr, mask, train) + reduced
+        if inv is None:
+            return getattr(self, f'{name}_inv')(fused, nbr, mask, train)
+        return getattr(self, f'{name}_inv')(fused, *inv, train)
+
+    def decode(self, levels, train: bool = False):
+        """UR blocks from level 4 up to level 1 -> (B, V, 16)."""
+        (x1, i1, m1, g1, n1), (x2, i2, m2, g2, n2), \
+            (x3, i3, m3, g3, n3), (x4, i4, m4, g4, n4) = levels
+        up = self._ur_block('up4', x4, x4, n4, m4, train,
+                            (i4, m4, i3, m3, g3))
+        up = self._ur_block('up3', x3, up, n3, m3, train,
+                            (i3, m3, i2, m2, g2))
+        up = self._ur_block('up2', x2, up, n2, m2, train,
+                            (i2, m2, i1, m1, g1))
+        return self._ur_block('up1', x1, up, n1, m1, train)
+
+    def voxel_centres(self, ids, mask):
+        """Metric centres (B, V, 3) of the level-1 sites, xyz."""
+        z, y, x = sparse.delinearize(torch.where(mask, ids, 0).long(),
+                                     self.sparse_grid)
+        vs = torch.tensor(self.voxel_size, dtype=torch.float32,
+                          device=ids.device)
+        origin = torch.tensor(self.pc_range[:3], dtype=torch.float32,
+                              device=ids.device)
+        return (torch.stack([x, y, z], -1).float() + 0.5) * vs + origin
+
+    def forward(self, feats, coords, mask, train: bool = False):
+        """feats (B, V, C), coords (B, V, 3) (z, y, x) sorted by linear id
+        within each sample, mask (B, V) -> dict as the class docstring."""
+        levels, bev, n_bev = self.encode(feats, coords, mask, train)
+        ms = {f'x_conv{i + 1}': {'kind': 'sparse', 'features': f, 'ids': ids,
+                                  'mask': m, 'grid': g, 'stride': 2 ** i}
+              for i, (f, ids, m, g, _) in enumerate(levels)}
+        return {'bev_features': bev, 'multi_scale': ms,
+                'num_bev_features': n_bev,
+                'point_features': self.decode(levels, train),
+                'point_coords': self.voxel_centres(levels[0][1], mask),
+                'point_mask': mask}
+
+
 # BACKBONE_3D name -> (subm_per_block, out_channels)
 VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), 128),
             'VoxelBackBone8xCiassd': ((2, 3, 3), 64)}
 
 
 def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4,
-                      site_lists: bool = False):
+                      site_lists: bool = False, voxel_size=None,
+                      pc_range=None):
     """`site_lists` adds x_conv4's active-site list (ids, mask) to the
-    outputs, which only the PV-RCNN keypoint path reads."""
+    outputs, which only the PV-RCNN keypoint path reads; UNetV2 needs the
+    voxel size and range for its voxel centres."""
+    if bb3d_cfg.NAME == 'UNetV2':
+        return UNetV2(grid_size, voxel_size, pc_range, in_channels)
     if bb3d_cfg.NAME in VARIANTS:
         subm, out_channels = VARIANTS[bb3d_cfg.NAME]
         return VoxelBackBone8x(grid_size=tuple(grid_size),

@@ -12,6 +12,13 @@ sorted query stream of each group with the merge-resolve kernel
 (ops/merge_kernel.py) — always in the kernel-path form of the JAX package:
 raw shifted queries, no sentinel substitution (that would break the
 sortedness); spurious hits at out-of-range taps are masked by `valid_c`.
+
+Convolutions off the x-block form (the (3, 1, 1) strided conv_out of UNetV2
+and the inverse convs of its decoder) use row tables, (K, Vout) slots with
+V_in as the padding row, from `strided_gather_table` / `inverse_gather_table`
+and contract through `gather_gemm_b`.  Their queries are not monotone, so
+the tables look them up with `torch.searchsorted` over the sorted id row
+(the JAX package's merged-sort path), not with the merge-resolve kernel.
 """
 from __future__ import annotations
 
@@ -28,6 +35,14 @@ GATHER_COMPUTE_DTYPE = torch.bfloat16
 
 def _as3(v):
     return (v, v, v) if isinstance(v, int) else tuple(v)
+
+
+def kernel_offsets(kernel_size):
+    """(K, 3) integer (z, y, x) offsets, row-major tap index."""
+    kz, ky, kx = _as3(kernel_size)
+    dz, dy, dx = torch.meshgrid(torch.arange(kz), torch.arange(ky),
+                                torch.arange(kx), indexing='ij')
+    return torch.stack([dz.reshape(-1), dy.reshape(-1), dx.reshape(-1)], 1)
 
 
 def linearize(z, y, x, grid):
@@ -370,3 +385,107 @@ def to_dense_expand(features, ids, mask, grid, out_dtype=None):
     dense = dense.reshape(b, n_cells + 1, c)[:, :n_cells]
     occ = occ.reshape(b, n_cells + 1)[:, :n_cells]
     return dense.reshape(b, nz, ny, nx, c), occ.reshape(b, nz, ny, nx)
+
+
+def _lookup(ids, tid, n_cells):
+    """Slots of the queries `tid` (K, Vq) in the sorted id row `ids` (V,),
+    V (the padding row) where absent or tid >= n_cells (the sentinel of an
+    invalid tap)."""
+    v = ids.shape[0]
+    pos = torch.searchsorted(ids, tid.to(ids.dtype).contiguous())
+    hit = ids[pos.clamp_max(v - 1)] == tid
+    return torch.where(hit & (pos < v) & (tid < n_cells), pos,
+                       v).to(torch.int32)
+
+
+def strided_gather_table(in_ids, in_mask, out_ids, out_mask, grid,
+                         kernel_size, stride, padding):
+    """For each output site and kernel tap of a strided sparse conv, the
+    input slot to gather (input coord = out * s - p + k).  Per sample:
+    in_ids / in_mask (V_in,), out_ids / out_mask (Vout,) -> (K, Vout)
+    int32 slots with V_in as the padding row."""
+    sz, sy, sx = _as3(stride)
+    pz, py, px = _as3(padding)
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    onx, ony, onz = out_grid_size(grid, kernel_size, stride, padding)
+    oz = out_ids // (ony * onx)
+    rem = out_ids % (ony * onx)
+    oy, ox = rem // onx, rem % onx
+    offs = kernel_offsets(kernel_size).to(out_ids.device)
+    iz = oz[None, :] * sz - pz + offs[:, 0:1]
+    iy = oy[None, :] * sy - py + offs[:, 1:2]
+    ix = ox[None, :] * sx - px + offs[:, 2:3]
+    valid = (out_mask[None, :] & (iz >= 0) & (iz < nz) & (iy >= 0)
+             & (iy < ny) & (ix >= 0) & (ix < nx))
+    tid = torch.where(valid, linearize(iz, iy, ix, grid), n_cells)
+    return _lookup(in_ids, tid, n_cells)
+
+
+def inverse_gather_table(fine_ids, fine_mask, coarse_ids, coarse_mask,
+                         fine_grid, kernel_size, stride, padding):
+    """Gather table of an INVERSE sparse conv (spconv SparseInverseConv3d
+    with indice-key reuse): features live on the coarse grid (the strided
+    conv's output), outputs land on the fine grid's active sites (its
+    input).  Fine site i and tap k read coarse site o = (i + p - k) / s
+    where divisible and in range.  Per sample -> (K, V_fine) int32 slots
+    into the coarse table with V_coarse as the padding row."""
+    sz, sy, sx = _as3(stride)
+    pz, py, px = _as3(padding)
+    onx, ony, onz = out_grid_size(fine_grid, kernel_size, stride, padding)
+    n_out_cells = onx * ony * onz
+    z, y, x = delinearize(torch.where(fine_mask, fine_ids, 0), fine_grid)
+    offs = kernel_offsets(kernel_size).to(fine_ids.device)
+    cz = z[None, :] + pz - offs[:, 0:1]
+    cy = y[None, :] + py - offs[:, 1:2]
+    cx = x[None, :] + px - offs[:, 2:3]
+    divisible = (cz % sz == 0) & (cy % sy == 0) & (cx % sx == 0)
+    oz = torch.div(cz, sz, rounding_mode='floor')
+    oy = torch.div(cy, sy, rounding_mode='floor')
+    ox = torch.div(cx, sx, rounding_mode='floor')
+    valid = (fine_mask[None, :] & divisible & (oz >= 0) & (oz < onz)
+             & (oy >= 0) & (oy < ony) & (ox >= 0) & (ox < onx))
+    tid = torch.where(valid, oz * (ony * onx) + oy * onx + ox, n_out_cells)
+    return _lookup(coarse_ids, tid, n_out_cells)
+
+
+# Bytes of the gathered (B, K, Vout, Cin) operand above which gather_gemm_b
+# consumes the taps in chunks (glenet_tpu's GATHER_BYTES_BUDGET).
+GATHER_BYTES_BUDGET = 256 * 1024 * 1024
+
+
+def gather_gemm_b(features, nbr_idx, weights):
+    """Sparse-conv contraction over a row table: features (B, V, Cin),
+    nbr_idx (B, K, Vout) with V as the padding row, weights (K, Cin, Cout)
+    -> (B, Vout, Cout) in the features' dtype.  Above GATHER_BYTES_BUDGET
+    the taps are gathered and contracted in chunks sized to the budget.
+    Autograd turns the row gathers into index_add_ scatters (the JAX
+    package keeps default AD here too)."""
+    b, v, cin = features.shape
+    k, vq = nbr_idx.shape[1], nbr_idx.shape[2]
+    gdtype = _gather_dtype(features)
+    padded = torch.cat([features, features.new_zeros((b, 1, cin))],
+                       dim=1).to(gdtype)
+    w = weights.to(gdtype)
+    itemsize = torch.empty((), dtype=gdtype).element_size()
+    chunk = k
+    if b * k * vq * cin * itemsize > GATHER_BYTES_BUDGET:
+        chunk = max(1, GATHER_BYTES_BUDGET // (b * vq * cin * itemsize))
+    acc = None
+    for k0 in range(0, k, chunk):
+        gathered = _take_rows_merged(padded, nbr_idx[:, k0:k0 + chunk])
+        part = _contract('bkvc,kco->bvo', gathered, w[k0:k0 + chunk])
+        acc = part if acc is None else acc + part
+    return acc.to(features.dtype)
+
+
+def to_dense(features, ids, mask, grid):
+    """One sample's (V, C) sparse rows -> (nz, ny, nx, C) dense; invalid
+    rows land in a dump row that is cut off."""
+    nx, ny, nz = grid
+    n_cells = nz * ny * nx
+    flat = torch.where(mask, ids, n_cells).long()
+    rows = torch.where(mask[:, None], features, 0.0)
+    dense = features.new_zeros((n_cells + 1, features.shape[-1]))
+    dense = dense.index_put((flat,), rows)
+    return dense[:n_cells].reshape(nz, ny, nx, features.shape[-1])

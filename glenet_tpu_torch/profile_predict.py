@@ -4,8 +4,8 @@
 
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
-two-stage second_iou.yaml or pv_rcnn.yaml, or pointpillar.yaml) at full
-width, seeded random weights,
+two-stage second_iou.yaml, pv_rcnn.yaml, PartA2.yaml or PartA2_free.yaml,
+or pointpillar.yaml) at full width, seeded random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
 features; utils/synthetic.py), one warm-up predict, then:
@@ -19,7 +19,11 @@ features; utils/synthetic.py), one warm-up predict, then:
      final NMS, or single-stage decode + final NMS; for PV-RCNN also the
      keypoint stages (FPS, the set abstraction of each source, BEV
      interpolation with the fusion, PointHeadSimple) and, within
-     PVRCNNHead, the RoI-grid pool and the FCs; within the final
+     PVRCNNHead, the RoI-grid pool and the FCs; for PartA2 and
+     PartA2-free the UNet encoder and decoder within UNetV2, the part head
+     (PointIntraPartOffsetHead) and, within PartA2FCHead, the RoI-aware
+     pooling and the convs + FCs (PartA2-free has no 2D backbone or dense
+     head: its proposals are the part head's boxes); within the final
      NMS, the time of its rotated-IoU matrix (`boxes_iou_bev_blocked`)
      and of its greedy keep rounds (`greedy_keep`);
   3. a torch.profiler window over 3 requests without those synchronises:
@@ -59,8 +63,11 @@ def _stage_times(det, batch):
     two_stage = det.net.roi_head is not None
     pillars = det.net.backbone_3d is None
     pv = det.net.pfe is not None
+    part = det.net.part_head is not None
+    bev = not det.net.part_free
     names = (('vfe', 'map_to_bev') if pillars else ('backbone_3d',)) + (
-        'backbone_2d', 'dense_head') + (('roi_head',) if two_stage else ())
+        ('backbone_2d', 'dense_head') if bev else ()) + (
+        ('part_head',) if part else ()) + (('roi_head',) if two_stage else ())
     mods = {n: getattr(det.net, n) for n in names}
     sa_names = []
     if pv:
@@ -79,6 +86,11 @@ def _stage_times(det, batch):
                    calls),
             _timed(nms_ops, 'greedy_keep', 'greedy keep rounds', calls),
             _timed(pointnet2, 'farthest_point_sample', 'FPS', calls)]
+    if part:
+        unet, head = det.net.backbone_3d, det.net.roi_head
+        undo += [_timed(unet, 'encode', 'UNet encoder', calls),
+                 _timed(unet, 'decode', 'UNet decoder', calls),
+                 _timed(head, 'pool', 'RoI-aware pooling', calls)]
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -92,6 +104,10 @@ def _stage_times(det, batch):
             u()
     t = dict(marks)
     mcfg = det.model_cfg
+
+    def called(label):
+        return sum(end - start for lab, start, end in calls if lab == label)
+
     if pillars:
         spans = {'voxelize': t['vfe>'] - t0,
                  mcfg.VFE.NAME: t['vfe<'] - t['vfe>'],
@@ -100,13 +116,19 @@ def _stage_times(det, batch):
         spans = {'voxelize + MeanVFE': t['backbone_3d>'] - t0,
                  mcfg.BACKBONE_3D.NAME: t['backbone_3d<']
                  - t['backbone_3d>']}
-    spans.update({
-        mcfg.BACKBONE_2D.NAME: t['backbone_2d<'] - t['backbone_2d>'],
-        mcfg.DENSE_HEAD.NAME: t['dense_head<'] - t['dense_head>']})
+    if part:
+        spans.update({f'  of it {k}': called(k)
+                      for k in ('UNet encoder', 'UNet decoder')})
+    if bev:
+        spans.update({
+            mcfg.BACKBONE_2D.NAME: t['backbone_2d<'] - t['backbone_2d>'],
+            mcfg.DENSE_HEAD.NAME: t['dense_head<'] - t['dense_head>']})
+    if part:
+        spans[mcfg.POINT_HEAD.NAME] = t['part_head<'] - t['part_head>']
     nms = ('variance-voting' if mcfg.POST_PROCESSING.NMS_CONFIG.NMS_TYPE
            != 'nms_gpu' else 'greedy')
     if pv:
-        fps = sum(end - start for lab, start, end in calls if lab == 'FPS')
+        fps = called('FPS')
         sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
         spans['PFE: FPS'] = fps
         spans.update({f'PFE: {n}': v for n, v in sa.items()})
@@ -116,12 +138,16 @@ def _stage_times(det, batch):
                                     - t['point_head_simple>'])
     if two_stage:
         spans['decode + proposal NMS'] = t['roi_head>'] - t[
-            'point_head_simple<' if pv else 'dense_head<']
+            'point_head_simple<' if pv else 'part_head<' if part
+            else 'dense_head<']
         spans[mcfg.ROI_HEAD.NAME] = t['roi_head<'] - t['roi_head>']
-        if pv:
-            pool = t['roi_grid_pool<'] - t['roi_grid_pool>']
-            spans['  of it RoI-grid pool'] = pool
-            spans['  of it the FCs'] = spans[mcfg.ROI_HEAD.NAME] - pool
+        if pv or part:
+            pool = (t['roi_grid_pool<'] - t['roi_grid_pool>'] if pv
+                    else called('RoI-aware pooling'))
+            spans['  of it RoI-grid pool' if pv
+                  else '  of it RoI-aware pooling'] = pool
+            spans['  of it the FCs' if pv else '  of it the convs + FCs'] = (
+                spans[mcfg.ROI_HEAD.NAME] - pool)
         spans[f'decode + {nms} NMS'] = t_end - t['roi_head<']
     else:
         spans[f'decode + {nms} NMS'] = t_end - t['dense_head<']
@@ -137,6 +163,7 @@ def _timed(module, attr, label, calls):
     """Shadow module.attr so that each call appends (label, start, end),
     synchronised; returns an undo function."""
     real = getattr(module, attr)
+    own = attr in vars(module)       # a module's function, not a method
 
     def wrapped(*args, **kwargs):
         torch.cuda.synchronize()
@@ -147,7 +174,8 @@ def _timed(module, attr, label, calls):
         return out
 
     setattr(module, attr, wrapped)
-    return lambda: setattr(module, attr, real)
+    return lambda: (setattr(module, attr, real) if own
+                    else delattr(module, attr))
 
 
 def main(argv=None):

@@ -5,7 +5,8 @@
 configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
 voxel-query RoI pooling, a single-stage GLENet_S.yaml, GLENet_C.yaml,
 second.yaml or second_multihead.yaml, second_iou.yaml, pv_rcnn.yaml,
-pointpillar.yaml) at full width, seeded random weights,
+PartA2.yaml, PartA2_free.yaml, pointpillar.yaml) at full width, seeded
+random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
 points with gt boxes at their clusters (Car; for a Car, Pedestrian and
 Cyclist config objects of the three classes at KITTI's label ratios; for a
@@ -22,6 +23,10 @@ One warm-up step, then:
      dense head, the keypoint stages (FPS, the set abstraction of each
      source, BEV interpolation with the fusion, PointHeadSimple) before
      the train NMS, and within the RoI head forward the RoI-grid pool;
+     for PartA2 and PartA2-free voxelize + MeanVFE, the UNet encoder and
+     decoder, the 2D backbone + dense head (PartA2 only), the part head,
+     then the train NMS (PartA2-free: of the part head's boxes), RoI
+     sampling and the RoI head forward with its RoI-aware pooling;
   2. a torch.profiler window over 3 steps without those synchronises: the
      device busy share (summed device time of the kernels over the window's
      wall time) and the top 30 device operators;
@@ -131,8 +136,16 @@ def stage_times(det, tx, state, train_step, batch):
         pointnet2.farthest_point_sample = fps
         undo += [lambda: setattr(pointnet2, 'farthest_point_sample',
                                  real_fps)] + [h.remove for h in hooks]
+    part = det.net.part_head is not None
+    if part:
+        undo += [_wrap(marks, det.net.backbone_3d, 'encode', 'enc>', 'enc<'),
+                 _wrap(marks, det.net.backbone_3d, 'decode', 'dec>', 'dec<'),
+                 _wrap(marks, det.net, '_part_head', 'part>', 'part<'),
+                 _wrap(marks, det.net.roi_head, 'pool', 'pool>', 'pool<')]
     if two_stage:
-        undo += [_wrap(marks, det.net, '_proposals', 'nms>', 'nms<'),
+        proposals = ('_point_proposals' if det.net.part_free
+                     else '_proposals')
+        undo += [_wrap(marks, det.net, proposals, 'nms>', 'nms<'),
                  _wrap(marks, det.net, '_sample_roi_targets', None,
                        'sample<'),
                  _wrap(marks, det.net.roi_head, 'forward', 'head>', 'head<')]
@@ -146,8 +159,16 @@ def stage_times(det, tx, state, train_step, batch):
         for u in undo:
             u()
     t = dict(marks)
-    if two_stage:
+    if part:
+        spans = {'voxelize + MeanVFE': t['enc>'] - t0,
+                 'UNet encoder': t['enc<'] - t['enc>'],
+                 'UNet decoder': t['dec<'] - t['dec>']}
+        if not det.net.part_free:
+            spans['2D backbone + dense head'] = t['part>'] - t['dec<']
+        spans['part head'] = t['part<'] - t['part>']
+    elif two_stage:
         spans = {'forward to the dense head': t['pfe>' if pv else 'nms>'] - t0}
+    if two_stage:
         if pv:
             sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
             fps = t['fps<'] - t['fps>']
@@ -163,6 +184,8 @@ def stage_times(det, tx, state, train_step, batch):
         if pv:
             spans['  of it RoI-grid pool'] = (t['roi_grid_pool<']
                                               - t['roi_grid_pool>'])
+        if part:
+            spans['  of it RoI-aware pooling'] = t['pool<'] - t['pool>']
         spans['loss'] = t['loss<'] - t['head<']
     else:
         spans = {'forward': t['loss>'] - t0,

@@ -18,7 +18,8 @@ module at `mod.(...)`, converted by that module's type:
                         torch's ConvTranspose2d layout, by the same flip
   - DenseConvBN:        (kz*ky*kx, Cin, Cout), tap = dz*ky*kx + dy*kx + dx
                         -> conv3d weight (Cout, Cin, kz, ky, kx)
-  - sparse convs:       (27, Cin, Cout) kernels kept as they are
+  - sparse convs:       (K, Cin, Cout) kernels kept as they are (subm,
+                        strided and inverse)
   - MaskedBatchNorm:    scale / bias / mean / var -> weight / bias /
                         running_mean / running_var
 
@@ -30,7 +31,10 @@ SECOND-multihead's `dense_head.shared_conv` (a ConvBlock) and
 `iou_pred`, PV-RCNN's `pfe.sa_<source>.mlp_r<i>.{mlp_<j>, bn_<j>}`,
 `pfe.fusion` / `fusion_bn`, `point_head_simple.{cls_<i>, cls_bn<i>,
 cls_out}` and `roi_head.roi_grid_pool.mlp_r<i>.*`, `shared_<i>`,
-`cls_fc_<i>`, `reg_fc_<i>` with their `_bn<i>`, `cls_pred`, `reg_pred`.
+`cls_fc_<i>`, `reg_fc_<i>` with their `_bn<i>`, `cls_pred`, `reg_pred`,
+PartA2's `backbone_3d.up<l>_{t_c1, t_c2, m, inv}`, `part_head.{cls, part,
+reg}_<i>` / `_bn<i>` / `{cls, part, box}_out` and `roi_head.conv_{part,
+rpn}_<i>` (DenseConvBN over the pooled (x, y, z) grids).
 It raises on any leaf it does not consume and on any port parameter or
 buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.
@@ -42,7 +46,10 @@ import torch
 from torch import nn
 
 from ..models.layers import ConvBlock, MaskedBatchNorm
-from ..models.spconv_backbone import DenseConvBN, SparseConvBN, SubMConvBN
+from ..models.spconv_backbone import (DenseConvBN, InverseConvBN,
+                                      SparseConvBN, SubMConvBN)
+
+_SPARSE = (SubMConvBN, SparseConvBN, InverseConvBN)
 
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
              'var': 'running_var'}
@@ -72,7 +79,7 @@ def _convert(module, leaf, value):
         cin, cout = value.shape[1:]
         w = value.reshape(*module.kernel_size, cin, cout)
         return 'weight', w.transpose(4, 3, 0, 1, 2)
-    if isinstance(module, (SubMConvBN, SparseConvBN)) and leaf == 'kernel':
+    if isinstance(module, _SPARSE) and leaf == 'kernel':
         return 'kernel', value
     raise KeyError(f'no rule for leaf {leaf!r} of {type(module).__name__}')
 
@@ -121,7 +128,7 @@ def _export(module, name, value):
         cout, cin = value.shape[:2]
         return ('params', 'kernel',
                 value.transpose(2, 3, 4, 1, 0).reshape(-1, cin, cout))
-    if isinstance(module, (SubMConvBN, SparseConvBN)) and name == 'kernel':
+    if isinstance(module, _SPARSE) and name == 'kernel':
         return 'params', 'kernel', value
     raise KeyError(f'no rule for {name!r} of {type(module).__name__}')
 

@@ -64,8 +64,12 @@ def test_residual_coder_decode():
     got = tcoder.ResidualCoder().decode(torch.from_numpy(enc),
                                         torch.from_numpy(anchors))
     _close(got, ref, atol=1e-4)
+    # PointResidualCoder is ported (tests/test_torch_parta2.py holds it);
+    # the legacy decoder is not
+    assert isinstance(tcoder.build_box_coder('PointResidualCoder'),
+                      tcoder.PointResidualCoder)
     with pytest.raises(NotImplementedError):
-        tcoder.build_box_coder('PointResidualCoder')
+        tcoder.build_box_coder('PreviousResidualDecoder')
 
 
 def test_anchors():

@@ -55,22 +55,25 @@ def test_build_detector_needs_a_device():
             build_detector(cfg)
 
 
-@pytest.mark.parametrize('name', ['PartA2.yaml', 'PartA2_free.yaml',
-                                  'pointrcnn.yaml'])
+@pytest.mark.parametrize('name', ['pointrcnn.yaml', 'pointrcnn_iou.yaml'])
 def test_other_families_raise(name):
+    """PointRCNN with its PointNet2MSG backbone is refused by name."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / name))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match='PointNet2MSG'):
         build_detector(cfg, device='cpu')
 
 
 @pytest.mark.parametrize('name', ['second_multihead.yaml', 'second_iou.yaml',
-                                  'pointpillar.yaml', 'pv_rcnn.yaml'])
+                                  'pointpillar.yaml', 'pv_rcnn.yaml',
+                                  'PartA2.yaml', 'PartA2_free.yaml',
+                                  '../waymo_models/PartA2.yaml'])
 def test_three_class_families_need_a_card(name):
-    """KITTI's three-class families (PV-RCNN too) build on the GPU by
-    default and on the CPU when asked; without a card the default raises."""
+    """KITTI's three-class families (PV-RCNN, PartA2 and PartA2-free too)
+    and Waymo's PartA2 build on the GPU by default and on the CPU when
+    asked; without a card the default raises."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 

@@ -134,16 +134,47 @@ def assert_predict_equal(pred, ref):
                  atol=1e-4)
 
 
+def jax_dropout_outputs(intermediates):
+    """The captured outputs of the RoI head's flax Dropouts (auto-named
+    Dropout_<i> in the order they run), in that order."""
+    head = intermediates['roi_head']
+    names = sorted((k for k in head if k.startswith('Dropout_')),
+                   key=lambda k: int(k.split('_')[1]))
+    return [np.asarray(head[k]['__call__'][0]) for k in names]
+
+
+@contextlib.contextmanager
+def fed_dropout(outputs):
+    """The port's roi_heads.dropout replaced by JAX's draws: the i-th call
+    keeps the entries the i-th JAX Dropout kept (its nonzero outputs; where
+    the input is 0 both sides give 0 whatever the draw)."""
+    import torch
+
+    from glenet_tpu_torch.models import roi_heads
+    masks = iter([o != 0 for o in outputs])
+
+    def dropout(x, p, generator=None):
+        keep = torch.from_numpy(next(masks))
+        return torch.where(keep, x / (1.0 - p), 0.0)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(roi_heads, 'dropout', dropout)
+        yield
+    assert next(masks, None) is None, 'a JAX dropout draw went unused'
+
+
 def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
-                    total_steps=100, points=None):
-    """One train step of glenet_tpu and one of the port on `cfg` (DP_RATIO
-    should be 0), same numpy-drawn weights and points (or `points`, all
-    valid), gt boxes 0.15 m off
-    the first 4 train-mode proposals of each sample, and the JAX step's own
-    sampled RoI targets fed to the port (the RNG streams differ), as
-    tests/test_torch_train_step.py does.  Returns (JAX's metrics, grads,
-    batch_stats and targets; the port's metrics; its gradients by port
-    key; the port's detector); call inside pinned_f32()."""
+                    total_steps=100, points=None, dropout=False):
+    """One train step of glenet_tpu and one of the port on `cfg`, same
+    numpy-drawn weights and points (or `points`, all valid), gt boxes
+    0.15 m off the first 4 train-mode proposals of each sample, and the JAX
+    step's own sampled RoI targets fed to the port (the RNG streams differ),
+    as tests/test_torch_train_step.py does.  DP_RATIO should be 0 unless
+    `dropout`: then the JAX step's dropout draws are fed to the port too
+    (fed_dropout).  Returns (JAX's metrics, grads, batch_stats and targets;
+    the port's metrics; its gradients by port key; the port's detector);
+    call inside pinned_f32()."""
+    import flax.linen as nn
     import jax
     import jax.numpy as jnp
     import optax
@@ -200,7 +231,9 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
                 {'params': params, 'batch_stats': v['batch_stats']},
                 bt['points'], bt['points_mask'], gt_boxes=bt['gt_boxes'],
                 gt_mask=bt['gt_mask'], gt_uncertainty=bt['gt_uncertainty'],
-                train=True, mutable=['batch_stats'],
+                train=True, mutable=['batch_stats', 'intermediates'],
+                capture_intermediates=lambda mdl, _: isinstance(
+                    mdl, nn.Dropout),
                 rngs={'roi_sampler': r_roi, 'dropout': r_drop})
             loss, metrics = det.compute_loss(out, bt)
             return loss, (metrics, new_state, out['roi_targets'])
@@ -209,7 +242,8 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
             loss_fn, has_aux=True)(v['params'])
         metrics['grad_norm'] = optax.global_norm(grads)
         return {'metrics': metrics, 'grads': grads,
-                'batch_stats': new_state['batch_stats'], 'targets': targets}
+                'batch_stats': new_state['batch_stats'], 'targets': targets,
+                'intermediates': new_state.get('intermediates', {})}
 
     ref = jax.tree.map(np.asarray, jax_step(
         jax.tree.map(jnp.asarray, variables), jax.tree.map(jnp.asarray,
@@ -221,7 +255,10 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     tbatch['roi_targets'] = {k: torch.from_numpy(np.array(v))
                              for k, v in ref['targets'].items()}
-    _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
+    draws = jax_dropout_outputs(ref['intermediates']) if dropout else []
+    assert dropout == bool(draws), 'dropout draws and DP_RATIO disagree'
+    with fed_dropout(draws) if dropout else contextlib.nullcontext():
+        _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in tdet.net.named_parameters()}
     return ref, metrics, grads, tdet
