@@ -181,11 +181,11 @@ Phases, each of which exits non-zero on failure:
      stage-1 tensor equal to its checkpointed value times prod(1 - lr_t *
      0.01) within 1e-6 relative: AdamW's decay alone); tools.
      convergence_waymo on configs/waymo_models/GLENet_S.yaml for 10 steps
-     and a 5-step frozen-BN tail, with its active-site lines.  Per run the
-     card, ms per step, peak memory, final loss and AP (printed, not
-     gated); checks finite losses, the evaluators' keys and 4
-     merge-resolve launches per call on the sparse families (0 on
-     PointPillars);
+     and a 5-step frozen-BN tail, with its active-site lines;
+     convergence_ap on pointrcnn.yaml for 10 steps.  Per run the card, ms
+     per step, peak memory, final loss and AP (printed, not gated); checks
+     finite losses, the evaluators' keys and 4 merge-resolve launches per
+     call on the sparse families (0 on PointPillars and PointRCNN);
  14. PartA2 and PartA2-free, [parta2] (launches counted from 0 just
      before and read just after each call but the warm-up predicts): (a)
      configs/kitti_models/PartA2.yaml at full width (UNetV2 sparse at all
@@ -208,7 +208,27 @@ Phases, each of which exits non-zero on failure:
      as PartA2-free (tiny_parta2_raw), as phase 7 with [waymo] (e)'s ReLU
      alignment in the train step; phase 6 adds the 7
      captured calls of the KITTI PartA2 predict and train step;
- 15. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 15. PointRCNN, [pointrcnn] (launches counted from 0 just before and read
+     just after each call but the warm-up predicts: 0, PointRCNN has no
+     sparse level): (a) configs/kitti_models/pointrcnn.yaml at full width
+     (PointNet2MSG on 16384 points: 4096 / 1024 / 256 / 64 centres;
+     PointHeadBox; PointRCNNHead over 512 pooled points per roi) with
+     seeded weights: a warm-up predict, 3 predicts at B = 2 at the
+     published thresholds and 1 at zero thresholds, a warm-up and 2 train
+     steps at B = 2 on three-class scenes; per call ms, FPS ms (CUDA
+     events around each farthest_point_sample), valid proposals,
+     detections per class, every loss term, peak memory; losses finite,
+     parameters and BN stats moved; (b) pointrcnn_iou.yaml: a warm-up, a
+     predict and one at zero thresholds, one train step at B = 3; (c)
+     pointrcnn.yaml through `tools.train` (B = 2, 1 epoch x 2 steps) on the
+     [three_class] tree and `tools.test` with Car, Pedestrian and Cyclist AP
+     keys; (d) after phase 7, the card against the CPU on the toy two-stage
+     PointRCNN (tiny_pointrcnn_raw), f32 with TF32 off: a predict and a
+     train step with fixed RoI targets, as phase 7, the CPU taking the
+     card's side of each ReLU kink within rounding of 0 and of each FPS,
+     ball-query or three-nn decision at a near tie (relative gap within
+     1e-5; any other difference fails; point_decisions);
+ 16. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -478,8 +498,11 @@ def phase_merge_check(captured, captured_train, captured_single):
             'single': check_captured(captured_single, 'GLENet-C predict')}
 
 
-def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
-    """Tiny two-stage topology on the card and on the port's CPU path."""
+def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False):
+    """Tiny two-stage topology on the card and on the port's CPU path.
+    With align_points (PointRCNN) the card runs first and the CPU run takes
+    the card's FPS, ball-query and three-nn decisions where they differ at
+    a near tie (point_decisions; any other difference fails)."""
     import torch
 
     from glenet_tpu_torch.config import Cfg
@@ -498,16 +521,20 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
         pts = torch.from_numpy(tiny_batch(SEED + 7,
                                           features=n_features(cfg)))
         mask = torch.ones(pts.shape[:2], dtype=torch.bool)
-        outs, calls = {}, {}
-        for dev in ('cpu', 'cuda'):
+        outs, calls, decisions = {}, {}, None
+        for dev in ('cuda', 'cpu') if align_points else ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
             calls[dev], undo = record_ball_queries()
+            if align_points:
+                decisions, undo_points = point_decisions(decisions)
             try:
                 with torch.no_grad():
                     full = det.net(pts.to(dev), mask.to(dev))
                     pred = det.finalize(full)
             finally:
                 undo()
+                if align_points:
+                    undo_points()
             outs[dev] = (full, pred)
     finally:
         (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
@@ -518,10 +545,11 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
         check_point_decisions(fc, fg, calls, tag)
     # f32 on both devices, convolutions and sums in another order:
     # features rtol 1e-3 / atol 1e-4, final boxes and scores atol 1e-3
-    exact = [('voxel_coords', fc['vox']['voxel_coords'],
-              fg['vox']['voxel_coords']),
-             ('final_valid', pc['final_valid'], pg['final_valid']),
+    exact = [('final_valid', pc['final_valid'], pg['final_valid']),
              ('final_labels', pc['final_labels'], pg['final_labels'])]
+    if 'vox' in fc:
+        exact.append(('voxel_coords', fc['vox']['voxel_coords'],
+                      fg['vox']['voxel_coords']))
     if 'proposals' in fc:
         exact.append(('roi_valid', fc['proposals']['roi_valid'],
                       fg['proposals']['roi_valid']))
@@ -537,13 +565,16 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
     if 'pfe' in fc:
         close.append(('point_cls_preds', fc['pfe']['point_cls_preds'],
                       fg['pfe']['point_cls_preds'], 1e-3, 1e-4))
+    if 'point_head' in fc:
+        close += [(k, fc['point_head'][k], fg['point_head'][k], 1e-3, 1e-4)
+                  for k in ('point_cls_preds', 'point_box_preds')]
     if 'rcnn' in fc:
         close.append(('rcnn_reg', fc['rcnn']['rcnn_reg'],
                       fg['rcnn']['rcnn_reg'], 1e-3, 1e-4))
         if 'no_reg_loss' in fc['rcnn']:   # SECONDHead scores the rois
             close.append(('rcnn_cls', fc['rcnn']['rcnn_cls'],
                           fg['rcnn']['rcnn_cls'], 1e-3, 1e-4))
-    else:
+    elif 'dense_head' in fc:
         close += [(k, fc['dense_head'][k], fg['dense_head'][k], 1e-3, 1e-4)
                   for k in sorted(fc['dense_head'])]
     for name, a, b, rtol, atol in close:
@@ -554,14 +585,20 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu'):
         check(ok, f'GPU and CPU differ in {name}')
     n_valid = int(pc['final_valid'].sum())
     print(f'[{tag}] tiny {cfg.MODEL.NAME} predict: integer outputs equal, '
-          f'{n_valid} valid final boxes')
+          f'{n_valid} valid final boxes'
+          + (f'; of {decisions["calls"]} FPS / ball-query / three-nn calls '
+             f'{decisions["adopted"]} took the card\'s decisions at a near '
+             f'tie (largest relative gap {decisions["largest"]:.2e}, bound '
+             f'{NEAR_TIE})' if align_points else ''))
 
 
-def tiny_train_batch(cfg):
+def tiny_train_batch(cfg, train_proposals=False):
     """The toy training batch: tiny_batch's points, gt boxes 0.15 m off the
-    first 4 valid proposals of each sample of a CPU predict, with their
-    classes (so the RoI targets hold foreground), label variances in [0.02, 0.3), and fixed RoI
-    targets sampled once on the CPU."""
+    first 4 valid proposals of each sample of a CPU predict (with
+    train_proposals of a train-mode forward without gt boxes: PointRCNN's
+    point boxes move with the BN mode), with their classes (so the RoI
+    targets hold foreground), label variances in [0.02, 0.3), and fixed
+    RoI targets sampled once on the CPU."""
     import numpy as np
     import torch
 
@@ -570,10 +607,13 @@ def tiny_train_batch(cfg):
     b = pts.shape[0]
     mask = torch.ones(pts.shape[:2], dtype=torch.bool)
     det = seeded_detector(cfg, 'cpu', SEED + 3)
-    with torch.no_grad():
-        prop = det.net(pts, mask)['proposals']
     gt = torch.zeros((b, 8, 8))
     gt_mask = torch.zeros((b, 8), dtype=torch.bool)
+    with torch.no_grad():
+        prop = (det.net(pts, mask, train=True, gt_boxes=gt, gt_mask=gt_mask,
+                        generator=torch.Generator().manual_seed(SEED))
+                if train_proposals else det.net(pts, mask))['proposals']
+    det = seeded_detector(cfg, 'cpu', SEED + 3)      # BN stats as drawn
     for i in range(b):
         idx = torch.nonzero(prop['roi_valid'][i]).flatten()[:4]
         gt[i, :len(idx), :7] = prop['rois'][i, idx]
@@ -633,7 +673,8 @@ def relu_signs(net, recorded=None, rel=1e-4):
 
 
 def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
-                           make_batch=tiny_train_batch, align_relu=False):
+                           make_batch=tiny_train_batch, align_relu=False,
+                           align_points=False):
     """One toy train step (in two-stage configs fixed RoI targets and
     DP_RATIO 0) on the card and on the port's CPU path.  With align_relu:
     a ReLU input within rounding of 0 can land on the other side of the
@@ -642,7 +683,9 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
     CPU run takes the card's side at such elements, each within 1e-4 of
     its module's largest |output| on both devices, the relative agreement
     the loss terms are held to (relu_signs; at most 4 of them; a larger
-    flip fails), so both compute one branch."""
+    flip fails), so both compute one branch.  With align_points the CPU
+    run also takes the card's FPS, ball-query and three-nn decisions at
+    near ties (point_decisions)."""
     import copy
 
     import torch
@@ -668,18 +711,27 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
         n_fg = int(batch['roi_targets']['reg_valid_mask'].sum()
                    if 'roi_targets' in batch else batch['gt_mask'].sum())
         check(n_fg > 0, 'the toy targets hold no foreground')
-        runs, signs, hooks = {}, None, []
-        # with align_relu the card runs first: the CPU takes its side
-        for dev in ('cuda', 'cpu') if align_relu else ('cpu', 'cuda'):
+        runs, signs, hooks, decisions = {}, None, [], None
+        # with align_relu or align_points the card runs first: the CPU
+        # takes its side
+        card_first = align_relu or align_points
+        for dev in ('cuda', 'cpu') if card_first else ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
             tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
             state = st.create_train_state(det, tx)
             if align_relu:
                 signs, hooks = relu_signs(det.net, signs)
+            undo_points = None
+            if align_points:
+                decisions, undo_points = point_decisions(decisions)
             bt = {k: (v.to(dev) if torch.is_tensor(v)
                       else {kk: vv.to(dev) for kk, vv in v.items()})
                   for k, v in batch.items()}
-            state, metrics = st.make_train_step(det, tx)(state, bt)
+            try:
+                state, metrics = st.make_train_step(det, tx)(state, bt)
+            finally:
+                if undo_points is not None:
+                    undo_points()
             for h in hooks:
                 h.remove()
             runs[dev] = (metrics, det.net, tx)
@@ -733,6 +785,9 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
           + (f'; ReLU inputs the CPU took on the card\'s side of 0: '
              f'{signs["flipped"]}, the largest at {signs["largest"]:.2f} '
              f'of rounding' if align_relu else '')
+          + (f'; FPS / ball-query / three-nn decisions the CPU took from '
+             f'the card at a near tie: {decisions["adopted"]} of '
+             f'{decisions["calls"]} calls' if align_points else '')
           + '), BN running stats and the parameters after adam_onecycle '
           'agree')
 
@@ -3706,6 +3761,419 @@ def phase_parta2(tmp, root):
 
 
 # ---------------------------------------------------------------------------
+# [pointrcnn]: PointRCNN (PointNet2MSG, PointHeadBox, RoI point pooling and
+# PointRCNNHead; no voxels, no sparse level: no merge-resolve launch)
+# ---------------------------------------------------------------------------
+
+POINTRCNN_STEPS = 2
+
+
+def tiny_pointrcnn_raw():
+    """tests/test_pointrcnn.py's toy two-stage PointRCNN
+    (make_two_stage_cfg: TINY_POINTRCNN's PointNet2MSG of 128 / 32 / 16 / 8
+    centres and FP widths 16-32, PointHeadBox with FCs of 32,
+    PointRCNNHead pooling 32 points per roi, SA levels of 16 centres and
+    group-all, FCs of 16, CLS_SCORE_TYPE cls), TINY_CFG's optimizer, the
+    final nms_gpu at zero score threshold."""
+    import copy
+    sa = {'NPOINTS': [128, 32, 16, 8], 'RADIUS': [[0.5, 1.0]] * 4,
+          'NSAMPLE': [[8, 16]] * 4,
+          'MLPS': [[[8, 8], [8, 8]], [[8, 16], [8, 16]],
+                   [[16, 16], [16, 16]], [[16, 32], [16, 32]]]}
+    return {
+        'CLASS_NAMES': ['Car'],
+        'DATA_CONFIG': {
+            'POINT_CLOUD_RANGE': [0, -8, -1.2, 16, 8, 1.2],
+            'DATA_PROCESSOR': [{
+                'NAME': 'transform_points_to_voxels',
+                'VOXEL_SIZE': [0.5, 0.5, 0.1], 'MAX_POINTS_PER_VOXEL': 5,
+                'MAX_NUMBER_OF_VOXELS': {'train': 512, 'test': 512}}]},
+        'MODEL': {
+            'NAME': 'PointRCNN',
+            'BACKBONE_3D': {'NAME': 'PointNet2MSG', 'SA_CONFIG': sa,
+                            'FP_MLPS': [[16, 16], [16, 16], [32, 32],
+                                        [32, 32]]},
+            'POINT_HEAD': {
+                'NAME': 'PointHeadBox', 'CLS_FC': [32], 'REG_FC': [32],
+                'CLASS_AGNOSTIC': False,
+                'TARGET_CONFIG': {
+                    'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2],
+                    'BOX_CODER': 'PointResidualCoder',
+                    'BOX_CODER_CONFIG': {'use_mean_size': True,
+                                         'mean_size': [[3.9, 1.6, 1.56]]}},
+                'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0,
+                                                 'point_box_weight': 1.0}}},
+            'ROI_HEAD': {
+                'NAME': 'PointRCNNHead', 'CLASS_AGNOSTIC': True,
+                'ROI_POINT_POOL': {'POOL_EXTRA_WIDTH': [0.0, 0.0, 0.0],
+                                   'NUM_SAMPLED_POINTS': 32,
+                                   'DEPTH_NORMALIZER': 70.0},
+                'XYZ_UP_LAYER': [16, 16], 'CLS_FC': [16], 'REG_FC': [16],
+                'DP_RATIO': 0.0, 'USE_BN': False,
+                'SA_CONFIG': {'NPOINTS': [16, -1], 'RADIUS': [0.4, 100],
+                              'NSAMPLE': [8, 8],
+                              'MLPS': [[16, 16], [16, 32]]},
+                'NMS_CONFIG': {
+                    'TRAIN': {'NMS_TYPE': 'nms_gpu', 'NMS_PRE_MAXSIZE': 128,
+                              'NMS_POST_MAXSIZE': 32, 'NMS_THRESH': 0.8},
+                    'TEST': {'NMS_TYPE': 'nms_gpu', 'NMS_PRE_MAXSIZE': 128,
+                             'NMS_POST_MAXSIZE': 16, 'NMS_THRESH': 0.85}},
+                'TARGET_CONFIG': {
+                    'BOX_CODER': 'ResidualCoder', 'ROI_PER_IMAGE': 16,
+                    'FG_RATIO': 0.5, 'SAMPLE_ROI_BY_EACH_CLASS': True,
+                    'CLS_SCORE_TYPE': 'cls', 'CLS_FG_THRESH': 0.6,
+                    'CLS_BG_THRESH': 0.45, 'CLS_BG_THRESH_LO': 0.1,
+                    'HARD_BG_RATIO': 0.8, 'REG_FG_THRESH': 0.55},
+                'LOSS_CONFIG': {
+                    'CLS_LOSS': 'BinaryCrossEntropy', 'REG_LOSS': 'smooth-l1',
+                    'CORNER_LOSS_REGULARIZATION': True,
+                    'LOSS_WEIGHTS': {'rcnn_cls_weight': 1.0,
+                                     'rcnn_reg_weight': 1.0,
+                                     'rcnn_corner_weight': 1.0,
+                                     'code_weights': [1.0] * 7}}},
+            'POST_PROCESSING': {
+                'SCORE_THRESH': 0.0,
+                'NMS_CONFIG': {'MULTI_CLASSES_NMS': False,
+                               'NMS_TYPE': 'nms_gpu', 'NMS_THRESH': 0.1,
+                               'NMS_PRE_MAXSIZE': 128,
+                               'NMS_POST_MAXSIZE': 16}}},
+        'OPTIMIZATION': copy.deepcopy(TINY_CFG['OPTIMIZATION']),
+    }
+
+
+NEAR_TIE = 1e-5     # relative: a decision two devices may take either way
+
+
+def point_decisions(recorded=None):
+    """Wrap the integer decisions of ops/pointnet2.py (FPS picks, ball
+    queries, three-nn).  With recorded=None each call's outputs are
+    recorded (on the CPU).  Given another run's record, each call's outputs
+    are compared with the recorded call's; where they differ the first
+    difference must be a near tie (FPS: the two candidates' running minimum
+    squared distances; three-nn: the two neighbours' squared distances;
+    ball query: a point within the radius on one side only lies within
+    NEAR_TIE of radius^2), and the call then returns the recorded outputs,
+    so both runs go on with one set of decisions (the count is 'adopted');
+    any other difference fails.  Returns (the record or the counts, undo)."""
+    import torch
+
+    from glenet_tpu_torch.ops import pointnet2 as pn2
+    real = {k: getattr(pn2, k) for k in ('farthest_point_sample',
+                                         'ball_query', 'three_nn')}
+    out = ({} if recorded is None
+           else {'adopted': 0, 'calls': 0, 'largest': 0.0})
+    queue = None if recorded is None else {k: list(v) for k, v in
+                                           recorded.items()}
+
+    def d2(a, b):
+        return float(((a.double() - b.double()) ** 2).sum())
+
+    def near(x, y, what):
+        gap = abs(x - y) / max(abs(x), abs(y), 1e-30)
+        check(gap <= NEAR_TIE, f'{what}: GPU and CPU differ beyond a near '
+                               f'tie (relative gap {gap:.3e})')
+        out['largest'] = max(out['largest'], gap)
+
+    def wrap(name):
+        def fn(*args):
+            res = real[name](*args)
+            cpu = (tuple(r.detach().cpu() for r in res)
+                   if isinstance(res, tuple) else res.detach().cpu())
+            if recorded is None:
+                out.setdefault(name, []).append(cpu)
+                return res
+            ref = queue[name].pop(0)
+            out['calls'] += 1
+            # the decisions: FPS picks, ball-query indices and empty flags,
+            # three-nn indices (its distances are floats, held downstream)
+            if name == 'three_nn':
+                same = torch.equal(cpu[1], ref[1])
+            elif name == 'ball_query':
+                same = torch.equal(cpu[0], ref[0]) and torch.equal(cpu[1],
+                                                                   ref[1])
+            else:
+                same = torch.equal(cpu, ref)
+            if same:
+                return res
+            if name == 'farthest_point_sample':
+                xyz = args[0].detach().cpu()
+                b, k = [int(v) for v in torch.nonzero(cpu != ref)[0]]
+                taken = xyz[b, cpu[b, :k]]
+                dist = [float(((xyz[b, p] - taken) ** 2).sum(-1).min())
+                        for p in (int(cpu[b, k]), int(ref[b, k]))]
+                near(*dist, f'FPS pick {k} of scene {b}')
+            elif name == 'three_nn':
+                unknown, known = args[0].detach().cpu(), args[1].detach().cpu()
+                b, n, s = [int(v) for v in
+                           torch.nonzero(cpu[1] != ref[1])[0]]
+                near(d2(unknown[b, n], known[b, int(cpu[1][b, n, s])]),
+                     d2(unknown[b, n], known[b, int(ref[1][b, n, s])]),
+                     f'three-nn of point {n} of scene {b}')
+            else:
+                radius, _, xyz, new_xyz = args[:4]
+                xyz, new_xyz = xyz.detach().cpu(), new_xyz.detach().cpu()
+                r2 = float(torch.tensor(radius, dtype=torch.float32) ** 2)
+                bad = (cpu[0] != ref[0]).any(-1) | (cpu[1] != ref[1])
+                b, m = [int(v) for v in torch.nonzero(bad)[0]]
+                sym = set(cpu[0][b, m].tolist()) ^ set(ref[0][b, m].tolist())
+                gaps = [d2(xyz[b, p], new_xyz[b, m]) for p in sym]
+                near(min(gaps, key=lambda g: abs(g - r2)), r2,
+                     f'ball query {m} of scene {b} (radius {radius})')
+            out['adopted'] += 1
+            dev = (res[0] if isinstance(res, tuple) else res).device
+            return (tuple(r.to(dev) for r in ref) if isinstance(ref, tuple)
+                    else ref.to(dev))
+        return fn
+
+    for name in real:
+        setattr(pn2, name, wrap(name))
+
+    def undo():
+        for name, fn in real.items():
+            setattr(pn2, name, fn)
+    return out, undo
+
+
+def fps_timer():
+    """CUDA events around each pointnet2.farthest_point_sample call (no
+    synchronise); returns (read: the ms of the calls since the last read,
+    after a synchronise; undo)."""
+    import torch
+
+    from glenet_tpu_torch.ops import pointnet2 as pn2
+    real, pairs = pn2.farthest_point_sample, []
+
+    def fps(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = real(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return res
+
+    def read():
+        torch.cuda.synchronize()
+        ms = sum(s.elapsed_time(e) for s, e in pairs)
+        pairs.clear()
+        return ms
+
+    pn2.farthest_point_sample = fps
+    return read, lambda: setattr(pn2, 'farthest_point_sample', real)
+
+
+def phase_pointrcnn_full(cfg_name, seed, n_predicts, n_steps):
+    """[pointrcnn] (a) / (b): configs/kitti_models/<cfg_name> at full width
+    with seeded weights on synthetic scenes of NUM_POINTS (16384) points: a
+    warm-up predict, `n_predicts` predicts at B = 2 at the published
+    thresholds and one at zero thresholds, then a warm-up train step and
+    `n_steps` timed ones at B = BATCH_SIZE_PER_GPU; per call ms, FPS ms
+    (CUDA events), valid proposals, detections per class, loss terms,
+    peak memory; merge-resolve launches counted from 0 just before and read
+    just after each call: 0 (no sparse level).  Returns (mean predict ms,
+    mean step ms, the launches)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
+    names = list(cfg.CLASS_NAMES)
+    tag = cfg.TAG
+    det = seeded_detector(cfg, 'cuda', seed)
+    fps_ms, undo_fps = fps_timer()
+    props = {}
+    hook = det.net.register_forward_hook(
+        lambda _m, _i, out: props.update(
+            n=out['proposals']['roi_valid'].sum(1).tolist()
+            if 'proposals' in out else None))
+    launches, times = 0, []
+    try:
+        batches = batches_for(cfg, n_predicts + 1, SEED + 9, BATCH)
+        n_pts = batches[0]['points'].shape[1]
+        t0 = time.perf_counter()
+        det.predict(batches[0])
+        torch.cuda.synchronize()
+        print(f'[pointrcnn] {tag}: warm-up predict '
+              f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+        fps_ms()
+        post = det.model_cfg.POST_PROCESSING
+        for r, batch in enumerate(batches[1:] + batches[1:2]):
+            zero = r == n_predicts
+            saved = post.SCORE_THRESH
+            if zero:
+                post.SCORE_THRESH = 0.0
+            mk.LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                pred = det.predict(batch)
+                torch.cuda.synchronize()
+            finally:
+                post.SCORE_THRESH = saved
+            ms = 1e3 * (time.perf_counter() - t0)
+            n = mk.LAUNCHES
+            launches += n
+            check(n == 0, f'{tag} predict {r}: {n} merge-resolve launches')
+            k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
+            for key, shape in (('final_boxes', (BATCH, k, 7)),
+                               ('final_scores', (BATCH, k))):
+                check(tuple(pred[key].shape) == shape
+                      and bool(torch.isfinite(pred[key]).all()),
+                      f'{tag} predict {r}: {key} {tuple(pred[key].shape)} '
+                      f'or not finite')
+            labels, valid = pred['final_labels'], pred['final_valid']
+            check(int(labels.min()) >= 0 and int(labels.max()) <= len(names),
+                  f'{tag}: labels {labels.unique().tolist()}')
+            if zero:
+                check(int(valid.sum()) > 0,
+                      f'{tag}: no box kept at zero thresholds')
+            else:
+                times.append(ms)
+            print(f'[pointrcnn] {tag} predict {r}'
+                  + (' at zero thresholds' if zero else '')
+                  + f' B={BATCH} x {n_pts} points: {ms:.1f} ms, of it FPS '
+                  f'{fps_ms():.1f} ms (events); valid proposals '
+                  f'{props["n"]}; detections {valid.sum(1).tolist()} ('
+                  f'{per_class(labels, valid, names)}); merge_resolve '
+                  f'launches {n}; max_memory_allocated '
+                  f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        pred_ms = sum(times) / len(times)
+
+        _, state, train_step = build_training(cfg, det)
+        b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        tbatches = batches_for(cfg, n_steps + 1, SEED + 10, b, train=True)
+        params = {n: p.detach().clone()
+                  for n, p in det.net.named_parameters()}
+        stats = {n: t.clone() for n, t in det.net.named_buffers()
+                 if n.endswith(('running_mean', 'running_var'))}
+        times = []
+        for i, batch in enumerate(tbatches):
+            label = 'warm-up step' if i == 0 else f'step {i - 1}'
+            mk.LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            n = mk.LAUNCHES
+            launches += n
+            check(n == 0, f'{tag} train {label}: {n} merge-resolve launches')
+            vals = {k: float(v) for k, v in metrics.items()}
+            check(all(math.isfinite(v) for v in vals.values())
+                  and 'rcnn_loss_cls' in vals and vals['loss_cls'] > 0,
+                  f'{tag} train {label}: {vals}')
+            print(f'[pointrcnn] {tag} {label} B={b}: {times[-1]:.1f} ms, of '
+                  f'it FPS {fps_ms():.1f} ms; '
+                  + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+                  + f'; valid proposals {props["n"]}; merge_resolve '
+                  f'launches {n}; max_memory_allocated '
+                  f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    finally:
+        undo_fps()
+        hook.remove()
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'{tag}: parameters unchanged by the steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'{tag}: BN running stats unchanged: {same}')
+    timed = times[1:] or times
+    step_ms = sum(timed) / len(timed)
+    print(f'[pointrcnn] {tag}: predict B={BATCH} mean {pred_ms:.1f} ms over '
+          f'{n_predicts} requests; train B={b}: warm-up step '
+          f'{times[0]:.1f} ms, mean of {len(timed)} '
+          f'{"timed" if times[1:] else "(warm-up)"} steps {step_ms:.1f} ms; '
+          f'{len(params) - len(still)} of {len(params)} parameter tensors and '
+          f'all {len(stats)} BN running-stat tensors changed')
+    del det, state
+    torch.cuda.empty_cache()
+    return pred_ms, step_ms, launches
+
+
+def phase_pointrcnn_cli(root, tmp):
+    """[pointrcnn] (c): pointrcnn.yaml through `tools.train` (B = 2, 1 epoch
+    x 2 steps; sample_points draws 16384 of each frame's points) on the
+    synthetic three-class tree at `root` and `tools.test` with the
+    three-class KITTI evaluation; no merge-resolve launch.  Returns the
+    launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    cfg_file = str(ROOT / 'configs/kitti_models/pointrcnn.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    out = tmp / f'out_{cfg.TAG}'
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(b)]
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = train_cli.main(common + ['--epochs', '1',
+                                   '--max_steps_per_epoch', '2'])
+    peak = torch.cuda.max_memory_allocated()
+    n_train = mk.LAUNCHES
+    check(n_train == 0 and len(run['steps']) == 2,
+          f'PointRCNN CLI train: {len(run["steps"])} steps, {n_train} '
+          f'merge-resolve launches')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'PointRCNN CLI step {r["it"]}: not finite: {bad}')
+        print(f'[pointrcnn] {cfg.TAG} CLI train step {r["it"]} B={b}: data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, loss_cls {r["loss_cls"]:.4f}, loss_loc '
+              f'{r["loss_loc"]:.4f}, rcnn_loss_cls {r["rcnn_loss_cls"]:.4f}, '
+              f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+    mk.LAUNCHES = 0
+    results = test_cli.main(common)
+    n_test = mk.LAUNCHES
+    (path, res), = results.items()
+    keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
+    check(res['frames'] == TC_VAL and n_test == 0
+          and all(np.isfinite(res['ap'][k]) for k in keys),
+          f'PointRCNN test CLI: {res["frames"]} frames, {n_test} launches, '
+          f'{sorted(res["ap"])[:6]}')
+    print(f'[pointrcnn] {cfg.TAG} test CLI on {Path(path).name}: '
+          f'{res["frames"]} val frames, {res["sec_per_frame"]:.4f} s/frame, '
+          f'KITTI evaluation {res["eval_sec"]:.3f} s; '
+          + ', '.join(f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + f'; merge_resolve launches: train {n_train}, test {n_test} (2 '
+          f'steps from random weights: only the keys are checked)')
+    return n_train + n_test
+
+
+def phase_pointrcnn(tmp, root):
+    """[pointrcnn]: (a) pointrcnn.yaml at full width (predicts and steps at
+    B = 2), (b) pointrcnn_iou.yaml (a predict and a step at B = 3), (c)
+    the CLIs on the three-class tree at `root`.  (d) runs after the main
+    paths.  Returns (launches, mean ms of each predict and step)."""
+    pred_ms, step_ms, launches = phase_pointrcnn_full(
+        'pointrcnn.yaml', SEED + 150, N_REQUESTS, POINTRCNN_STEPS)
+    times = {'pointrcnn': (pred_ms, step_ms)}
+    pred_ms, step_ms, n = phase_pointrcnn_full('pointrcnn_iou.yaml',
+                                               SEED + 151, 1, 1)
+    times['pointrcnn_iou'] = (pred_ms, step_ms)
+    launches += n + phase_pointrcnn_cli(root, tmp)
+    print('[pointrcnn] mean predict / train step ms: ' + ', '.join(
+        f'{k} {p:.1f} / {t:.1f}' for k, (p, t) in times.items()))
+    return launches, times
+
+
+# ---------------------------------------------------------------------------
 # [convergence]: the synthetic convergence harness
 # (glenet_tpu_torch/tools/convergence_ap.py, convergence_waymo.py,
 # stage2_recovery.py)
@@ -3715,6 +4183,7 @@ CONV_PILLAR_STEPS = 700                  # PointPillars' full harness run
 CONV_VR_STEPS, CONV_VR_HOLDOUT, CONV_VR_TEST_BUDGET = 20, 2, 40000
 CONV_STAGE2_STEPS = 5
 CONV_WAYMO_STEPS, CONV_WAYMO_TAIL = 10, 5
+CONV_POINTRCNN_STEPS = 10
 
 
 class _Tee:
@@ -3794,11 +4263,13 @@ def phase_convergence(tmp):
     tensor must equal its checkpointed value times prod(1 - lr_t * 0.01),
     AdamW's decay alone, within 1e-6 relative; (d) Waymo GLENet-S for
     CONV_WAYMO_STEPS steps and a CONV_WAYMO_TAIL-step frozen-BN tail, with
-    its active-site lines.  Results go to a file in `tmp`, dumps to `tmp`.
-    Checks finite losses, the last loss below the first (PointPillars), 4
-    merge-resolve launches per train-mode forward and per predict on the
-    sparse families (0 on PointPillars) and the evaluators' keys; the AP
-    is printed, not gated.  Returns the launches."""
+    its active-site lines; (e) PointRCNN (pointrcnn.yaml) for
+    CONV_POINTRCNN_STEPS steps.  Results go to a file in `tmp`, dumps to
+    `tmp`.  Checks finite losses, the last loss below the first
+    (PointPillars), 4 merge-resolve launches per train-mode forward and per
+    predict on the sparse families (0 on PointPillars and PointRCNN) and
+    the evaluators' keys; the AP is printed, not gated.  Returns the
+    launches."""
     import math
     import tempfile
 
@@ -3895,6 +4366,20 @@ def phase_convergence(tmp):
         conv_line(f'GLENet_S_waymo {CONV_WAYMO_STEPS} + {CONV_WAYMO_TAIL} '
                   f'frozen-BN steps', entry,
                   ('Vehicle_L1_AP', 'Vehicle_L1_APH'))
+
+        entry, text, n, per_call = run_tool(
+            'pointrcnn', ca.main,
+            [str(CONV_POINTRCNN_STEPS), '1e-3',
+             'configs/kitti_models/pointrcnn.yaml', '--out', out])
+        launches += n
+        check_launches('pointrcnn', per_call, 0)
+        losses = printed_losses(text)
+        check(all(math.isfinite(v) for v in losses)
+              and math.isfinite(entry['final_loss'])
+              and entry['Car_3d_moderate_R40'] is not None,
+              f'pointrcnn harness: {entry}')
+        conv_line(f'pointrcnn {CONV_POINTRCNN_STEPS} steps', entry,
+                  ('Car_3d_moderate_R40', 'Car_bev_moderate_R40'))
     finally:
         tempfile.tempdir = saved_tmp
     torch.cuda.empty_cache()
@@ -3931,6 +4416,7 @@ def main():
             launches_conv = phase_convergence(Path(tmp))
             launches_parta2, captured_parta2, _ = phase_parta2(Path(tmp),
                                                                tc_root)
+            launches_pointrcnn, _ = phase_pointrcnn(Path(tmp), tc_root)
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -3981,6 +4467,15 @@ def main():
             tag = f'parta2] [gpu-vs-cpu {"free" if free else "PartA2"}'
             phase_gpu_vs_cpu(raw, tag)
             phase_gpu_vs_cpu_train(raw, tag, align_relu=True)
+        # the RoI head's FPS and ball queries run on pooled xyz that the
+        # devices rotate into the roi frames with other roundings: the CPU
+        # takes the card's decision at a near tie, as at a ReLU kink
+        phase_gpu_vs_cpu(tiny_pointrcnn_raw(), 'pointrcnn] [gpu-vs-cpu',
+                         align_points=True)
+        phase_gpu_vs_cpu_train(
+            tiny_pointrcnn_raw(), 'pointrcnn] [gpu-vs-cpu',
+            lambda cfg: tiny_train_batch(cfg, train_proposals=True),
+            align_relu=True, align_points=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -3993,7 +4488,7 @@ def main():
         'launches': (launches + launches_train + launches_cli + launches_cvae
                      + launches_weights + launches_single + launches_waymo
                      + launches_three + launches_pv + launches_conv
-                     + launches_parta2),
+                     + launches_parta2 + launches_pointrcnn),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -4009,6 +4504,7 @@ def main():
         'launches_pv_rcnn': launches_pv,
         'launches_convergence': launches_conv,
         'launches_parta2': launches_parta2,
+        'launches_pointrcnn': launches_pointrcnn,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -4071,12 +4567,13 @@ def main():
           f'BN-refresh forwards, 9 predicts; stage 2: '
           f'{CONV_STAGE2_STEPS} steps, 8 BN-refresh forwards, 8 predicts; '
           f'Waymo GLENet-S: {CONV_WAYMO_STEPS + CONV_WAYMO_TAIL} steps, 8 '
-          f'BN-refresh forwards, 8 predicts; PointPillars and Waymo '
-          f'PointPillars: none) and the PartA2 phase (KITTI PartA2 and '
+          f'BN-refresh forwards, 8 predicts; PointPillars, Waymo '
+          f'PointPillars and PointRCNN: none) and the PartA2 phase (KITTI PartA2 and '
           f'PartA2-free: {N_REQUESTS + 1} predicts and {PARTA2_STEPS + 1} '
           f'train steps each; Waymo PartA2: 3 predicts, 3 train steps; the '
           f'CLIs: 2 train steps, {math.ceil(TC_VAL / 4)} predicts; '
-          f'{UNET_LAUNCHES} launches per call); '
+          f'{UNET_LAUNCHES} launches per call) and the PointRCNN phase '
+          f'(none: no sparse level, checked per call); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '

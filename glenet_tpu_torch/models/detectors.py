@@ -30,8 +30,14 @@ for these topologies:
     voxel features and part features -> final NMS;
   - PointRCNN in its PartA2-free form (a UNetV2 backbone, no DENSE_HEAD):
     the part head's box branch (PointResidualCoder) gives anchor-free
-    proposals, PartA2FCHead with DISABLE_PART refines them.  PointRCNN with
-    PointNet2MSG (pointrcnn.yaml) is not ported.
+    proposals, PartA2FCHead with DISABLE_PART refines them;
+  - PointRCNN, point-based (pointrcnn.yaml, pointrcnn_iou.yaml): no
+    voxels; PointNet2MSG's per-point features -> PointHeadBox (per-point
+    class logits and PointResidualCoder boxes) -> final NMS, or, with
+    PointRCNNHead, proposal NMS over the point boxes -> (train: RoI target
+    sampling) -> RoI point pooling of [xyz, score, depth, features] (no
+    gradient, as the reference's no_grad) -> PointRCNNHead -> final NMS
+    over the refined rois.
 
 The dense head's targets come from the axis-aligned assigner or ATSS, on
 nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
@@ -61,6 +67,7 @@ from torch import nn
 
 from ..config import Cfg
 from ..ops import nms as nms_ops
+from ..ops import roipoint_pool
 from ..ops import voxelize as vox_ops
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
@@ -70,6 +77,9 @@ from . import point_heads
 from . import roi_heads as roi_lib
 from .bev_backbone import SSFA, BaseBEVBackbone
 from .map_to_bev import PointPillarScatter
+from .point_rcnn_head import (PointRCNNHead, canonicalize_pooled,
+                              pool_prefix_features)
+from .pointnet2_backbone import PointNet2MSG
 from .roi_heads import (PartA2FCHead, PVRCNNHead, SECONDHead, VoxelRCNNHead,
                         decode_rcnn_boxes)
 from .spconv_backbone import build_backbone_3d
@@ -84,30 +94,39 @@ def _require(cond, what):
 # the MODEL names the port builds
 FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
             'PVRCNN', 'PartA2Net', 'PointRCNN')
-# MODEL name -> the ROI_HEAD names it builds (the others: none)
+# topology (_topology: the MODEL name, PointRCNN by its backbone) -> the
+# ROI_HEAD names it builds, None for a topology that may have none (the
+# others: none)
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
               'SECONDNetIoU': ('SECONDHead',), 'PVRCNN': ('PVRCNNHead',),
-              'PartA2Net': ('PartA2FCHead',), 'PointRCNN': ('PartA2FCHead',)}
-# MODEL name -> the POINT_HEAD it needs (the others: none)
+              'PartA2Net': ('PartA2FCHead',),
+              'PartA2-free': ('PartA2FCHead',),
+              'PointRCNN': ('PointRCNNHead', None)}
+# topology -> the POINT_HEAD it needs (the others: none)
 _POINT_HEADS = {'PVRCNN': 'PointHeadSimple',
                 'PartA2Net': 'PointIntraPartOffsetHead',
-                'PointRCNN': 'PointIntraPartOffsetHead'}
+                'PartA2-free': 'PointIntraPartOffsetHead',
+                'PointRCNN': 'PointHeadBox'}
 
 
-def _is_part_free(model_cfg):
-    """PointRCNN is built only in its PartA2-free form: a UNetV2 backbone
-    and no DENSE_HEAD (glenet_tpu picks the topology the same way)."""
-    if model_cfg.get('NAME') != 'PointRCNN':
-        return False
+def _topology(model_cfg):
+    """The MODEL name, except for PointRCNN without a DENSE_HEAD, which
+    glenet_tpu builds by its backbone: 'PointRCNN' (point-based,
+    PointNet2MSG) or 'PartA2-free' (UNetV2)."""
+    name = model_cfg.get('NAME')
+    if name != 'PointRCNN':
+        return name
     bb = (model_cfg.get('BACKBONE_3D') or {}).get('NAME')
-    _require(bb == 'UNetV2' and 'DENSE_HEAD' not in model_cfg,
+    _require(bb in ('PointNet2MSG', 'UNetV2')
+             and 'DENSE_HEAD' not in model_cfg,
              f'MODEL PointRCNN with BACKBONE_3D {bb}')
-    return True
+    return 'PartA2-free' if bb == 'UNetV2' else 'PointRCNN'
 
 
 class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
-    PointPillar, PVRCNN, PartA2Net or PartA2-free PointRCNN detector."""
+    PointPillar, PVRCNN, PartA2Net, PartA2-free or point-based PointRCNN
+    detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -115,13 +134,28 @@ class DetectorNet(nn.Module):
                  box_coder, num_point_features: int = 4, point_coder=None):
         super().__init__()
         mcfg = Cfg(model_cfg)
-        name = mcfg.get('NAME')             # one of FAMILIES (Detector)
-        self.part_free = _is_part_free(mcfg)
+        name = _topology(mcfg)      # of a MODEL in FAMILIES (Detector)
+        self.part_free = name == 'PartA2-free'
+        self.point_based = name == 'PointRCNN'
         roi_cfg = mcfg.get('ROI_HEAD')
         roi_name = None if roi_cfg is None else roi_cfg.NAME
-        two_stage = name in _ROI_HEADS
-        _require(two_stage == (roi_cfg is not None),
-                 f'MODEL {name} with ROI_HEAD {roi_name}')
+        _require(roi_name in _ROI_HEADS.get(name, (None,)),
+                 f'MODEL {mcfg.NAME} with ROI_HEAD {roi_name}')
+        if roi_cfg is not None:
+            score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
+                'CLS_SCORE_TYPE', 'roi_iou')
+            _require(score_type in ('roi_iou', 'cls'),
+                     f'CLS_SCORE_TYPE {score_type}')
+        pfe_cfg, ph_cfg = mcfg.get('PFE'), mcfg.get('POINT_HEAD')
+        ph_name = None if ph_cfg is None else ph_cfg.NAME
+        _require(ph_name == _POINT_HEADS.get(name),
+                 f'POINT_HEAD {ph_name} in {mcfg.NAME}')
+        self.model_cfg = mcfg
+        self.point_coder = point_coder
+        self.box_coder = box_coder
+        if self.point_based:
+            self._build_point_based(mcfg, num_point_features, num_class)
+            return
         pillars = name == 'PointPillar'
         _require(mcfg.VFE.NAME == ('PillarVFE' if pillars else 'MeanVFE'),
                  f'VFE {mcfg.VFE.NAME}')
@@ -129,7 +163,7 @@ class DetectorNet(nn.Module):
                  f'MODEL {name} with BACKBONE_3D')
         bb3d = None if pillars else mcfg.BACKBONE_3D.NAME
         unet = bb3d == 'UNetV2'
-        _require(unet == (name in ('PartA2Net', 'PointRCNN')),
+        _require(unet == (name in ('PartA2Net', 'PartA2-free')),
                  f'BACKBONE_3D {bb3d} in {name}')
         if not self.part_free:
             m2b = mcfg.MAP_TO_BEV
@@ -144,35 +178,22 @@ class DetectorNet(nn.Module):
             _require(assigner in ('AxisAlignedTargetAssigner',
                                   'WeightedAxisAlignedTargetAssigner',
                                   'ATSSTargetAssigner'), assigner)
-        if roi_cfg is not None:
-            _require(roi_name in _ROI_HEADS[name], f'ROI_HEAD {roi_name}')
-            score_type = (roi_cfg.get('TARGET_CONFIG', {}) or {}).get(
-                'CLS_SCORE_TYPE', 'roi_iou')
-            _require(score_type == 'roi_iou', f'CLS_SCORE_TYPE {score_type}')
-        pfe_cfg, ph_cfg = mcfg.get('PFE'), mcfg.get('POINT_HEAD')
         _require((pfe_cfg is not None) == (name == 'PVRCNN')
                  and (pfe_cfg is None
                       or pfe_cfg.NAME == 'VoxelSetAbstraction'),
                  f'PFE {None if pfe_cfg is None else pfe_cfg.NAME} in {name}')
-        ph_name = None if ph_cfg is None else ph_cfg.NAME
-        _require(ph_name == _POINT_HEADS.get(name),
-                 f'POINT_HEAD {ph_name} in {name}')
         if self.part_free:
             _require(ph_cfg.get('REG_FC') is not None
                      and point_coder is not None,
                      'a PartA2-free POINT_HEAD without REG_FC and '
                      'TARGET_CONFIG.BOX_CODER')
 
-        self.model_cfg = mcfg
         self.grid_size, self.voxel_size = tuple(grid_size), tuple(voxel_size)
         self.pc_range = tuple(pc_range)
         self.max_voxels_train = max_voxels_train
         self.max_voxels_test = max_voxels_test
         self.max_points_per_voxel = max_points_per_voxel
         self.anchor_set = anchor_set
-        self.box_coder = box_coder
-
-        self.point_coder = point_coder
         self.vfe = MeanVFE()
         self.backbone_2d = self.dense_head = self.part_head = None
         self.pfe = self.point_head_simple = self.roi_head = None
@@ -275,6 +296,30 @@ class DetectorNet(nn.Module):
                              torch.from_numpy(anchor_set.flat_anchors),
                              persistent=False)
 
+    def _build_point_based(self, mcfg, num_point_features, num_class):
+        """PointRCNN's slots: PointNet2MSG, PointHeadBox and, when ROI_HEAD
+        is set, the class-agnostic PointRCNNHead."""
+        _require(mcfg.BACKBONE_3D.get('SA_CONFIG') is not None
+                 and mcfg.BACKBONE_3D.get('FP_MLPS') is not None,
+                 'PointNet2MSG without SA_CONFIG and FP_MLPS')
+        ph_cfg, roi_cfg = mcfg.POINT_HEAD, mcfg.get('ROI_HEAD')
+        _require(self.point_coder is not None,
+                 'a PointHeadBox without TARGET_CONFIG.BOX_CODER')
+        self.backbone_3d = PointNet2MSG(mcfg.BACKBONE_3D, num_point_features)
+        self.point_head = point_heads.PointHeadBox(
+            self.backbone_3d.num_point_features, num_class,
+            self.point_coder.code_size, tuple(ph_cfg.CLS_FC),
+            tuple(ph_cfg.REG_FC))
+        self.roi_head = None
+        if roi_cfg is not None:
+            _require(roi_cfg.get('CLASS_AGNOSTIC', True),
+                     'PointRCNNHead with CLASS_AGNOSTIC False')
+            _require(not roi_cfg.get('USE_BN', False),
+                     'PointRCNNHead with USE_BN True')
+            self.roi_head = PointRCNNHead(
+                roi_cfg, self.backbone_3d.num_point_features,
+                code_size=self.box_coder.code_size)
+
     def voxelize(self, points, points_mask, max_voxels):
         outs = [vox_ops.voxelize(points[i], points_mask[i], self.voxel_size,
                                  self.pc_range, self.grid_size,
@@ -294,6 +339,10 @@ class DetectorNet(nn.Module):
         dropout draws.  Given `roi_targets` (a dict as out['roi_targets']),
         train mode skips proposals and sampling and refines those rois.
         """
+        if self.point_based:
+            return self._point_forward(points, points_mask, train, gt_boxes,
+                                       gt_mask, gt_uncertainty, generator,
+                                       roi_targets)
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
         vox = self.voxelize(points, points_mask, max_voxels)
         out = {'vox': vox}
@@ -362,6 +411,61 @@ class DetectorNet(nn.Module):
         out['rcnn']['rois'] = roi_in
         return out
 
+    def _point_forward(self, points, points_mask, train, gt_boxes, gt_mask,
+                       gt_uncertainty, generator, roi_targets):
+        """PointRCNN: out['point_head'] (point_cls_preds, point_box_preds,
+        point_xyz, point_mask); with PointRCNNHead also proposals (unless
+        train mode has fixed roi_targets), roi_targets in train mode and
+        rcnn."""
+        feats = self.backbone_3d(points, points_mask, train)
+        head = self.point_head(feats, points_mask, train)
+        xyz = points[..., :3]
+        head.update(point_xyz=xyz, point_mask=points_mask)
+        out = {'point_head': head}
+        if self.roi_head is None:
+            return out
+        with torch.no_grad():
+            boxes, scores, labels = self.decode_point_boxes(head)
+            if roi_targets is None or not train:
+                out['proposals'] = self._nms_proposals(
+                    boxes, scores, labels, self.model_cfg.ROI_HEAD.NMS_CONFIG[
+                        'TRAIN' if train else 'TEST'])
+        roi_in = self._roi_input(out, train, gt_boxes, gt_mask,
+                                 gt_uncertainty, generator, roi_targets)
+        with torch.no_grad():
+            pooled, empty = self._pool_roi_points(xyz, feats, scores, roi_in,
+                                                  points_mask)
+        out['rcnn'] = self.roi_head(pooled, empty, train, generator)
+        out['rcnn']['rois'] = roi_in
+        return out
+
+    def decode_point_boxes(self, head):
+        """Each valid point's box from its box encodings and best class
+        (classes scored by their sigmoid, invalid points at 0) -> (boxes
+        (B, N, 7), best scores (B, N), best labels (B, N) from 1)."""
+        cls = torch.sigmoid(head['point_cls_preds'])
+        cls = torch.where(head['point_mask'][..., None], cls, 0.0)
+        best_scores, best = cls.max(dim=-1)
+        boxes = self.point_coder.decode(head['point_box_preds'],
+                                        head['point_xyz'], best + 1)
+        return boxes, best_scores, best + 1
+
+    def _pool_roi_points(self, xyz, feats, scores, rois, points_mask):
+        """ROI_POINT_POOL: each roi's NUM_SAMPLED_POINTS points carrying
+        [xyz, score, depth, features] in the roi's canonical frame, and
+        the empty flags, flattened to (B * R, S, 5 + C) and (B * R,)."""
+        pool_cfg = self.model_cfg.ROI_HEAD.ROI_POINT_POOL
+        prefix = pool_prefix_features(xyz, feats, scores,
+                                      float(pool_cfg.DEPTH_NORMALIZER))
+        pooled, empty = roipoint_pool.roipoint_pool3d(
+            xyz, prefix, rois, int(pool_cfg.NUM_SAMPLED_POINTS),
+            tuple(pool_cfg.POOL_EXTRA_WIDTH), points_mask)
+        b, r, s = pooled.shape[:3]
+        pooled = canonicalize_pooled(pooled.reshape(b * r, s, -1),
+                                     rois.reshape(b * r, -1),
+                                     empty.reshape(b * r))
+        return pooled, empty.reshape(b * r)
+
     def _roi_input(self, out, train, gt_boxes, gt_mask, gt_uncertainty,
                    generator, roi_targets):
         """The rois the RoI head refines: in train mode the sampled (or the
@@ -405,19 +509,12 @@ class DetectorNet(nn.Module):
 
     def _point_proposals(self, part, train):
         """PartA2-free stage 1: each voxel centre's box from the part head's
-        box branch, decoded with its best class, scored by the best sigmoid
-        class score, through the proposal NMS."""
-        cls = torch.sigmoid(part['point_cls_preds'])
-        cls = torch.where(part['point_mask'][..., None], cls, 0.0)
-        best_scores, best_labels = cls.max(dim=-1)
-        boxes = self.point_coder.decode(part['point_box_preds'],
-                                        part['point_coords'], best_labels + 1)
-        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
-            'TRAIN' if train else 'TEST']
-        rois, roi_scores, roi_labels, roi_valid = self._nms_proposals(
-            boxes, best_scores, best_labels + 1, nms_cfg)
-        return {'rois': rois, 'roi_scores': roi_scores,
-                'roi_labels': roi_labels, 'roi_valid': roi_valid}
+        box branch (decode_point_boxes) through the proposal NMS."""
+        boxes, scores, labels = self.decode_point_boxes(
+            dict(part, point_xyz=part['point_coords']))
+        return self._nms_proposals(boxes, scores, labels,
+                                   self.model_cfg.ROI_HEAD.NMS_CONFIG[
+                                       'TRAIN' if train else 'TEST'])
 
     def _keypoints(self, points, points_mask, sp_out, out, train):
         """VoxelSetAbstraction and PointHeadSimple: sets out['pfe']
@@ -446,10 +543,8 @@ class DetectorNet(nn.Module):
         best_labels = cls_scores.argmax(dim=-1) + 1
         nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
             'TRAIN' if train else 'TEST']
-        rois, roi_scores, roi_labels, roi_valid = self._nms_proposals(
-            decoded['batch_box_preds'], best_scores, best_labels, nms_cfg)
-        return {'rois': rois, 'roi_scores': roi_scores,
-                'roi_labels': roi_labels, 'roi_valid': roi_valid}
+        return self._nms_proposals(decoded['batch_box_preds'], best_scores,
+                                   best_labels, nms_cfg)
 
     @torch.no_grad()
     def _sample_roi_targets(self, rois, roi_scores, roi_labels, gt_boxes,
@@ -474,8 +569,8 @@ class DetectorNet(nn.Module):
                 for k in per_sample[0]}
 
     def _nms_proposals(self, boxes, scores, labels, nms_cfg):
-        """Per-sample fixed-slot BEV NMS over decoded stage-1 boxes ->
-        (rois, roi_scores, roi_labels, roi_valid)."""
+        """Per-sample fixed-slot BEV NMS over decoded stage-1 boxes -> a
+        dict of rois, roi_scores, roi_labels and roi_valid."""
         res = []
         for i in range(boxes.shape[0]):
             b_s, s_s, l_s = boxes[i, :, :7], scores[i], labels[i]
@@ -486,7 +581,8 @@ class DetectorNet(nn.Module):
                 score_threshold=float(nms_cfg.get('SCORE_THRESH', 0.0)))
             res.append((b_s[idx], torch.where(valid, s_s[idx], 0.0),
                         torch.where(valid, l_s[idx], 0), valid))
-        return tuple(torch.stack(t) for t in zip(*res))
+        return dict(zip(('rois', 'roi_scores', 'roi_labels', 'roi_valid'),
+                        (torch.stack(t) for t in zip(*res))))
 
 
 class Detector:
@@ -497,7 +593,10 @@ class Detector:
         # before any slot is read: a point-based family has no DENSE_HEAD
         _require(model_cfg.get('NAME') in FAMILIES,
                  f'MODEL {model_cfg.get("NAME")}')
-        self.part_free = _is_part_free(model_cfg)
+        topology = _topology(model_cfg)
+        self.part_free = topology == 'PartA2-free'
+        self.point_based = topology == 'PointRCNN'
+        no_dense = self.part_free or self.point_based
         self.model_cfg = model_cfg
         self.data_cfg = data_cfg
         self.num_class = num_class
@@ -521,15 +620,16 @@ class Detector:
         self.point_coder = None if pt_coder is None else \
             box_coder_lib.build_box_coder(
                 pt_coder, **ph_cfg.TARGET_CONFIG.get('BOX_CODER_CONFIG', {}))
-        # PartA2-free has no dense head: the RCNN stage decodes with the
-        # ResidualCoder, as glenet_tpu's stand-in head config gives it
-        head_cfg = (Cfg({'NAME': 'PointHead'}) if self.part_free
+        # PartA2-free and PointRCNN have no dense head: the RCNN stage
+        # decodes with the ResidualCoder, as glenet_tpu's stand-in head
+        # config gives it
+        head_cfg = (Cfg({'NAME': 'PointHead'}) if no_dense
                     else model_cfg.DENSE_HEAD)
         ta_cfg = head_cfg.get('TARGET_ASSIGNER_CONFIG', {}) or {}
         self.box_coder = box_coder_lib.build_box_coder(
             ta_cfg.get('BOX_CODER', 'ResidualCoder'),
             **ta_cfg.get('BOX_CODER_CONFIG', {}))
-        self.anchor_set = None if self.part_free else \
+        self.anchor_set = None if no_dense else \
             anchors.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
                                      self.grid_size, self.pc_range)
         # predict-only configs may leave the loss weights out
@@ -593,9 +693,12 @@ class Detector:
         sin-difference smooth-L1 regression; direction bins; the IoU
         branch), in PartA2 the part head's losses, in PVRCNN the keypoint
         segmentation loss and in the two-stage families the RCNN losses ->
-        (total, metrics).  PartA2-free: _part_free_loss."""
+        (total, metrics).  PartA2-free: _part_free_loss; PointRCNN:
+        _point_loss."""
         if self.part_free:
             return self._part_free_loss(full_out, batch)
+        if self.point_based:
+            return self._point_loss(full_out, batch)
         with torch.no_grad():
             per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
                           zip(batch['gt_boxes'], batch['gt_mask'],
@@ -720,6 +823,30 @@ class Detector:
         metrics['loss'] = total
         return total, metrics
 
+    def _point_loss(self, full_out, batch):
+        """PointRCNN: PointHeadBox's multi-class focal cls and smooth-L1
+        box losses over the points (loss_cls, loss_loc), plus the RCNN
+        losses with PointRCNNHead."""
+        po = full_out['point_head']
+        extra, lw = self._point_head_cfg()
+        with torch.no_grad():
+            cls_l, box_t, fg = point_heads.assign_point_targets(
+                po['point_xyz'], po['point_mask'], batch['gt_boxes'],
+                batch['gt_mask'], self.point_coder, extra)
+        flat = {k: po[k].reshape(-1, po[k].shape[-1])
+                for k in ('point_cls_preds', 'point_box_preds')}
+        c_l, b_l = point_heads.point_head_loss(
+            flat, cls_l.reshape(-1), box_t.reshape(-1, box_t.shape[-1]),
+            fg.reshape(-1), self.num_class, lw)
+        total = c_l + b_l
+        metrics = {'loss_cls': c_l, 'loss_loc': b_l}
+        if 'rcnn' in full_out:
+            rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
+            total = total + rcnn_total
+            metrics.update(rcnn_metrics)
+        metrics['loss'] = total
+        return total, metrics
+
     def _pfe_loss(self, full_out, batch):
         """PointHeadSimple's focal loss on the keypoints' foreground labels
         (inside a gt box, ignored in its GT_EXTRA_WIDTH shell), normalised
@@ -759,6 +886,12 @@ class Detector:
 
     def finalize(self, full_out):
         """DetectorNet outputs -> predict's fixed-slot final boxes."""
+        if 'rcnn' not in full_out and self.point_based:
+            # PointRCNN's stage 1 alone: every valid point's box
+            boxes, scores, labels = self.net.decode_point_boxes(
+                full_out['point_head'])
+            return self._final_nms(boxes, scores, labels,
+                                   torch.zeros_like(boxes))
         if 'rcnn' not in full_out:
             return self._finalize_dense(full_out['dense_head'])
         rcnn = full_out['rcnn']

@@ -1,9 +1,10 @@
-"""Point heads on UNetV2's voxel-point features (torch counterpart of
-glenet_tpu/models/point_heads.py): PartA2's PointIntraPartOffsetHead
-(foreground segmentation and intra-object part locations, with the
-anchor-free box branch of PartA2-free), its targets and losses, and the
-point box targets and loss (point_head_template semantics) of PartA2-free's
-box branch."""
+"""Point heads (torch counterpart of glenet_tpu/models/point_heads.py):
+PointRCNN's PointHeadBox on PointNet2MSG's per-point features, PartA2's
+PointIntraPartOffsetHead on UNetV2's voxel-point features (foreground
+segmentation and intra-object part locations, with the anchor-free box
+branch of PartA2-free), their targets and losses: the point box targets
+and loss (point_head_template semantics) serve PointHeadBox and
+PartA2-free's box branch."""
 from __future__ import annotations
 
 import torch
@@ -12,6 +13,46 @@ from torch import nn
 
 from ..utils import box_utils, common, losses
 from .layers import MaskedBatchNorm
+
+
+def _fc_stack(module, x, name, depth, mask, train):
+    for i in range(depth):
+        x = F.relu(getattr(module, f'{name}_bn{i}')(
+            getattr(module, f'{name}_{i}')(x), mask=mask,
+            use_running_average=not train))
+    return x
+
+
+class PointHeadBox(nn.Module):
+    """PointRCNN's stage 1 (point_head_box.py): per-point class logits
+    (num_class) after CLS_FC and box encodings (the point coder's
+    code_size) after REG_FC, each layer a Linear without bias, BN over the
+    valid points of the batch and ReLU."""
+
+    def __init__(self, in_channels: int, num_class: int, code_size: int = 8,
+                 cls_fc=(256, 256), reg_fc=(256, 256)):
+        super().__init__()
+        self.depth = {}
+        for name, sizes in (('cls', cls_fc), ('reg', reg_fc)):
+            c = in_channels
+            for i, s in enumerate(sizes):
+                setattr(self, f'{name}_{i}', nn.Linear(c, s, bias=False))
+                setattr(self, f'{name}_bn{i}', MaskedBatchNorm(s))
+                c = s
+            self.depth[name] = (len(sizes), c)
+        self.cls_out = nn.Linear(self.depth['cls'][1], num_class)
+        self.box_out = nn.Linear(self.depth['reg'][1], code_size)
+        nn.init.normal_(self.box_out.weight, std=0.001)
+
+    def forward(self, point_features, mask, train: bool = False):
+        """point_features (B, N, C), mask (B, N) -> point_cls_preds (B, N,
+        num_class), point_box_preds (B, N, code_size)."""
+        h_cls = _fc_stack(self, point_features, 'cls', self.depth['cls'][0],
+                          mask, train)
+        h_reg = _fc_stack(self, point_features, 'reg', self.depth['reg'][0],
+                          mask, train)
+        return {'point_cls_preds': self.cls_out(h_cls),
+                'point_box_preds': self.box_out(h_reg)}
 
 
 class PointIntraPartOffsetHead(nn.Module):
@@ -40,11 +81,7 @@ class PointIntraPartOffsetHead(nn.Module):
             nn.init.normal_(self.box_out.weight, std=0.001)
 
     def _stack(self, x, name, mask, train):
-        for i in range(self.stacks[name][0]):
-            x = F.relu(getattr(self, f'{name}_bn{i}')(
-                getattr(self, f'{name}_{i}')(x), mask=mask,
-                use_running_average=not train))
-        return x
+        return _fc_stack(self, x, name, self.stacks[name][0], mask, train)
 
     def forward(self, point_features, mask, train: bool = False):
         """point_features (B, V, C), mask (B, V) -> point_cls_preds,

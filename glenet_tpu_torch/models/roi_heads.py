@@ -1,7 +1,8 @@
 """RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU, PV-RCNN and PartA2
 (torch counterpart of the VoxelRCNN, PVRCNNHead, SECONDHead and
 PartA2FCHead parts of glenet_tpu/models/roi_heads.py): train-time RoI
-target sampling, VoxelRCNNHead with or without its KL-label branches,
+target sampling (CLS_SCORE_TYPE roi_iou's soft labels or, for PointRCNN,
+cls's hard ones), VoxelRCNNHead with or without its KL-label branches,
 PVRCNNHead (RoI-grid pooling of the keypoint features), SECONDHead (IoU
 scoring of BEV-sampled rois), PartA2FCHead (RoI-aware pooling of UNetV2's
 voxel-point and part features), and the RCNN losses.
@@ -62,7 +63,10 @@ def sample_rois_single(rois, roi_scores, roi_labels, gt_boxes, gt_mask,
     class id last, gt_mask (M,), gt_unc (M, 7); the draws u_fg (N,), r_hard
     (R,), r_easy (R,) from draw_roi_sampling.  Returns a dict of rois
     (R, 7), gt_of_rois_src (R, 8), roi_ious, roi_labels, roi_scores,
-    gt_unc_of_rois (R, 7), reg_valid_mask (R,) int32, rcnn_cls_labels (R,).
+    gt_unc_of_rois (R, 7), reg_valid_mask (R,) int32, rcnn_cls_labels (R,):
+    with CLS_SCORE_TYPE roi_iou the IoU rescaled between CLS_BG_THRESH and
+    CLS_FG_THRESH into [0, 1], with cls 1 above CLS_FG_THRESH, 0 up to
+    CLS_BG_THRESH and -1 (ignored) between.
     """
     r = int(cfg.ROI_PER_IMAGE)
     fg_per_image = int(round(cfg.FG_RATIO * r))
@@ -122,12 +126,19 @@ def sample_rois_single(rois, roi_scores, roi_labels, gt_boxes, gt_mask,
 
     out_iou = max_iou[sel]
     gt_sel = gt_assign[sel]
-    # CLS_SCORE_TYPE roi_iou: soft labels
     fg_m = out_iou > cls_fg_thresh
-    interval = ~fg_m & ~(out_iou < cls_bg_thresh)
-    cls_labels = torch.where(
-        interval, (out_iou - cls_bg_thresh) / (cls_fg_thresh - cls_bg_thresh),
-        fg_m.to(torch.float32))
+    if cfg.get('CLS_SCORE_TYPE', 'roi_iou') == 'cls':
+        # hard labels, -1 (ignored by rcnn_cls_loss) strictly between the
+        # bg and fg thresholds
+        ignore = (out_iou > cls_bg_thresh) & (out_iou < cls_fg_thresh)
+        cls_labels = torch.where(ignore, -1.0, fg_m.to(torch.float32))
+    else:
+        # roi_iou: soft labels
+        interval = ~fg_m & ~(out_iou < cls_bg_thresh)
+        cls_labels = torch.where(
+            interval,
+            (out_iou - cls_bg_thresh) / (cls_fg_thresh - cls_bg_thresh),
+            fg_m.to(torch.float32))
     return {
         'rois': rois[sel], 'gt_of_rois_src': gt_boxes[gt_sel],
         'roi_ious': out_iou, 'roi_labels': roi_labels[sel],

@@ -21,9 +21,10 @@ from __future__ import annotations
 import torch
 
 _BIG = 1e10
-# elements of one (B, M_chunk, N) distance block of ball_query: queries are
-# taken in chunks of at most this many, which gives the same indices as one
-# block and bounds the temporaries (~13 bytes an element)
+# elements of one (B, M_chunk, N) distance block of ball_query (and of one
+# (B, N_chunk, M) block of three_nn): queries are taken in chunks of at most
+# this many, which gives the same indices as one block and bounds the
+# temporaries (~13 bytes an element)
 CHUNK_ELEMENTS = 1 << 27
 
 
@@ -113,10 +114,7 @@ def group_points(features, idx):
 
 
 @torch.no_grad()
-def three_nn(unknown, known, known_mask=None):
-    """(B, N, 3) x (B, M, 3) -> (dist (B, N, 3), idx (B, N, 3) int64): the 3
-    nearest knowns in ascending distance, ties to the lower index (masked
-    knowns at distance^2 1e10)."""
+def _three_nn_block(unknown, known, known_mask):
     d2 = square_distance(unknown, known)
     if known_mask is not None:
         d2 = torch.where(known_mask[:, None, :], d2, _BIG)
@@ -125,8 +123,23 @@ def three_nn(unknown, known, known_mask=None):
         i = d2.argmin(-1, keepdim=True)
         dists.append(d2.gather(-1, i))
         picks.append(i)
-        d2 = d2.scatter(-1, i, float('inf'))
-    return (torch.cat(dists, -1).clamp_min(0).sqrt(), torch.cat(picks, -1))
+        d2.scatter_(-1, i, float('inf'))
+    return torch.cat(dists, -1), torch.cat(picks, -1)
+
+
+def three_nn(unknown, known, known_mask=None):
+    """(B, N, 3) x (B, M, 3) -> (dist (B, N, 3), idx (B, N, 3) int64): the 3
+    nearest knowns in ascending distance, ties to the lower index (masked
+    knowns at distance^2 1e10).  The unknowns go in chunks of at most
+    CHUNK_ELEMENTS // (B * M) (the same indices as one block)."""
+    b, n, m = unknown.shape[0], unknown.shape[1], known.shape[1]
+    step = max(1, CHUNK_ELEMENTS // max(1, b * m))
+    parts = [_three_nn_block(unknown[:, s:s + step], known, known_mask)
+             for s in range(0, n, step)]
+    d2, idx = (parts[0] if len(parts) == 1 else
+               (torch.cat([p[0] for p in parts], 1),
+                torch.cat([p[1] for p in parts], 1)))
+    return d2.clamp_min(0).sqrt(), idx
 
 
 def three_interpolate(features, idx, dist):

@@ -4,9 +4,10 @@
 
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
-two-stage second_iou.yaml, pv_rcnn.yaml, PartA2.yaml or PartA2_free.yaml,
-or pointpillar.yaml) at full width, seeded random weights,
-B = 2 synthetic KITTI-like scenes of 32768 points (for a Waymo config,
+two-stage second_iou.yaml, pv_rcnn.yaml, PartA2.yaml, PartA2_free.yaml or
+pointrcnn.yaml, or pointpillar.yaml) at full width, seeded random weights,
+B = 2 synthetic KITTI-like scenes of 32768 points (PointRCNN: 16384, its
+sample_points; for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
 features; utils/synthetic.py), one warm-up predict, then:
   1. the wall time of 3 requests as a caller sees it (a device synchronise
@@ -25,7 +26,11 @@ features; utils/synthetic.py), one warm-up predict, then:
      pooling and the convs + FCs (PartA2-free has no 2D backbone or dense
      head: its proposals are the part head's boxes); within the final
      NMS, the time of its rotated-IoU matrix (`boxes_iou_bev_blocked`)
-     and of its greedy keep rounds (`greedy_keep`);
+     and of its greedy keep rounds (`greedy_keep`); PointRCNN's stages are
+     FPS (the backbone's and the RoI head's apart), each set-abstraction
+     level without its FPS, the feature propagation, PointHeadBox, the
+     proposal NMS, the RoI point pooling, PointRCNNHead and the final
+     NMS (point_stage_times);
   3. a torch.profiler window over 3 requests without those synchronises:
      the device busy share (summed device time of the kernels over the
      window's wall time) and the top 30 device operators.
@@ -159,6 +164,75 @@ def _stage_times(det, batch):
     return {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
+def point_stage_times(det, batch):
+    """PointRCNN's synchronised stage wall times (ms) of one predict, and
+    the predict's: FPS within the backbone and within the RoI head, each
+    SA level without its FPS, FP, PointHeadBox, proposal NMS, RoI point
+    pooling, PointRCNNHead (without its FPS) and the final NMS."""
+    from .ops import roipoint_pool
+    net = det.net
+    bb = net.backbone_3d
+    marks, calls, hooks = {}, [], []
+
+    def mark(name):
+        def hook(*_):
+            torch.cuda.synchronize()
+            marks.setdefault(name, []).append(time.perf_counter())
+        return hook
+
+    mods = {f'sa_{i}': getattr(bb, f'sa_{i}') for i in range(bb.n_sa)}
+    mods.update({f'fp_{i}': getattr(bb, f'fp_{i}') for i in range(bb.n_fp)})
+    mods['point_head'] = net.point_head
+    if net.roi_head is not None:
+        mods['roi_head'] = net.roi_head
+    for name, mod in mods.items():
+        hooks += [mod.register_forward_pre_hook(mark(f'{name}>')),
+                  mod.register_forward_hook(mark(f'{name}<'))]
+    undo = [_timed(pointnet2, 'farthest_point_sample', 'FPS', calls),
+            _timed(roipoint_pool, 'roipoint_pool3d', 'pool', calls),
+            _timed(net, '_nms_proposals', 'proposal NMS', calls)]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.predict(batch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        for h in hooks:
+            h.remove()
+        for u in undo:
+            u()
+
+    def span(name):
+        return marks[f'{name}<'][0] - marks[f'{name}>'][0]
+
+    def fps_in(name):
+        lo, hi = marks[f'{name}>'][0], marks[f'{name}<'][0]
+        return sum(e - s for lab, s, e in calls
+                   if lab == 'FPS' and lo <= s and e <= hi)
+
+    spans = {'FPS (backbone)': sum(fps_in(f'sa_{i}')
+                                   for i in range(bb.n_sa))}
+    for i in range(bb.n_sa):
+        spans[f'SA level {i} without FPS'] = span(f'sa_{i}') - fps_in(
+            f'sa_{i}')
+    spans['feature propagation'] = sum(span(f'fp_{i}')
+                                       for i in range(bb.n_fp))
+    spans['PointHeadBox'] = span('point_head')
+    last = marks['point_head<'][0]
+    if net.roi_head is not None:
+        spans['proposal NMS'] = sum(e - s for lab, s, e in calls
+                                    if lab == 'proposal NMS')
+        spans['RoI point pooling'] = sum(e - s for lab, s, e in calls
+                                         if lab == 'pool')
+        spans['FPS (RoI head)'] = fps_in('roi_head')
+        spans['PointRCNNHead without FPS'] = (span('roi_head')
+                                              - spans['FPS (RoI head)'])
+        last = marks['roi_head<'][0]
+    spans['decode + final NMS'] = t_end - last
+    return {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
+
+
 def _timed(module, attr, label, calls):
     """Shadow module.attr so that each call appends (label, start, end),
     synchronised; returns an undo function."""
@@ -204,8 +278,9 @@ def main(argv=None):
           + f', mean {sum(times) / len(times):.2f}')
 
     totals = {}
+    stage_times = point_stage_times if det.point_based else _stage_times
     for batch in batches[1:]:
-        spans, total = _stage_times(det, batch)
+        spans, total = stage_times(det, batch)
         for k, v in spans.items():
             totals[k] = totals.get(k, 0.0) + v / REQUESTS
         totals['predict (synchronised stages)'] = (

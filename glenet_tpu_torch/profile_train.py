@@ -5,10 +5,11 @@
 configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
 voxel-query RoI pooling, a single-stage GLENet_S.yaml, GLENet_C.yaml,
 second.yaml or second_multihead.yaml, second_iou.yaml, pv_rcnn.yaml,
-PartA2.yaml, PartA2_free.yaml, pointpillar.yaml) at full width, seeded
-random weights,
+PartA2.yaml, PartA2_free.yaml, pointrcnn.yaml, pointrcnn_iou.yaml,
+pointpillar.yaml) at full width, seeded random weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
-points with gt boxes at their clusters (Car; for a Car, Pedestrian and
+points (PointRCNN: 16384, its sample_points) with gt boxes at their
+clusters (Car; for a Car, Pedestrian and
 Cyclist config objects of the three classes at KITTI's label ratios; for a
 Waymo config, Waymo-like scenes of 170000 points with Vehicle boxes;
 utils/synthetic.py), the train
@@ -26,7 +27,11 @@ One warm-up step, then:
      for PartA2 and PartA2-free voxelize + MeanVFE, the UNet encoder and
      decoder, the 2D backbone + dense head (PartA2 only), the part head,
      then the train NMS (PartA2-free: of the part head's boxes), RoI
-     sampling and the RoI head forward with its RoI-aware pooling;
+     sampling and the RoI head forward with its RoI-aware pooling; for
+     PointRCNN FPS (the backbone's and the RoI head's apart), each
+     set-abstraction level without its FPS, the feature propagation,
+     PointHeadBox, the train NMS over the point boxes, RoI sampling, RoI
+     point pooling, PointRCNNHead (point_stage_times);
   2. a torch.profiler window over 3 steps without those synchronises: the
      device busy share (summed device time of the kernels over the window's
      wall time) and the top 30 device operators;
@@ -195,6 +200,80 @@ def stage_times(det, tx, state, train_step, batch):
     return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
+def point_stage_times(det, tx, state, train_step, batch):
+    """PointRCNN: one train step with a synchronise at every stage
+    boundary -> (state, {stage: ms}, step ms)."""
+    net = det.net
+    bb = net.backbone_3d
+    marks, fps = [], []
+    undo = [_wrap(marks, det, 'compute_loss', 'loss>', 'loss<'),
+            _wrap(marks, tx, 'update', 'backward<', 'update<')]
+    mods = {f'sa_{i}': getattr(bb, f'sa_{i}') for i in range(bb.n_sa)}
+    mods.update({f'fp_{i}': getattr(bb, f'fp_{i}') for i in range(bb.n_fp)})
+    mods['point_head'] = net.point_head
+    two_stage = net.roi_head is not None
+    if two_stage:
+        mods['roi_head'] = net.roi_head
+        undo += [_wrap(marks, net, '_nms_proposals', 'nms>', 'nms<'),
+                 _wrap(marks, net, '_sample_roi_targets', 'sample>',
+                       'sample<'),
+                 _wrap(marks, net, '_pool_roi_points', 'pool>', 'pool<')]
+    for name, mod in mods.items():
+        undo += [mod.register_forward_pre_hook(
+            lambda *_, name=name: _mark(marks, f'{name}>')).remove,
+                 mod.register_forward_hook(
+            lambda *_, name=name: _mark(marks, f'{name}<')).remove]
+    real_fps = pointnet2.farthest_point_sample
+
+    def timed_fps(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real_fps(*args, **kwargs)
+        torch.cuda.synchronize()
+        fps.append((start, time.perf_counter()))
+        return out
+
+    pointnet2.farthest_point_sample = timed_fps
+    undo.append(lambda: setattr(pointnet2, 'farthest_point_sample',
+                                real_fps))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        for u in undo:
+            u()
+    t = dict(marks)
+
+    def span(name):
+        return t[f'{name}<'] - t[f'{name}>']
+
+    def fps_in(name):
+        return sum(e - s for s, e in fps
+                   if t[f'{name}>'] <= s and e <= t[f'{name}<'])
+
+    spans = {'FPS (backbone)': sum(fps_in(f'sa_{i}')
+                                   for i in range(bb.n_sa))}
+    for i in range(bb.n_sa):
+        spans[f'SA level {i} without FPS'] = span(f'sa_{i}') - fps_in(
+            f'sa_{i}')
+    spans['feature propagation'] = sum(span(f'fp_{i}')
+                                       for i in range(bb.n_fp))
+    spans['PointHeadBox'] = span('point_head')
+    if two_stage:
+        spans.update({'train NMS': span('nms'), 'RoI sampling': span('sample'),
+                      'RoI point pooling': span('pool'),
+                      'FPS (RoI head)': fps_in('roi_head')})
+        spans['PointRCNNHead without FPS'] = (span('roi_head')
+                                              - spans['FPS (RoI head)'])
+    spans.update({'loss': span('loss'),
+                  'backward': t['backward<'] - t['loss<'],
+                  'optimizer': t['update<'] - t['backward<']})
+    return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--cfg_file', type=str, default=str(
@@ -218,8 +297,9 @@ def main(argv=None):
 
     totals = {}
     torch.cuda.reset_peak_memory_stats()
+    timed_step = point_stage_times if det.point_based else stage_times
     for batch in batches[1:1 + STEPS]:
-        state, spans, total = stage_times(det, tx, state, train_step, batch)
+        state, spans, total = timed_step(det, tx, state, train_step, batch)
         spans['step (synchronised stages)'] = total
         for k, v in spans.items():
             totals[k] = totals.get(k, 0.0) + v / STEPS

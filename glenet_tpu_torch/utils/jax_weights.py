@@ -34,7 +34,13 @@ cls_out}` and `roi_head.roi_grid_pool.mlp_r<i>.*`, `shared_<i>`,
 `cls_fc_<i>`, `reg_fc_<i>` with their `_bn<i>`, `cls_pred`, `reg_pred`,
 PartA2's `backbone_3d.up<l>_{t_c1, t_c2, m, inv}`, `part_head.{cls, part,
 reg}_<i>` / `_bn<i>` / `{cls, part, box}_out` and `roi_head.conv_{part,
-rpn}_<i>` (DenseConvBN over the pooled (x, y, z) grids).
+rpn}_<i>` (DenseConvBN over the pooled (x, y, z) grids), PointRCNN's
+`backbone_3d.sa_<i>.mlp_r<j>.{mlp_<k>, bn_<k>}` and
+`backbone_3d.fp_<i>.SharedMLP_0.*` (PointNet2MSG), `point_head.{cls,
+reg}_<i>` / `_bn<i>` / `cls_out` / `box_out` (PointHeadBox) and
+`roi_head.xyz_up.mlp_<i>` (or with USE_BN `xyz_up_<i>` / `xyz_up_bn_<i>`),
+`merge_down` (`_bn`), `sa_<l>.mlp_<i>` (`bn_<i>`), `{cls, reg}_<i>` /
+`_bn<i>` / `_out` (PointRCNNHead): Linear and MaskedBatchNorm leaves all.
 It raises on any leaf it does not consume and on any port parameter or
 buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.

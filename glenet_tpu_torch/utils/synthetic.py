@@ -46,13 +46,13 @@ def _scene_and_clusters(rng, n_points):
     return pts, centres
 
 
-def scene_batches(n, seed=0, batch=2, device='cuda'):
+def scene_batches(n, seed=0, batch=2, device='cuda', n_points=N_POINTS):
     """`n` predict requests of `batch` scenes each, drawn in order from one
     RandomState(seed): {'points', 'points_mask'} on `device`."""
     rng = np.random.RandomState(seed)
     out = []
     for _ in range(n):
-        pts = torch.from_numpy(np.stack([make_scene(rng)
+        pts = torch.from_numpy(np.stack([make_scene(rng, n_points)
                                          for _ in range(batch)])).to(device)
         out.append({'points': pts,
                     'points_mask': torch.ones(pts.shape[:2], dtype=torch.bool,
@@ -917,11 +917,17 @@ def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
     """`n` synthetic batches for `cfg`'s dataset: Waymo scenes
     (waymo_scene_batches) for a WaymoDataset config, else KITTI-like
     scenes (scene_batches; with train=True three_class_train_batches for
-    KITTI's Car, Pedestrian and Cyclist, else train_batches)."""
+    KITTI's Car, Pedestrian and Cyclist, else train_batches) of N_POINTS
+    points, or of the sample_points step's NUM_POINTS where the config
+    has one (PointRCNN: 16384)."""
     if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
         return waymo_scene_batches(n, seed, batch, device, train=train)
+    n_points = N_POINTS
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == 'sample_points':
+            n_points = int(proc.NUM_POINTS['train' if train else 'test'])
     if train and list(cfg.CLASS_NAMES) == list(KITTI_LABEL_COUNTS):
-        return three_class_train_batches(n, seed, batch, device)
+        return three_class_train_batches(n, seed, batch, device, n_points)
     if train:
-        return train_batches(n, seed, batch, device)
-    return scene_batches(n, seed, batch, device)
+        return train_batches(n, seed, batch, device, n_points)
+    return scene_batches(n, seed, batch, device, n_points)

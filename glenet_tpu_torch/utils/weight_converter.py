@@ -6,8 +6,9 @@ VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi head; SECONDNet
 (GLENet-S, GLENet-C, plain SECOND) and PointPillar have none, and
 SECOND-IoU's SECONDHead and PV-RCNN's stage 2 (VoxelSetAbstraction,
 PointHeadSimple, PVRCNNHead) are not converted (their keys are reported
-unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti has no
-conversion, in glenet_tpu either.  The port's
+unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti,
+PartA2's UNetV2 and PointRCNN's PointNet2MSG have no conversion, in
+glenet_tpu either: each raises by name before a key is read.  The port's
 own copy of the matching part of glenet_tpu/utils/weight_converter.py,
 numpy only.  It returns the same
 flax-shaped {'params', 'batch_stats'} numpy tree, which

@@ -55,21 +55,24 @@ def test_build_detector_needs_a_device():
             build_detector(cfg)
 
 
-@pytest.mark.parametrize('name', ['pointrcnn.yaml', 'pointrcnn_iou.yaml'])
-def test_other_families_raise(name):
-    """PointRCNN with its PointNet2MSG backbone is refused by name."""
+@pytest.mark.parametrize('name,family', [
+    ('CaDDN.yaml', 'CaDDN'), ('../waymo_models/centerpoint.yaml',
+                              'CenterPoint')])
+def test_other_families_raise(name, family):
+    """Families still to port (CaDDN, CenterPoint) are refused by name."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / name))
-    with pytest.raises(NotImplementedError, match='PointNet2MSG'):
+    with pytest.raises(NotImplementedError, match=family):
         build_detector(cfg, device='cpu')
 
 
 @pytest.mark.parametrize('name', ['second_multihead.yaml', 'second_iou.yaml',
                                   'pointpillar.yaml', 'pv_rcnn.yaml',
                                   'PartA2.yaml', 'PartA2_free.yaml',
-                                  '../waymo_models/PartA2.yaml'])
+                                  '../waymo_models/PartA2.yaml',
+                                  'pointrcnn.yaml', 'pointrcnn_iou.yaml'])
 def test_three_class_families_need_a_card(name):
     """KITTI's three-class families (PV-RCNN, PartA2 and PartA2-free too)
     and Waymo's PartA2 build on the GPU by default and on the CPU when
@@ -87,11 +90,12 @@ def test_three_class_families_need_a_card(name):
 
 
 @pytest.mark.parametrize('section,key,value', [
-    ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'cls'),
+    ('ROI_HEAD.TARGET_CONFIG', 'CLS_SCORE_TYPE', 'raw_roi_iou'),
     ('ROI_HEAD.ROI_GRID_POOL', 'POOL_MODE', 'ball_query')])
 def test_unported_options_raise(section, key, value):
-    """Options of the ported modules that no GLENet-VR config sets are
-    refused, not computed some other way."""
+    """Options of the ported modules that no ported config sets (the
+    reference's raw_roi_iou labels; ball-query RoI pooling) are refused,
+    not computed some other way."""
     import torch_parity as tp
 
     from glenet_tpu_torch.models.detectors import build_detector
@@ -273,7 +277,8 @@ def test_camera_items_raise(item, tmp_path):
 @pytest.mark.parametrize('section,name', [
     ('VFE', 'DynamicPillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
     ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
-    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PartA2FCHead')])
+    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PartA2FCHead'),
+    ('BACKBONE_3D', 'PointNet2MSG'), ('ROI_HEAD', 'PointRCNNHead')])
 def test_converter_refuses_other_families(section, name):
     """The port's converter of reference checkpoints covers what
     glenet_tpu's covers of the families the port runs (VoxelRCNN,

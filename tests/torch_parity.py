@@ -1,12 +1,22 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): one
 set of numpy-drawn weights and inputs goes through glenet_tpu and through
-glenet_tpu_torch, both pinned to float32."""
+glenet_tpu_torch, both pinned to float32.
+
+Importing this module gives torch one intra-op thread.  The suite runs in
+pytest-xdist workers (6 on the 8 cores of the test machine), each of which
+imports every test module when it collects; torch's default of one thread
+per core in every worker, beside XLA's own pools, oversubscribes the cores
+so far that tests/test_torch_{convergence, waymo_glenet_s, sessd_atss,
+resume_msgpack}.py took 428 s on 4 workers instead of 83 s."""
 from __future__ import annotations
 
 import contextlib
 
 import numpy as np
 import pytest
+import torch
+
+torch.set_num_threads(1)
 
 
 def to_port_cfg(cfg):
