@@ -228,7 +228,31 @@ Phases, each of which exits non-zero on failure:
      card's side of each ReLU kink within rounding of 0 and of each FPS,
      ball-query or three-nn decision at a near tie (relative gap within
      1e-5; any other difference fails; point_decisions);
- 16. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 16. CenterPoint and the CenterHead RPNs, [centerpoint] (launches counted
+     from 0 just before and read just after each call but the warm-ups):
+     (a) configs/waymo_models/centerpoint.yaml at full width
+     (VoxelResBackBone8x on the 1504 x 1504 x 40 grid, budgets 80000 /
+     90000, a CenterHead over the 188 x 188 map, top 500 cells, nms_gpu)
+     with seeded weights on synthetic Waymo scenes of 170000 points: a
+     warm-up predict that captures its merge-resolve calls for phase 6, 3
+     predicts at B = 2, then phase 3's train steps at B = 4 (ms, every
+     loss term, grad_norm, lr / b1, active sites against the caps, 4
+     merge-resolve launches per call, peak memory; losses finite,
+     parameters and BN stats moved); (b) centerpoint_without_resnet.yaml,
+     centerpoint_pillar_1x.yaml, centerpoint_dyn_pillar_1x.yaml (dynamic
+     voxels, DynamicPillarVFE), voxel_rcnn_with_centerhead_dyn_voxel.yaml
+     (DynamicMeanVFE, CenterHead proposals into VoxelRCNNHead) and
+     pv_rcnn_with_centerhead_rpn.yaml: one predict at B = 2 and one train
+     step each (4 launches per call, 0 on the pillar configs); (c)
+     centerpoint.yaml through `tools.train` (B = 4, 1 epoch x 2 steps) and
+     `tools.test` with the three-class Waymo evaluation on [waymo]'s tree;
+     (d) `tools.convergence_waymo` on its default yaml, centerpoint.yaml,
+     for 10 steps and a 5-step frozen-BN tail; (e) after phase 7, the card
+     against the CPU on the toy topology as CenterPoint
+     (tiny_centerpoint_raw): a predict and a train step, as phase 7 with
+     [waymo] (e)'s ReLU alignment; phase 6 adds the 4 captured calls of
+     the CenterPoint predict and train step;
+ 17. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -1925,11 +1949,12 @@ def phase_weights_vq(tmp):
     return launches
 
 
-def predict_and_step(cfg_name, seed, models='kitti_models'):
+def predict_and_step(cfg_name, seed, models='kitti_models', launches=4):
     """`cfg_name` at full width, seeded weights: one predict at B = 2 and one
-    train step at B = 4, launches counted from 0 just before and read just
-    after each.  Returns a dict: det, cfg, pred, predict_ms, n_predict,
-    vals (the step's metrics as floats), step_ms, n_step, b."""
+    train step at B = BATCH_SIZE_PER_GPU, launches counted from 0 just
+    before and read just after each, `launches` per call.  Returns a dict:
+    det, cfg, pred, predict_ms, n_predict, vals (the step's metrics as
+    floats), step_ms, n_step, b, predict_gib, step_gib (peak memory)."""
     import math
 
     import torch
@@ -1942,31 +1967,37 @@ def predict_and_step(cfg_name, seed, models='kitti_models'):
     det = seeded_detector(cfg, 'cuda', seed)
     batch = batches_for(cfg, 1, SEED + 2, BATCH)[0]
     mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred = det.predict(batch)
     torch.cuda.synchronize()
     predict_ms = 1e3 * (time.perf_counter() - t0)
+    predict_gib = torch.cuda.max_memory_allocated() / 2**30
     n_predict = mk.LAUNCHES
-    check(n_predict == 4 and bool(torch.isfinite(pred['final_boxes']).all())
+    check(n_predict == launches
+          and bool(torch.isfinite(pred['final_boxes']).all())
           and bool(torch.isfinite(pred['final_scores']).all()),
           f'{cfg_name} predict: {n_predict} launches or outputs not finite')
     _, state, train_step = build_training(cfg, det)
     b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tbatch = batches_for(cfg, 1, SEED + 3, b, train=True)[0]
     mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics = train_step(state, tbatch)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
+    step_gib = torch.cuda.max_memory_allocated() / 2**30
     n_step = mk.LAUNCHES
     vals = {k: float(v) for k, v in metrics.items()}
-    check(n_step == 4 and all(math.isfinite(v) for v in vals.values()),
+    check(n_step == launches and all(math.isfinite(v) for v in vals.values()),
           f'{cfg_name} train step: {n_step} launches, {vals}')
     return {'det': det, 'cfg': cfg, 'pred': pred, 'predict_ms': predict_ms,
             'n_predict': n_predict, 'vals': vals, 'step_ms': step_ms,
-            'n_step': n_step, 'b': b}
+            'n_step': n_step, 'b': b, 'predict_gib': predict_gib,
+            'step_gib': step_gib}
 
 
 def phase_weights_plain():
@@ -4174,6 +4205,283 @@ def phase_pointrcnn(tmp, root):
 
 
 # ---------------------------------------------------------------------------
+# [centerpoint]: CenterPoint and the CenterHead RPNs (VoxelResBackBone8x,
+# dynamic voxels and the scatter VFEs, CenterHead targets, loss and decode)
+# ---------------------------------------------------------------------------
+
+# the other Waymo configs with a CenterHead and their merge-resolve
+# launches per call (the pillar configs have no sparse level)
+CENTERPOINT_OTHERS = (('centerpoint_without_resnet.yaml', 4),
+                      ('centerpoint_pillar_1x.yaml', 0),
+                      ('centerpoint_dyn_pillar_1x.yaml', 0),
+                      ('voxel_rcnn_with_centerhead_dyn_voxel.yaml', 4),
+                      ('pv_rcnn_with_centerhead_rpn.yaml', 4))
+CONV_CENTERPOINT_STEPS, CONV_CENTERPOINT_TAIL = 10, 5
+CENTER_SIZES = {1: (4.6, 2.0, 1.7), 2: (0.8, 0.8, 1.8), 3: (1.8, 0.6, 1.7)}
+
+
+def tiny_centerpoint_raw():
+    """The toy topology as Waymo's CenterPoint: 5 point features, Vehicle,
+    Pedestrian and Cyclist, VoxelResBackBone8x, a CenterHead of 16 shared
+    channels at stride 8 (without the conv biases before its BNs, whose
+    exact gradient is 0: both devices would hold rounding noise there), top
+    32 cells, nms_gpu at zero score threshold."""
+    raw = tiny_waymo_raw()
+    raw['CLASS_NAMES'] = ['Vehicle', 'Pedestrian', 'Cyclist']
+    m = raw['MODEL']
+    m['NAME'] = 'CenterPoint'
+    m['BACKBONE_3D'] = {'NAME': 'VoxelResBackBone8x'}
+    m['DENSE_HEAD'] = {
+        'NAME': 'CenterHead', 'CLASS_AGNOSTIC': False,
+        'CLASS_NAMES_EACH_HEAD': [raw['CLASS_NAMES']],
+        'SHARED_CONV_CHANNEL': 16, 'USE_BIAS_BEFORE_NORM': False,
+        'NUM_HM_CONV': 2,
+        'TARGET_ASSIGNER_CONFIG': {'FEATURE_MAP_STRIDE': 8,
+                                   'NUM_MAX_OBJS': 500,
+                                   'GAUSSIAN_OVERLAP': 0.1, 'MIN_RADIUS': 2},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'cls_weight': 1.0,
+                                         'loc_weight': 2.0,
+                                         'code_weights': [1.0] * 8}}}
+    m['POST_PROCESSING'] = {
+        'SCORE_THRESH': 0.0, 'MAX_OBJ_PER_SAMPLE': 32,
+        'NMS_CONFIG': {'MULTI_CLASSES_NMS': False, 'NMS_TYPE': 'nms_gpu',
+                       'NMS_THRESH': 0.7, 'NMS_PRE_MAXSIZE': 32,
+                       'NMS_POST_MAXSIZE': 16}}
+    return raw
+
+
+def tiny_center_batch(cfg):
+    """tiny_batch's points (5 features), a Vehicle, a Pedestrian and a
+    Cyclist per sample at their sizes, label variances in [0.02, 0.3)."""
+    import numpy as np
+    import torch
+    pts = torch.from_numpy(tiny_batch(SEED + 7, features=n_features(cfg)))
+    b = pts.shape[0]
+    rng = np.random.RandomState(SEED + 13)
+    gt = np.zeros((b, 8, 8), np.float32)
+    for i in range(b):
+        for j, cls in enumerate((1, 2, 3)):
+            dx, dy, dz = CENTER_SIZES[cls]
+            gt[i, j] = [rng.uniform(2, 14), rng.uniform(-6, 6), -1.0, dx, dy,
+                        dz, rng.uniform(-np.pi, np.pi), cls]
+    gt_mask = np.zeros((b, 8), bool)
+    gt_mask[:, :3] = True
+    unc = rng.uniform(0.02, 0.3, (b, 8, 7)).astype(np.float32)
+    return {'points': pts, 'points_mask': torch.ones(pts.shape[:2],
+                                                     dtype=torch.bool),
+            'gt_boxes': torch.from_numpy(gt),
+            'gt_mask': torch.from_numpy(gt_mask),
+            'gt_uncertainty': torch.from_numpy(unc)}
+
+
+def phase_centerpoint_full(seed):
+    """[centerpoint] (a): configs/waymo_models/centerpoint.yaml at full width
+    (VoxelResBackBone8x on the 1504 x 1504 x 40 grid, test budget 90000,
+    a 188 x 188 x 3 heatmap) with seeded weights on synthetic Waymo scenes
+    of 170000 points: a warm-up predict that captures its merge-resolve
+    calls, N_REQUESTS predicts at B = 2 (phase_full_width), then a warm-up
+    train step (also captured) and TRAIN_STEPS timed ones at B = 4, the
+    train budget 80000 (phase_train).  Returns (launches, captured predict
+    calls, captured train-step calls, mean step ms)."""
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.utils.synthetic import (WAYMO_N_POINTS,
+                                                  seeded_detector,
+                                                  waymo_scene_batches)
+    cfg = cfg_from_yaml_file(str(ROOT /
+                                 'configs/waymo_models/centerpoint.yaml'))
+    det = seeded_detector(cfg, 'cuda', seed)
+    check(det.is_center_head and det.net.backbone_3d.residual
+          and tuple(det.grid_size) == (1504, 1504, 40)
+          and (det.max_voxels_train, det.max_voxels_test) == (80000, 90000),
+          f'CenterPoint built with grid {det.grid_size}')
+    batches = waymo_scene_batches(N_REQUESTS + 1, SEED + 160, BATCH)
+    t0 = time.perf_counter()
+    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    print(f'[centerpoint] CenterPoint: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    launches = phase_full_width(det, batches[1:], 'centerpoint',
+                                'CenterPoint', n_points=WAYMO_N_POINTS)
+    n, captured_train, times = phase_train(cfg, det, 'centerpoint',
+                                           'CenterPoint',
+                                           n_points=WAYMO_N_POINTS)
+    print_syncs(det, cfg, 'CenterPoint')
+    del det
+    torch.cuda.empty_cache()
+    return launches + n, captured, captured_train, sum(times) / len(times)
+
+
+def print_syncs(det, cfg, label):
+    """The host syncs (by file:line) of one more predict and one more train
+    step of `det`, outside the counted runs."""
+    from glenet_tpu_torch.profile_cvae import _syncs
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for
+    batch = batches_for(cfg, 1, SEED + 4, BATCH)[0]
+    _, state, train_step = build_training(cfg, det)
+    tbatch = batches_for(cfg, 1, SEED + 5,
+                         int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU),
+                         train=True)[0]
+    for what, fn in (('predict', lambda: det.predict(batch)),
+                     ('train step', lambda: train_step(state, tbatch))):
+        syncs = _syncs(fn)
+        print(f'[centerpoint] {label} {what}: {sum(syncs.values())} host '
+              f'syncs (' + ', '.join(f'{k} x{v}'
+                                     for k, v in syncs.most_common()) + ')')
+
+
+def phase_centerpoint_others():
+    """[centerpoint] (b): the other five Waymo configs with a CenterHead at
+    full width, seeded weights: one predict at B = 2 and one train step at
+    B = BATCH_SIZE_PER_GPU each, launches counted from 0 just before and
+    read just after each call (4, or 0 on the pillar configs).  Returns
+    the launches."""
+    import torch
+    launches = 0
+    for i, (name, expected) in enumerate(CENTERPOINT_OTHERS):
+        r = predict_and_step(name, SEED + 161 + i, 'waymo_models', expected)
+        launches += r['n_predict'] + r['n_step']
+        check(r['vals']['loss_cls'] > 0 and r['vals']['loss_loc'] > 0,
+              f'{name}: CenterHead losses {r["vals"]}')
+        net = r['det'].net
+        vfe = type(net.vfe).__name__
+        if net.dynamic:
+            print_syncs(r['det'], r['cfg'], r['cfg'].TAG)
+        valid = r['pred']['final_valid'].sum(1).tolist()
+        print(f'[centerpoint] {r["cfg"].TAG} ({vfe}, '
+              f'{type(net.dense_head).__name__}): predict B={BATCH} '
+              f'{r["predict_ms"]:.1f} ms, valid final boxes {valid}, peak '
+              f'{r["predict_gib"]:.2f} GiB; train step B={r["b"]} '
+              f'{r["step_ms"]:.1f} ms, peak {r["step_gib"]:.2f} GiB; '
+              + ', '.join(f'{k} {v:.5f}' for k, v in sorted(r['vals'].items()))
+              + f'; merge_resolve launches {r["n_predict"]} / '
+              f'{r["n_step"]}')
+        del r
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_centerpoint_cli(tmp, in_memory_ms):
+    """[centerpoint] (c): centerpoint.yaml through `tools.train` (B = 4, 1
+    epoch x 2 steps over every train frame) and `tools.test` with the
+    three-class Waymo evaluation, on the synthetic Waymo tree [waymo] wrote
+    (its gt database holds Vehicles; the Pedestrian and Cyclist groups
+    sample none).  Launches counted from 0 just before and read just after
+    each call, 4 per call.  Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.models.detectors import Detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import state as state_lib
+    cfg_file = str(ROOT / 'configs/waymo_models/centerpoint.yaml')
+    common = ['--cfg_file', cfg_file, '--data_path', str(tmp / 'waymo'),
+              '--output_dir', str(tmp / 'centerpoint_out'), '--batch_size',
+              str(WAYMO_BATCH), '--max_steps_per_epoch', '2']
+    step_launches, predict_launches = [], []
+    undo = [count_launches(state_lib, 'make_train_step', step_launches),
+            count_launches(Detector, 'predict', predict_launches)]
+    mk.LAUNCHES = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        run = train_cli.main(common + ['--epochs', '1', '--set',
+                                       'DATA_CONFIG.SAMPLED_INTERVAL.train',
+                                       '1'])
+        peak = torch.cuda.max_memory_allocated()
+        results = test_cli.main(common[:8])
+    finally:
+        for u in undo:
+            u()
+    launches = mk.LAUNCHES
+    check([r['it'] for r in run['steps']] == [1, 2]
+          and step_launches == [4, 4],
+          f'CenterPoint CLI steps {[r["it"] for r in run["steps"]]}, '
+          f'launches per step {step_launches}')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'CenterPoint CLI step {r["it"]}: not finite: {bad}')
+        print(f'[centerpoint] CLI train step {r["it"]} B={WAYMO_BATCH}: data '
+              f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms (in '
+              f'memory {in_memory_ms:.1f} ms), loss {r["loss"]:.4f}, '
+              f'loss_cls {r["loss_cls"]:.4f}, loss_loc {r["loss_loc"]:.4f}, '
+              f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+    (path, res), = results.items()
+    keys = [f'OBJECT_TYPE_TYPE_{c}_LEVEL_{lv}/{m}'
+            for c in ('VEHICLE', 'PEDESTRIAN', 'CYCLIST') for lv in (1, 2)
+            for m in ('AP', 'APH')]
+    check(res['frames'] == WAYMO_FRAMES and sorted(res['ap']) == sorted(keys)
+          and all(np.isfinite(res['ap'][k]) for k in keys)
+          and predict_launches == [4] * math.ceil(WAYMO_FRAMES
+                                                  / WAYMO_BATCH),
+          f'CenterPoint test CLI: {res["frames"]} frames, '
+          f'{sorted(res["ap"])}, launches per predict {predict_launches}')
+    print(f'[centerpoint] test CLI on {Path(path).name}: {res["frames"]} '
+          f'val frames, {res["sec_per_frame"]:.4f} s/frame, Waymo '
+          f'evaluation {res["eval_sec"]:.3f} s; merge_resolve launches per '
+          f'predict {predict_launches}; ' + ', '.join(
+              f'{k} {res["ap"][k]:.2f}' for k in keys[:2])
+          + ' (2 steps from random weights: only the keys are checked)')
+    return launches
+
+
+def phase_centerpoint_harness(tmp):
+    """[centerpoint] (d): tools.convergence_waymo on its default yaml,
+    centerpoint.yaml, for CONV_CENTERPOINT_STEPS steps and a
+    CONV_CENTERPOINT_TAIL-step frozen-BN tail, as [convergence] cuts
+    Waymo: 4 merge-resolve launches per train-mode forward and per
+    predict, its active-site lines, finite losses and the AP / APH keys
+    (printed, not gated).  Returns the launches."""
+    import math
+    import tempfile
+
+    from glenet_tpu_torch.tools import convergence_waymo as cw
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = str(tmp)
+    try:
+        entry, text, launches, per_call = run_tool(
+            'centerpoint_waymo', cw.main,
+            [str(CONV_CENTERPOINT_STEPS), '1e-3', cw.DEFAULT_YAML,
+             str(CONV_CENTERPOINT_TAIL), '--out',
+             str(tmp / 'convergence_centerpoint.json')])
+    finally:
+        tempfile.tempdir = saved_tmp
+    check_launches('centerpoint_waymo', per_call, 4)
+    losses = printed_losses(text)
+    check(text.count('active sites max=') == 4
+          and all(math.isfinite(v) for v in losses)
+          and math.isfinite(entry['final_loss'])
+          and entry['Vehicle_L1_AP'] is not None
+          and entry['Vehicle_L1_APH'] is not None,
+          f'centerpoint_waymo harness: {entry}')
+    conv_line(f'centerpoint_waymo {CONV_CENTERPOINT_STEPS} + '
+              f'{CONV_CENTERPOINT_TAIL} frozen-BN steps', entry,
+              ('Vehicle_L1_AP', 'Vehicle_L1_APH'))
+    return launches
+
+
+def phase_centerpoint(tmp):
+    """[centerpoint]: (a) centerpoint.yaml at full width, (b) the other
+    five configs, (c) the CLIs on [waymo]'s tree, (d) a short harness run.
+    (e) the card against the CPU on tiny_centerpoint_raw and the kernel
+    check of (a)'s captured calls run after the main paths.  Returns
+    (launches, captured predict calls, captured train-step calls)."""
+    launches, captured, captured_train, step_ms = phase_centerpoint_full(
+        SEED + 160)
+    launches += phase_centerpoint_others()
+    launches += phase_centerpoint_cli(tmp, step_ms)
+    launches += phase_centerpoint_harness(tmp)
+    return launches, captured, captured_train
+
+
+# ---------------------------------------------------------------------------
 # [convergence]: the synthetic convergence harness
 # (glenet_tpu_torch/tools/convergence_ap.py, convergence_waymo.py,
 # stage2_recovery.py)
@@ -4417,6 +4725,8 @@ def main():
             launches_parta2, captured_parta2, _ = phase_parta2(Path(tmp),
                                                                tc_root)
             launches_pointrcnn, _ = phase_pointrcnn(Path(tmp), tc_root)
+            launches_center, captured_center, captured_center_train = \
+                phase_centerpoint(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -4432,6 +4742,9 @@ def main():
                                 UNET_CALL_NAMES)
         parta2_train = check_captured(captured_parta2['step'],
                                       'PartA2 train step', UNET_CALL_NAMES)
+        center = check_captured(captured_center, 'CenterPoint predict')
+        center_train = check_captured(captured_center_train,
+                                      'CenterPoint train step')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -4476,6 +4789,12 @@ def main():
             tiny_pointrcnn_raw(), 'pointrcnn] [gpu-vs-cpu',
             lambda cfg: tiny_train_batch(cfg, train_proposals=True),
             align_relu=True, align_points=True)
+        # the residual blocks and the small BEV map's BNs put ReLU inputs
+        # within rounding of 0, as [waymo]'s: the CPU takes the card's side
+        phase_gpu_vs_cpu(tiny_centerpoint_raw(), 'centerpoint] [gpu-vs-cpu')
+        phase_gpu_vs_cpu_train(tiny_centerpoint_raw(),
+                               'centerpoint] [gpu-vs-cpu', tiny_center_batch,
+                               align_relu=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -4488,7 +4807,8 @@ def main():
         'launches': (launches + launches_train + launches_cli + launches_cvae
                      + launches_weights + launches_single + launches_waymo
                      + launches_three + launches_pv + launches_conv
-                     + launches_parta2 + launches_pointrcnn),
+                     + launches_parta2 + launches_pointrcnn
+                     + launches_center),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -4505,6 +4825,7 @@ def main():
         'launches_convergence': launches_conv,
         'launches_parta2': launches_parta2,
         'launches_pointrcnn': launches_pointrcnn,
+        'launches_centerpoint': launches_center,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -4537,7 +4858,10 @@ def main():
                                              ('pv_rcnn', pv),
                                              ('pv_rcnn_train', pv_train),
                                              ('parta2', parta2),
-                                             ('parta2_train', parta2_train))
+                                             ('parta2_train', parta2_train),
+                                             ('centerpoint', center),
+                                             ('centerpoint_train',
+                                              center_train))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -4573,14 +4897,23 @@ def main():
           f'train steps each; Waymo PartA2: 3 predicts, 3 train steps; the '
           f'CLIs: 2 train steps, {math.ceil(TC_VAL / 4)} predicts; '
           f'{UNET_LAUNCHES} launches per call) and the PointRCNN phase '
-          f'(none: no sparse level, checked per call); '
+          f'(none: no sparse level, checked per call) and the CenterPoint '
+          f'phase (centerpoint.yaml: {N_REQUESTS} predicts, '
+          f'{TRAIN_STEPS} train steps; centerpoint_without_resnet.yaml '
+          f'and the two CenterHead-RPN configs: 1 predict and 1 train step '
+          f'each; the pillar configs: none; the CLIs: 2 train steps, '
+          f'{math.ceil(WAYMO_FRAMES / WAYMO_BATCH)} predicts; the harness: '
+          f'{CONV_CENTERPOINT_STEPS + CONV_CENTERPOINT_TAIL} steps, its '
+          f'BN-refresh forwards and predicts); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '
           f'SECOND-IoU train step, pv_rcnn_* per KITTI PV-RCNN predict, '
           f'pv_rcnn_train_* per KITTI PV-RCNN train step, parta2_* per '
-          f'KITTI PartA2 predict (sum of its {UNET_LAUNCHES} calls) and '
-          f'parta2_train_* per KITTI PartA2 train step')
+          f'KITTI PartA2 predict (sum of its {UNET_LAUNCHES} calls), '
+          f'parta2_train_* per KITTI PartA2 train step, centerpoint_* per '
+          f'Waymo CenterPoint predict and centerpoint_train_* per Waymo '
+          f'CenterPoint train step')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -33,6 +33,18 @@ from .augmentor import DataAugmentor
 from .kitti_dataset import KittiDataset, _numpy
 
 
+def frame_points(points_all):
+    """A processed frame's .npy array -> (N, 5) points [x y z
+    tanh(intensity) elongation]: the points outside the no-label zone (NLZ
+    flag -1), unless every point has the flag -1 or none has it, as the JAX
+    package selects them."""
+    if points_all.shape[1] > 5:
+        points_all = points_all[points_all[:, 5] == -1][:, :5] \
+            if (points_all[:, 5] != -1).any() else points_all[:, :5]
+    points_all[:, 3] = np.tanh(points_all[:, 3])
+    return points_all
+
+
 class WaymoDataset:
     METRIC = 'Waymo'
 
@@ -89,16 +101,9 @@ class WaymoDataset:
         return len(self.infos)
 
     def get_lidar(self, sequence_name, sample_idx):
-        """(N, 5) points [x y z tanh(intensity) elongation]: the points
-        outside the no-label zone (NLZ flag -1), unless every point has
-        the flag -1 or none has it, as the JAX package selects them."""
+        """(N, 5) points of a processed frame (frame_points)."""
         path = self.data_path / sequence_name / f'{sample_idx:04d}.npy'
-        points_all = np.load(str(path))
-        if points_all.shape[1] > 5:
-            points_all = points_all[points_all[:, 5] == -1][:, :5] \
-                if (points_all[:, 5] != -1).any() else points_all[:, :5]
-        points_all[:, 3] = np.tanh(points_all[:, 3])
-        return points_all
+        return frame_points(np.load(str(path)))
 
     def __getitem__(self, index):
         info = self.infos[index]

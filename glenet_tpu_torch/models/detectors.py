@@ -37,7 +37,18 @@ for these topologies:
     PointRCNNHead, proposal NMS over the point boxes -> (train: RoI target
     sampling) -> RoI point pooling of [xyz, score, depth, features] (no
     gradient, as the reference's no_grad) -> PointRCNNHead -> final NMS
-    over the refined rois.
+    over the refined rois;
+  - CenterPoint: voxelize -> MeanVFE -> VoxelResBackBone8x (or
+    VoxelBackBone8x) -> HeightCompression -> BaseBEVBackbone -> CenterHead
+    (heatmap and box maps) -> top-k decode -> final NMS; or pillars
+    (PillarVFE or DynamicPillarVFE -> PointPillarScatter) at stride 1.  A
+    CenterHead also serves VoxelRCNN and PVRCNN as their RPN: its decoded
+    boxes (DENSE_HEAD.POST_PROCESSING's MAX_OBJ_PER_SAMPLE and
+    SCORE_THRESH) go into the proposal NMS.
+
+The dynamic VFEs (DynamicMeanVFE, DynamicPillarVFE) take the points with
+their voxel slots (voxelize_dynamic) instead of the padded voxel table, the
+batch flattened into the point and slot axes.
 
 The dense head's targets come from the axis-aligned assigner or ATSS, on
 nearest-BEV IoU or, with MATCH_HEIGHT, on 3D IoU.  The point features are
@@ -72,6 +83,7 @@ from ..ops import voxelize as vox_ops
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
 from . import anchor_heads, anchors, target_assigner
+from . import center_head as center_lib
 from . import pfe as pfe_lib
 from . import point_heads
 from . import roi_heads as roi_lib
@@ -83,7 +95,8 @@ from .pointnet2_backbone import PointNet2MSG
 from .roi_heads import (PartA2FCHead, PVRCNNHead, SECONDHead, VoxelRCNNHead,
                         decode_rcnn_boxes)
 from .spconv_backbone import build_backbone_3d
-from .vfe import MeanVFE, PillarVFE
+from .vfe import (DYNAMIC_MEAN, DYNAMIC_PILLAR, DynamicMeanVFE,
+                  DynamicPillarVFE, MeanVFE, PillarVFE)
 
 
 def _require(cond, what):
@@ -93,7 +106,7 @@ def _require(cond, what):
 
 # the MODEL names the port builds
 FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
-            'PVRCNN', 'PartA2Net', 'PointRCNN')
+            'PVRCNN', 'PartA2Net', 'PointRCNN', 'CenterPoint')
 # topology (_topology: the MODEL name, PointRCNN by its backbone) -> the
 # ROI_HEAD names it builds, None for a topology that may have none (the
 # others: none)
@@ -125,8 +138,8 @@ def _topology(model_cfg):
 
 class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
-    PointPillar, PVRCNN, PartA2Net, PartA2-free or point-based PointRCNN
-    detector."""
+    PointPillar, PVRCNN, PartA2Net, PartA2-free, point-based PointRCNN or
+    CenterPoint detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -156,11 +169,14 @@ class DetectorNet(nn.Module):
         if self.point_based:
             self._build_point_based(mcfg, num_point_features, num_class)
             return
-        pillars = name == 'PointPillar'
-        _require(mcfg.VFE.NAME == ('PillarVFE' if pillars else 'MeanVFE'),
-                 f'VFE {mcfg.VFE.NAME}')
-        _require(pillars == ('BACKBONE_3D' not in mcfg),
-                 f'MODEL {name} with BACKBONE_3D')
+        pillars = 'BACKBONE_3D' not in mcfg
+        vfe_name = mcfg.VFE.NAME
+        _require(vfe_name in (('PillarVFE',) + DYNAMIC_PILLAR if pillars
+                              else ('MeanVFE',) + DYNAMIC_MEAN),
+                 f'VFE {vfe_name}')
+        _require(pillars == (name == 'PointPillar') or name == 'CenterPoint',
+                 f'MODEL {name} with{"out" * pillars} BACKBONE_3D')
+        self.dynamic = vfe_name in DYNAMIC_MEAN + DYNAMIC_PILLAR
         bb3d = None if pillars else mcfg.BACKBONE_3D.NAME
         unet = bb3d == 'UNetV2'
         _require(unet == (name in ('PartA2Net', 'PartA2-free')),
@@ -194,7 +210,7 @@ class DetectorNet(nn.Module):
         self.max_voxels_test = max_voxels_test
         self.max_points_per_voxel = max_points_per_voxel
         self.anchor_set = anchor_set
-        self.vfe = MeanVFE()
+        self.vfe = DynamicMeanVFE() if self.dynamic else MeanVFE()
         self.backbone_2d = self.dense_head = self.part_head = None
         self.pfe = self.point_head_simple = self.roi_head = None
         if unet:
@@ -215,7 +231,7 @@ class DetectorNet(nn.Module):
             return
         if pillars:
             vfe_cfg = mcfg.VFE
-            self.vfe = PillarVFE(
+            self.vfe = (DynamicPillarVFE if self.dynamic else PillarVFE)(
                 num_point_features, vfe_cfg.NUM_FILTERS, voxel_size,
                 pc_range,
                 use_absolute_xyz=vfe_cfg.get('USE_ABSLOTE_XYZ', True),
@@ -248,7 +264,12 @@ class DetectorNet(nn.Module):
         self.dir_offset = head_cfg.get('DIR_OFFSET', 0.78539)
         self.dir_limit_offset = head_cfg.get('DIR_LIMIT_OFFSET', 0.0)
         c_2d = self.backbone_2d.num_bev_features
-        if head_cfg.NAME == 'AnchorHeadMulti':
+        self.is_center_head = head_cfg.NAME == 'CenterHead'
+        if self.is_center_head:
+            self.dense_head = center_lib.CenterHead(
+                c_2d, num_class, head_cfg.get('SHARED_CONV_CHANNEL', 64),
+                head_cfg.get('USE_BIAS_BEFORE_NORM', False))
+        elif head_cfg.NAME == 'AnchorHeadMulti':
             groups = [tuple(h['HEAD_CLS_NAME'])
                       for h in head_cfg.RPN_HEAD_CFGS]
             names = tuple(anchor_set.class_names)
@@ -292,9 +313,10 @@ class DetectorNet(nn.Module):
                 level_channels=self.backbone_3d.level_channels,
                 code_size=box_coder.code_size,
                 kl_label='KLLabel' in roi_name)
-        self.register_buffer('flat_anchors',
-                             torch.from_numpy(anchor_set.flat_anchors),
-                             persistent=False)
+        if anchor_set is not None:
+            self.register_buffer('flat_anchors',
+                                 torch.from_numpy(anchor_set.flat_anchors),
+                                 persistent=False)
 
     def _build_point_based(self, mcfg, num_point_features, num_class):
         """PointRCNN's slots: PointNet2MSG, PointHeadBox and, when ROI_HEAD
@@ -321,11 +343,44 @@ class DetectorNet(nn.Module):
                 code_size=self.box_coder.code_size)
 
     def voxelize(self, points, points_mask, max_voxels):
-        outs = [vox_ops.voxelize(points[i], points_mask[i], self.voxel_size,
-                                 self.pc_range, self.grid_size,
-                                 max_voxels, self.max_points_per_voxel)
+        """Per sample voxelize, or voxelize_dynamic for a dynamic VFE."""
+        if self.dynamic:
+            outs = [vox_ops.voxelize_dynamic(
+                points[i], points_mask[i], self.voxel_size, self.pc_range,
+                self.grid_size, max_voxels) for i in range(points.shape[0])]
+        else:
+            outs = [vox_ops.voxelize(
+                points[i], points_mask[i], self.voxel_size, self.pc_range,
+                self.grid_size, max_voxels, self.max_points_per_voxel)
                 for i in range(points.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    def voxel_features(self, points, vox, train):
+        """The VFE's (B, V, C) features.  The pillar encoders and the
+        dynamic VFEs take the batch flattened into the voxel (and point)
+        axis, so their BN statistics span the batch; a dynamic VFE's
+        segments are the slots offset by b * V, its empty slots zeroed."""
+        b, v = vox['voxel_coords'].shape[:2]
+        if self.dynamic:
+            n = points.shape[1]
+            pvi = vox['point_voxel_idx']
+            offs = torch.arange(b, device=pvi.device)[:, None] * v
+            flat_idx = torch.where(pvi >= 0, pvi + offs, -1).reshape(b * n)
+            flat_pts = points.reshape(b * n, -1)
+            if isinstance(self.vfe, DynamicPillarVFE):
+                feats = self.vfe(flat_pts, flat_idx,
+                                 vox['voxel_coords'].reshape(b * v, 3),
+                                 b * v, train)
+            else:
+                feats = self.vfe(flat_pts, flat_idx, b * v)
+            return torch.where(vox['voxel_mask'][..., None],
+                               feats.reshape(b, v, -1), 0.0)
+        if isinstance(self.vfe, PillarVFE):
+            return self.vfe(vox['voxels'].flatten(0, 1),
+                            vox['voxel_num_points'].flatten(0, 1),
+                            vox['voxel_coords'].flatten(0, 1),
+                            train).reshape(b, v, -1)
+        return self.vfe(vox['voxels'], vox['voxel_num_points'])
 
     def forward(self, points, points_mask, train: bool = False,
                 gt_boxes=None, gt_mask=None, gt_uncertainty=None,
@@ -346,8 +401,8 @@ class DetectorNet(nn.Module):
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
         vox = self.voxelize(points, points_mask, max_voxels)
         out = {'vox': vox}
+        feats = self.voxel_features(points, vox, train)
         if self.part_free:
-            feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
             sp_out = self.backbone_3d(feats, vox['voxel_coords'],
                                       vox['voxel_mask'], train)
             out['backbone_3d'] = sp_out
@@ -365,16 +420,9 @@ class DetectorNet(nn.Module):
             out['rcnn']['rois'] = roi_in
             return out
         if self.backbone_3d is None:
-            # PointPillars: the batch flattened into the pillar axis, so the
-            # VFE's BN statistics span the batch
-            b, v = vox['voxel_coords'].shape[:2]
-            feats = self.vfe(vox['voxels'].flatten(0, 1),
-                             vox['voxel_num_points'].flatten(0, 1),
-                             vox['voxel_coords'].flatten(0, 1), train)
-            bev = self.map_to_bev(feats.reshape(b, v, -1),
-                                  vox['voxel_coords'], vox['voxel_mask'])
+            bev = self.map_to_bev(feats, vox['voxel_coords'],
+                                  vox['voxel_mask'])
         else:
-            feats = self.vfe(vox['voxels'], vox['voxel_num_points'])
             sp_out = self.backbone_3d(feats, vox['voxel_coords'],
                                       vox['voxel_mask'], train)
             out['backbone_3d'] = sp_out
@@ -532,7 +580,25 @@ class DetectorNet(nn.Module):
                       'point_cls_preds': cls}
         return vsa['point_features'] * torch.sigmoid(cls).amax(-1)[..., None]
 
+    def decode_center(self, head_out, post):
+        """The CenterHead's top-k boxes, scores and labels under `post`'s
+        MAX_OBJ_PER_SAMPLE (500) and SCORE_THRESH (0)."""
+        stride = int(self.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+                     .FEATURE_MAP_STRIDE)
+        return center_lib.decode_center_boxes(
+            head_out, int(post.get('MAX_OBJ_PER_SAMPLE', 500)),
+            self.voxel_size, self.pc_range, stride,
+            score_thresh=float(post.get('SCORE_THRESH', 0.0)))
+
     def _proposals(self, dense_head_out, train):
+        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
+            'TRAIN' if train else 'TEST']
+        if self.is_center_head:
+            boxes, best_scores, best_labels = self.decode_center(
+                dense_head_out,
+                self.model_cfg.DENSE_HEAD.get('POST_PROCESSING') or {})
+            return self._nms_proposals(boxes, best_scores, best_labels,
+                                       nms_cfg)
         decoded = anchor_heads.decode_predictions(
             dense_head_out, self.flat_anchors, self.box_coder,
             dir_offset=self.dir_offset,
@@ -541,8 +607,6 @@ class DetectorNet(nn.Module):
         cls_scores = torch.sigmoid(decoded['batch_cls_preds'])
         best_scores = cls_scores.amax(dim=-1)
         best_labels = cls_scores.argmax(dim=-1) + 1
-        nms_cfg = self.model_cfg.ROI_HEAD.NMS_CONFIG[
-            'TRAIN' if train else 'TEST']
         return self._nms_proposals(decoded['batch_box_preds'], best_scores,
                                    best_labels, nms_cfg)
 
@@ -603,7 +667,10 @@ class Detector:
         self.device = torch.device(device)
         self.pc_range = tuple(data_cfg.POINT_CLOUD_RANGE)
         proc_cfgs = {p.NAME: p for p in data_cfg.DATA_PROCESSOR}
-        vox_cfg = proc_cfgs['transform_points_to_voxels']
+        # the dynamic VFEs' configs name it a placeholder
+        vox_cfg = proc_cfgs.get(
+            'transform_points_to_voxels',
+            proc_cfgs.get('transform_points_to_voxels_placeholder'))
         self.voxel_size = tuple(vox_cfg.VOXEL_SIZE)
         self.grid_size = vox_ops.compute_grid_size(self.pc_range,
                                                    self.voxel_size)
@@ -629,7 +696,8 @@ class Detector:
         self.box_coder = box_coder_lib.build_box_coder(
             ta_cfg.get('BOX_CODER', 'ResidualCoder'),
             **ta_cfg.get('BOX_CODER_CONFIG', {}))
-        self.anchor_set = None if no_dense else \
+        self.is_center_head = head_cfg.NAME == 'CenterHead'
+        self.anchor_set = None if no_dense or self.is_center_head else \
             anchors.generate_anchors(head_cfg.ANCHOR_GENERATOR_CONFIG,
                                      self.grid_size, self.pc_range)
         # predict-only configs may leave the loss weights out
@@ -699,6 +767,8 @@ class Detector:
             return self._part_free_loss(full_out, batch)
         if self.point_based:
             return self._point_loss(full_out, batch)
+        if self.is_center_head:
+            return self._center_loss(full_out, batch)
         with torch.no_grad():
             per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
                           zip(batch['gt_boxes'], batch['gt_mask'],
@@ -759,6 +829,45 @@ class Detector:
             metrics['point_loss_cls'] = c_l
             metrics['point_loss_part'] = p_l
             total = total + c_l + p_l
+        if 'pfe' in full_out:
+            seg = self._pfe_loss(full_out, batch)
+            metrics['point_loss_cls'] = seg
+            total = total + seg
+        if 'rcnn' in full_out:
+            rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
+            total = total + rcnn_total
+            metrics.update(rcnn_metrics)
+        metrics['loss'] = total
+        return total, metrics
+
+    def _center_loss(self, full_out, batch):
+        """CenterPoint: the heatmap's focal loss times cls_weight (loss_cls)
+        and the L1 box loss at the gt cells times loc_weight (loss_loc); as
+        an RPN also the keypoint segmentation loss (PVRCNN) and the RCNN
+        losses."""
+        out = full_out['dense_head']
+        ta = self.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+        h, w = out['hm'].shape[1:3]
+        with torch.no_grad():
+            per_sample = [center_lib.assign_targets_single(
+                gb, gm, self.num_class, (w, h),
+                int(ta.FEATURE_MAP_STRIDE), self.voxel_size, self.pc_range,
+                gaussian_overlap=float(ta.get('GAUSSIAN_OVERLAP', 0.1)),
+                min_radius=int(ta.get('MIN_RADIUS', 2)))
+                for gb, gm in zip(batch['gt_boxes'], batch['gt_mask'])]
+        heatmaps, tboxes, inds, masks = (torch.stack(t)
+                                         for t in zip(*per_sample))
+        lw = self.loss_weights
+        c_loss = center_lib.centernet_focal_loss(
+            out['hm'].permute(0, 3, 1, 2), heatmaps) * lw.get('cls_weight',
+                                                              1.0)
+        reg_maps = torch.cat([out['center'], out['center_z'], out['dim'],
+                              out['rot']], dim=-1)
+        r_loss = center_lib.center_reg_loss(
+            reg_maps, tboxes, inds, masks.float()) * lw.get('loc_weight',
+                                                            2.0)
+        total = c_loss + r_loss
+        metrics = {'loss_cls': c_loss, 'loss_loc': r_loss}
         if 'pfe' in full_out:
             seg = self._pfe_loss(full_out, batch)
             metrics['point_loss_cls'] = seg
@@ -913,7 +1022,13 @@ class Detector:
         zeroed below PRE_CLS_THRESH and times clip((iou + 1) / 2, 0) ** POW,
         the rectified IoU zeroed below PRE_IOU_THRESH), best class, and
         the head's log variances (zeros without a variance branch) into
-        the final NMS."""
+        the final NMS; CenterPoint's top-k decode (POST_PROCESSING's
+        MAX_OBJ_PER_SAMPLE, SCORE_THRESH) with zero variances."""
+        if self.is_center_head:
+            boxes, scores, labels = self.net.decode_center(
+                head_out, self.model_cfg.POST_PROCESSING)
+            return self._final_nms(boxes, scores, labels,
+                                   torch.zeros_like(boxes))
         decoded = anchor_heads.decode_predictions(
             head_out, self.net.flat_anchors, self.box_coder,
             dir_offset=self.net.dir_offset,

@@ -8,7 +8,11 @@ ops/sparse.py (torch counterpart of glenet_tpu/models/spconv_backbone.py):
   -> conv_out Conv (3,1,1) stride (2,1,1) -> C_out   (dense)
 then HeightCompression to BEV (z folded into channels, z-outer).
 VoxelBackBone8x has (n2, n3, n4) = (2, 2, 2) and C_out 128;
-VoxelBackBone8xCiassd (GLENet-C) (2, 3, 3) and 64.
+VoxelBackBone8xCiassd (GLENet-C) (2, 3, 3) and 64; VoxelResBackBone8x
+(CenterPoint) (2, 2, 2), C_out 128 and level widths (16, 32, 64, 128), each
+subm unit a residual SparseBasicBlock (`<name>a` conv-BN-ReLU, `<name>b`
+conv-BN, the skip added, ReLU, masked; the dense levels the same on their
+occupancy) and level 1 an extra `conv1_1`.
 
 The dense levels keep NCDHW tensors and expose channels-last views, the
 JAX package's layout, in `multi_scale`.  The level caps follow the voxel
@@ -31,8 +35,8 @@ from .layers import MaskedBatchNorm
 # runs in f32 on the conv output).  None keeps the input dtype.
 DENSE_MXU_DTYPE = torch.bfloat16
 
-# widths of the levels (the JAX module's default, used by every ported
-# variant)
+# widths of the levels (the JAX module's default; VoxelResBackBone8x has
+# its own)
 CHANNELS = (16, 32, 64, 64)
 
 
@@ -133,8 +137,9 @@ class DenseConvBN(nn.Module):
     sites feed the conv; submanifold outputs are re-masked by occupancy)."""
 
     def __init__(self, cin: int, features: int, kernel_size=3, stride=1,
-                 padding=1, submanifold: bool = True):
+                 padding=1, submanifold: bool = True, use_relu: bool = True):
         super().__init__()
+        self.use_relu = use_relu
         self.kernel_size = sparse._as3(kernel_size)
         self.stride = sparse._as3(stride)
         self.padding = sparse._as3(padding)
@@ -158,35 +163,36 @@ class DenseConvBN(nn.Module):
                                    self.stride, self.padding)[:, 0] > 0
         out = self.MaskedBatchNorm_0(out, mask=new_occ,
                                      use_running_average=not train)
-        return torch.where(new_occ[:, None], F.relu(out), 0.0), new_occ
+        if self.use_relu:
+            out = F.relu(out)
+        return torch.where(new_occ[:, None], out, 0.0), new_occ
 
 
 class VoxelBackBone8x(nn.Module):
     """grid_size: (nx, ny, nz) raw voxel grid; the sparse z becomes nz + 1.
-    Levels 1-2 and conv3_down run sparse, the rest dense (dense_from=3)."""
+    Levels 1-2 and conv3_down run sparse, the rest dense (dense_from=3).
+    With `residual` each subm unit is a SparseBasicBlock (module
+    docstring)."""
 
     def __init__(self, grid_size, in_channels: int = 4,
                  subm_per_block=(2, 2, 2), out_channels: int = 128,
-                 site_lists: bool = False):
+                 site_lists: bool = False, channels=CHANNELS,
+                 residual: bool = False):
         super().__init__()
         self.grid_size = tuple(grid_size)
         self.site_lists = site_lists
-        c1, c2, c3, c4 = CHANNELS
+        self.residual = residual
+        c1, c2, c3, c4 = channels
         self.conv_input = SubMConvBN(in_channels, c1)
-        self.conv1_0 = SubMConvBN(c1, c1)
+        self.conv1 = self._units('conv1', 2 if residual else 1, c1,
+                                 SubMConvBN)
         self.conv2_down = SparseConvBN(c1, c2, 2, 1)
-        self.conv2 = [f'conv2_{j}' for j in range(subm_per_block[0])]
-        for name in self.conv2:
-            setattr(self, name, SubMConvBN(c2, c2))
+        self.conv2 = self._units('conv2', subm_per_block[0], c2, SubMConvBN)
         self.conv3_down = SparseConvBN(c2, c3, 2, 1)
-        self.conv3 = [f'conv3_{j}' for j in range(subm_per_block[1])]
-        for name in self.conv3:
-            setattr(self, name, DenseConvBN(c3, c3))
+        self.conv3 = self._units('conv3', subm_per_block[1], c3, DenseConvBN)
         self.conv4_down = DenseConvBN(c3, c4, 3, 2, (0, 1, 1),
                                       submanifold=False)
-        self.conv4 = [f'conv4_{j}' for j in range(subm_per_block[2])]
-        for name in self.conv4:
-            setattr(self, name, DenseConvBN(c4, c4))
+        self.conv4 = self._units('conv4', subm_per_block[2], c4, DenseConvBN)
         self.conv_out = DenseConvBN(c4, out_channels, (3, 1, 1), (2, 1, 1),
                                     (0, 0, 0), submanifold=False)
         self.level_channels = {'x_conv1': c1, 'x_conv2': c2, 'x_conv3': c3,
@@ -196,6 +202,33 @@ class VoxelBackBone8x(nn.Module):
         g = sparse.out_grid_size(g, 3, 2, (0, 1, 1))
         g = sparse.out_grid_size(g, (3, 1, 1), (2, 1, 1), 0)
         self.num_bev_features = g[2] * out_channels
+
+    def _units(self, prefix, n, ch, cls):
+        """The names of a level's n subm units, each a module (`<name>`) or
+        with `residual` a pair (`<name>a`, `<name>b`, the second without
+        its ReLU)."""
+        names = [f'{prefix}_{j}' for j in range(n)]
+        for name in names:
+            if self.residual:
+                setattr(self, f'{name}a', cls(ch, ch))
+                setattr(self, f'{name}b', cls(ch, ch, use_relu=False))
+            else:
+                setattr(self, name, cls(ch, ch))
+        return names
+
+    def _subm(self, name, x, nbr, mask, train):
+        if not self.residual:
+            return getattr(self, name)(x, nbr, mask, train)
+        h = getattr(self, f'{name}a')(x, nbr, mask, train)
+        h = getattr(self, f'{name}b')(h, nbr, mask, train)
+        return torch.where(mask[..., None], F.relu(h + x), 0.0)
+
+    def _dense(self, name, x, occ, train):
+        if not self.residual:
+            return getattr(self, name)(x, occ, train)
+        h, _ = getattr(self, f'{name}a')(x, occ, train)
+        h, _ = getattr(self, f'{name}b')(h, occ, train)
+        return torch.where(occ[:, None], F.relu(h + x), 0.0), occ
 
     @property
     def sparse_grid(self):
@@ -221,7 +254,8 @@ class VoxelBackBone8x(nn.Module):
 
         nbr1 = sparse.subm_xblock_table_b(ids, mask, grid1)
         x = self.conv_input(feats, nbr1, mask, train)
-        x = self.conv1_0(x, nbr1, mask, train)
+        for name in self.conv1:
+            x = self._subm(name, x, nbr1, mask, train)
         ms['x_conv1'] = {'kind': 'sparse', 'features': x, 'ids': ids,
                          'mask': mask, 'grid': grid1, 'stride': 1}
 
@@ -229,7 +263,7 @@ class VoxelBackBone8x(nn.Module):
                                                 train)
         nbr2 = sparse.subm_xblock_table_b(ids2, mask2, grid2)
         for name in self.conv2:
-            x = getattr(self, name)(x, nbr2, mask2, train)
+            x = self._subm(name, x, nbr2, mask2, train)
         ms['x_conv2'] = {'kind': 'sparse', 'features': x, 'ids': ids2,
                          'mask': mask2, 'grid': grid2, 'stride': 2}
 
@@ -239,7 +273,7 @@ class VoxelBackBone8x(nn.Module):
                                          DENSE_MXU_DTYPE)
         xd = xd.permute(0, 4, 1, 2, 3).contiguous()          # NCDHW
         for name in self.conv3:
-            xd, occ = getattr(self, name)(xd, occ, train)
+            xd, occ = self._dense(name, xd, occ, train)
         ms['x_conv3'] = {'kind': 'dense',
                          'features': xd.permute(0, 2, 3, 4, 1), 'occ': occ,
                          'ids': ids3, 'mask': mask3, 'grid': grid3,
@@ -247,7 +281,7 @@ class VoxelBackBone8x(nn.Module):
 
         xd, occ = self.conv4_down(xd, occ, train)
         for name in self.conv4:
-            xd, occ = getattr(self, name)(xd, occ, train)
+            xd, occ = self._dense(name, xd, occ, train)
         grid4 = sparse.out_grid_size(grid3, 3, 2, (0, 1, 1))
         ms['x_conv4'] = {'kind': 'dense',
                          'features': xd.permute(0, 2, 3, 4, 1), 'occ': occ,
@@ -410,9 +444,11 @@ class UNetV2(nn.Module):
                 'point_mask': mask}
 
 
-# BACKBONE_3D name -> (subm_per_block, out_channels)
-VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), 128),
-            'VoxelBackBone8xCiassd': ((2, 3, 3), 64)}
+# BACKBONE_3D name -> (subm_per_block, out_channels, level widths,
+# residual)
+VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), 128, CHANNELS, False),
+            'VoxelBackBone8xCiassd': ((2, 3, 3), 64, CHANNELS, False),
+            'VoxelResBackBone8x': ((2, 2, 2), 128, (16, 32, 64, 128), True)}
 
 
 def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4,
@@ -424,9 +460,10 @@ def build_backbone_3d(bb3d_cfg, grid_size, in_channels=4,
     if bb3d_cfg.NAME == 'UNetV2':
         return UNetV2(grid_size, voxel_size, pc_range, in_channels)
     if bb3d_cfg.NAME in VARIANTS:
-        subm, out_channels = VARIANTS[bb3d_cfg.NAME]
+        subm, out_channels, channels, residual = VARIANTS[bb3d_cfg.NAME]
         return VoxelBackBone8x(grid_size=tuple(grid_size),
                                in_channels=in_channels, subm_per_block=subm,
                                out_channels=out_channels,
-                               site_lists=site_lists)
+                               site_lists=site_lists, channels=channels,
+                               residual=residual)
     raise NotImplementedError(f'BACKBONE_3D {bb3d_cfg.NAME} is not ported yet')

@@ -7,6 +7,9 @@ Contract:
   - at most `max_voxels` voxels kept, chosen by the first point index that
     touched each voxel (first-come priority),
   - voxel slots are ordered by linear voxel id; coords are (z, y, x), -1 pad.
+
+`voxelize_dynamic` chooses the same voxels but gives each point its slot
+instead of a per-voxel point table (the dynamic VFEs).
 """
 from __future__ import annotations
 
@@ -117,6 +120,44 @@ def voxelize(points, points_mask, voxel_size, pc_range, grid_size,
         'voxel_mask': voxel_mask,
         'point_voxel_idx': point_voxel,
     }
+
+
+def voxelize_dynamic(points, points_mask, voxel_size, pc_range, grid_size,
+                     max_voxels: int):
+    """Dynamic voxelization for the scatter-based VFEs: each point's voxel
+    slot, with no cap on the points of a voxel and no (V, P, C) table.  The
+    voxels are chosen as voxelize chooses them (at most max_voxels, by the
+    first point that touched each, slots in linear-id order).
+
+    Returns dict: voxel_coords (max_voxels, 3) int32 (z, y, x), -1 pad;
+    voxel_mask (max_voxels,); point_voxel_idx (N,) int32, -1 for a point
+    out of range, masked off or in a voxel past the budget.
+    """
+    nx, ny, nz = grid_size
+    dev = points.device
+    vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
+    origin = torch.tensor(pc_range[:3], dtype=torch.float32, device=dev)
+    coords = torch.floor((points[:, :3] - origin) / vsize).to(torch.int64)
+    in_range = ((coords >= 0).all(dim=1) & (coords[:, 0] < nx)
+                & (coords[:, 1] < ny) & (coords[:, 2] < nz) & points_mask)
+    n_cells = nx * ny * nz
+    vid = coords[:, 2] * (ny * nx) + coords[:, 1] * nx + coords[:, 0]
+    vid = torch.where(in_range, vid, n_cells)
+    sort_idx = torch.argsort(vid, stable=True)
+    uniq = _select_voxels_first_occurrence(vid[sort_idx], sort_idx, n_cells,
+                                           max_voxels)
+    voxel_mask = uniq < n_cells
+    # the selection is a subset of the ids: membership is checked
+    slot = torch.searchsorted(uniq, vid)
+    hit = (slot < max_voxels) & in_range
+    hit = hit & (uniq[slot.clamp(0, max_voxels - 1)] == vid)
+    z = uniq // (ny * nx)
+    rem = uniq % (ny * nx)
+    voxel_coords = torch.where(voxel_mask[:, None],
+                               torch.stack([z, rem // nx, rem % nx], dim=1),
+                               -1).to(torch.int32)
+    return {'voxel_coords': voxel_coords, 'voxel_mask': voxel_mask,
+            'point_voxel_idx': torch.where(hit, slot, -1).to(torch.int32)}
 
 
 def compute_grid_size(pc_range, voxel_size):

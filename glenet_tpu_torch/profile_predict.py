@@ -5,7 +5,9 @@
 configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
 two-stage second_iou.yaml, pv_rcnn.yaml, PartA2.yaml, PartA2_free.yaml or
-pointrcnn.yaml, or pointpillar.yaml) at full width, seeded random weights,
+pointrcnn.yaml, or pointpillar.yaml, or configs/waymo_models/
+centerpoint*.yaml and the CenterHead-RPN configs) at full width, seeded
+random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (PointRCNN: 16384, its
 sample_points; for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
@@ -14,8 +16,8 @@ features; utils/synthetic.py), one warm-up predict, then:
      after each request only);
   2. per-stage wall times of the same 3 requests, with a device synchronise
      at every stage boundary (so the stages add up to more than 1.):
-     voxelize + MeanVFE and the 3D backbone (PointPillars: voxelize,
-     PillarVFE, PointPillarScatter), the 2D backbone, the dense head,
+     voxelize + the VFE and the 3D backbone (pillars: voxelize, the
+     pillar VFE, PointPillarScatter), the 2D backbone, the dense head,
      then two-stage decode + proposal NMS, the RoI head and decode +
      final NMS, or single-stage decode + final NMS; for PV-RCNN also the
      keypoint stages (FPS, the set abstraction of each source, BEV
@@ -26,7 +28,8 @@ features; utils/synthetic.py), one warm-up predict, then:
      pooling and the convs + FCs (PartA2-free has no 2D backbone or dense
      head: its proposals are the part head's boxes); within the final
      NMS, the time of its rotated-IoU matrix (`boxes_iou_bev_blocked`)
-     and of its greedy keep rounds (`greedy_keep`); PointRCNN's stages are
+     and of its greedy keep rounds (`greedy_keep`), and CenterPoint's
+     top-k decode (`decode_center_boxes`); PointRCNN's stages are
      FPS (the backbone's and the RoI head's apart), each set-abstraction
      level without its FPS, the feature propagation, PointHeadBox, the
      proposal NMS, the RoI point pooling, PointRCNNHead and the final
@@ -45,6 +48,7 @@ from pathlib import Path
 import torch
 
 from .config import cfg_from_yaml_file
+from .models import center_head
 from .ops import iou3d
 from .ops import nms as nms_ops
 from .ops import pointnet2
@@ -89,6 +93,8 @@ def _stage_times(det, batch):
     calls = []
     undo = [_timed(iou3d, 'boxes_iou_bev_blocked', 'rotated-IoU matrix',
                    calls),
+            _timed(center_head, 'decode_center_boxes', 'top-k decode',
+                   calls),
             _timed(nms_ops, 'greedy_keep', 'greedy keep rounds', calls),
             _timed(pointnet2, 'farthest_point_sample', 'FPS', calls)]
     if part:
@@ -118,7 +124,7 @@ def _stage_times(det, batch):
                  mcfg.VFE.NAME: t['vfe<'] - t['vfe>'],
                  mcfg.MAP_TO_BEV.NAME: t['map_to_bev<'] - t['map_to_bev>']}
     else:
-        spans = {'voxelize + MeanVFE': t['backbone_3d>'] - t0,
+        spans = {f'voxelize + {mcfg.VFE.NAME}': t['backbone_3d>'] - t0,
                  mcfg.BACKBONE_3D.NAME: t['backbone_3d<']
                  - t['backbone_3d>']}
     if part:
@@ -157,7 +163,10 @@ def _stage_times(det, batch):
     else:
         spans[f'decode + {nms} NMS'] = t_end - t['dense_head<']
     final = t['roi_head<' if two_stage else 'dense_head<']
-    for label in ('rotated-IoU matrix', 'greedy keep rounds'):
+    labels = ('rotated-IoU matrix', 'greedy keep rounds')
+    if det.is_center_head and not two_stage:
+        labels = ('top-k decode',) + labels
+    for label in labels:
         spans[f'  of it {label}'] = sum(
             end - start for lab, start, end in calls
             if lab == label and start >= final)

@@ -10,9 +10,8 @@ grid with Waymo's level budgets, 360-degree scenes and Waymo's matching.
         [model_yaml] [bn_frozen_tail] [n_holdout] [--device cpu]
         [--out FILE]
 
-Defaults: 700 steps, peak LR 1e-3, configs/waymo_models/centerpoint.yaml
-(CenterPoint is not ported yet: that default raises naming it), a frozen-BN
-tail of 150 steps.  A 5th positional scores that many unseen scenes (seeds
+Defaults: 700 steps, peak LR 1e-3, configs/waymo_models/centerpoint.yaml,
+a frozen-BN tail of 150 steps.  A 5th positional scores that many unseen scenes (seeds
 10000 + s) too.  The entry '<model>_waymo', with the device's name and
 power limit, is merged into CONVERGENCE_AP_TORCH.json at the repository
 root (or --out).  Runs on the GPU unless --device cpu is given; without a

@@ -1,12 +1,14 @@
 """Demo CLI of the port, the counterpart of the repository's tools/demo.py:
-run a detector over a folder of KITTI-format .bin point clouds and print or
-dump its detections.
+run a detector over a folder of KITTI-format .bin point clouds (or, with
+--ext .npy, frames in Waymo's processed layout) and print or dump its
+detections.
 
     python -m glenet_tpu_torch.tools.demo --cfg_file CFG --data_path DIR
         [--ckpt PATH] [--ext .bin] [--output dets.jsonl]
         [--html_dir DIR] [--ply_dir DIR] [--device cpu]
 
-Each scan (4 features per point) is cut to its first MAX_POINTS_PER_SCENE
+Each scan (4 features per point; a Waymo frame's 5, as the Waymo dataset
+reads them) is cut to its first MAX_POINTS_PER_SCENE
 points (65536 when the config has none) and zero-padded to that many, as
 the JAX CLI does.  --ckpt takes a port checkpoint (.pth) or a glenet_tpu
 `.msgpack` (train/jax_checkpoint.py); without one the weights are the
@@ -48,13 +50,21 @@ def parse_config(argv=None):
     return args, cfg_from_yaml_file(args.cfg_file)
 
 
-def load_scan(path, max_points, device):
-    """A .bin scan -> {'points' (1, max_points, 4), 'points_mask'} on
-    `device`: its first max_points points, zero-padded."""
+def load_scan(path, max_points, device, n_features=4):
+    """A .bin scan (or a Waymo .npy frame) -> {'points' (1, max_points,
+    n_features), 'points_mask'} on `device`: its first max_points points,
+    zero-padded."""
     import torch
-    pts = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    if str(path).endswith('.npy'):
+        from ..datasets.waymo_dataset import frame_points
+        pts = frame_points(np.load(path)).astype(np.float32)
+    else:
+        pts = np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    if pts.shape[1] != n_features:
+        raise ValueError(f'{path}: {pts.shape[1]} features per point, the '
+                         f'model takes {n_features}')
     n = min(len(pts), max_points)
-    out = np.zeros((1, max_points, 4), np.float32)
+    out = np.zeros((1, max_points, n_features), np.float32)
     out[0, :n] = pts[:n]
     mask = np.zeros((1, max_points), bool)
     mask[0, :n] = True
@@ -93,7 +103,7 @@ def main(argv=None):
     sink = open(args.output, 'w') if args.output else None
     try:
         for f in files:
-            batch = load_scan(f, max_pts, device)
+            batch = load_scan(f, max_pts, device, det.num_point_features)
             preds = {k: v[0].cpu().numpy()
                      for k, v in det.predict(batch).items()}
             v = preds['final_valid']

@@ -188,26 +188,39 @@ def seeded_detector(cfg, device, seed):
 # a reference (pcdet) checkpoint of random tensors
 # ---------------------------------------------------------------------------
 
-def _pcdet_backbone(subm_per_block, out_channels):
-    """VoxelBackBone8x(Ciassd): (name, cin, cout, kernel (kz, ky, kx)) of
-    each spconv layer in the reference's module order; each is followed by
-    a BatchNorm1d."""
-    layers = [('conv_input.0', 'in', 16, (3, 3, 3)),
-              ('conv1.0.0', 16, 16, (3, 3, 3))]
-    for lvl, cin, c, n in zip((2, 3, 4), (16, 32, 64), (32, 64, 64),
+def _pcdet_backbone(subm_per_block, out_channels, channels, residual):
+    """VoxelBackBone8x(Ciassd) or VoxelResBackBone8x: (conv, its BN, cin,
+    cout, kernel (kz, ky, kx)) of each spconv layer in the reference's
+    module order; a residual SparseBasicBlock `conv<L>.<j>` holds conv1 /
+    bn1 / conv2 / bn2."""
+    k3 = (3, 3, 3)
+
+    def subm(name, c):
+        if residual:
+            return [(f'{name}.conv{i}', f'{name}.bn{i}', c, c, k3)
+                    for i in (1, 2)]
+        return [(f'{name}.0', f'{name}.1', c, c, k3)]
+
+    c1 = channels[0]
+    layers = [('conv_input.0', 'conv_input.1', 'in', c1, k3)]
+    for j in range(2 if residual else 1):
+        layers += subm(f'conv1.{j}', c1)
+    for lvl, cin, c, n in zip((2, 3, 4), channels[:3], channels[1:],
                               subm_per_block):
-        layers.append((f'conv{lvl}.0.0', cin, c, (3, 3, 3)))
-        layers += [(f'conv{lvl}.{j}.0', c, c, (3, 3, 3))
-                   for j in range(1, n + 1)]
-    return layers + [('conv_out.0', 64, out_channels, (3, 1, 1))]
+        layers.append((f'conv{lvl}.0.0', f'conv{lvl}.0.1', cin, c, k3))
+        for j in range(1, n + 1):
+            layers += subm(f'conv{lvl}.{j}', c)
+    return layers + [('conv_out.0', 'conv_out.1', channels[3], out_channels,
+                      (3, 1, 1))]
 
 
 def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     """A state dict of random tensors under the key names and layouts of
     the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN, SECONDNet,
-    SECONDNetIoU, PointPillar or PVRCNN: MeanVFE (no parameters) or PillarVFE
-    (vfe.pfn_layers.{i}.linear without bias and .norm), VoxelBackBone8x or
-    VoxelBackBone8xCiassd
+    SECONDNetIoU, PointPillar, PVRCNN or CenterPoint: MeanVFE or
+    DynMeanVFE (no parameters) or PillarVFE (vfe.pfn_layers.{i}.linear
+    without bias and .norm), VoxelBackBone8x, VoxelBackBone8xCiassd or
+    VoxelResBackBone8x (its SparseBasicBlocks' conv1 / bn1 / conv2 / bn2)
     (spconv 2.x weights (O, kz, ky, kx, I); conv{L}.{block}.{0 conv, 1
     BN}), BaseBEVBackbone (blocks.{i} = ZeroPad, Conv, BN, ReLU, then Conv,
     BN, ReLU per layer; deblocks.{i} = ConvTranspose2d (I, O, k, k), BN,
@@ -217,7 +230,9 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     deconv_block_{i} = ConvTranspose2d (256, 128, 3, 3), BN, ReLU; no conv
     biases), the anchor head (1x1 conv_cls / conv_box / conv_dir_cls with
     biases, conv_box_std for AnchorHeadKLLabel and conv_iou for
-    AnchorHeadKLLabelIoU), and in VoxelRCNN the roi head:
+    AnchorHeadKLLabelIoU) or CenterHead (shared_conv and heads_list.0.
+    <name> of 3x3 convs, biases before the BNs with USE_BIAS_BEFORE_NORM),
+    and in VoxelRCNN the roi head:
     roi_grid_pool_layers.{k} NeighborVoxelSAModuleMSG (mlps_in.0 Conv1d +
     BN1d, mlps_pos.0 Conv2d 1x1 + BN2d, mlps_out.0 Conv1d + BN1d), the
     shared_fc_layer / cls_fc_layers / reg_fc_layers stacks of Linear, BN1d,
@@ -267,18 +282,20 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
             cin = f
         c_in = filters[-1]
     else:
-        subm, c_out = VARIANTS[mcfg.BACKBONE_3D.NAME]
-        for name, cin, cout, k in _pcdet_backbone(subm, c_out):
+        for conv, bn_key, cin, cout, k in _pcdet_backbone(
+                *VARIANTS[mcfg.BACKBONE_3D.NAME]):
             cin = num_point_features if cin == 'in' else cin
-            weight(f'backbone_3d.{name}.weight', (cout, *k, cin),
+            weight(f'backbone_3d.{conv}.weight', (cout, *k, cin),
                    cin * int(np.prod(k)))
-            bn(f'backbone_3d.{name.rsplit(".", 1)[0]}.1', cout)
+            bn(f'backbone_3d.{bn_key}', cout)
+        c_out = VARIANTS[mcfg.BACKBONE_3D.NAME][1]
 
         # the BEV depth after conv_out, as the reference's dense() gives it
         proc = {p.NAME: p for p in cfg.DATA_CONFIG.DATA_PROCESSOR}
-        grid = vox_ops.compute_grid_size(
-            cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-            proc['transform_points_to_voxels'].VOXEL_SIZE)
+        vox_cfg = proc.get('transform_points_to_voxels',
+                           proc.get('transform_points_to_voxels_placeholder'))
+        grid = vox_ops.compute_grid_size(cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                         vox_cfg.VOXEL_SIZE)
         g = (grid[0], grid[1], grid[2] + 1)
         for k, s, p in ((3, 2, 1), (3, 2, 1), (3, 2, (0, 1, 1)),
                         ((3, 1, 1), (2, 1, 1), 0)):
@@ -325,21 +342,11 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
         c_bev = sum(bb.NUM_UPSAMPLE_FILTERS)
 
     head = mcfg.DENSE_HEAD
-    n_anchors = sum(len(a['anchor_sizes']) * len(a['anchor_rotations'])
-                    * len(a['anchor_bottom_heights'])
-                    for a in head.ANCHOR_GENERATOR_CONFIG)
-    n_class = len(cfg.CLASS_NAMES)
-    outs = {'conv_cls': n_class, 'conv_box': 7}
-    if head.get('USE_DIRECTION_CLASSIFIER', False):
-        outs['conv_dir_cls'] = head.NUM_DIR_BINS
-    if head.NAME in ('AnchorHeadKLLabel', 'AnchorHeadKLLabelIoU'):
-        outs['conv_box_std'] = 7
-    if head.NAME == 'AnchorHeadKLLabelIoU':
-        outs['conv_iou'] = n_class
-    for name, per_anchor in outs.items():
-        weight(f'dense_head.{name}.weight', (n_anchors * per_anchor, c_bev,
-                                             1, 1), c_bev)
-        bias(f'dense_head.{name}.bias', n_anchors * per_anchor)
+    if head.NAME == 'CenterHead':
+        _pcdet_center_head(head, len(cfg.CLASS_NAMES), c_bev, weight, bn,
+                           bias)
+    else:
+        _pcdet_anchor_head(head, len(cfg.CLASS_NAMES), c_bev, weight, bias)
 
     if 'ROI_HEAD' not in mcfg:
         return _tensors(sd)
@@ -396,6 +403,50 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
         weight('roi_head.reg_std_fc2.weight', (1, 64), 64)
         bias('roi_head.reg_std_fc2.bias', 1)
     return _tensors(sd)
+
+
+def _pcdet_anchor_head(head, n_class, c_bev, weight, bias):
+    """The anchor head's 1x1 convs with biases: conv_cls, conv_box,
+    conv_dir_cls with a direction classifier, conv_box_std
+    (AnchorHeadKLLabel, AnchorHeadKLLabelIoU), conv_iou
+    (AnchorHeadKLLabelIoU)."""
+    n_anchors = sum(len(a['anchor_sizes']) * len(a['anchor_rotations'])
+                    * len(a['anchor_bottom_heights'])
+                    for a in head.ANCHOR_GENERATOR_CONFIG)
+    outs = {'conv_cls': n_class, 'conv_box': 7}
+    if head.get('USE_DIRECTION_CLASSIFIER', False):
+        outs['conv_dir_cls'] = head.NUM_DIR_BINS
+    if head.NAME in ('AnchorHeadKLLabel', 'AnchorHeadKLLabelIoU'):
+        outs['conv_box_std'] = 7
+    if head.NAME == 'AnchorHeadKLLabelIoU':
+        outs['conv_iou'] = n_class
+    for name, per_anchor in outs.items():
+        weight(f'dense_head.{name}.weight', (n_anchors * per_anchor, c_bev,
+                                             1, 1), c_bev)
+        bias(f'dense_head.{name}.bias', n_anchors * per_anchor)
+
+
+def _pcdet_center_head(head, n_class, c_bev, weight, bn, bias):
+    """CenterHead's keys: shared_conv (3x3 Conv, BN), then per branch
+    heads_list.0.<name>: .0.0 3x3 Conv, .0.1 BN and .1 the biased 3x3
+    output conv; the convs before a BN carry a bias with
+    USE_BIAS_BEFORE_NORM."""
+    ch = int(head.get('SHARED_CONV_CHANNEL', 64))
+    with_bias = head.get('USE_BIAS_BEFORE_NORM', False)
+
+    def conv(key, cin, cout, biased):
+        weight(f'{key}.weight', (cout, cin, 3, 3), cin * 9)
+        if biased:
+            bias(f'{key}.bias', cout)
+
+    conv('dense_head.shared_conv.0', c_bev, ch, with_bias)
+    bn('dense_head.shared_conv.1', ch)
+    for name, out in (('hm', n_class), ('center', 2), ('center_z', 1),
+                      ('dim', 3), ('rot', 2)):
+        base = f'dense_head.heads_list.0.{name}'
+        conv(f'{base}.0.0', ch, ch, with_bias)
+        bn(f'{base}.0.1', ch)
+        conv(f'{base}.1', ch, out, True)
 
 
 def _pcdet_second_head(roi, weight, bn, bias):

@@ -1,14 +1,18 @@
 """Reference (pcdet) checkpoints -> glenet_tpu's variable layout, for the
-families the port runs: MeanVFE + VoxelBackBone8x or VoxelBackBone8xCiassd
-+ HeightCompression, or PillarVFE + PointPillarScatter (PointPillars), +
-BaseBEVBackbone or SSFA + AnchorHeadSingle or the KL-label heads, and for
+families the port runs: MeanVFE (or DynMeanVFE) + VoxelBackBone8x,
+VoxelBackBone8xCiassd or VoxelResBackBone8x + HeightCompression, or
+PillarVFE + PointPillarScatter (PointPillars), + BaseBEVBackbone or SSFA +
+AnchorHeadSingle, the KL-label heads or CenterHead (CenterPoint, and the
+RPN of VoxelRCNN and PVRCNN), and for
 VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi head; SECONDNet
 (GLENet-S, GLENet-C, plain SECOND) and PointPillar have none, and
 SECOND-IoU's SECONDHead and PV-RCNN's stage 2 (VoxelSetAbstraction,
 PointHeadSimple, PVRCNNHead) are not converted (their keys are reported
 unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti,
-PartA2's UNetV2 and PointRCNN's PointNet2MSG have no conversion, in
-glenet_tpu either: each raises by name before a key is read.  The port's
+DynPillarVFE (its layers are twice as wide as the reference's from the
+second on), PartA2's UNetV2 and PointRCNN's PointNet2MSG have no
+conversion, in glenet_tpu either: each raises by name before a key is
+read.  The port's
 own copy of the matching part of glenet_tpu/utils/weight_converter.py,
 numpy only.  It returns the same
 flax-shaped {'params', 'batch_stats'} numpy tree, which
@@ -199,6 +203,30 @@ def convert_ssfa(sd, prefix='backbone_2d.', in_perm=None):
     return params, stats
 
 
+def convert_center_head(sd, prefix='dense_head.'):
+    """Reference CenterHead (shared_conv, then heads_list.0's SeparateHead
+    branches of num_conv 2: [Conv, BN, ReLU] and a biased Conv, one head
+    group) -> Conv_0 / MaskedBatchNorm_0 and <name>_0 / <name>_bn0 /
+    <name>_1; a conv bias before a BN where the state dict has one."""
+    def conv(key):
+        d = {'kernel': t2f_conv(sd[f'{key}.weight'])}
+        if f'{key}.bias' in sd:
+            d['bias'] = np.asarray(sd[f'{key}.bias'])
+        return d
+
+    params = {'Conv_0': conv(f'{prefix}shared_conv.0')}
+    stats = {}
+    params['MaskedBatchNorm_0'], stats['MaskedBatchNorm_0'] = t2f_bn(
+        sd, f'{prefix}shared_conv.1')
+    for name in ('hm', 'center', 'center_z', 'dim', 'rot'):
+        base = f'{prefix}heads_list.0.{name}'
+        params[f'{name}_0'] = conv(f'{base}.0.0')
+        params[f'{name}_bn0'], stats[f'{name}_bn0'] = t2f_bn(
+            sd, f'{base}.0.1')
+        params[f'{name}_1'] = conv(f'{base}.1')
+    return params, stats
+
+
 def convert_anchor_head(sd, prefix='dense_head.'):
     """AnchorHeadSingle 1x1 convs (conv_cls, conv_box, conv_dir_cls) plus
     the KL family's conv_box_std and conv_iou where the state dict has
@@ -355,11 +383,13 @@ def merge_into(variables, path, params_sub, stats_sub):
 
 
 def convert_voxel_backbone_8x(sd, prefix='backbone_3d.',
-                              subm_per_block=(2, 2, 2)):
+                              subm_per_block=(2, 2, 2), residual=False):
     """Reference VoxelBackBone8x state_dict -> the backbone subtree:
     conv_input + conv1 (1 subm block) + conv2..4 (strided + subm_per_block
     subm blocks) + conv_out; keys conv{L}.{block}.{0=conv,1=bn} after
-    Sequential nesting."""
+    Sequential nesting.  VoxelResBackBone8x (`residual`): conv1 holds 2
+    SparseBasicBlocks and conv2..4 a strided conv and 2 of them, each
+    block's conv1 / bn1 / conv2 / bn2 -> '<name>a' / '<name>b'."""
     def unit(conv_key, bn_key):
         bn_p, bn_s = t2f_bn(sd, bn_key)
         return ({'kernel': t2f_spconv(sd[conv_key]),
@@ -371,13 +401,20 @@ def convert_voxel_backbone_8x(sd, prefix='backbone_3d.',
     def put(ours, conv_key, bn_key):
         params[ours], stats[ours] = unit(prefix + conv_key, prefix + bn_key)
 
+    def subm(ours, ref):
+        if residual:
+            put(f'{ours}a', f'{ref}.conv1.weight', f'{ref}.bn1')
+            put(f'{ours}b', f'{ref}.conv2.weight', f'{ref}.bn2')
+        else:
+            put(ours, f'{ref}.0.weight', f'{ref}.1')
+
     put('conv_input', 'conv_input.0.weight', 'conv_input.1')
-    put('conv1_0', 'conv1.0.0.weight', 'conv1.0.1')
+    for j in range(2 if residual else 1):
+        subm(f'conv1_{j}', f'conv1.{j}')
     for li, lvl in enumerate((2, 3, 4)):
         put(f'conv{lvl}_down', f'conv{lvl}.0.0.weight', f'conv{lvl}.0.1')
         for j in range(subm_per_block[li]):
-            put(f'conv{lvl}_{j}', f'conv{lvl}.{j + 1}.0.weight',
-                f'conv{lvl}.{j + 1}.1')
+            subm(f'conv{lvl}_{j}', f'conv{lvl}.{j + 1}')
     put('conv_out', 'conv_out.0.weight', 'conv_out.1')
     return params, stats
 
@@ -411,25 +448,29 @@ def _require(cond, family):
         raise NotImplementedError(f'no conversion for {family} in the port')
 
 
-# BACKBONE_3D name -> subm_per_block
-_BB3D_VARIANTS = {'VoxelBackBone8x': (2, 2, 2),
-                  'VoxelBackBone8xCiassd': (2, 3, 3)}
+# BACKBONE_3D name -> (subm_per_block, residual)
+_BB3D_VARIANTS = {'VoxelBackBone8x': ((2, 2, 2), False),
+                  'VoxelBackBone8xCiassd': ((2, 3, 3), False),
+                  'VoxelResBackBone8x': ((2, 2, 2), True)}
 _DENSE_HEADS = ('AnchorHeadSingle', 'AnchorHeadKLLabel', 'AnchorHeadKL',
                 'AnchorHeadKLLabelIoU', 'AnchorHeadKLLabelIoUGuide',
-                'AnchorHeadIoU')
+                'AnchorHeadIoU', 'CenterHead')
 # MODEL name -> the ROI_HEAD names it may have (None: none); SECONDHead's
 # keys, and PV-RCNN's pfe.*, point_head.* and roi_head.* keys, are not
 # converted (as in glenet_tpu) and land in `unconsumed`
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
               'SECONDNetIoU': ('SECONDHead',), 'SECONDNet': (None,),
-              'PointPillar': (None,), 'PVRCNN': ('PVRCNNHead',)}
+              'PointPillar': (None,), 'PVRCNN': ('PVRCNNHead',),
+              'CenterPoint': (None,)}
 
 
 def convert_full_model(cfg, state_dict, variables):
-    """Full-model reference -> variables conversion: MeanVFE (no
-    parameters) with VoxelBackBone8x or VoxelBackBone8xCiassd, or
-    PillarVFE's PFN layers, then BaseBEVBackbone or SSFA, the anchor head (with conv_box_std / conv_iou where the state
-    dict has them) and, in VoxelRCNN with POOL_MODE voxel_query, the roi
+    """Full-model reference -> variables conversion: MeanVFE or DynMeanVFE
+    (no parameters) with VoxelBackBone8x, VoxelBackBone8xCiassd or
+    VoxelResBackBone8x, or PillarVFE's PFN layers, then BaseBEVBackbone or
+    SSFA, the anchor head (with conv_box_std / conv_iou where the state
+    dict has them) or CenterHead and, in VoxelRCNN with POOL_MODE
+    voxel_query, the roi
     head (see the module docstring for corner mode).  `variables` is the
     template: a full {'params', 'batch_stats'} tree whose leaves the
     converted ones replace.  Any other family raises NotImplementedError
@@ -441,9 +482,12 @@ def convert_full_model(cfg, state_dict, variables):
     mcfg = cfg.MODEL
     name = mcfg.get('NAME')
     _require(name in _ROI_HEADS, f'MODEL {name}')
-    pillars = name == 'PointPillar'
     vfe = mcfg.VFE.NAME
-    _require(vfe == ('PillarVFE' if pillars else 'MeanVFE'), f'VFE {vfe}')
+    pillars = vfe == 'PillarVFE'
+    _require(vfe in ('PillarVFE', 'MeanVFE', 'DynMeanVFE', 'DynamicMeanVFE'),
+             f'VFE {vfe}')
+    _require(pillars == (name == 'PointPillar') or name == 'CenterPoint',
+             f'VFE {vfe} in {name}')
     bb3d = mcfg.get('BACKBONE_3D', {}).get('NAME')
     _require(bb3d is None if pillars else bb3d in _BB3D_VARIANTS,
              f'BACKBONE_3D {bb3d}')
@@ -471,8 +515,9 @@ def convert_full_model(cfg, state_dict, variables):
         merged = merge_into(merged, ('vfe',), vfe_p, vfe_s)
         report['converted'].append('vfe')
     else:
+        subm, residual = _BB3D_VARIANTS[bb3d]
         bb3d_p, bb3d_s = convert_voxel_backbone_8x(
-            tsd, subm_per_block=_BB3D_VARIANTS[bb3d])
+            tsd, subm_per_block=subm, residual=residual)
         merged = merge_into(merged, ('backbone_3d',), bb3d_p, bb3d_s)
         report['converted'].append('backbone_3d')
 
@@ -490,7 +535,9 @@ def convert_full_model(cfg, state_dict, variables):
     merged = merge_into(merged, ('backbone_2d',), bb2d_p, bb2d_s)
     report['converted'].append('backbone_2d')
 
-    dh_p, dh_s = convert_anchor_head(tsd)
+    dh_p, dh_s = (convert_center_head(tsd)
+                  if mcfg.DENSE_HEAD.NAME == 'CenterHead'
+                  else convert_anchor_head(tsd))
     merged = merge_into(merged, ('dense_head',), dh_p, dh_s)
     report['converted'].append('dense_head')
 

@@ -56,10 +56,10 @@ def test_build_detector_needs_a_device():
 
 
 @pytest.mark.parametrize('name,family', [
-    ('CaDDN.yaml', 'CaDDN'), ('../waymo_models/centerpoint.yaml',
-                              'CenterPoint')])
+    ('CaDDN.yaml', 'CaDDN'), ('../waymo_models/pv_rcnn_plusplus.yaml',
+                              'PVRCNNPlusPlus')])
 def test_other_families_raise(name, family):
-    """Families still to port (CaDDN, CenterPoint) are refused by name."""
+    """Families still to port (CaDDN, PV-RCNN++) are refused by name."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
@@ -72,11 +72,22 @@ def test_other_families_raise(name, family):
                                   'pointpillar.yaml', 'pv_rcnn.yaml',
                                   'PartA2.yaml', 'PartA2_free.yaml',
                                   '../waymo_models/PartA2.yaml',
-                                  'pointrcnn.yaml', 'pointrcnn_iou.yaml'])
+                                  'pointrcnn.yaml', 'pointrcnn_iou.yaml',
+                                  '../waymo_models/centerpoint.yaml',
+                                  '../waymo_models/centerpoint_without_'
+                                  'resnet.yaml',
+                                  '../waymo_models/centerpoint_pillar_1x.yaml',
+                                  '../waymo_models/centerpoint_dyn_pillar_'
+                                  '1x.yaml',
+                                  '../waymo_models/voxel_rcnn_with_centerhead_'
+                                  'dyn_voxel.yaml',
+                                  '../waymo_models/pv_rcnn_with_centerhead_'
+                                  'rpn.yaml'])
 def test_three_class_families_need_a_card(name):
-    """KITTI's three-class families (PV-RCNN, PartA2 and PartA2-free too)
-    and Waymo's PartA2 build on the GPU by default and on the CPU when
-    asked; without a card the default raises."""
+    """KITTI's three-class families (PV-RCNN, PartA2 and PartA2-free too),
+    Waymo's PartA2 and the six Waymo configs with a CenterHead build on the
+    GPU by default and on the CPU when asked; without a card the default
+    raises."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
@@ -228,13 +239,13 @@ def test_ported_augmentations_build(name, tmp_path):
 
 
 @pytest.mark.parametrize('section,key,value,match', [
-    ('DENSE_HEAD', 'NAME', 'CenterHead', 'CenterHead'),
+    ('', 'NAME', 'PVRCNNPlusPlus', 'PVRCNNPlusPlus'),
     ('', 'NAME', 'PVRCNN', 'PVRCNN'),
     ('POST_PROCESSING.NMS_CONFIG', 'NMS_TYPE', 'soft_nms', 'soft_nms')])
 def test_single_stage_refusals(section, key, value, match):
     """What the JAX package has around the single-stage family and the
-    port does not (CenterPoint's head, PV-RCNN, soft-NMS) raises naming
-    itself, at build time or at the first predict."""
+    port does not (PV-RCNN++, PV-RCNN without its PFE, soft-NMS) raises
+    naming itself, at build time or at the first predict."""
     import torch_parity as tp
 
     from glenet_tpu_torch.models.detectors import build_detector
@@ -275,17 +286,17 @@ def test_camera_items_raise(item, tmp_path):
 
 
 @pytest.mark.parametrize('section,name', [
-    ('VFE', 'DynamicPillarVFE'), ('BACKBONE_3D', 'VoxelResBackBone8x'),
+    ('VFE', 'DynamicPillarVFE'), ('VFE', 'DynPillarVFE'),
     ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
-    ('DENSE_HEAD', 'CenterHead'), ('ROI_HEAD', 'PartA2FCHead'),
+    ('BACKBONE_2D', 'BaseBEVResBackbone'), ('ROI_HEAD', 'PartA2FCHead'),
     ('BACKBONE_3D', 'PointNet2MSG'), ('ROI_HEAD', 'PointRCNNHead')])
 def test_converter_refuses_other_families(section, name):
     """The port's converter of reference checkpoints covers what
     glenet_tpu's covers of the families the port runs (VoxelRCNN,
-    SECONDNet, SECOND-IoU's and PV-RCNN's stage 1, PointPillars); any other
-    module, and
-    AnchorHeadMulti, which glenet_tpu does not convert either, raises
-    naming itself, before it reads a key."""
+    SECONDNet, SECOND-IoU's and PV-RCNN's stage 1, PointPillars,
+    CenterPoint); any other module, and AnchorHeadMulti and the dynamic
+    pillar VFE (both spellings), which glenet_tpu does not convert either,
+    raises naming itself, before it reads a key."""
     import torch_parity as tp
 
     from glenet_tpu_torch.utils import weight_converter as wc
@@ -293,6 +304,38 @@ def test_converter_refuses_other_families(section, name):
     cfg.MODEL[section].NAME = name
     with pytest.raises(NotImplementedError, match=name):
         wc.convert_full_model(cfg, {}, {'params': {}})
+
+
+@pytest.mark.parametrize('name', ['VoxelResBackBone8x', 'CenterHead'])
+def test_converter_accepts_centerpoint_pieces(name):
+    """CenterPoint's backbone and head, which the converter refused before
+    the port had them, convert: the toy CenterPoint (VoxelResBackBone8x)
+    and the toy Voxel R-CNN (voxel-query pooling) with a CenterHead RPN each
+    take a synthetic reference state dict whole into their own
+    template."""
+    import torch_parity as tp
+    from test_torch_centerpoint import toy_cfg
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils import synthetic
+    from glenet_tpu_torch.utils import weight_converter as wc
+    from glenet_tpu_torch.utils.jax_weights import (load_jax_variables,
+                                                    port_to_jax_variables)
+    if name == 'CenterHead':
+        cfg = tp.voxel_query_cfg(tp.tiny_twostage_cfg())
+        cfg.MODEL.DENSE_HEAD = toy_cfg().MODEL.DENSE_HEAD
+    else:
+        cfg = toy_cfg()
+    cfg = tp.to_port_cfg(cfg)
+    det = build_detector(cfg, device='cpu')
+    sd = {k: v.numpy() for k, v in
+          synthetic.pcdet_state_dict(cfg, seed=3).items()}
+    merged, report = wc.convert_full_model(
+        cfg, sd, port_to_jax_variables(det.net))
+    assert report['unconsumed'] == []
+    assert ('roi_head' in report['converted']) == (name == 'CenterHead')
+    load_jax_variables(det.net, merged)
+    assert type(det.net.dense_head).__name__ == 'CenterHead'
 
 
 def test_waymo_pvrcnn_needs_a_card():
@@ -462,10 +505,22 @@ def test_weights_modules_in_import_probe(module):
 
 
 def test_convergence_waymo_default_raises_naming_centerpoint(tmp_path):
-    """The Waymo harness's default config is CenterPoint's, which the port
-    does not build yet: it raises naming it, before it writes anything."""
-    from glenet_tpu_torch.tools import convergence_waymo
+    """The Waymo harness's default config is CenterPoint's
+    (configs/waymo_models/centerpoint.yaml), which the port builds now: on
+    the CPU it is CenterPoint at full width, VoxelResBackBone8x and the
+    CenterHead; without a card the harness's default device raises before
+    it writes anything (the test's name is from before the port had the
+    family, when the default raised naming it)."""
+    from glenet_tpu_torch.tools import convergence_ap, convergence_waymo
+    args = convergence_ap.parse_args(
+        [], default_yaml=convergence_waymo.DEFAULT_YAML)
+    cfg = convergence_ap.load_cfg(args.model_yaml)
+    assert cfg.MODEL.NAME == 'CenterPoint' and args.device == 'cuda'
+    det = convergence_ap.fresh_detector(cfg, 'cpu')
+    assert det.is_center_head and tuple(det.grid_size) == (1504, 1504, 40)
+    assert det.net.backbone_3d.residual
     out = tmp_path / 'results.json'
-    with pytest.raises(NotImplementedError, match='CenterPoint'):
-        convergence_waymo.main(['--device', 'cpu', '--out', str(out)])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            convergence_waymo.main(['--out', str(out)])
     assert not out.exists()

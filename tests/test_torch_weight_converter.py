@@ -315,3 +315,45 @@ def test_convert_weights_cli_then_test(tmp_path):
     (got_path, res), = results.items()
     assert got_path == path and res['frames'] == 2
     assert 'Car_3d/moderate_R40' in res['ap']
+
+
+@pytest.mark.parametrize('name', [
+    'centerpoint.yaml', 'centerpoint_without_resnet.yaml',
+    'centerpoint_pillar_1x.yaml', 'voxel_rcnn_with_centerhead_dyn_voxel.yaml',
+    'pv_rcnn_with_centerhead_rpn.yaml'])
+def test_converters_agree_centerhead(name):
+    """A synthetic reference state dict (utils/synthetic.pcdet_state_dict)
+    of each Waymo config with a CenterHead, at full width, through both
+    converters into the port's template: the trees are exactly equal, with
+    equal reports (stage 2 of the two-stage configs unconsumed, as
+    glenet_tpu leaves it in corner pooling), and the port's net loads the
+    result with no leaf left over."""
+    from glenet_tpu.config import cfg_from_yaml_file
+    from glenet_tpu.utils import weight_converter as jwc
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils import synthetic
+    from glenet_tpu_torch.utils import weight_converter as wc
+    from glenet_tpu_torch.utils.jax_weights import (load_jax_variables,
+                                                    port_to_jax_variables)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models' / name))
+    tcfg = tp.to_port_cfg(cfg)
+    det = build_detector(tcfg, device='cpu')
+    template = port_to_jax_variables(det.net)
+    sd = {k: v.numpy() for k, v in
+          synthetic.pcdet_state_dict(tcfg, seed=2).items()}
+    ref, ref_report = jwc.convert_full_model(cfg, sd, template)
+    got, report = wc.convert_full_model(tcfg, sd, template)
+    _assert_trees_equal(got, ref)
+    assert report == ref_report
+    stage2 = sorted(k for k in sd if k.startswith(('roi_head.', 'pfe.',
+                                                   'point_head.'))
+                    and 'num_batches_tracked' not in k)
+    assert report['unconsumed'] == stage2
+    assert bool(stage2) == ('rcnn' in name)
+    assert report['converted'][-1] == 'dense_head'
+    load_jax_variables(det.net, got)
+    head = det.net.dense_head
+    torch.testing.assert_close(
+        head.hm_1.bias, torch.from_numpy(
+            sd['dense_head.heads_list.0.hm.1.bias']).float(), rtol=0, atol=0)

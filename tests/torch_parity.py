@@ -174,10 +174,12 @@ def fed_dropout(outputs):
 
 
 def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
-                    total_steps=100, points=None, dropout=False):
+                    total_steps=100, points=None, dropout=False,
+                    gt_offset=(0.15,)):
     """One train step of glenet_tpu and one of the port on `cfg`, same
     numpy-drawn weights and points (or `points`, all valid), gt boxes
-    0.15 m off the first 4 train-mode proposals of each sample, and the JAX
+    `gt_offset` (added to x, y, ... in turn; by default 0.15 m in x) off
+    the first 4 train-mode proposals of each sample, and the JAX
     step's own sampled RoI targets fed to the port (the RNG streams differ),
     as tests/test_torch_train_step.py does.  DP_RATIO should be 0 unless
     `dropout`: then the JAX step's dropout draws are fed to the port too
@@ -223,7 +225,7 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
     for b in range(batch_size):
         idx = np.flatnonzero(valid[b])[:4]
         gt[b, :len(idx), :7] = rois[b, idx]
-        gt[b, :len(idx), 0] += 0.15
+        gt[b, :len(idx), :len(gt_offset)] += gt_offset
         gt[b, :len(idx), 7] = out['proposals']['roi_labels'][b, idx].numpy()
         gt_mask[b, :len(idx)] = True
     unc = np.random.RandomState(11).uniform(0.02, 0.3, (batch_size, n_gt, 7))
@@ -282,10 +284,12 @@ def assert_loss_terms_equal(metrics, ref):
                                    atol=1e-6, err_msg=k)
 
 
-def assert_grads_equal(grads, ref_grads, tdet):
-    """Per parameter max |diff| <= 2e-4 * max |grad| + 1e-6."""
+def assert_grads_equal(grads, ref_grads, tdet, port_keys=False):
+    """Per parameter max |diff| <= 2e-4 * max |grad| + 1e-6; ref_grads a
+    JAX tree, or with port_keys already by port key."""
     from glenet_tpu_torch.utils.jax_weights import jax_tree_to_port
-    ref_grads = jax_tree_to_port(tdet.net, ref_grads)
+    if not port_keys:
+        ref_grads = jax_tree_to_port(tdet.net, ref_grads)
     assert set(ref_grads) == set(grads)
     for k, g_ref in ref_grads.items():
         g = grads[k].numpy()
@@ -563,9 +567,47 @@ def assert_assigner_margin(det, batch, margin=1e-3):
                     'IoU near a threshold', name)
 
 
+def center_map_size(det):
+    """CenterHead's heatmap size (W, H) of a detector of either package."""
+    stride = int(det.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+                 .FEATURE_MAP_STRIDE)
+    return det.grid_size[0] // stride, det.grid_size[1] // stride
+
+
+def jax_center_targets(det, gb, gm):
+    """One sample's CenterHead targets (heatmap, target boxes, cell
+    indices, mask) as glenet_tpu's Detector._center_loss assigns them."""
+    from glenet_tpu.models import center_head as jch
+    ta = det.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+    out = jch.assign_targets_single(
+        gb, gm, det.num_class, center_map_size(det),
+        int(ta.FEATURE_MAP_STRIDE), det.voxel_size, det.pc_range,
+        gaussian_overlap=float(ta.get('GAUSSIAN_OVERLAP', 0.1)),
+        min_radius=int(ta.get('MIN_RADIUS', 2)))
+    return dict(zip(CENTER_TARGETS, out))
+
+
+def port_center_targets(tdet, gb, gm):
+    """The port's counterpart of jax_center_targets."""
+    from glenet_tpu_torch.models import center_head as tch
+    ta = tdet.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
+    out = tch.assign_targets_single(
+        gb, gm, tdet.num_class, center_map_size(tdet),
+        int(ta.FEATURE_MAP_STRIDE), tdet.voxel_size, tdet.pc_range,
+        gaussian_overlap=float(ta.get('GAUSSIAN_OVERLAP', 0.1)),
+        min_radius=int(ta.get('MIN_RADIUS', 2)))
+    return dict(zip(CENTER_TARGETS, out))
+
+
+CENTER_TARGETS = ('heatmap', 'target_boxes', 'inds', 'mask')
+
+
 def jax_assign_targets(det, gb, gm, gu):
     """One sample's anchor targets as glenet_tpu's Detector.compute_loss
-    picks the assigner (ATSS or axis-aligned, MATCH_HEIGHT)."""
+    picks the assigner (ATSS or axis-aligned, MATCH_HEIGHT); a CenterHead's
+    targets (jax_center_targets) for a CenterPoint detector."""
+    if det.is_center_head:
+        return jax_center_targets(det, gb, gm)
     from glenet_tpu.models import target_assigner as jta
     if det.target_assigner_name == 'ATSSTargetAssigner':
         return jta.atss_assign_targets(det.anchor_set, gb, gm, gu,
@@ -627,10 +669,11 @@ def align_relu_kinks(net, ref_outputs, rel=1e-5):
 
 def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     """One train step of glenet_tpu and one of the port's train_state on a
-    single-stage `cfg`, the same numpy-drawn weights and `batch`.  Returns
-    (JAX's metrics, grads, batch_stats, params after adam_onecycle and
-    anchor targets; the port's metrics; its gradients by port key; its
-    anchor targets; the port's detector); call inside pinned_f32().  With
+    single-stage `cfg` (CenterPoint too), the same numpy-drawn weights and
+    `batch`.  Returns (JAX's metrics, grads, batch_stats, params after
+    adam_onecycle and anchor (or CenterHead) targets; the port's metrics;
+    its gradients by port key; its targets; the port's detector); call
+    inside pinned_f32().  With
     align_relu, JAX's BN outputs are captured in its train forward and the
     port takes JAX's side of each ReLU kink within rounding of 0
     (align_relu_kinks); their count is ref['relu_flipped']."""
@@ -648,7 +691,8 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     from glenet_tpu_torch.utils.jax_weights import load_jax_variables
     tcfg = to_port_cfg(cfg)
     det = jax_build(cfg)
-    assert_assigner_margin(det, batch)
+    if not det.is_center_head:
+        assert_assigner_margin(det, batch)
     shapes = jax.eval_shape(det.init, jax.random.PRNGKey(0),
                             jax.tree.map(jnp.asarray, batch))
     variables = random_variables(shapes, seed=1)
@@ -679,7 +723,8 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
         return {'metrics': metrics, 'grads': grads,
                 'batch_stats': new_state['batch_stats'],
                 'params': optax.apply_updates(v['params'], upd),
-                'targets': targets._asdict(),
+                'targets': (targets if det.is_center_head
+                            else targets._asdict()),
                 'bn_out': new_state.get('intermediates', {})}
 
     ref = jax.tree.map(np.asarray, jax_step(
@@ -690,7 +735,8 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     ttx, _ = optim.build_optimizer(tcfg.OPTIMIZATION, total_steps)
     state = st.create_train_state(tdet, ttx)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
-    targets = [tdet.assign_targets(gb, gm, gu)._asdict()
+    targets = [port_center_targets(tdet, gb, gm) if tdet.is_center_head
+               else tdet.assign_targets(gb, gm, gu)._asdict()
                for gb, gm, gu in zip(tbatch['gt_boxes'], tbatch['gt_mask'],
                                      tbatch['gt_uncertainty'])]
     targets = {k: torch.stack([t[k] for t in targets]).numpy()
