@@ -252,7 +252,34 @@ Phases, each of which exits non-zero on failure:
      (tiny_centerpoint_raw): a predict and a train step, as phase 7 with
      [waymo] (e)'s ReLU alignment; phase 6 adds the 4 captured calls of
      the CenterPoint predict and train step;
- 17. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 17. PV-RCNN++, [pvrcnn_plusplus] (launches counted from 0 just before and
+     read just after each call but the warm-up predict): (a)
+     configs/waymo_models/pv_rcnn_plusplus.yaml at full width
+     (VoxelBackBone8x on the 1504 x 1504 x 40 grid, budgets 80000 / 90000,
+     CenterHead proposals, 4096 SPC keypoints, VectorPool over bev,
+     x_conv3, x_conv4 and raw_points with RoI-filtered neighbours,
+     RoI-grid VectorPool) with seeded weights on synthetic Waymo scenes of
+     170000 points: a warm-up predict that captures its merge-resolve
+     calls for phase 6, 2 predicts at B = 2, a warm-up train step (also
+     captured) and 2 timed ones at B = 2; per call ms, active sites
+     against the caps, keypoints against the SPC mask and the valid
+     points, per source the points left by the RoI filter, per VectorPool
+     group the share of empty sub-voxels, 4 merge-resolve launches, peak
+     memory and every loss term with grad_norm; losses finite, parameters
+     and BN stats moved; the host syncs of one more predict and step; the
+     first predict's neighbour searches on the card against the CPU on a
+     subset of queries (picks of another point only within the expanded
+     distance's rounding); (b) pv_rcnn_plusplus_resnet.yaml: one predict
+     and one train step; (c) pv_rcnn_plusplus.yaml through `tools.train`
+     (B = 2, 1 epoch x 2 steps) and `tools.test` on [waymo]'s tree; (d)
+     `tools.convergence_waymo` on pv_rcnn_plusplus.yaml for 10 steps and a
+     5-step frozen-BN tail; (e) after phase 7, the card against the CPU on
+     the toy topology as PV-RCNN++ (tiny_pvpp_raw): a predict and a train
+     step with fixed RoI targets, the CPU taking the card's FPS picks and
+     VectorPool neighbours at near ties and the card's side of ReLU
+     kinks; phase 6 adds the 4 captured calls of the predict and train
+     step;
+ 18. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -522,11 +549,14 @@ def phase_merge_check(captured, captured_train, captured_single):
             'single': check_captured(captured_single, 'GLENet-C predict')}
 
 
-def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False):
+def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False,
+                     align_neighbours=False):
     """Tiny two-stage topology on the card and on the port's CPU path.
     With align_points (PointRCNN) the card runs first and the CPU run takes
     the card's FPS, ball-query and three-nn decisions where they differ at
-    a near tie (point_decisions; any other difference fails)."""
+    a near tie (point_decisions; any other difference fails); with
+    align_neighbours (PV-RCNN++) likewise the VectorPool neighbours within
+    the expanded distance's rounding (neighbour_decisions)."""
     import torch
 
     from glenet_tpu_torch.config import Cfg
@@ -545,27 +575,32 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False):
         pts = torch.from_numpy(tiny_batch(SEED + 7,
                                           features=n_features(cfg)))
         mask = torch.ones(pts.shape[:2], dtype=torch.bool)
-        outs, calls, decisions = {}, {}, None
-        for dev in ('cuda', 'cpu') if align_points else ('cpu', 'cuda'):
+        outs, calls, decisions, neighbours = {}, {}, None, None
+        card_first = align_points or align_neighbours
+        for dev in ('cuda', 'cpu') if card_first else ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
             calls[dev], undo = record_ball_queries()
+            undos = [undo]
             if align_points:
-                decisions, undo_points = point_decisions(decisions)
+                decisions, undo = point_decisions(decisions)
+                undos.append(undo)
+            if align_neighbours:
+                neighbours, undo = neighbour_decisions(neighbours)
+                undos.append(undo)
             try:
                 with torch.no_grad():
                     full = det.net(pts.to(dev), mask.to(dev))
                     pred = det.finalize(full)
             finally:
-                undo()
-                if align_points:
-                    undo_points()
+                for undo in undos:
+                    undo()
             outs[dev] = (full, pred)
     finally:
         (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
          torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
     (fc, pc), (fg, pg) = outs['cpu'], outs['cuda']
-    if 'pfe' in fc:
+    if 'pfe' in fc and not align_neighbours:
         check_point_decisions(fc, fg, calls, tag)
     # f32 on both devices, convolutions and sums in another order:
     # features rtol 1e-3 / atol 1e-4, final boxes and scores atol 1e-3
@@ -613,21 +648,28 @@ def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False):
           + (f'; of {decisions["calls"]} FPS / ball-query / three-nn calls '
              f'{decisions["adopted"]} took the card\'s decisions at a near '
              f'tie (largest relative gap {decisions["largest"]:.2e}, bound '
-             f'{NEAR_TIE})' if align_points else ''))
+             f'{NEAR_TIE})' if align_points else '')
+          + (f'; VectorPool neighbours: {neighbours["flips"]} of '
+             f'{neighbours["slots"]} valid slots picked another point on '
+             f'the card ({neighbours["adopted"]} of {neighbours["calls"]} '
+             f'calls took the card\'s picks; largest d^2 gap '
+             f'{neighbours["largest"]:.3f} of the rounding bound)'
+             if align_neighbours else ''))
 
 
-def tiny_train_batch(cfg, train_proposals=False):
-    """The toy training batch: tiny_batch's points, gt boxes 0.15 m off the
-    first 4 valid proposals of each sample of a CPU predict (with
+def tiny_train_batch(cfg, train_proposals=False, perturb=None):
+    """The toy training batch: tiny_batch's points, gt boxes off the first
+    4 valid proposals of each sample of a CPU predict (with
     train_proposals of a train-mode forward without gt boxes: PointRCNN's
-    point boxes move with the BN mode), with their classes (so the RoI
+    point boxes move with the BN mode) by `perturb` (a function of the
+    (n, 7) boxes; by default 0.15 m in x), with their classes (so the RoI
     targets hold foreground), label variances in [0.02, 0.3), and fixed
     RoI targets sampled once on the CPU."""
     import numpy as np
     import torch
 
     from glenet_tpu_torch.utils.synthetic import seeded_detector
-    pts = torch.from_numpy(tiny_batch(SEED + 7))
+    pts = torch.from_numpy(tiny_batch(SEED + 7, features=n_features(cfg)))
     b = pts.shape[0]
     mask = torch.ones(pts.shape[:2], dtype=torch.bool)
     det = seeded_detector(cfg, 'cpu', SEED + 3)
@@ -640,8 +682,12 @@ def tiny_train_batch(cfg, train_proposals=False):
     det = seeded_detector(cfg, 'cpu', SEED + 3)      # BN stats as drawn
     for i in range(b):
         idx = torch.nonzero(prop['roi_valid'][i]).flatten()[:4]
-        gt[i, :len(idx), :7] = prop['rois'][i, idx]
-        gt[i, :len(idx), 0] += 0.15
+        boxes = prop['rois'][i, idx].clone()
+        if perturb is None:
+            boxes[:, 0] += 0.15
+        else:
+            boxes = perturb(boxes)
+        gt[i, :len(idx), :7] = boxes
         gt[i, :len(idx), 7] = prop['roi_labels'][i, idx].float()
         gt_mask[i, :len(idx)] = True
     unc = np.random.RandomState(SEED + 11).uniform(0.02, 0.3, (b, 8, 7))
@@ -698,7 +744,7 @@ def relu_signs(net, recorded=None, rel=1e-4):
 
 def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
                            make_batch=tiny_train_batch, align_relu=False,
-                           align_points=False):
+                           align_points=False, align_neighbours=False):
     """One toy train step (in two-stage configs fixed RoI targets and
     DP_RATIO 0) on the card and on the port's CPU path.  With align_relu:
     a ReLU input within rounding of 0 can land on the other side of the
@@ -709,7 +755,8 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
     the loss terms are held to (relu_signs; at most 4 of them; a larger
     flip fails), so both compute one branch.  With align_points the CPU
     run also takes the card's FPS, ball-query and three-nn decisions at
-    near ties (point_decisions)."""
+    near ties (point_decisions), with align_neighbours its VectorPool
+    neighbours within rounding (neighbour_decisions)."""
     import copy
 
     import torch
@@ -735,27 +782,31 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
         n_fg = int(batch['roi_targets']['reg_valid_mask'].sum()
                    if 'roi_targets' in batch else batch['gt_mask'].sum())
         check(n_fg > 0, 'the toy targets hold no foreground')
-        runs, signs, hooks, decisions = {}, None, [], None
-        # with align_relu or align_points the card runs first: the CPU
-        # takes its side
-        card_first = align_relu or align_points
+        runs, signs, hooks, decisions, neighbours = {}, None, [], None, None
+        # with align_relu, align_points or align_neighbours the card runs
+        # first: the CPU takes its side
+        card_first = align_relu or align_points or align_neighbours
         for dev in ('cuda', 'cpu') if card_first else ('cpu', 'cuda'):
             det = seeded_detector(cfg, dev, SEED + 3)
             tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
             state = st.create_train_state(det, tx)
             if align_relu:
                 signs, hooks = relu_signs(det.net, signs)
-            undo_points = None
+            undos = []
             if align_points:
-                decisions, undo_points = point_decisions(decisions)
+                decisions, undo = point_decisions(decisions)
+                undos.append(undo)
+            if align_neighbours:
+                neighbours, undo = neighbour_decisions(neighbours)
+                undos.append(undo)
             bt = {k: (v.to(dev) if torch.is_tensor(v)
                       else {kk: vv.to(dev) for kk, vv in v.items()})
                   for k, v in batch.items()}
             try:
                 state, metrics = st.make_train_step(det, tx)(state, bt)
             finally:
-                if undo_points is not None:
-                    undo_points()
+                for undo in undos:
+                    undo()
             for h in hooks:
                 h.remove()
             runs[dev] = (metrics, det.net, tx)
@@ -812,6 +863,9 @@ def phase_gpu_vs_cpu_train(raw=TINY_CFG, tag='gpu-vs-cpu',
           + (f'; FPS / ball-query / three-nn decisions the CPU took from '
              f'the card at a near tie: {decisions["adopted"]} of '
              f'{decisions["calls"]} calls' if align_points else '')
+          + (f'; VectorPool neighbour slots that picked another point on '
+             f'the card: {neighbours["flips"]} of {neighbours["slots"]}'
+             if align_neighbours else '')
           + '), BN running stats and the parameters after adam_onecycle '
           'agree')
 
@@ -4313,7 +4367,7 @@ def phase_centerpoint_full(seed):
     return launches + n, captured, captured_train, sum(times) / len(times)
 
 
-def print_syncs(det, cfg, label):
+def print_syncs(det, cfg, label, tag='centerpoint'):
     """The host syncs (by file:line) of one more predict and one more train
     step of `det`, outside the counted runs."""
     from glenet_tpu_torch.profile_cvae import _syncs
@@ -4327,7 +4381,7 @@ def print_syncs(det, cfg, label):
     for what, fn in (('predict', lambda: det.predict(batch)),
                      ('train step', lambda: train_step(state, tbatch))):
         syncs = _syncs(fn)
-        print(f'[centerpoint] {label} {what}: {sum(syncs.values())} host '
+        print(f'[{tag}] {label} {what}: {sum(syncs.values())} host '
               f'syncs (' + ', '.join(f'{k} x{v}'
                                      for k, v in syncs.most_common()) + ')')
 
@@ -4363,9 +4417,9 @@ def phase_centerpoint_others():
     return launches
 
 
-def phase_centerpoint_cli(tmp, in_memory_ms):
-    """[centerpoint] (c): centerpoint.yaml through `tools.train` (B = 4, 1
-    epoch x 2 steps over every train frame) and `tools.test` with the
+def waymo_cli_round(tmp, in_memory_ms, cfg_name, tag, label, batch):
+    """configs/waymo_models/<cfg_name> through `tools.train` (B = `batch`,
+    1 epoch x 2 steps over every train frame) and `tools.test` with the
     three-class Waymo evaluation, on the synthetic Waymo tree [waymo] wrote
     (its gt database holds Vehicles; the Pedestrian and Cyclist groups
     sample none).  Launches counted from 0 just before and read just after
@@ -4380,10 +4434,10 @@ def phase_centerpoint_cli(tmp, in_memory_ms):
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import state as state_lib
-    cfg_file = str(ROOT / 'configs/waymo_models/centerpoint.yaml')
+    cfg_file = str(ROOT / 'configs/waymo_models' / cfg_name)
     common = ['--cfg_file', cfg_file, '--data_path', str(tmp / 'waymo'),
-              '--output_dir', str(tmp / 'centerpoint_out'), '--batch_size',
-              str(WAYMO_BATCH), '--max_steps_per_epoch', '2']
+              '--output_dir', str(tmp / f'{Path(cfg_name).stem}_out'),
+              '--batch_size', str(batch), '--max_steps_per_epoch', '2']
     step_launches, predict_launches = [], []
     undo = [count_launches(state_lib, 'make_train_step', step_launches),
             count_launches(Detector, 'predict', predict_launches)]
@@ -4401,17 +4455,18 @@ def phase_centerpoint_cli(tmp, in_memory_ms):
     launches = mk.LAUNCHES
     check([r['it'] for r in run['steps']] == [1, 2]
           and step_launches == [4, 4],
-          f'CenterPoint CLI steps {[r["it"] for r in run["steps"]]}, '
+          f'{label} CLI steps {[r["it"] for r in run["steps"]]}, '
           f'launches per step {step_launches}')
     for r in run['steps']:
         bad = [k for k, v in r.items() if isinstance(v, float)
                and not math.isfinite(v)]
-        check(not bad, f'CenterPoint CLI step {r["it"]}: not finite: {bad}')
-        print(f'[centerpoint] CLI train step {r["it"]} B={WAYMO_BATCH}: data '
+        check(not bad, f'{label} CLI step {r["it"]}: not finite: {bad}')
+        losses = ', '.join(f'{k} {r[k]:.4f}' for k in sorted(r)
+                           if 'loss' in k)
+        print(f'[{tag}] CLI train step {r["it"]} B={batch}: data '
               f'{r["data_ms"]:.1f} ms, step {r["step_ms"]:.1f} ms (in '
-              f'memory {in_memory_ms:.1f} ms), loss {r["loss"]:.4f}, '
-              f'loss_cls {r["loss_cls"]:.4f}, loss_loc {r["loss_loc"]:.4f}, '
-              f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
+              f'memory {in_memory_ms:.1f} ms), {losses}, grad_norm '
+              f'{r["grad_norm"]:.3f}; max_memory_allocated '
               f'{peak / 2**30:.2f} GiB')
     (path, res), = results.items()
     keys = [f'OBJECT_TYPE_TYPE_{c}_LEVEL_{lv}/{m}'
@@ -4419,17 +4474,23 @@ def phase_centerpoint_cli(tmp, in_memory_ms):
             for m in ('AP', 'APH')]
     check(res['frames'] == WAYMO_FRAMES and sorted(res['ap']) == sorted(keys)
           and all(np.isfinite(res['ap'][k]) for k in keys)
-          and predict_launches == [4] * math.ceil(WAYMO_FRAMES
-                                                  / WAYMO_BATCH),
-          f'CenterPoint test CLI: {res["frames"]} frames, '
+          and predict_launches == [4] * math.ceil(WAYMO_FRAMES / batch),
+          f'{label} test CLI: {res["frames"]} frames, '
           f'{sorted(res["ap"])}, launches per predict {predict_launches}')
-    print(f'[centerpoint] test CLI on {Path(path).name}: {res["frames"]} '
+    print(f'[{tag}] test CLI on {Path(path).name}: {res["frames"]} '
           f'val frames, {res["sec_per_frame"]:.4f} s/frame, Waymo '
           f'evaluation {res["eval_sec"]:.3f} s; merge_resolve launches per '
           f'predict {predict_launches}; ' + ', '.join(
               f'{k} {res["ap"][k]:.2f}' for k in keys[:2])
           + ' (2 steps from random weights: only the keys are checked)')
     return launches
+
+
+def phase_centerpoint_cli(tmp, in_memory_ms):
+    """[centerpoint] (c): centerpoint.yaml through the CLIs at B = 4 on
+    [waymo]'s tree (waymo_cli_round).  Returns the launches."""
+    return waymo_cli_round(tmp, in_memory_ms, 'centerpoint.yaml',
+                           'centerpoint', 'CenterPoint', WAYMO_BATCH)
 
 
 def phase_centerpoint_harness(tmp):
@@ -4478,6 +4539,489 @@ def phase_centerpoint(tmp):
     launches += phase_centerpoint_others()
     launches += phase_centerpoint_cli(tmp, step_ms)
     launches += phase_centerpoint_harness(tmp)
+    return launches, captured, captured_train
+
+
+# ---------------------------------------------------------------------------
+# [pvrcnn_plusplus]: PV-RCNN++ (CenterHead proposals before the keypoints,
+# SPC keypoints, VectorPool aggregation with RoI-filtered neighbours,
+# PointHeadSimple, PVRCNNHead with RoI-grid VectorPool)
+# ---------------------------------------------------------------------------
+
+PVPP_PREDICTS, PVPP_STEPS = 2, 2
+# queries per scene and neighbour search held card against CPU at full width
+PVPP_FLIP_QUERIES = 1024
+CONV_PVPP_STEPS, CONV_PVPP_TAIL = 10, 5
+
+
+def pvpp_gt_from_rois(boxes):
+    """The toy gt boxes off their proposals in every code, by 3% of the
+    box's size in the centre and the size and 0.05 rad in the heading: a
+    CenterHead proposal decodes its own regression, so a gt equal to it in
+    a code puts the L1 loss on its kink; relative offsets keep the RoI IoU
+    above REG_FG_THRESH whatever the random head's box sizes."""
+    boxes = boxes.clone()
+    boxes[:, :3] += 0.03 * boxes[:, 3:6]
+    boxes[:, 3:6] *= 1.03
+    boxes[:, 6] += 0.05
+    return boxes
+
+
+def tiny_pvpp_raw():
+    """The toy topology as PV-RCNN++ (tests/test_pvrcnn_plusplus.py's
+    make_pvpp_cfg on TINY_CFG's trunk): a CenterHead RPN (32 shared
+    channels, top 64 cells), 64 SPC keypoints (1.6 m), VectorPool over
+    bev, x_conv3, x_conv4 and raw_points (two groups of 2^3 sub-voxels,
+    0.4 / 0.8 m, RoI filters 2.4 / 4.0 / 6.4 m), PointHeadSimple (16),
+    PVRCNNHead with a 3^3 RoI grid pooled by VectorPool random choice (two
+    groups of 3^3, 0.8 / 1.6 m, 32 neighbours), FCs of 32, nms_gpu at zero
+    score threshold."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    m = raw['MODEL']
+    m['NAME'] = 'PVRCNNPlusPlus'
+    m['DENSE_HEAD'] = {
+        'NAME': 'CenterHead', 'CLASS_AGNOSTIC': False,
+        'CLASS_NAMES_EACH_HEAD': [['Car']], 'SHARED_CONV_CHANNEL': 32,
+        'TARGET_ASSIGNER_CONFIG': {'FEATURE_MAP_STRIDE': 8,
+                                   'NUM_MAX_OBJS': 100,
+                                   'GAUSSIAN_OVERLAP': 0.1, 'MIN_RADIUS': 2},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'cls_weight': 1.0,
+                                         'loc_weight': 2.0,
+                                         'code_weights': [1.0] * 8}},
+        'POST_PROCESSING': {'SCORE_THRESH': 0.0, 'MAX_OBJ_PER_SAMPLE': 64}}
+
+    def vp(reduced, radius, **extra):
+        return {'NAME': 'VectorPoolAggregationModuleMSG', 'NUM_GROUPS': 2,
+                'LOCAL_AGGREGATION_TYPE': 'local_interpolation',
+                'NUM_REDUCED_CHANNELS': reduced,
+                'NUM_CHANNELS_OF_LOCAL_AGGREGATION': 8,
+                'MSG_POST_MLPS': [16], 'FILTER_NEIGHBOR_WITH_ROI': True,
+                'RADIUS_OF_NEIGHBOR_WITH_ROI': radius,
+                'GROUP_CFG_0': {'NUM_LOCAL_VOXEL': [2, 2, 2],
+                                'MAX_NEIGHBOR_DISTANCE': 0.4,
+                                'NEIGHBOR_NSAMPLE': -1, 'POST_MLPS': [8, 8]},
+                'GROUP_CFG_1': {'NUM_LOCAL_VOXEL': [2, 2, 2],
+                                'MAX_NEIGHBOR_DISTANCE': 0.8,
+                                'NEIGHBOR_NSAMPLE': -1, 'POST_MLPS': [8, 8]},
+                **extra}
+
+    m['PFE'] = {
+        'NAME': 'VoxelSetAbstraction', 'POINT_SOURCE': 'raw_points',
+        'NUM_KEYPOINTS': 64, 'NUM_OUTPUT_FEATURES': 32,
+        'SAMPLE_METHOD': 'SPC',
+        'SPC_SAMPLING': {'NUM_SECTORS': 6, 'SAMPLE_RADIUS_WITH_ROI': 1.6},
+        'FEATURES_SOURCE': ['bev', 'x_conv3', 'x_conv4', 'raw_points'],
+        'SA_LAYER': {'raw_points': vp(1, 2.4),
+                     'x_conv3': vp(16, 4.0, DOWNSAMPLE_FACTOR=4),
+                     'x_conv4': vp(16, 6.4, DOWNSAMPLE_FACTOR=8)}}
+    m['POINT_HEAD'] = {
+        'NAME': 'PointHeadSimple', 'CLS_FC': [16], 'CLASS_AGNOSTIC': True,
+        'USE_POINT_FEATURES_BEFORE_FUSION': True,
+        'TARGET_CONFIG': {'GT_EXTRA_WIDTH': [0.2, 0.2, 0.2]},
+        'LOSS_CONFIG': {'LOSS_WEIGHTS': {'point_cls_weight': 1.0}}}
+    roi = m['ROI_HEAD']
+    group = {'NUM_LOCAL_VOXEL': [3, 3, 3], 'NEIGHBOR_NSAMPLE': 32,
+             'POST_MLPS': [8, 8]}
+    roi.update(NAME='PVRCNNHead', ROI_GRID_POOL={
+        'GRID_SIZE': 3, 'NAME': 'VectorPoolAggregationModuleMSG',
+        'NUM_GROUPS': 2, 'LOCAL_AGGREGATION_TYPE': 'voxel_random_choice',
+        'NUM_REDUCED_CHANNELS': 16, 'NUM_CHANNELS_OF_LOCAL_AGGREGATION': 8,
+        'MSG_POST_MLPS': [16],
+        'GROUP_CFG_0': dict(group, MAX_NEIGHBOR_DISTANCE=0.8),
+        'GROUP_CFG_1': dict(group, MAX_NEIGHBOR_DISTANCE=1.6)})
+    roi['NMS_CONFIG']['TRAIN'].update(NMS_PRE_MAXSIZE=64, NMS_POST_MAXSIZE=32)
+    roi['NMS_CONFIG']['TEST'].update(NMS_PRE_MAXSIZE=64, NMS_POST_MAXSIZE=32)
+    roi['LOSS_CONFIG'] = {'CLS_LOSS': 'BinaryCrossEntropy',
+                          'REG_LOSS': 'smooth-l1',
+                          'CORNER_LOSS_REGULARIZATION': True,
+                          'LOSS_WEIGHTS': roi['LOSS_CONFIG']['LOSS_WEIGHTS']}
+    m['POST_PROCESSING'].update(SCORE_THRESH=0.0)
+    m['POST_PROCESSING']['NMS_CONFIG'].update(
+        NMS_TYPE='nms_gpu', NMS_THRESH=0.7, NMS_PRE_MAXSIZE=32,
+        NMS_POST_MAXSIZE=16)
+    return raw
+
+
+def flip_bound(q2, sa2, sb2):
+    """Two devices may order two candidates of a query differently only
+    where their squared distances lie within the rounding of the expanded
+    formula |q|^2 + |s|^2 - 2 q.s on both: each side's f32 result is within
+    ~3.5 ulp of |q|^2 + |s|^2, so this bound is 8 x 2^-24 x (2 |q|^2 +
+    |s_a|^2 + |s_b|^2)."""
+    return 8.0 * 2.0 ** -24 * (2.0 * q2 + sa2 + sb2)
+
+
+def neighbour_flips(query, support, ref, got, what):
+    """The three-nn picks of vector_pool.three_nn_within on two devices
+    (ref and got: (dist, idx, valid), on the CPU) for the same query
+    (B, Q, 3) and support (B, N, 3): valid flags equal (the in-range tests
+    are exact), and wherever a slot picks another point both candidates'
+    exact squared distances lie within flip_bound.  Returns (flipped
+    slots, compared slots, the largest gap over its bound)."""
+    import torch
+    check(torch.equal(ref[2], got[2]), f'{what}: valid neighbour flags '
+                                       f'differ between the devices')
+    diff = (ref[1] != got[1]) & ref[2]
+    worst = 0.0
+    for b, q, s in torch.nonzero(diff).tolist():
+        qq = query[b, q].double()
+        pa = support[b, int(ref[1][b, q, s])].double()
+        pb = support[b, int(got[1][b, q, s])].double()
+        da, db = float(((qq - pa) ** 2).sum()), float(((qq - pb) ** 2).sum())
+        bound = flip_bound(float((qq ** 2).sum()), float((pa ** 2).sum()),
+                           float((pb ** 2).sum()))
+        check(abs(da - db) <= bound,
+              f'{what}: scene {b} query {q} slot {s} picks point '
+              f'{int(ref[1][b, q, s])} (d^2 {da:.9g}) on one device and '
+              f'{int(got[1][b, q, s])} (d^2 {db:.9g}) on the other, beyond '
+              f'the rounding bound {bound:.3e}')
+        worst = max(worst, abs(da - db) / bound)
+    return int(diff.sum()), int(ref[2].sum()), worst
+
+
+def neighbour_decisions(recorded=None):
+    """Wrap vector_pool.three_nn_within.  With recorded=None each call's
+    (query, support) and outputs are recorded (on the CPU).  Given another
+    run's record, each call's picks are held against the recorded call's
+    (neighbour_flips); a call that differs returns the recorded outputs,
+    so both runs go on with one set of neighbours ('adopted').  Returns
+    (the record or the counts, undo)."""
+    from glenet_tpu_torch.models import vector_pool
+    real = vector_pool.three_nn_within
+    out = ([] if recorded is None
+           else {'adopted': 0, 'calls': 0, 'flips': 0, 'slots': 0,
+                 'largest': 0.0})
+    queue = None if recorded is None else list(recorded)
+
+    def wrapped(query, support, support_mask, rmax, neighbor_type=0):
+        res = real(query, support, support_mask, rmax, neighbor_type)
+        cpu = tuple(r.cpu() for r in res)
+        if recorded is None:
+            out.append((query.cpu(), support.cpu(), cpu))
+            return res
+        q, sup, ref = queue.pop(0)
+        n, slots, worst = neighbour_flips(q, sup, ref, cpu,
+                                          f'toy three-nn (rmax {rmax:g})')
+        out['calls'] += 1
+        out['flips'] += n
+        out['slots'] += slots
+        out['largest'] = max(out['largest'], worst)
+        if n == 0:
+            return res
+        out['adopted'] += 1
+        return tuple(r.to(query.device) for r in ref)
+
+    vector_pool.three_nn_within = wrapped
+    return out, lambda: setattr(vector_pool, 'three_nn_within', real)
+
+
+def watch_pvpp(det):
+    """Hooks recording, per call, the active sites of the four backbone
+    levels, the keypoint indices, each roi mask (SPC's and the neighbour
+    filters': points in and kept), per VectorPool group the share of
+    sub-voxel centres without a neighbour (interpolation) or of empty
+    sub-voxels (RoI-grid pooling), and the three-nn calls of the first
+    recorded predict (for the flip count).  Returns (record, undo)."""
+    from glenet_tpu_torch.models import vector_pool
+    from glenet_tpu_torch.models.vector_pool import VectorPoolAggregation
+    rec = {'sites': {}, 'keypoints': None, 'masks': [], 'empty': [],
+           'nn_calls': None, 'three_nn': vector_pool.three_nn_within}
+    current = [None]
+
+    def sites(_mod, _inp, out):
+        ms = out['multi_scale']
+        rec['sites'] = {k: ms[k]['mask'].sum(1) for k in
+                        ('x_conv1', 'x_conv2', 'x_conv3', 'x_conv4')}
+
+    def keypoints(_mod, _inp, out):
+        rec['keypoints'] = out['keypoint_idx']
+
+    hooks = [det.net.backbone_3d.register_forward_hook(sites),
+             det.net.pfe.register_forward_hook(keypoints)]
+    for name, mod in det.net.named_modules():
+        if isinstance(mod, VectorPoolAggregation):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda _m, _i, name=name: current.__setitem__(0, name)))
+    real = {k: getattr(vector_pool, k) for k in (
+        'sample_points_with_roi_mask', 'three_nn_within', 'pool_into_grids')}
+
+    def roi_mask(points, points_mask, rois, roi_valid, radius):
+        keep = real['sample_points_with_roi_mask'](points, points_mask, rois,
+                                                   roi_valid, radius)
+        rec['masks'].append((radius, points_mask.sum(1), keep.sum(1)))
+        return keep
+
+    def three_nn(query, support, support_mask, rmax, neighbor_type=0):
+        res = real['three_nn_within'](query, support, support_mask, rmax,
+                                      neighbor_type)
+        rec['empty'].append((current[0], (~res[2][..., 0]).float().mean()))
+        if rec['nn_calls'] is not None:
+            rec['nn_calls'].append((rmax, neighbor_type, query, support,
+                                    support_mask, res))
+        return res
+
+    def pool(*args, **kwargs):
+        out = real['pool_into_grids'](*args, **kwargs)
+        rec['empty'].append((current[0],
+                             (~(out != 0).any(-1)).float().mean()))
+        return out
+
+    vector_pool.sample_points_with_roi_mask = roi_mask
+    vector_pool.three_nn_within = three_nn
+    vector_pool.pool_into_grids = pool
+
+    def undo():
+        for k, fn in real.items():
+            setattr(vector_pool, k, fn)
+        for h in hooks:
+            h.remove()
+    return rec, undo
+
+
+def pvpp_text(rec, budget):
+    """Active sites against the level caps, keypoints (distinct of those
+    the SPC mask kept), the roi masks and the empty shares over the call
+    just recorded; clears the per-call records."""
+    from glenet_tpu_torch.ops import sparse
+    caps = sparse.level_caps(budget)
+    kp = rec['keypoints']
+    distinct = [len(set(r.tolist())) for r in kp]
+    (_, valid, spc), *filters = rec['masks']
+    names = ('raw_points', 'x_conv3', 'x_conv4')
+    masks = '; '.join(f'{n} (within {r:g} m of a roi) {k.tolist()} of '
+                      f'{v.tolist()}' for n, (r, v, k) in zip(names, filters))
+    empty = ', '.join(f'{n.replace("pfe.", "").replace("roi_head.", "")} '
+                      f'{float(e):.3f}' for n, e in rec['empty'])
+    rec['masks'].clear()
+    rec['empty'].clear()
+    return ('active sites ' + ', '.join(
+        f'{k} {v.tolist()}/{caps[i]}' for i, (k, v) in
+        enumerate(rec['sites'].items()))
+        + f'; keypoints {kp.shape[1]} per scene, distinct {distinct}, '
+        f'from the SPC mask\'s {spc.tolist()} of {valid.tolist()} valid '
+        f'points; kept neighbours {masks}; empty sub-voxel share {empty}')
+
+
+def check_full_width_flips(calls, tag, three_nn):
+    """The card's VectorPool neighbour searches of one full-width predict
+    against the CPU's (`three_nn`, vector_pool.three_nn_within unwatched)
+    on every (Q // PVPP_FLIP_QUERIES)-th query of each scene, same inputs
+    (neighbour_flips).  Prints per call the flips and the largest gap over
+    its bound; returns the flipped and compared slots."""
+    import torch
+    total, slots = 0, 0
+    for i, (rmax, kind, query, support, mask, res) in enumerate(calls):
+        stride = max(1, query.shape[1] // PVPP_FLIP_QUERIES)
+        sel = torch.arange(0, query.shape[1], stride,
+                           device=query.device)[:PVPP_FLIP_QUERIES]
+        q = query[:, sel].cpu()
+        ref = tuple(r[:, sel].cpu() for r in res)
+        t0 = time.perf_counter()
+        got = three_nn(q, support.cpu(), mask.cpu(), rmax, kind)
+        n, s, worst = neighbour_flips(q, support.cpu(), ref, got,
+                                      f'full-width three-nn call {i}')
+        total, slots = total + n, slots + s
+        print(f'[{tag}] full-width three-nn call {i} (rmax {rmax:g}, '
+              f'support {tuple(support.shape)}, {int(mask.sum())} valid): '
+              f'{q.shape[1]} queries per scene on the card and the CPU '
+              f'({time.perf_counter() - t0:.1f} s), {n} of {s} valid slots '
+              f'pick another point, largest d^2 gap {worst:.3f} of the '
+              f'rounding bound')
+    return total, slots
+
+
+def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
+                    flips=False):
+    """[pvrcnn_plusplus] (a) / (b): configs/waymo_models/<cfg_name> at full
+    width with seeded weights on synthetic Waymo scenes of 170000 points:
+    with `warmup` a warm-up predict and a warm-up train step that capture
+    their merge-resolve calls, `n_predicts` predicts at B = 2 and
+    `n_steps` train steps at B = BATCH_SIZE_PER_GPU (2), launches counted
+    from 0 just before and read just after each call, 4 per call; with
+    `flips` the first predict's neighbour searches are held against the
+    CPU (check_full_width_flips).  Returns (launches, captured predict,
+    captured step, mean step ms, the detector and its config)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models' / cfg_name))
+    tag = cfg.TAG
+    det = seeded_detector(cfg, 'cuda', seed)
+    check(det.net.pvpp and tuple(det.grid_size) == (1504, 1504, 40)
+          and (det.max_voxels_train, det.max_voxels_test) == (80000, 90000),
+          f'{tag} built with grid {det.grid_size}')
+    rec, undo = watch_pvpp(det)
+    batches = batches_for(cfg, n_predicts + int(warmup), SEED + 170, BATCH)
+    captured = None
+    if warmup:
+        t0 = time.perf_counter()
+        captured, _ = capture_calls(lambda: det.predict(batches[0]))
+        print(f'[pvrcnn_plusplus] {tag}: warm-up predict '
+              f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+        check(len(captured) == 4, f'{tag}: {len(captured)} merge-resolve '
+                                  f'calls per predict')
+        rec['masks'].clear()
+        rec['empty'].clear()
+    launches, times = 0, []
+    k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for r, batch in enumerate(batches[int(warmup):]):
+        if flips and r == 0:
+            rec['nn_calls'] = []
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = det.predict(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        check(n == 4, f'{tag} predict {r}: {n} merge-resolve launches')
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape
+                  and bool(torch.isfinite(pred[key]).all()),
+                  f'{tag} predict {r}: {key} {tuple(pred[key].shape)} or '
+                  f'not finite')
+        print(f'[pvrcnn_plusplus] {tag} predict {r} B={BATCH}: '
+              f'{times[-1]:.1f} ms; {pvpp_text(rec, det.max_voxels_test)}; '
+              f'valid final boxes {pred["final_valid"].sum(1).tolist()}; '
+              f'merge_resolve launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        if rec['nn_calls']:
+            calls, rec['nn_calls'] = rec['nn_calls'], None
+            n_flip, n_slot = check_full_width_flips(calls, 'pvrcnn_plusplus',
+                                                    rec['three_nn'])
+            print(f'[pvrcnn_plusplus] {tag} full-width neighbour flips: '
+                  f'{n_flip} of {n_slot} valid slots over {len(calls)} '
+                  f'calls, each within the rounding bound')
+            del calls
+    print(f'[pvrcnn_plusplus] {tag} predict B={BATCH} x '
+          f'{batches[-1]["points"].shape[1]} points: mean '
+          f'{sum(times) / len(times):.1f} ms over {len(times)} requests')
+
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = batches_for(cfg, n_steps + int(warmup), SEED + 171, b,
+                           train=True)
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    step_times, captured_train = [], None
+    for i, batch in enumerate(tbatches):
+        label = 'warm-up step' if warmup and i == 0 else \
+            f'step {i - int(warmup)}'
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if warmup and i == 0:
+            captured_train, (state, metrics) = capture_calls(
+                lambda: train_step(state, batch))
+        else:
+            state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        check(n == 4, f'{tag} train {label}: {n} merge-resolve launches')
+        vals = {k: float(v) for k, v in metrics.items()}
+        check(all(math.isfinite(v) for v in vals.values())
+              and {'point_loss_cls', 'rcnn_loss_cls', 'rcnn_loss_reg'}
+              <= set(vals), f'{tag} train {label}: {vals}')
+        print(f'[pvrcnn_plusplus] {tag} {label} B={b}: '
+              f'{step_times[-1]:.1f} ms; '
+              + ', '.join(f'{k} {v:.5f}' for k, v in sorted(vals.items()))
+              + f'; {pvpp_text(rec, det.max_voxels_train)}; merge_resolve '
+              f'launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    undo()
+    if warmup:
+        check(len(captured_train) == 4, f'{tag}: {len(captured_train)} '
+                                        f'merge-resolve calls per step')
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'{tag}: parameters unchanged by the steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'{tag}: BN running stats unchanged: {same}')
+    timed = step_times[int(warmup):]
+    print(f'[pvrcnn_plusplus] {tag} train B={b}: '
+          + (f'warm-up step {step_times[0]:.1f} ms, ' if warmup else '')
+          + f'mean of {len(timed)} steps {sum(timed) / len(timed):.1f} ms; '
+          f'{len(params) - len(still)} of {len(params)} parameter tensors '
+          f'and all {len(stats)} BN running-stat tensors changed')
+    return (launches, captured, captured_train, sum(timed) / len(timed),
+            det, cfg)
+
+
+def phase_pvpp_harness(tmp):
+    """[pvrcnn_plusplus] (d): tools.convergence_waymo on
+    pv_rcnn_plusplus.yaml for CONV_PVPP_STEPS steps and a
+    CONV_PVPP_TAIL-step frozen-BN tail, as [convergence] cuts Waymo: 4
+    merge-resolve launches per train-mode forward and per predict, its
+    active-site lines, finite losses and the AP / APH keys (printed, not
+    gated).  Returns the launches."""
+    import math
+    import tempfile
+
+    from glenet_tpu_torch.tools import convergence_waymo as cw
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = str(tmp)
+    try:
+        entry, text, launches, per_call = run_tool(
+            'pv_rcnn_plusplus_waymo', cw.main,
+            [str(CONV_PVPP_STEPS), '1e-3',
+             'configs/waymo_models/pv_rcnn_plusplus.yaml',
+             str(CONV_PVPP_TAIL), '--out',
+             str(tmp / 'convergence_pvpp.json')])
+    finally:
+        tempfile.tempdir = saved_tmp
+    check_launches('pv_rcnn_plusplus_waymo', per_call, 4)
+    losses = printed_losses(text)
+    check(text.count('active sites max=') == 4
+          and all(math.isfinite(v) for v in losses)
+          and math.isfinite(entry['final_loss'])
+          and entry['Vehicle_L1_AP'] is not None
+          and entry['Vehicle_L1_APH'] is not None,
+          f'pv_rcnn_plusplus_waymo harness: {entry}')
+    conv_line(f'pv_rcnn_plusplus_waymo {CONV_PVPP_STEPS} + {CONV_PVPP_TAIL} '
+              f'frozen-BN steps', entry, ('Vehicle_L1_AP', 'Vehicle_L1_APH'))
+    return launches
+
+
+def phase_pvrcnn_plusplus(tmp):
+    """[pvrcnn_plusplus]: (a) pv_rcnn_plusplus.yaml at full width, with its
+    host syncs and the card's neighbour searches against the CPU's; (b)
+    pv_rcnn_plusplus_resnet.yaml; (c) the CLIs on [waymo]'s tree; (d) a
+    short harness run.  (e) the card against the CPU on tiny_pvpp_raw and
+    the kernel check of (a)'s captured calls run after the main paths.
+    Returns (launches, captured predict calls, captured train-step
+    calls)."""
+    import torch
+    launches, captured, captured_train, step_ms, det, cfg = phase_pvpp_full(
+        'pv_rcnn_plusplus.yaml', SEED + 172, PVPP_PREDICTS, PVPP_STEPS,
+        flips=True)
+    print_syncs(det, cfg, 'PV-RCNN++', 'pvrcnn_plusplus')
+    del det
+    torch.cuda.empty_cache()
+    n, _, _, _, det, _ = phase_pvpp_full('pv_rcnn_plusplus_resnet.yaml',
+                                         SEED + 173, 1, 1, warmup=False)
+    del det
+    torch.cuda.empty_cache()
+    launches += n
+    launches += waymo_cli_round(tmp, step_ms, 'pv_rcnn_plusplus.yaml',
+                                'pvrcnn_plusplus', 'PV-RCNN++', BATCH)
+    launches += phase_pvpp_harness(tmp)
     return launches, captured, captured_train
 
 
@@ -4727,6 +5271,8 @@ def main():
             launches_pointrcnn, _ = phase_pointrcnn(Path(tmp), tc_root)
             launches_center, captured_center, captured_center_train = \
                 phase_centerpoint(Path(tmp))
+            launches_pvpp, captured_pvpp, captured_pvpp_train = \
+                phase_pvrcnn_plusplus(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -4745,6 +5291,9 @@ def main():
         center = check_captured(captured_center, 'CenterPoint predict')
         center_train = check_captured(captured_center_train,
                                       'CenterPoint train step')
+        pvpp = check_captured(captured_pvpp, 'PV-RCNN++ predict')
+        pvpp_train = check_captured(captured_pvpp_train,
+                                    'PV-RCNN++ train step')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -4795,6 +5344,16 @@ def main():
         phase_gpu_vs_cpu_train(tiny_centerpoint_raw(),
                                'centerpoint] [gpu-vs-cpu', tiny_center_batch,
                                align_relu=True)
+        # the keypoints' FPS and the VectorPool neighbours are decisions:
+        # the CPU takes the card's at a near tie, as [pointrcnn]'s
+        tag = 'pvrcnn_plusplus] [gpu-vs-cpu'
+        phase_gpu_vs_cpu(tiny_pvpp_raw(), tag, align_points=True,
+                         align_neighbours=True)
+        phase_gpu_vs_cpu_train(
+            tiny_pvpp_raw(), tag,
+            lambda cfg: tiny_train_batch(cfg, train_proposals=True,
+                                         perturb=pvpp_gt_from_rois),
+            align_relu=True, align_points=True, align_neighbours=True)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -4808,7 +5367,7 @@ def main():
                      + launches_weights + launches_single + launches_waymo
                      + launches_three + launches_pv + launches_conv
                      + launches_parta2 + launches_pointrcnn
-                     + launches_center),
+                     + launches_center + launches_pvpp),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -4826,6 +5385,7 @@ def main():
         'launches_parta2': launches_parta2,
         'launches_pointrcnn': launches_pointrcnn,
         'launches_centerpoint': launches_center,
+        'launches_pvrcnn_plusplus': launches_pvpp,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -4861,7 +5421,10 @@ def main():
                                              ('parta2_train', parta2_train),
                                              ('centerpoint', center),
                                              ('centerpoint_train',
-                                              center_train))
+                                              center_train),
+                                             ('pv_rcnn_plusplus', pvpp),
+                                             ('pv_rcnn_plusplus_train',
+                                              pvpp_train))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -4904,7 +5467,13 @@ def main():
           f'each; the pillar configs: none; the CLIs: 2 train steps, '
           f'{math.ceil(WAYMO_FRAMES / WAYMO_BATCH)} predicts; the harness: '
           f'{CONV_CENTERPOINT_STEPS + CONV_CENTERPOINT_TAIL} steps, its '
-          f'BN-refresh forwards and predicts); '
+          f'BN-refresh forwards and predicts) and the PV-RCNN++ phase '
+          f'(pv_rcnn_plusplus.yaml: {PVPP_PREDICTS} predicts, '
+          f'{PVPP_STEPS + 1} train steps; the resnet yaml: 1 predict, 1 train '
+          f'step; the CLIs: 2 train steps, '
+          f'{math.ceil(WAYMO_FRAMES / BATCH)} predicts; the harness: '
+          f'{CONV_PVPP_STEPS + CONV_PVPP_TAIL} steps, its BN-refresh '
+          f'forwards and predicts); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '
@@ -4912,8 +5481,10 @@ def main():
           f'pv_rcnn_train_* per KITTI PV-RCNN train step, parta2_* per '
           f'KITTI PartA2 predict (sum of its {UNET_LAUNCHES} calls), '
           f'parta2_train_* per KITTI PartA2 train step, centerpoint_* per '
-          f'Waymo CenterPoint predict and centerpoint_train_* per Waymo '
-          f'CenterPoint train step')
+          f'Waymo CenterPoint predict, centerpoint_train_* per Waymo '
+          f'CenterPoint train step, pv_rcnn_plusplus_* per Waymo PV-RCNN++ '
+          f'predict and pv_rcnn_plusplus_train_* per Waymo PV-RCNN++ train '
+          f'step (B = 2)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

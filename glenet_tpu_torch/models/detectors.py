@@ -22,6 +22,11 @@ for these topologies:
     PointHeadSimple's foreground score, which weighs the keypoint features
     that PVRCNNHead pools into each RoI's grid; its segmentation loss adds
     `point_loss_cls`;
+  - PVRCNNPlusPlus (PV-RCNN++): the same slots with a CenterHead RPN, in
+    another order: proposals -> (train: RoI sampling) -> keypoints of those
+    rois (SPC: FPS over the points near a roi) with VectorPool features of
+    each source's points near a roi -> PointHeadSimple -> PVRCNNHead with
+    VectorPool RoI-grid pooling;
   - PartA2Net (PartA2): voxelize -> MeanVFE -> UNetV2 (sparse encoder,
     HeightCompression of its encoded tensor into the BEV stages and the
     anchor head; UR-block decoder to per-voxel features) ->
@@ -106,17 +111,20 @@ def _require(cond, what):
 
 # the MODEL names the port builds
 FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
-            'PVRCNN', 'PartA2Net', 'PointRCNN', 'CenterPoint')
+            'PVRCNN', 'PVRCNNPlusPlus', 'PartA2Net', 'PointRCNN',
+            'CenterPoint')
 # topology (_topology: the MODEL name, PointRCNN by its backbone) -> the
 # ROI_HEAD names it builds, None for a topology that may have none (the
 # others: none)
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
               'SECONDNetIoU': ('SECONDHead',), 'PVRCNN': ('PVRCNNHead',),
+              'PVRCNNPlusPlus': ('PVRCNNHead',),
               'PartA2Net': ('PartA2FCHead',),
               'PartA2-free': ('PartA2FCHead',),
               'PointRCNN': ('PointRCNNHead', None)}
 # topology -> the POINT_HEAD it needs (the others: none)
 _POINT_HEADS = {'PVRCNN': 'PointHeadSimple',
+                'PVRCNNPlusPlus': 'PointHeadSimple',
                 'PartA2Net': 'PointIntraPartOffsetHead',
                 'PartA2-free': 'PointIntraPartOffsetHead',
                 'PointRCNN': 'PointHeadBox'}
@@ -138,8 +146,8 @@ def _topology(model_cfg):
 
 class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
-    PointPillar, PVRCNN, PartA2Net, PartA2-free, point-based PointRCNN or
-    CenterPoint detector."""
+    PointPillar, PVRCNN, PVRCNNPlusPlus, PartA2Net, PartA2-free,
+    point-based PointRCNN or CenterPoint detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -194,10 +202,14 @@ class DetectorNet(nn.Module):
             _require(assigner in ('AxisAlignedTargetAssigner',
                                   'WeightedAxisAlignedTargetAssigner',
                                   'ATSSTargetAssigner'), assigner)
-        _require((pfe_cfg is not None) == (name == 'PVRCNN')
+        _require((pfe_cfg is not None) == (name in ('PVRCNN',
+                                                    'PVRCNNPlusPlus'))
                  and (pfe_cfg is None
                       or pfe_cfg.NAME == 'VoxelSetAbstraction'),
                  f'PFE {None if pfe_cfg is None else pfe_cfg.NAME} in {name}')
+        # PV-RCNN++ runs its proposals before the keypoints (SPC and the
+        # roi-filtered sources need the rois), PV-RCNN after them
+        self.pvpp = name == 'PVRCNNPlusPlus'
         if self.part_free:
             _require(ph_cfg.get('REG_FC') is not None
                      and point_coder is not None,
@@ -298,9 +310,14 @@ class DetectorNet(nn.Module):
                 else int(pfe_cfg.NUM_OUTPUT_FEATURES),
                 1 if ph_cfg.get('CLASS_AGNOSTIC', True) else num_class,
                 tuple(ph_cfg.CLS_FC))
+            if self.pfe.needs_rois and not self.pvpp:
+                raise ValueError(
+                    f'MODEL {name} samples its keypoints before the '
+                    f'proposals: SAMPLE_METHOD SPC and '
+                    f'FILTER_NEIGHBOR_WITH_ROI need PVRCNNPlusPlus')
         if roi_cfg is None or unet:             # PartA2FCHead: built above
             pass
-        elif name == 'PVRCNN':
+        elif name in ('PVRCNN', 'PVRCNNPlusPlus'):
             self.roi_head = PVRCNNHead(roi_cfg,
                                        int(pfe_cfg.NUM_OUTPUT_FEATURES),
                                        code_size=box_coder.code_size)
@@ -433,7 +450,7 @@ class DetectorNet(nn.Module):
             out['part_head'] = self._part_head(sp_out, train)
         if self.roi_head is None:
             return out
-        if self.pfe is not None:
+        if self.pfe is not None and not self.pvpp:
             # before the proposals, as glenet_tpu's plain PV-RCNN
             kp_weighted = self._keypoints(points, points_mask, sp_out, out,
                                           train)
@@ -445,6 +462,14 @@ class DetectorNet(nn.Module):
                 out['proposals'] = self._proposals(out['dense_head'], train)
         roi_in = self._roi_input(out, train, gt_boxes, gt_mask,
                                  gt_uncertainty, generator, roi_targets)
+        if self.pvpp:
+            # PV-RCNN++: the keypoints of the (detached) rois the head
+            # refines, all valid in train mode
+            roi_valid = (torch.ones(roi_in.shape[:2], dtype=torch.bool,
+                                    device=roi_in.device) if train
+                         else out['proposals']['roi_valid'])
+            kp_weighted = self._keypoints(points, points_mask, sp_out, out,
+                                          train, roi_in, roi_valid)
         if self.part_head is not None:
             out['rcnn'] = self._part_roi_head(roi_in, sp_out,
                                               out['part_head'], train,
@@ -564,13 +589,14 @@ class DetectorNet(nn.Module):
                                    self.model_cfg.ROI_HEAD.NMS_CONFIG[
                                        'TRAIN' if train else 'TEST'])
 
-    def _keypoints(self, points, points_mask, sp_out, out, train):
-        """VoxelSetAbstraction and PointHeadSimple: sets out['pfe']
-        (keypoints, keypoint_idx, point_cls_preds) and returns the fused
-        keypoint features times the sigmoid of their best foreground
-        logit."""
+    def _keypoints(self, points, points_mask, sp_out, out, train, rois=None,
+                   roi_valid=None):
+        """VoxelSetAbstraction (of the rois, for PV-RCNN++) and
+        PointHeadSimple: sets out['pfe'] (keypoints, keypoint_idx,
+        point_cls_preds) and returns the fused keypoint features times the
+        sigmoid of their best foreground logit."""
         vsa = self.pfe(points, points_mask, sp_out['multi_scale'],
-                       sp_out['bev_features'], 8, train)
+                       sp_out['bev_features'], 8, rois, roi_valid, train)
         cls = self.point_head_simple(
             vsa['point_features_before_fusion']
             if self.use_features_before_fusion else vsa['point_features'],

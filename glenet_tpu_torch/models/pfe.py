@@ -1,13 +1,16 @@
-"""Point-feature extraction of PV-RCNN (torch counterpart of
+"""Point-feature extraction of PV-RCNN and PV-RCNN++ (torch counterpart of
 glenet_tpu/models/pfe.py): VoxelSetAbstraction keypoints, their
 foreground head PointHeadSimple and its loss.
 
   - NUM_KEYPOINTS keypoints by farthest-point sampling of the raw points
-    (SAMPLE_METHOD FPS);
+    (SAMPLE_METHOD FPS), or with SPC (PV-RCNN++'s sectorized
+    proposal-centric sampling) of those near a RoI;
   - per keypoint, features from each FEATURES_SOURCE: 'bev' by bilinear
     interpolation of the HeightCompression map (stride 8), 'raw_points' and
     'x_conv1..4' by StackSAModuleMSG (ball query, shared MLP, max pool per
-    radius) over the raw cloud or a backbone level's voxel centres;
+    radius) or VectorPoolAggregationMSG (models/vector_pool.py) over the raw
+    cloud or a backbone level's voxel centres, with FILTER_NEIGHBOR_WITH_ROI
+    only over the points near a RoI;
   - the concatenation (bev, raw_points, then the levels in FEATURES_SOURCE
     order) -> Linear without bias, BN, ReLU to NUM_OUTPUT_FEATURES.
 
@@ -23,9 +26,10 @@ from torch import nn
 
 from ..ops import pointnet2 as pn2
 from ..ops import sparse
-from . import point_heads
+from . import point_heads, vector_pool
 from .layers import MaskedBatchNorm
 from .pointnet2_backbone import SharedMLP
+from .vector_pool import VectorPoolAggregationMSG
 
 
 def bilinear_interpolate(im, x, y):
@@ -103,22 +107,9 @@ def sparse_level_points(level, voxel_size, pc_range):
     return xyz, torch.where(mask[..., None], rows.transpose(1, 2), 0.0), mask
 
 
-def _refuse_pvrcnn_plusplus(model_cfg):
-    """What PV-RCNN++ adds to the keypoint path raises naming itself."""
-    method = model_cfg.get('SAMPLE_METHOD', 'FPS')
-    if method != 'FPS':
-        raise NotImplementedError(f'SAMPLE_METHOD {method} is not ported yet')
-    for src, sa in model_cfg.SA_LAYER.items():
-        if sa.get('NAME', '') == 'VectorPoolAggregationModuleMSG':
-            raise NotImplementedError(
-                f'VectorPoolAggregationModuleMSG ({src}) is not ported yet')
-        if sa.get('FILTER_NEIGHBOR_WITH_ROI', False):
-            raise NotImplementedError(
-                f'FILTER_NEIGHBOR_WITH_ROI ({src}) is not ported yet')
-
-
 class VoxelSetAbstraction(nn.Module):
-    """PV-RCNN's keypoint features (see the module docstring).
+    """PV-RCNN's and PV-RCNN++'s keypoint features (see the module
+    docstring).
 
     num_bev_features: channels of the HeightCompression map;
     num_point_features: of the raw points (xyz first);
@@ -127,9 +118,14 @@ class VoxelSetAbstraction(nn.Module):
     def __init__(self, model_cfg, voxel_size, pc_range, num_bev_features: int,
                  num_point_features: int, level_channels: dict):
         super().__init__()
-        _refuse_pvrcnn_plusplus(model_cfg)
         self.voxel_size, self.pc_range = tuple(voxel_size), tuple(pc_range)
         self.num_keypoints = int(model_cfg.NUM_KEYPOINTS)
+        method = model_cfg.get('SAMPLE_METHOD', 'FPS')
+        if method not in ('FPS', 'SPC'):
+            raise NotImplementedError(f'SAMPLE_METHOD {method}')
+        self.spc_radius = (float(model_cfg.SPC_SAMPLING
+                                 .SAMPLE_RADIUS_WITH_ROI)
+                           if method == 'SPC' else None)
         self.sources = list(model_cfg.FEATURES_SOURCE)
         sa_cfg = model_cfg.SA_LAYER
         c_in = num_bev_features if 'bev' in self.sources else 0
@@ -137,31 +133,73 @@ class VoxelSetAbstraction(nn.Module):
                        if s not in ('bev', 'raw_points')]
         src_channels = dict(level_channels,
                             raw_points=num_point_features - 3)
+        # source -> (module name, RADIUS_OF_NEIGHBOR_WITH_ROI or None)
+        self.aggregators = {}
         for src in (['raw_points'] if 'raw_points' in self.sources else []) \
                 + self.levels:
             cfg_s = sa_cfg[src]
-            sa = StackSAModuleMSG(src_channels[src], cfg_s.POOL_RADIUS,
-                                  cfg_s.NSAMPLE, cfg_s.MLPS)
-            setattr(self, f'sa_{src}', sa)
-            c_in += sa.out_channels
+            if cfg_s.get('NAME', '') == 'VectorPoolAggregationModuleMSG':
+                # a source without features gets a column of ones
+                name = f'vp_{src}'
+                mod = VectorPoolAggregationMSG(cfg_s,
+                                               src_channels[src] or 1)
+            else:
+                name = f'sa_{src}'
+                mod = StackSAModuleMSG(src_channels[src], cfg_s.POOL_RADIUS,
+                                       cfg_s.NSAMPLE, cfg_s.MLPS)
+            setattr(self, name, mod)
+            self.aggregators[src] = (name, float(
+                cfg_s.RADIUS_OF_NEIGHBOR_WITH_ROI)
+                if cfg_s.get('FILTER_NEIGHBOR_WITH_ROI', False) else None)
+            c_in += mod.out_channels
+        self.needs_rois = self.spc_radius is not None or any(
+            r is not None for _, r in self.aggregators.values())
         self.num_features_before_fusion = c_in
         c_out = int(model_cfg.NUM_OUTPUT_FEATURES)
         self.fusion = nn.Linear(c_in, c_out, bias=False)
         self.fusion_bn = MaskedBatchNorm(c_out)
 
-    def keypoints(self, points, points_mask):
-        """(B, K, 3) keypoints by FPS over the valid raw points."""
+    def keypoints(self, points, points_mask, rois=None, roi_valid=None):
+        """(B, K, 3) keypoints by FPS over the valid raw points; with
+        SAMPLE_METHOD SPC over those within SAMPLE_RADIUS_WITH_ROI of a valid
+        roi (sample_points_with_roi_mask), or over all valid points in a
+        scene where none is.  Like glenet_tpu, one masked FPS over the scene
+        (NUM_SECTORS is not read)."""
         xyz = points[..., :3]
-        idx = pn2.farthest_point_sample(xyz, self.num_keypoints, points_mask)
+        fps_mask = points_mask
+        if self.spc_radius is not None:
+            near = vector_pool.sample_points_with_roi_mask(
+                xyz, points_mask, rois[..., :7], roi_valid, self.spc_radius)
+            fps_mask = torch.where(near.any(-1, keepdim=True), near,
+                                   points_mask)
+        idx = pn2.farthest_point_sample(xyz, self.num_keypoints, fps_mask)
         return xyz.gather(1, idx[..., None].expand(*idx.shape, 3)), idx
 
+    def aggregate(self, src, kp, xyz, feats, mask, rois, roi_valid, train):
+        """One source's keypoint features: its support mask cut to the
+        points within RADIUS_OF_NEIGHBOR_WITH_ROI of a valid roi where
+        FILTER_NEIGHBOR_WITH_ROI is set, then StackSAModuleMSG (`sa_<src>`)
+        or VectorPoolAggregationMSG (`vp_<src>`)."""
+        name, radius = self.aggregators[src]
+        if radius is not None:
+            mask = vector_pool.sample_points_with_roi_mask(
+                xyz, mask, rois[..., :7], roi_valid, radius)
+        mod = getattr(self, name)
+        if name.startswith('vp_'):
+            if feats is None:
+                feats = xyz.new_ones((*xyz.shape[:2], 1))
+            return mod(xyz, mask, feats, kp, train)
+        return mod(kp, xyz, feats, mask, train)
+
     def forward(self, points, points_mask, multi_scale, bev_features,
-                bev_stride: int = 8, train: bool = False):
+                bev_stride: int = 8, rois=None, roi_valid=None,
+                train: bool = False):
         """points (B, P, 3 + F) raw, points_mask (B, P), multi_scale the
-        backbone's levels, bev_features (B, H, W, C).  Returns keypoints
-        (B, K, 3), keypoint_idx (B, K), point_features (B, K, C_out) and
-        point_features_before_fusion (B, K, C_in)."""
-        kp, kp_idx = self.keypoints(points, points_mask)
+        backbone's levels, bev_features (B, H, W, C); rois (B, R, 7+) and
+        roi_valid (B, R) for SPC keypoints and the roi-filtered sources.
+        Returns keypoints (B, K, 3), keypoint_idx (B, K), point_features
+        (B, K, C_out) and point_features_before_fusion (B, K, C_in)."""
+        kp, kp_idx = self.keypoints(points, points_mask, rois, roi_valid)
         feats = []
         if 'bev' in self.sources:
             vx, vy = self.voxel_size[0], self.voxel_size[1]
@@ -173,12 +211,14 @@ class VoxelSetAbstraction(nn.Module):
                 for i in range(kp.shape[0])]))
         if 'raw_points' in self.sources:
             raw = points[..., 3:] if points.shape[-1] > 3 else None
-            feats.append(self.sa_raw_points(kp, points[..., :3], raw,
-                                            points_mask, train))
+            feats.append(self.aggregate('raw_points', kp, points[..., :3],
+                                        raw, points_mask, rois, roi_valid,
+                                        train))
         for src in self.levels:
             xyz, f, m = sparse_level_points(multi_scale[src], self.voxel_size,
                                             self.pc_range)
-            feats.append(getattr(self, f'sa_{src}')(kp, xyz, f, m, train))
+            feats.append(self.aggregate(src, kp, xyz, f, m, rois, roi_valid,
+                                        train))
         before = torch.cat(feats, -1)
         h = self.fusion_bn(self.fusion(before), use_running_average=not train)
         return {'keypoints': kp, 'keypoint_idx': kp_idx,

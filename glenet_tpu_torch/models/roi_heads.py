@@ -1,9 +1,10 @@
-"""RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU, PV-RCNN and PartA2
-(torch counterpart of the VoxelRCNN, PVRCNNHead, SECONDHead and
+"""RoI stage of GLENet-VR, Voxel R-CNN, SECOND-IoU, PV-RCNN (and ++) and
+PartA2 (torch counterpart of the VoxelRCNN, PVRCNNHead, SECONDHead and
 PartA2FCHead parts of glenet_tpu/models/roi_heads.py): train-time RoI
 target sampling (CLS_SCORE_TYPE roi_iou's soft labels or, for PointRCNN,
 cls's hard ones), VoxelRCNNHead with or without its KL-label branches,
-PVRCNNHead (RoI-grid pooling of the keypoint features), SECONDHead (IoU
+PVRCNNHead (RoI-grid pooling of the keypoint features, by ball queries
+or PV-RCNN++'s VectorPool), SECONDHead (IoU
 scoring of BEV-sampled rois), PartA2FCHead (RoI-aware pooling of UNetV2's
 voxel-point and part features), and the RCNN losses.
 
@@ -35,6 +36,7 @@ from ..utils import common, losses
 from .layers import MaskedBatchNorm
 from .pfe import StackSAModuleMSG, bilinear_interpolate
 from .spconv_backbone import DenseConvBN
+from .vector_pool import VectorPoolAggregationMSG
 
 _BIG = 1e9
 # exclusive upper bound of the integer draws of the bg picks
@@ -585,24 +587,27 @@ class VoxelRCNNHead(_FCStacks):
 class PVRCNNHead(_FCStacks):
     """PV-RCNN's RoI head: GRID_SIZE^3 grid points per roi pool the
     keypoint features (already weighted by the keypoints' foreground
-    score) by StackSAModuleMSG `roi_grid_pool` over every keypoint, then
-    the shared / cls / reg FC stacks of VoxelRCNNHead's shape (BN eps
-    1e-5, DP_RATIO dropout after the first FC of each in train mode),
-    `cls_pred` (the raw logit) and `reg_pred`."""
+    score) over every keypoint, by StackSAModuleMSG `roi_grid_pool` or, with
+    ROI_GRID_POOL.NAME VectorPoolAggregationModuleMSG (PV-RCNN++),
+    `roi_grid_vpool`; then the shared / cls / reg FC stacks of
+    VoxelRCNNHead's shape (BN eps 1e-5, DP_RATIO dropout after the first FC
+    of each in train mode), `cls_pred` (the raw logit) and `reg_pred`."""
 
     def __init__(self, model_cfg, in_channels: int, code_size: int = 7):
         super().__init__()
         pool = model_cfg.ROI_GRID_POOL
-        if pool.get('NAME', '') == 'VectorPoolAggregationModuleMSG':
-            raise NotImplementedError(
-                'VectorPoolAggregationModuleMSG (ROI_GRID_POOL) is not '
-                'ported yet')
         self.grid = int(pool.GRID_SIZE)
         self.dp_ratio = float(model_cfg.get('DP_RATIO', 0.0))
-        self.roi_grid_pool = StackSAModuleMSG(in_channels, pool.POOL_RADIUS,
-                                              pool.NSAMPLE, pool.MLPS)
-        self._build_fc_stacks(
-            model_cfg, self.roi_grid_pool.out_channels * self.grid ** 3)
+        self.vector_pool = (pool.get('NAME', '')
+                            == 'VectorPoolAggregationModuleMSG')
+        if self.vector_pool:
+            self.roi_grid_vpool = VectorPoolAggregationMSG(pool, in_channels)
+            c = self.roi_grid_vpool.out_channels
+        else:
+            self.roi_grid_pool = StackSAModuleMSG(
+                in_channels, pool.POOL_RADIUS, pool.NSAMPLE, pool.MLPS)
+            c = self.roi_grid_pool.out_channels
+        self._build_fc_stacks(model_cfg, c * self.grid ** 3)
         self.cls_pred = nn.Linear(int(model_cfg.CLS_FC[-1]), 1)
         self.reg_pred = nn.Linear(int(model_cfg.REG_FC[-1]), code_size)
         nn.init.normal_(self.reg_pred.weight, std=0.001)
@@ -616,7 +621,14 @@ class PVRCNNHead(_FCStacks):
         b, r = rois.shape[:2]
         grid_pts = roi_grid_points(rois.reshape(b * r, -1), g).reshape(
             b, r * g ** 3, 3)
-        pooled = self.roi_grid_pool(grid_pts, kp_xyz, kp_feats, None, train)
+        if self.vector_pool:
+            pooled = self.roi_grid_vpool(
+                kp_xyz, torch.ones(kp_xyz.shape[:2], dtype=torch.bool,
+                                   device=kp_xyz.device),
+                kp_feats, grid_pts, train)
+        else:
+            pooled = self.roi_grid_pool(grid_pts, kp_xyz, kp_feats, None,
+                                        train)
         feats = pooled.reshape(b * r, -1)
         shared = self._fc_stack(feats, 'shared', train, generator)
         cls_feat = self._fc_stack(shared, 'cls_fc', train, generator)

@@ -22,7 +22,10 @@ features; utils/synthetic.py), one warm-up predict, then:
      final NMS, or single-stage decode + final NMS; for PV-RCNN also the
      keypoint stages (FPS, the set abstraction of each source, BEV
      interpolation with the fusion, PointHeadSimple) and, within
-     PVRCNNHead, the RoI-grid pool and the FCs; for PartA2 and
+     PVRCNNHead, the RoI-grid pool and the FCs (PV-RCNN++,
+     pv_rcnn_plusplus*.yaml: the proposal NMS before the keypoints, the
+     RoI masks of SPC and of the neighbour filters, each VectorPool source
+     and the RoI-grid VectorPool); for PartA2 and
      PartA2-free the UNet encoder and decoder within UNetV2, the part head
      (PointIntraPartOffsetHead) and, within PartA2FCHead, the RoI-aware
      pooling and the convs + FCs (PartA2-free has no 2D backbone or dense
@@ -48,7 +51,7 @@ from pathlib import Path
 import torch
 
 from .config import cfg_from_yaml_file
-from .models import center_head
+from .models import center_head, vector_pool
 from .ops import iou3d
 from .ops import nms as nms_ops
 from .ops import pointnet2
@@ -79,12 +82,14 @@ def _stage_times(det, batch):
         ('part_head',) if part else ()) + (('roi_head',) if two_stage else ())
     mods = {n: getattr(det.net, n) for n in names}
     sa_names = []
+    pvpp = pv and det.net.pvpp
     if pv:
-        sa_names = [n for n, _ in det.net.pfe.named_children()
-                    if n.startswith('sa_')]
+        sa_names = [name for name, _ in det.net.pfe.aggregators.values()]
+        head = det.net.roi_head
         mods.update(pfe=det.net.pfe,
                     point_head_simple=det.net.point_head_simple,
-                    roi_grid_pool=det.net.roi_head.roi_grid_pool,
+                    roi_grid_pool=(head.roi_grid_vpool if head.vector_pool
+                                   else head.roi_grid_pool),
                     **{n: getattr(det.net.pfe, n) for n in sa_names})
     hooks = []
     for name, mod in mods.items():
@@ -96,7 +101,9 @@ def _stage_times(det, batch):
             _timed(center_head, 'decode_center_boxes', 'top-k decode',
                    calls),
             _timed(nms_ops, 'greedy_keep', 'greedy keep rounds', calls),
-            _timed(pointnet2, 'farthest_point_sample', 'FPS', calls)]
+            _timed(pointnet2, 'farthest_point_sample', 'FPS', calls),
+            _timed(vector_pool, 'sample_points_with_roi_mask', 'RoI masks',
+                   calls)]
     if part:
         unet, head = det.net.backbone_3d, det.net.roi_head
         undo += [_timed(unet, 'encode', 'UNet encoder', calls),
@@ -138,19 +145,25 @@ def _stage_times(det, batch):
         spans[mcfg.POINT_HEAD.NAME] = t['part_head<'] - t['part_head>']
     nms = ('variance-voting' if mcfg.POST_PROCESSING.NMS_CONFIG.NMS_TYPE
            != 'nms_gpu' else 'greedy')
+    if pvpp:
+        # PV-RCNN++ takes its proposals before the keypoints
+        spans['decode + proposal NMS'] = t['pfe>'] - t['dense_head<']
     if pv:
-        fps = called('FPS')
+        fps, masks = called('FPS'), called('RoI masks')
         sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
+        if pvpp:
+            spans['PFE: RoI masks (SPC, neighbour filters)'] = masks
         spans['PFE: FPS'] = fps
         spans.update({f'PFE: {n}': v for n, v in sa.items()})
         spans['PFE: BEV interpolation + fusion'] = (
-            t['pfe<'] - t['pfe>'] - fps - sum(sa.values()))
+            t['pfe<'] - t['pfe>'] - fps - masks - sum(sa.values()))
         spans['PointHeadSimple'] = (t['point_head_simple<']
                                     - t['point_head_simple>'])
-    if two_stage:
+    if two_stage and not pvpp:
         spans['decode + proposal NMS'] = t['roi_head>'] - t[
             'point_head_simple<' if pv else 'part_head<' if part
             else 'dense_head<']
+    if two_stage:
         spans[mcfg.ROI_HEAD.NAME] = t['roi_head<'] - t['roi_head>']
         if pv or part:
             pool = (t['roi_grid_pool<'] - t['roi_grid_pool>'] if pv

@@ -23,7 +23,11 @@ One warm-up step, then:
      targets + loss, backward, optimizer; for PV-RCNN the forward to the
      dense head, the keypoint stages (FPS, the set abstraction of each
      source, BEV interpolation with the fusion, PointHeadSimple) before
-     the train NMS, and within the RoI head forward the RoI-grid pool;
+     the train NMS, and within the RoI head forward the RoI-grid pool
+     (PV-RCNN++, pv_rcnn_plusplus*.yaml: the train NMS and the RoI
+     sampling first, then the RoI masks of SPC and of the neighbour
+     filters, FPS, each VectorPool source, the fusion, PointHeadSimple and
+     the RoI-grid VectorPool);
      for PartA2 and PartA2-free voxelize + MeanVFE, the UNet encoder and
      decoder, the 2D backbone + dense head (PartA2 only), the part head,
      then the train NMS (PartA2-free: of the part head's boxes), RoI
@@ -48,6 +52,7 @@ from pathlib import Path
 import torch
 
 from .config import cfg_from_yaml_file
+from .models import vector_pool
 from .ops import pointnet2
 from .train import optim
 from .train import state as train_state
@@ -118,12 +123,15 @@ def stage_times(det, tx, state, train_step, batch):
     undo = [_wrap(marks, det, 'compute_loss', 'loss>', 'loss<'),
             _wrap(marks, tx, 'update', 'backward<', 'update<')]
     sa_names, hooks = [], []
+    pvpp = pv and det.net.pvpp
+    masks = []
     if pv:
-        sa_names = [n for n, _ in det.net.pfe.named_children()
-                    if n.startswith('sa_')]
+        sa_names = [name for name, _ in det.net.pfe.aggregators.values()]
+        head = det.net.roi_head
         mods = dict(pfe=det.net.pfe,
                     point_head_simple=det.net.point_head_simple,
-                    roi_grid_pool=det.net.roi_head.roi_grid_pool,
+                    roi_grid_pool=(head.roi_grid_vpool if head.vector_pool
+                                   else head.roi_grid_pool),
                     **{n: getattr(det.net.pfe, n) for n in sa_names})
         for name, mod in mods.items():
             hooks.append(mod.register_forward_pre_hook(
@@ -139,8 +147,21 @@ def stage_times(det, tx, state, train_step, batch):
             return out
 
         pointnet2.farthest_point_sample = fps
+        real_masks = vector_pool.sample_points_with_roi_mask
+
+        def roi_masks(*args, **kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = real_masks(*args, **kwargs)
+            torch.cuda.synchronize()
+            masks.append(time.perf_counter() - start)
+            return out
+
+        vector_pool.sample_points_with_roi_mask = roi_masks
         undo += [lambda: setattr(pointnet2, 'farthest_point_sample',
-                                 real_fps)] + [h.remove for h in hooks]
+                                 real_fps),
+                 lambda: setattr(vector_pool, 'sample_points_with_roi_mask',
+                                 real_masks)] + [h.remove for h in hooks]
     part = det.net.part_head is not None
     if part:
         undo += [_wrap(marks, det.net.backbone_3d, 'encode', 'enc>', 'enc<'),
@@ -172,20 +193,28 @@ def stage_times(det, tx, state, train_step, batch):
             spans['2D backbone + dense head'] = t['part>'] - t['dec<']
         spans['part head'] = t['part<'] - t['part>']
     elif two_stage:
-        spans = {'forward to the dense head': t['pfe>' if pv else 'nms>'] - t0}
+        spans = {'forward to the dense head':
+                 t['pfe>' if pv and not pvpp else 'nms>'] - t0}
     if two_stage:
+        if pvpp:
+            # PV-RCNN++ samples its RoIs before the keypoints
+            spans.update({'train NMS': t['nms<'] - t['nms>'],
+                          'RoI sampling': t['sample<'] - t['nms<']})
+            spans['PFE: RoI masks (SPC, neighbour filters)'] = sum(masks)
         if pv:
             sa = {n: t[f'{n}<'] - t[f'{n}>'] for n in sa_names}
             fps = t['fps<'] - t['fps>']
             spans['PFE: FPS'] = fps
             spans.update({f'PFE: {n}': v for n, v in sa.items()})
             spans['PFE: BEV interpolation + fusion'] = (
-                t['pfe<'] - t['pfe>'] - fps - sum(sa.values()))
+                t['pfe<'] - t['pfe>'] - fps - sum(masks) - sum(sa.values()))
             spans['PointHeadSimple'] = (t['point_head_simple<']
                                         - t['point_head_simple>'])
-        spans.update({'train NMS': t['nms<'] - t['nms>'],
-                      'RoI sampling': t['sample<'] - t['nms<'],
-                      'RoI head forward': t['head<'] - t['sample<']})
+        if not pvpp:
+            spans.update({'train NMS': t['nms<'] - t['nms>'],
+                          'RoI sampling': t['sample<'] - t['nms<']})
+        spans['RoI head forward'] = t['head<'] - t[
+            'head>' if pvpp else 'sample<']
         if pv:
             spans['  of it RoI-grid pool'] = (t['roi_grid_pool<']
                                               - t['roi_grid_pool>'])

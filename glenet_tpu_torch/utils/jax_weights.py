@@ -41,6 +41,12 @@ reg}_<i>` / `_bn<i>` / `cls_out` / `box_out` (PointHeadBox) and
 `roi_head.xyz_up.mlp_<i>` (or with USE_BN `xyz_up_<i>` / `xyz_up_bn_<i>`),
 `merge_down` (`_bn`), `sa_<l>.mlp_<i>` (`bn_<i>`), `{cls, reg}_<i>` /
 `_bn<i>` / `_out` (PointRCNNHead): Linear and MaskedBatchNorm leaves all.
+PV-RCNN++'s VectorPool modules (`pfe.vp_<source>`, `roi_head.
+roi_grid_vpool`: `group_<k>.{separate_w, separate_bn, post_<i>,
+post_bn<i>}`, `msg_<i>`, `msg_bn<i>`) add one rule:
+
+  - VectorPoolAggregation: `separate_w` (G, C_in, D) kept as it is
+
 It raises on any leaf it does not consume and on any port parameter or
 buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.
@@ -54,6 +60,7 @@ from torch import nn
 from ..models.layers import ConvBlock, MaskedBatchNorm
 from ..models.spconv_backbone import (DenseConvBN, InverseConvBN,
                                       SparseConvBN, SubMConvBN)
+from ..models.vector_pool import VectorPoolAggregation
 
 _SPARSE = (SubMConvBN, SparseConvBN, InverseConvBN)
 
@@ -87,6 +94,8 @@ def _convert(module, leaf, value):
         return 'weight', w.transpose(4, 3, 0, 1, 2)
     if isinstance(module, _SPARSE) and leaf == 'kernel':
         return 'kernel', value
+    if isinstance(module, VectorPoolAggregation) and leaf == 'separate_w':
+        return 'separate_w', value
     raise KeyError(f'no rule for leaf {leaf!r} of {type(module).__name__}')
 
 
@@ -136,6 +145,8 @@ def _export(module, name, value):
                 value.transpose(2, 3, 4, 1, 0).reshape(-1, cin, cout))
     if isinstance(module, _SPARSE) and name == 'kernel':
         return 'params', 'kernel', value
+    if isinstance(module, VectorPoolAggregation) and name == 'separate_w':
+        return 'params', 'separate_w', value
     raise KeyError(f'no rule for {name!r} of {type(module).__name__}')
 
 

@@ -217,7 +217,8 @@ def _pcdet_backbone(subm_per_block, out_channels, channels, residual):
 def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     """A state dict of random tensors under the key names and layouts of
     the reference (OpenPCDet / GLENet) for `cfg`, VoxelRCNN, SECONDNet,
-    SECONDNetIoU, PointPillar, PVRCNN or CenterPoint: MeanVFE or
+    SECONDNetIoU, PointPillar, PVRCNN, PVRCNNPlusPlus or CenterPoint:
+    MeanVFE or
     DynMeanVFE (no parameters) or PillarVFE (vfe.pfn_layers.{i}.linear
     without bias and .norm), VoxelBackBone8x, VoxelBackBone8xCiassd or
     VoxelResBackBone8x (its SparseBasicBlocks' conv1 / bn1 / conv2 / bn2)
@@ -239,8 +240,8 @@ def pcdet_state_dict(cfg, seed=0, num_point_features=None):
     ReLU (and Dropout after every Linear but the last when DP_RATIO > 0),
     cls_pred_layer, reg_pred_layer and, for VoxelRCNNKLLabelIoUHead,
     reg_std_layer, reg_std_bn, reg_std_fc1, reg_std_bn1 and reg_std_fc2;
-    in SECONDNetIoU the roi head of _pcdet_second_head, in PVRCNN the
-    stage 2 of _pcdet_pvrcnn_stage2.
+    in SECONDNetIoU the roi head of _pcdet_second_head, in PVRCNN and
+    PVRCNNPlusPlus the stage 2 of _pcdet_pvrcnn_stage2.
     Every BN comes with running stats and num_batches_tracked.  Weights ~
     N(0, 1/fan_in), biases and running means ~ N(0, 0.1), BN scales and
     running variances ~ U(0.5, 1.5).  The input convolution takes
@@ -474,23 +475,55 @@ def _pcdet_second_head(roi, weight, bn, bias):
 
 
 def _pcdet_pvrcnn_stage2(mcfg, num_point_features, c_bev, weight, bn, bias):
-    """PV-RCNN's stage-2 keys: pfe.SA_layers.{k} (the backbone levels of
-    FEATURES_SOURCE in order) and pfe.SA_rawpoints, each mlps.{i} = Conv2d
-    1x1 without bias, BN2d, ReLU per MLPS entry (on 3 + C inputs);
+    """PV-RCNN's and PV-RCNN++'s stage-2 keys: pfe.SA_layers.{k} (the
+    backbone levels of FEATURES_SOURCE in order) and pfe.SA_rawpoints, each
+    mlps.{i} = Conv2d 1x1 without bias, BN2d, ReLU per MLPS entry (on 3 + C
+    inputs), or for a VectorPoolAggregationModuleMSG source layer_{g} per
+    group (separate_local_aggregation_layer = Conv1d k1 with G groups
+    without bias, BN1d, ReLU; post_mlps.{3i} = Conv1d k1 without bias,
+    BN1d, ReLU per POST_MLPS entry) and msg_post_mlps (the same per
+    MSG_POST_MLPS entry over the groups and xyz);
     pfe.vsa_point_feature_fusion (Linear without bias, BN1d);
     point_head.cls_layers (Linear without bias, BN1d, ReLU per CLS_FC
-    entry, then a Linear with bias); roi_head.roi_grid_pool_layer.mlps.{i}
-    as the SA layers', shared_fc_layer (Conv1d k1 without bias, BN1d, ReLU
-    per SHARED_FC entry, a Dropout after each but the last when DP_RATIO >
-    0), cls_layers and reg_layers (RoIHeadTemplate.make_fc_layers: the same
-    per entry, a Dropout after the first when DP_RATIO >= 0, then a Conv1d
-    k1 with bias)."""
+    entry, then a Linear with bias); roi_head.roi_grid_pool_layer as the
+    SA or VectorPool layers, shared_fc_layer (Conv1d k1 without bias,
+    BN1d, ReLU per SHARED_FC entry, a Dropout after each but the last when
+    DP_RATIO > 0), cls_layers and reg_layers (RoIHeadTemplate.
+    make_fc_layers: the same per entry, a Dropout after the first when
+    DP_RATIO >= 0, then a Conv1d k1 with bias)."""
     channels = {'x_conv1': 16, 'x_conv2': 32, 'x_conv3': 64, 'x_conv4': 64,
                 'raw_points': num_point_features - 3}
 
-    def sa_layer(prefix, cin, mlps):
+    def conv1d_stack(prefix, c, sizes):
+        for i, f in enumerate(sizes):
+            weight(f'{prefix}.{3 * i}.weight', (f, c, 1), c)
+            bn(f'{prefix}.{3 * i + 1}', f)
+            c = f
+        return c
+
+    def vector_pool_layer(prefix, cin, cfg_s):
+        c_msg = 3
+        g_out = int(cfg_s.NUM_CHANNELS_OF_LOCAL_AGGREGATION)
+        reduced = int(cfg_s.get('NUM_REDUCED_CHANNELS') or cin)
+        extra = 9 if cfg_s.LOCAL_AGGREGATION_TYPE == 'local_interpolation' \
+            else 3
+        for k in range(int(cfg_s.NUM_GROUPS)):
+            gcfg = cfg_s[f'GROUP_CFG_{k}']
+            g = int(np.prod(gcfg.NUM_LOCAL_VOXEL))
+            base = f'{prefix}.layer_{k}'
+            weight(f'{base}.separate_local_aggregation_layer.0.weight',
+                   (g * g_out, reduced + extra, 1), reduced + extra)
+            bn(f'{base}.separate_local_aggregation_layer.1', g * g_out)
+            c_msg += conv1d_stack(f'{base}.post_mlps', g * g_out,
+                                  gcfg.POST_MLPS)
+        return conv1d_stack(f'{prefix}.msg_post_mlps', c_msg,
+                            cfg_s.get('MSG_POST_MLPS') or ())
+
+    def sa_layer(prefix, cin, cfg_s):
+        if cfg_s.get('NAME') == 'VectorPoolAggregationModuleMSG':
+            return vector_pool_layer(prefix, cin, cfg_s)
         c_out = 0
-        for i, m in enumerate(mlps):
+        for i, m in enumerate(cfg_s.MLPS):
             c = cin + 3
             for j, f in enumerate(m):
                 weight(f'{prefix}.mlps.{i}.{3 * j}.weight', (f, c, 1, 1), c)
@@ -505,10 +538,10 @@ def _pcdet_pvrcnn_stage2(mcfg, num_point_features, c_bev, weight, bn, bias):
               if s not in ('bev', 'raw_points')]
     for k, src in enumerate(levels):
         c_fused += sa_layer(f'pfe.SA_layers.{k}', channels[src],
-                            pfe.SA_LAYER[src].MLPS)
+                            pfe.SA_LAYER[src])
     if 'raw_points' in pfe.FEATURES_SOURCE:
         c_fused += sa_layer('pfe.SA_rawpoints', channels['raw_points'],
-                            pfe.SA_LAYER['raw_points'].MLPS)
+                            pfe.SA_LAYER['raw_points'])
     c_kp = int(pfe.NUM_OUTPUT_FEATURES)
     weight('pfe.vsa_point_feature_fusion.0.weight', (c_kp, c_fused), c_fused)
     bn('pfe.vsa_point_feature_fusion.1', c_kp)
@@ -523,7 +556,7 @@ def _pcdet_pvrcnn_stage2(mcfg, num_point_features, c_bev, weight, bn, bias):
 
     roi = mcfg.ROI_HEAD
     pool = roi.ROI_GRID_POOL
-    c = sa_layer('roi_head.roi_grid_pool_layer', c_kp, pool.MLPS) * int(
+    c = sa_layer('roi_head.roi_grid_pool_layer', c_kp, pool) * int(
         pool.GRID_SIZE) ** 3
     seq = 0
     for k, f in enumerate(roi.SHARED_FC):

@@ -3,12 +3,13 @@ families the port runs: MeanVFE (or DynMeanVFE) + VoxelBackBone8x,
 VoxelBackBone8xCiassd or VoxelResBackBone8x + HeightCompression, or
 PillarVFE + PointPillarScatter (PointPillars), + BaseBEVBackbone or SSFA +
 AnchorHeadSingle, the KL-label heads or CenterHead (CenterPoint, and the
-RPN of VoxelRCNN and PVRCNN), and for
+RPN of VoxelRCNN, PVRCNN and PVRCNNPlusPlus), and for
 VoxelRCNN (GLENet-VR, plain Voxel R-CNN) the roi head; SECONDNet
 (GLENet-S, GLENet-C, plain SECOND) and PointPillar have none, and
-SECOND-IoU's SECONDHead and PV-RCNN's stage 2 (VoxelSetAbstraction,
-PointHeadSimple, PVRCNNHead) are not converted (their keys are reported
-unconsumed, as glenet_tpu's converter leaves them).  AnchorHeadMulti,
+SECOND-IoU's SECONDHead and the stage 2 of PV-RCNN and PV-RCNN++
+(VoxelSetAbstraction, PointHeadSimple, PVRCNNHead) are not converted
+(their keys are reported unconsumed, as glenet_tpu's converter leaves
+them).  AnchorHeadMulti,
 DynPillarVFE (its layers are twice as wide as the reference's from the
 second on), PartA2's UNetV2 and PointRCNN's PointNet2MSG have no
 conversion, in glenet_tpu either: each raises by name before a key is
@@ -456,12 +457,12 @@ _DENSE_HEADS = ('AnchorHeadSingle', 'AnchorHeadKLLabel', 'AnchorHeadKL',
                 'AnchorHeadKLLabelIoU', 'AnchorHeadKLLabelIoUGuide',
                 'AnchorHeadIoU', 'CenterHead')
 # MODEL name -> the ROI_HEAD names it may have (None: none); SECONDHead's
-# keys, and PV-RCNN's pfe.*, point_head.* and roi_head.* keys, are not
-# converted (as in glenet_tpu) and land in `unconsumed`
+# keys, and PV-RCNN's and PV-RCNN++'s pfe.*, point_head.* and roi_head.*
+# keys, are not converted (as in glenet_tpu) and land in `unconsumed`
 _ROI_HEADS = {'VoxelRCNN': ('VoxelRCNNKLLabelIoUHead', 'VoxelRCNNHead'),
               'SECONDNetIoU': ('SECONDHead',), 'SECONDNet': (None,),
               'PointPillar': (None,), 'PVRCNN': ('PVRCNNHead',),
-              'CenterPoint': (None,)}
+              'PVRCNNPlusPlus': ('PVRCNNHead',), 'CenterPoint': (None,)}
 
 
 def convert_full_model(cfg, state_dict, variables):

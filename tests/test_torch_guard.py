@@ -56,10 +56,10 @@ def test_build_detector_needs_a_device():
 
 
 @pytest.mark.parametrize('name,family', [
-    ('CaDDN.yaml', 'CaDDN'), ('../waymo_models/pv_rcnn_plusplus.yaml',
-                              'PVRCNNPlusPlus')])
+    ('CaDDN.yaml', 'CaDDN'), ('CaDDN_deeplab.yaml', 'CaDDN')])
 def test_other_families_raise(name, family):
-    """Families still to port (CaDDN, PV-RCNN++) are refused by name."""
+    """Families still to port (CaDDN, with either depth network) are
+    refused by name."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
@@ -353,32 +353,12 @@ def test_waymo_pvrcnn_needs_a_card():
             build_detector(cfg)
 
 
-def test_pvrcnn_plusplus_raises():
-    """configs/waymo_models/pv_rcnn_plusplus.yaml is refused by its
-    MODEL name."""
-    from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.models.detectors import build_detector
-
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/'
-                                        'pv_rcnn_plusplus.yaml'))
-    with pytest.raises(NotImplementedError, match='PVRCNNPlusPlus'):
-        build_detector(cfg, device='cpu')
-
-
 @pytest.mark.parametrize('section,key,value,match', [
-    ('PFE', 'SAMPLE_METHOD', 'SPC', 'SAMPLE_METHOD SPC'),
-    ('PFE.SA_LAYER.x_conv3', 'NAME', 'VectorPoolAggregationModuleMSG',
-     'VectorPoolAggregationModuleMSG'),
-    ('ROI_HEAD.ROI_GRID_POOL', 'NAME', 'VectorPoolAggregationModuleMSG',
-     'VectorPoolAggregationModuleMSG'),
-    ('PFE.SA_LAYER.raw_points', 'FILTER_NEIGHBOR_WITH_ROI', True,
-     'FILTER_NEIGHBOR_WITH_ROI'),
     ('POINT_HEAD', 'NAME', 'PointHeadBox', 'POINT_HEAD PointHeadBox')])
 def test_pvrcnn_plusplus_options_raise(section, key, value, match):
-    """What PV-RCNN++ adds to PV-RCNN (sectorized proposal-centric
-    keypoints, vector-pool aggregation, RoI-filtered neighbours), and any
-    point head other than PointHeadSimple, raise naming themselves when
-    the detector is built."""
+    """A PV-RCNN point head other than PointHeadSimple raises naming itself
+    when the detector is built (PV-RCNN++'s own options build since it was
+    ported: tests/test_torch_pvrcnn_plusplus.py)."""
     import torch_parity as tp
 
     from glenet_tpu_torch.models.detectors import build_detector

@@ -16,7 +16,11 @@
     dicts, is consumed whole by JAX's converter at the toy config and at
     GLENet_VR_vq.yaml and voxel_rcnn_car.yaml, every leaf in the template's
     shape;
-  - the convert_weights CLI, then `tools.test --ckpt`, on the CPU."""
+  - the convert_weights CLI, then `tools.test --ckpt`, on the CPU;
+  - PV-RCNN++ (both Waymo yamls at full width): both converters fill
+    stage 1 equally and leave every pfe.*, point_head.* and roi_head.* key
+    unconsumed; the toy's JAX variables round-trip through the bridge
+    exactly."""
 import json
 from pathlib import Path
 
@@ -357,3 +361,69 @@ def test_converters_agree_centerhead(name):
     torch.testing.assert_close(
         head.hm_1.bias, torch.from_numpy(
             sd['dense_head.heads_list.0.hm.1.bias']).float(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('name', ['pv_rcnn_plusplus.yaml',
+                                  'pv_rcnn_plusplus_resnet.yaml'])
+def test_converters_agree_pvrcnn_plusplus(name):
+    """A synthetic reference PV-RCNN++ state dict at full width (its
+    VectorPool layers under the reference's names: layer_<k>.
+    separate_local_aggregation_layer, post_mlps, msg_post_mlps) through
+    both converters: stage 1 converts into equal trees with equal reports,
+    and every pfe.*, point_head.* and roi_head.* key is reported
+    unconsumed, as glenet_tpu's converter leaves them."""
+    from glenet_tpu.config import cfg_from_yaml_file
+    from glenet_tpu.utils import weight_converter as jwc
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils import synthetic
+    from glenet_tpu_torch.utils import weight_converter as wc
+    from glenet_tpu_torch.utils.jax_weights import (load_jax_variables,
+                                                    port_to_jax_variables)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models' / name))
+    tcfg = tp.to_port_cfg(cfg)
+    det = build_detector(tcfg, device='cpu')
+    template = port_to_jax_variables(det.net)
+    sd = {k: v.numpy() for k, v in
+          synthetic.pcdet_state_dict(tcfg, seed=3).items()}
+    ref, ref_report = jwc.convert_full_model(cfg, sd, template)
+    got, report = wc.convert_full_model(tcfg, sd, template)
+    _assert_trees_equal(got, ref)
+    assert report == ref_report
+    assert report['converted'] == ['backbone_3d', 'backbone_2d',
+                                   'dense_head']
+    assert report['unconsumed'] == sorted(
+        k for k in sd if k.startswith(('pfe.', 'point_head.', 'roi_head.'))
+        and 'num_batches_tracked' not in k)
+    for key in ('pfe.SA_rawpoints.layer_1.separate_local_aggregation_layer.'
+                '0.weight', 'pfe.SA_layers.1.msg_post_mlps.0.weight',
+                'roi_head.roi_grid_pool_layer.layer_0.post_mlps.3.weight'):
+        assert key in report['unconsumed'], key
+    load_jax_variables(det.net, got)
+
+
+def test_pvrcnn_plusplus_variables_round_trip():
+    """glenet_tpu's toy PV-RCNN++ variables (numpy draws for every leaf,
+    the VectorPool `separate_w` (G, C_in, D) kernels among them) -> the
+    port -> a glenet_tpu tree with the same paths and values."""
+    import jax.numpy as jnp
+    from __graft_entry__ import _make_batch
+    from glenet_tpu.models.detectors import build_detector as jax_build
+
+    from glenet_tpu_torch.models.detectors import build_detector
+    from glenet_tpu_torch.utils.jax_weights import (load_jax_variables,
+                                                    port_to_jax_variables)
+    cfg = tp.tiny_pvpp_cfg()
+    batch = _make_batch(2, n_points=256, seed=3,
+                        pc_range=tuple(cfg.DATA_CONFIG.POINT_CLOUD_RANGE))
+    shapes = jax.eval_shape(jax_build(cfg).init, jax.random.PRNGKey(0),
+                            jax.tree.map(jnp.asarray, batch))
+    variables = tp.random_variables(shapes, seed=4)
+    det = build_detector(tp.to_port_cfg(cfg), device='cpu')
+    load_jax_variables(det.net, variables)
+    back = port_to_jax_variables(det.net)
+    ref, got = dict(_leaves(variables)), dict(_leaves(back))
+    assert set(got) == set(ref)
+    assert sum('separate_w' in p[-1] for p in ref) == 8
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=str(k))

@@ -183,9 +183,10 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
     step's own sampled RoI targets fed to the port (the RNG streams differ),
     as tests/test_torch_train_step.py does.  DP_RATIO should be 0 unless
     `dropout`: then the JAX step's dropout draws are fed to the port too
-    (fed_dropout).  Returns (JAX's metrics, grads, batch_stats and targets;
-    the port's metrics; its gradients by port key; the port's detector);
-    call inside pinned_f32()."""
+    (fed_dropout).  Returns (JAX's metrics, grads, batch_stats, targets and
+    params after one step of its optimizer; the port's metrics; its
+    gradients by port key; the port's detector, stepped); call inside
+    pinned_f32()."""
     import flax.linen as nn
     import jax
     import jax.numpy as jnp
@@ -253,8 +254,10 @@ def run_train_steps(cfg, batch_size=2, n_points=1024, n_gt=8, seed=3,
         grads, (metrics, new_state, targets) = jax.grad(
             loss_fn, has_aux=True)(v['params'])
         metrics['grad_norm'] = optax.global_norm(grads)
+        upd, _ = tx.update(grads, tx.init(v['params']), v['params'])
         return {'metrics': metrics, 'grads': grads,
                 'batch_stats': new_state['batch_stats'], 'targets': targets,
+                'params': optax.apply_updates(v['params'], upd),
                 'intermediates': new_state.get('intermediates', {})}
 
     ref = jax.tree.map(np.asarray, jax_step(
@@ -344,6 +347,21 @@ def tiny_pvrcnn_cfg():
     pfe.SA_LAYER['raw_points'] = Cfg({'MLPS': [[8, 8], [8, 8]],
                                       'POOL_RADIUS': [0.4, 0.8],
                                       'NSAMPLE': [8, 16]})
+    cfg.OPTIMIZATION = Cfg(dict(TINY_OPTIMIZATION))
+    return cfg
+
+
+def tiny_pvpp_cfg(resnet=False):
+    """tests/test_pvrcnn_plusplus.py's toy PV-RCNN++ (make_pvpp_cfg: a
+    CenterHead RPN, 64 SPC keypoints, VectorPool over bev, x_conv3, x_conv4
+    and raw_points with the RoI filters, a 3^3 RoI grid by VectorPool
+    random choice, FCs of 32, DP_RATIO 0.3) with the toy optimizer; with
+    `resnet` on VoxelResBackBone8x, as pv_rcnn_plusplus_resnet.yaml."""
+    from glenet_tpu.config import Cfg
+    from test_pvrcnn_plusplus import make_pvpp_cfg
+    cfg = make_pvpp_cfg()
+    if resnet:
+        cfg.MODEL.BACKBONE_3D.NAME = 'VoxelResBackBone8x'
     cfg.OPTIMIZATION = Cfg(dict(TINY_OPTIMIZATION))
     return cfg
 
