@@ -279,7 +279,28 @@ Phases, each of which exits non-zero on failure:
      VectorPool neighbours at near ties and the card's side of ReLU
      kinks; phase 6 adds the 4 captured calls of the predict and train
      step;
- 18. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 18. CaDDN, [caddn] (merge-resolve launches counted from 0 just before
+     and read just after each call but the warm-ups: 0, no voxels and no
+     sparse level): (a) configs/kitti_models/CaDDN.yaml at full width
+     (DDNLite, 80 LID bins, images padded to 376 x 1248, the 280 x 376 x
+     25 grid of voxel centres sampled from the (80, 94, 312, 64) frustum
+     volume through its bf16 copy, Conv2DCollapse from 1600 channels,
+     BaseBEVBackbone [10, 10, 10], AnchorHeadSingle, nms_gpu) with seeded
+     weights on synthetic KITTI-like camera batches: a warm-up predict,
+     N_REQUESTS predicts at B = 2, a warm-up train step and 2 timed ones
+     at B = 4; per call ms, every loss term with grad_norm, peak memory,
+     the share of voxel centres in the image, the host syncs of one more
+     predict and step; losses finite, parameters and BN stats moved; (b)
+     CaDDN_deeplab.yaml (DDNDeepLabV3, ResNet-101): a predict at B = 2 and
+     a train step at the largest of 4, 2, 1 that fits; (c) CaDDN.yaml
+     through `tools.train` (B = 4, 1 epoch x 2 steps) and `tools.test`
+     with the KITTI evaluation on a synthetic tree with image_2 / depth_2
+     PNGs; (d) `tools.convergence_caddn` for 10 steps; (e) after phase 7,
+     the card against the CPU on the toy CaDDN, f32 with TF32 off and the
+     bf16 gather: a predict and a train step, the CPU taking the card's
+     side of ReLU kinks and of bf16 ties of the gather, each within its
+     bound;
+ 19. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -5238,6 +5259,590 @@ def phase_convergence(tmp):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [caddn]: CaDDN, the camera-only family (the depth-distribution image VFE,
+# frustum-to-voxel sampling, Conv2DCollapse, the depth loss)
+# ---------------------------------------------------------------------------
+
+CADDN_STEPS = 2
+CADDN_TRAIN, CADDN_VAL = 8, 4             # the CLI tree's frames
+CONV_CADDN_STEPS = 10
+
+# tests/test_caddn.py's toy CaDDN (DDNLite, 12 LID bins, a 16 x 20 x 8 grid,
+# one BEV level), the topology the port's CPU parity tests hold against
+# glenet_tpu
+TINY_CADDN = {
+    'CLASS_NAMES': ['Car'],
+    'DATA_CONFIG': {
+        'POINT_CLOUD_RANGE': [2, -8, -3.0, 14.8, 8, 1.0],
+        'DATA_PROCESSOR': [{'NAME': 'calculate_grid_size',
+                            'VOXEL_SIZE': [0.8, 0.8, 0.5]}]},
+    'MODEL': {
+        'NAME': 'CaDDN',
+        'VFE': {'NAME': 'ImageVFE', 'FFN': {
+            'NAME': 'DepthFFN', 'DDN': {'NAME': 'DDNLite', 'ARGS': {}},
+            'CHANNEL_REDUCE': {'in_channels': 64, 'out_channels': 16,
+                               'kernel_size': 1, 'stride': 1,
+                               'bias': False},
+            'DISCRETIZE': {'mode': 'LID', 'num_bins': 12,
+                           'depth_min': 2.0, 'depth_max': 14.8},
+            'LOSS': {'NAME': 'DDNLoss', 'ARGS': {
+                'weight': 3.0, 'alpha': 0.25, 'gamma': 2.0,
+                'fg_weight': 13, 'bg_weight': 1}}},
+            'F2V': {'NAME': 'FrustumToVoxel'}},
+        'MAP_TO_BEV': {'NAME': 'Conv2DCollapse', 'NUM_BEV_FEATURES': 16},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [2],
+                        'LAYER_STRIDES': [2], 'NUM_FILTERS': [32],
+                        'UPSAMPLE_STRIDES': [1],
+                        'NUM_UPSAMPLE_FILTERS': [32]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle', 'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True, 'DIR_OFFSET': 0.78539,
+            'DIR_LIMIT_OFFSET': 0.0, 'NUM_DIR_BINS': 2,
+            'ANCHOR_GENERATOR_CONFIG': [{
+                'class_name': 'Car', 'anchor_sizes': [[3.9, 1.6, 1.56]],
+                'anchor_rotations': [0, 1.57],
+                'anchor_bottom_heights': [-1.78], 'align_center': False,
+                'feature_map_stride': 2, 'matched_threshold': 0.6,
+                'unmatched_threshold': 0.45}],
+            'TARGET_ASSIGNER_CONFIG': {
+                'NAME': 'AxisAlignedTargetAssigner', 'POS_FRACTION': -1.0,
+                'SAMPLE_SIZE': 512, 'NORM_BY_NUM_EXAMPLES': False,
+                'MATCH_HEIGHT': False, 'BOX_CODER': 'ResidualCoder'},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {
+                'cls_weight': 1.0, 'loc_weight': 2.0, 'dir_weight': 0.2,
+                'code_weights': [1.0] * 7}}},
+        'POST_PROCESSING': {
+            'SCORE_THRESH': 0.0,
+            'NMS_CONFIG': {'MULTI_CLASSES_NMS': False,
+                           'NMS_TYPE': 'nms_gpu', 'NMS_THRESH': 0.01,
+                           'NMS_PRE_MAXSIZE': 64, 'NMS_POST_MAXSIZE': 16}},
+    },
+    'OPTIMIZATION': {
+        'BATCH_SIZE_PER_GPU': 2, 'NUM_EPOCHS': 1, 'OPTIMIZER': 'adam_onecycle',
+        'LR': 0.003, 'WEIGHT_DECAY': 0.01, 'MOMS': [0.95, 0.85],
+        'PCT_START': 0.4, 'DIV_FACTOR': 10, 'GRAD_NORM_CLIP': 10},
+}
+
+
+def tiny_camera_batch(seed, b=2, h=32, w=48):
+    """tests/test_caddn.py's make_camera_batch as tensors: random images, a
+    pinhole camera looking along lidar x, two Cars per sample, depth maps
+    in the grid's range, one 2-D box per gt."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    l2c = np.array([[0., -1., 0., 0.], [0., 0., -1., 0.], [1., 0., 0., 0.],
+                    [0., 0., 0., 1.]], np.float32)
+    c2i = np.array([[30., 0., w / 2, 0.], [0., 30., h / 2, 0.],
+                    [0., 0., 1., 0.]], np.float32)
+    images = rng.rand(b, h, w, 3).astype(np.float32)
+    gt = np.zeros((b, 4, 8), np.float32)
+    gt_mask = np.zeros((b, 4), bool)
+    for k in range(b):
+        for g in range(2):
+            gt[k, g] = [rng.uniform(5, 12), rng.uniform(-4, 4), -1.0, 3.9,
+                        1.6, 1.56, rng.uniform(-0.5, 0.5), 1]
+            gt_mask[k, g] = True
+    depth = rng.uniform(2.0, 14.0, (b, h // 4, w // 4)).astype(np.float32)
+    boxes2d = np.zeros((b, 4, 4), np.float32)
+    boxes2d[:, :2] = [2, 2, 8, 6]
+    arrays = {'points': np.zeros((b, 1, 4), np.float32),
+              'points_mask': np.zeros((b, 1), bool), 'images': images,
+              'trans_lidar_to_cam': np.tile(l2c, (b, 1, 1)),
+              'trans_cam_to_img': np.tile(c2i, (b, 1, 1)),
+              'image_shape': np.tile(np.array([h, w], np.int32), (b, 1)),
+              'gt_boxes': gt, 'gt_mask': gt_mask,
+              'gt_uncertainty': np.ones((b, 4, 7), np.float32),
+              'depth_maps': depth, 'gt_boxes2d': boxes2d,
+              'gt_boxes2d_mask': gt_mask}
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def camera_share(det, batch):
+    """Per sample, the share of voxel centres that project into the image
+    (in front of the camera, inside image_shape) and into the frustum
+    volume (also inside the depth bins)."""
+    import torch
+
+    from glenet_tpu_torch.models.image_vfe import frustum_coords
+    vfe = det.net.vfe
+    out = []
+    with torch.no_grad():
+        for i in range(batch['images'].shape[0]):
+            # the depth network's stride 4: pixel v is feature row
+            # v / 4 - 0.5
+            c = frustum_coords(vfe.centers, batch['trans_lidar_to_cam'][i],
+                               batch['trans_cam_to_img'][i], vfe.disc,
+                               vfe.num_bins, 4.0, 4.0)
+            ih, iw = (int(x) for x in batch['image_shape'][i])
+            v, u = (c[:, 1] + 0.5) * 4, (c[:, 2] + 0.5) * 4
+            img = (c[:, 0] > -10) & (u >= 0) & (u < iw) & (v >= 0) & (v < ih)
+            vol = img & (c[:, 0] >= 0) & (c[:, 0] <= vfe.num_bins - 1)
+            out.append((float(img.float().mean()), float(vol.float().mean())))
+    return out
+
+
+def caddn_syncs(fn):
+    """Host syncs of one call, by file:line."""
+    from glenet_tpu_torch.profile_cvae import _syncs
+    syncs = _syncs(fn)
+    return (f'{sum(syncs.values())} host syncs ('
+            + ', '.join(f'{k} x{v}' for k, v in syncs.most_common(6)) + ')')
+
+
+def phase_caddn_full():
+    """[caddn] (a): CaDDN.yaml at full width (DDNLite, 80 LID bins, images
+    padded to 376 x 1248, the 280 x 376 x 25 grid, BaseBEVBackbone [10,
+    10, 10], AnchorHeadSingle, nms_gpu) with seeded weights on synthetic
+    KITTI-like camera batches: a warm-up predict, N_REQUESTS predicts at
+    B = 2, a warm-up train step and CADDN_STEPS timed ones at B = 4; per
+    call ms, loss terms with grad_norm, peak memory, the share of voxel
+    centres in the image; the host syncs of one more predict and step;
+    merge-resolve launches counted from 0 just before and read just after
+    each call: 0.  Returns (launches, mean predict ms, mean step ms)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/CaDDN.yaml'))
+    names = list(cfg.CLASS_NAMES)
+    det = seeded_detector(cfg, 'cuda', SEED + 160)
+    batches = batches_for(cfg, N_REQUESTS + 1, SEED + 161, BATCH)
+    t0 = time.perf_counter()
+    det.predict(batches[0])
+    torch.cuda.synchronize()
+    print(f'[caddn] CaDDN: grid {tuple(det.grid_size)}, images '
+          f'{tuple(batches[0]["images"].shape[1:3])}; warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    launches, times = 0, []
+    k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    for r, batch in enumerate(batches[1:]):
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred = det.predict(batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        peak = torch.cuda.max_memory_allocated()
+        check(n == 0, f'CaDDN predict {r}: {n} merge-resolve launches')
+        for key, shape in (('final_boxes', (BATCH, k, 7)),
+                           ('final_scores', (BATCH, k))):
+            check(tuple(pred[key].shape) == shape
+                  and bool(torch.isfinite(pred[key]).all()),
+                  f'CaDDN predict {r}: {key} {tuple(pred[key].shape)} or '
+                  f'not finite')
+        share = camera_share(det, batch)
+        check(all(0 < img < 1 for img, _ in share),
+              f'CaDDN: voxel centres in the image {share}')
+        print(f'[caddn] CaDDN predict {r} B={BATCH}: {times[-1]:.1f} ms; '
+              f'detections {pred["final_valid"].sum(1).tolist()} ('
+              f'{per_class(pred["final_labels"], pred["final_valid"], names)}'
+              f'); voxel centres in the image / in the frustum volume '
+              + ', '.join(f'{a:.4f} / {b:.4f}' for a, b in share)
+              + f'; merge_resolve launches {n}; max_memory_allocated '
+              f'{peak / 2**30:.2f} GiB')
+    pred_ms = sum(times) / len(times)
+    # seeded weights score every anchor near the class prior, under the
+    # published SCORE_THRESH: one more predict at 0 keeps boxes
+    post = det.model_cfg.POST_PROCESSING
+    saved, post.SCORE_THRESH = post.SCORE_THRESH, 0.0
+    mk.LAUNCHES = 0
+    try:
+        pred = det.predict(batches[1])
+    finally:
+        post.SCORE_THRESH = saved
+    launches += mk.LAUNCHES
+    check(mk.LAUNCHES == 0 and int(pred['final_valid'].sum(1).min()) > 0,
+          f'CaDDN predict at zero thresholds: {mk.LAUNCHES} launches, '
+          f'detections {pred["final_valid"].sum(1).tolist()}')
+    print(f'[caddn] CaDDN predict at zero thresholds: detections '
+          f'{pred["final_valid"].sum(1).tolist()} ('
+          f'{per_class(pred["final_labels"], pred["final_valid"], names)})')
+
+    _, state, train_step = build_training(cfg, det)
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    tbatches = batches_for(cfg, CADDN_STEPS + 1, SEED + 162, b, train=True)
+    params = {n: p.detach().clone() for n, p in det.net.named_parameters()}
+    stats = {n: t.clone() for n, t in det.net.named_buffers()
+             if n.endswith(('running_mean', 'running_var'))}
+    times = []
+    for i, batch in enumerate(tbatches):
+        label = 'warm-up step' if i == 0 else f'step {i - 1}'
+        mk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        n = mk.LAUNCHES
+        launches += n
+        vals = {key: float(v) for key, v in metrics.items()}
+        check(n == 0, f'CaDDN train {label}: {n} merge-resolve launches')
+        check(all(math.isfinite(v) for v in vals.values())
+              and vals['loss_depth'] > 0 and vals['loss_cls'] > 0,
+              f'CaDDN train {label}: {vals}')
+        print(f'[caddn] CaDDN {label} B={b}: {times[-1]:.1f} ms; '
+              + ', '.join(f'{key} {v:.5f}' for key, v in sorted(vals.items()))
+              + f'; gt boxes {batch["gt_mask"].sum(1).tolist()}; '
+              f'merge_resolve launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    still = [n for n, p in det.net.named_parameters()
+             if torch.equal(p.detach(), params[n])]
+    stuck = [n for n, p in det.net.named_parameters() if n in still and (
+        bool(p.detach().any()) or (p.grad is not None and bool(p.grad.any())))]
+    check(not stuck, f'CaDDN: parameters unchanged by the steps: {stuck}')
+    bufs = dict(det.net.named_buffers())
+    same = [n for n, t in stats.items() if torch.equal(bufs[n], t)]
+    check(not same, f'CaDDN: BN running stats unchanged: {same}')
+    step_ms = sum(times[1:]) / len(times[1:])
+    print(f'[caddn] CaDDN predict B={BATCH} mean {pred_ms:.1f} ms over '
+          f'{N_REQUESTS} requests; train B={b} mean {step_ms:.1f} ms over '
+          f'{CADDN_STEPS} steps (warm-up {times[0]:.1f}); '
+          f'{len(params) - len(still)} of {len(params)} parameter tensors '
+          f'and all {len(stats)} BN running-stat tensors changed')
+    print(f'[caddn] CaDDN predict: ' + caddn_syncs(
+        lambda: det.predict(batches[1])))
+    print(f'[caddn] CaDDN train step: ' + caddn_syncs(
+        lambda: train_step(state, tbatches[1])))
+    del det, state
+    torch.cuda.empty_cache()
+    return launches, pred_ms, step_ms
+
+
+def phase_caddn_deeplab():
+    """[caddn] (b): CaDDN_deeplab.yaml (DDNDeepLabV3, ResNet-101 at output
+    stride 8, its 256 -> 64 channel_reduce): one predict at B = 2, then a
+    train step at the largest of BATCH_SIZE_PER_GPU (4), 2 and 1 that
+    fits.  Returns (launches, predict ms, step ms, the step's batch)."""
+    import math
+
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    cfg = cfg_from_yaml_file(str(ROOT /
+                                 'configs/kitti_models/CaDDN_deeplab.yaml'))
+    det = seeded_detector(cfg, 'cuda', SEED + 163)
+    batches = batches_for(cfg, 2, SEED + 164, BATCH)
+    det.predict(batches[0])
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = det.predict(batches[1])
+    torch.cuda.synchronize()
+    pred_ms = 1e3 * (time.perf_counter() - t0)
+    launches = mk.LAUNCHES
+    check(launches == 0 and bool(torch.isfinite(pred['final_boxes']).all()),
+          f'CaDDN-DeepLab predict: {launches} launches or boxes not finite')
+    print(f'[caddn] CaDDN-DeepLab (ResNet-101) predict B={BATCH}: '
+          f'{pred_ms:.1f} ms (after a warm-up); detections '
+          f'{pred["final_valid"].sum(1).tolist()}; merge_resolve launches '
+          f'{launches}; max_memory_allocated '
+          f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    _, state, train_step = build_training(cfg, det)
+    for b in (int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), 2, 1):
+        batch = batches_for(cfg, 1, SEED + 165, b, train=True)[0]
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mk.LAUNCHES = 0
+            state, metrics = train_step(state, batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            print(f'[caddn] CaDDN-DeepLab train step B={b}: out of memory')
+            for p in det.net.parameters():
+                p.grad = None
+            torch.cuda.empty_cache()
+            continue
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        n = mk.LAUNCHES
+        launches += n
+        vals = {key: float(v) for key, v in metrics.items()}
+        check(n == 0 and all(math.isfinite(v) for v in vals.values()),
+              f'CaDDN-DeepLab train step B={b}: {n} launches, {vals}')
+        print(f'[caddn] CaDDN-DeepLab train step B={b} (the largest of 4, '
+              f'2, 1 that fits; its first, so with cuDNN\'s warm-up): '
+              f'{step_ms:.1f} ms; ' + ', '.join(
+                  f'{key} {v:.5f}' for key, v in sorted(vals.items()))
+              + f'; merge_resolve launches {n}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+        break
+    else:
+        check(False, 'CaDDN-DeepLab: no train step fits, not even at B = 1')
+    del det, state
+    torch.cuda.empty_cache()
+    return launches, pred_ms, step_ms, b
+
+
+def phase_caddn_cli(tmp):
+    """[caddn] (c): a synthetic three-class tree in KITTI's layout with
+    image_2 / depth_2 PNGs (CADDN_TRAIN + CADDN_VAL frames of 120000
+    points), its infos, then CaDDN.yaml through `tools.train` (B = 4, 1
+    epoch x 2 steps; random_image_flip; the PNGs read by the port's own
+    codec) and `tools.test` with the three-class KITTI evaluation.
+    Returns the launches."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets.kitti_dataset import create_kitti_infos
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.utils import synthetic
+    cfg_file = str(ROOT / 'configs/kitti_models/CaDDN.yaml')
+    cfg = cfg_from_yaml_file(cfg_file)
+    t0 = time.perf_counter()
+    root = synthetic.write_kitti_tree(tmp / 'caddn_kitti', CADDN_TRAIN,
+                                      CADDN_VAL, seed=SEED + 166,
+                                      x_range=(6.0, 46.0),
+                                      three_class=True, camera=True)
+    create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root)
+    print(f'[caddn] camera tree ({CADDN_TRAIN} + {CADDN_VAL} frames, PNGs '
+          f'written by utils/png.py) and its infos in '
+          f'{time.perf_counter() - t0:.1f} s')
+    b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    out = tmp / 'out_caddn'
+    common = ['--cfg_file', cfg_file, '--data_path', str(root),
+              '--output_dir', str(out), '--batch_size', str(b)]
+    mk.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = train_cli.main(common + ['--epochs', '1',
+                                   '--max_steps_per_epoch', '2'])
+    n_train = mk.LAUNCHES
+    check(n_train == 0 and len(run['steps']) == 2,
+          f'CaDDN CLI train: {len(run["steps"])} steps, {n_train} launches')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad and r['loss_depth'] > 0,
+              f'CaDDN CLI step {r["it"]}: not finite: {bad}')
+        print(f'[caddn] CaDDN CLI train step {r["it"]} B={b}: data '
+              f'{r["data_ms"]:.1f} ms (PNG decode, flip, padding, '
+              f'collation, copy), step {r["step_ms"]:.1f} ms, loss '
+              f'{r["loss"]:.4f}, loss_depth {r["loss_depth"]:.4f}, '
+              f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
+              f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    mk.LAUNCHES = 0
+    results = test_cli.main(common)
+    n_test = mk.LAUNCHES
+    (path, res), = results.items()
+    keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
+    check(res['frames'] == CADDN_VAL and n_test == 0
+          and all(np.isfinite(res['ap'][k]) for k in keys),
+          f'CaDDN test CLI: {res["frames"]} frames, {n_test} launches')
+    print(f'[caddn] CaDDN test CLI on {Path(path).name}: {res["frames"]} '
+          f'val frames, {res["sec_per_frame"]:.4f} s/frame, KITTI '
+          f'evaluation {res["eval_sec"]:.3f} s; ' + ', '.join(
+              f'{k} {res["ap"][k]:.2f}' for k in keys)
+          + f'; merge_resolve launches: train {n_train}, test {n_test}')
+    return n_train + n_test
+
+
+def phase_caddn_harness(tmp):
+    """[caddn] (d): tools.convergence_caddn for CONV_CADDN_STEPS steps:
+    no merge-resolve launch, finite losses, the AP keys (printed, not
+    gated).  Returns the launches."""
+    import math
+    import tempfile
+
+    from glenet_tpu_torch.tools import convergence_caddn as cc
+    saved_tmp = tempfile.tempdir
+    tempfile.tempdir = str(tmp)
+    try:
+        entry, text, launches, per_call = run_tool(
+            'caddn', cc.main, [str(CONV_CADDN_STEPS), '1e-3', '--out',
+                               str(tmp / 'convergence_caddn.json')])
+    finally:
+        tempfile.tempdir = saved_tmp
+    check_launches('caddn', per_call, 0)
+    check(all(math.isfinite(v) for v in printed_losses(text))
+          and math.isfinite(entry['final_loss'])
+          and entry['Car_3d_moderate_R40'] is not None,
+          f'caddn harness: {entry}')
+    conv_line(f'caddn {CONV_CADDN_STEPS} steps', entry,
+              ('Car_3d_moderate_R40', 'Car_bev_moderate_R40', 'depth_top1'))
+    return launches
+
+
+def phase_caddn(tmp):
+    """[caddn]: (a) CaDDN.yaml at full width, (b) CaDDN_deeplab.yaml, (c)
+    the CLIs on a camera tree, (d) a short harness run.  (e), the card
+    against the CPU, runs after the main paths.  Returns (launches, {call:
+    ms})."""
+    launches, pred_ms, step_ms = phase_caddn_full()
+    n, dl_pred, dl_step, dl_b = phase_caddn_deeplab()
+    launches += n + phase_caddn_cli(tmp) + phase_caddn_harness(tmp)
+    print(f'[caddn] mean ms: CaDDN predict {pred_ms:.1f}, step {step_ms:.1f};'
+          f' CaDDN-DeepLab predict {dl_pred:.1f}, step (B={dl_b}) '
+          f'{dl_step:.1f}; merge_resolve launches over the phase {launches}')
+    return launches
+
+
+def phase_caddn_gpu_vs_cpu(tag='caddn] [gpu-vs-cpu'):
+    """[caddn] (e): the toy CaDDN (TINY_CADDN, tiny_camera_batch) on the
+    card and on the CPU, f32 with TF32 off in cuBLAS and cuDNN, the
+    production bf16 gather on both: a predict and a train step, the card
+    first.  A frustum value within f32 rounding of a bf16 rounding
+    boundary may round the other way: a voxel feature may then differ by
+    one bf16 ulp (<= 2^-7 relative) of the frustum values it samples, and
+    the CPU takes the card's voxel features where they differ beyond f32
+    rounding, each within that bound (any other difference fails); at a
+    ReLU kink within rounding of 0 the CPU takes the card's side
+    (relu_signs).  Then as phase_gpu_vs_cpu / _train: the dense head's
+    outputs and the depth logits within 1e-3; the final NMS (its scores
+    within ~1e-6 of each other under seeded weights) of the card's
+    dense-head outputs on both devices, its masks and labels equal, boxes
+    and scores within 1e-3; loss terms within rtol 1e-4, gradients within
+    1e-3 of their largest, BN stats rtol 1e-4, the parameters after
+    adam_onecycle within 2 lr."""
+    import torch
+
+    from glenet_tpu_torch.config import Cfg
+    from glenet_tpu_torch.models import image_vfe
+    from glenet_tpu_torch.train import optim, state as st
+    from glenet_tpu_torch.utils.synthetic import seeded_detector
+    cfg = Cfg(TINY_CADDN)
+    batch = tiny_camera_batch(SEED + 7)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32, image_vfe.trilinear_sample)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    real = image_vfe.trilinear_sample
+    record = {'vols': []}
+
+    def sample(volume, coords, *args, **kw):
+        record['vols'].append((volume.detach(), coords))
+        return real(volume, coords, *args, **kw)
+
+    image_vfe.trilinear_sample = sample
+    ties = {'n': 0, 'largest': 0.0}
+
+    def vox_hook(ref):
+        def fn(_mod, _inp, out):
+            y = out['voxel_features']
+            bound = torch.stack([real(v.abs(), c) for v, c in
+                                 record['vols']]).reshape(y.shape)
+            r = ref.to(y.device)
+            diff = (y - r).abs().detach()
+            f32 = 1e-5 * bound + 1e-7
+            tie = diff > f32
+            check(bool((diff <= f32 + 2.0 ** -7 * bound).all()),
+                  f'{tag}: voxel features differ beyond a bf16 tie')
+            ties['n'] += int(tie.sum())
+            ties['largest'] = max(ties['largest'], float(
+                (diff / (2.0 ** -7 * bound + 1e-30))[tie].max())
+                if bool(tie.any()) else 0.0)
+            return dict(out, voxel_features=y + torch.where(
+                tie, r - y, 0.0).detach())
+        return fn
+
+    runs, signs, vox = [], None, {}
+    try:
+        for i, dev in enumerate(('cuda', 'cpu')):    # the card first
+            bt = {k: v.to(dev) for k, v in batch.items()}
+            det = seeded_detector(cfg, dev, SEED + 3)
+            hooks = []
+            for mode in ('predict', 'train'):
+                record['vols'] = []
+                if i == 1:
+                    hooks.append(det.net.vfe.register_forward_hook(
+                        vox_hook(vox[mode])))
+                else:
+                    hooks.append(det.net.vfe.register_forward_hook(
+                        lambda _m, _i, out, mode=mode: vox.__setitem__(
+                            mode, out['voxel_features'].detach().cpu())))
+                if mode == 'predict':
+                    with torch.no_grad():
+                        full = det.net(None, None, camera=bt)
+                        pred = det.finalize(full)
+                else:
+                    tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, 100)
+                    state = st.create_train_state(det, tx)
+                    signs, bn_hooks = relu_signs(det.net, signs)
+                    hooks += bn_hooks
+                    state, metrics = st.make_train_step(det, tx)(state, bt)
+                for h in hooks:
+                    h.remove()
+                hooks = []
+            runs.append((full, pred, metrics, det.net, tx))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         image_vfe.trilinear_sample) = saved
+    (fg, pg, mg, ng, _), (fc, pc, mc, nc, tx) = runs
+    # seeded weights score the toy's anchors within ~1e-6 of each other,
+    # so the final NMS (NMS_THRESH 0.01) is held on the same inputs: the
+    # CPU's finalize of the card's dense-head outputs
+    with torch.no_grad():
+        pc = det.finalize({'dense_head': {k: v.cpu() for k, v in
+                                          fg['dense_head'].items()}})
+    for name in ('final_valid', 'final_labels'):
+        check(torch.equal(pc[name], pg[name].cpu()),
+              f'GPU and CPU differ in {name}')
+    close = [(k, fc['dense_head'][k], fg['dense_head'][k])
+             for k in sorted(fc['dense_head'])]
+    close += [('depth_logits', fc['depth_logits'], fg['depth_logits']),
+              ('final_boxes', pc['final_boxes'], pg['final_boxes']),
+              ('final_scores', pc['final_scores'], pg['final_scores'])]
+    for name, a, b in close:
+        err = float((a - b.cpu()).abs().max())
+        check(torch.allclose(a, b.cpu(), rtol=1e-3, atol=1e-4),
+              f'GPU and CPU differ in {name}')
+        print(f'[{tag}] {name}: max_abs_err {err:.3e} (rtol 1e-3, atol '
+              f'1e-4)')
+    for k, v in mc.items():
+        check(abs(float(mg[k].cpu()) - float(v)) <= 1e-4 * abs(float(v))
+              + 1e-6, f'GPU and CPU differ in {k}: {float(mg[k])} vs '
+                      f'{float(v)}')
+    worst = 0.0
+    gpu_params = dict(ng.named_parameters())
+    lr = tx.hyperparams(0)[0]
+    for name, p in nc.named_parameters():
+        g_c = p.grad if p.grad is not None else torch.zeros_like(p)
+        pg_ = gpu_params[name]
+        g_g = (pg_.grad if pg_.grad is not None
+               else torch.zeros_like(pg_)).cpu()
+        err = float((g_c - g_g).abs().max())
+        tol = 1e-3 * float(g_c.abs().max()) + 1e-6
+        check(err <= tol, f'GPU and CPU gradients differ in {name}: '
+                          f'{err:.3e} > {tol:.3e}')
+        worst = max(worst, err / tol)
+        check(float((p.detach() - pg_.detach().cpu()).abs().max())
+              <= 2 * lr + 1e-6, f'GPU and CPU parameters differ after the '
+                                f'step in {name}')
+    gpu_bufs = dict(ng.named_buffers())
+    for name, buf in nc.named_buffers():
+        if name.endswith(('running_mean', 'running_var')):
+            check(torch.allclose(buf, gpu_bufs[name].cpu(), rtol=1e-4,
+                                 atol=1e-5),
+                  f'GPU and CPU BN running stats differ in {name}')
+    print(f'[{tag}] tiny CaDDN: predict integer outputs equal, '
+          f'{int(pc["final_valid"].sum())} valid final boxes; train step '
+          f'loss terms within rtol 1e-4 (' + ', '.join(
+              f'{k} {float(v):.6f}' for k, v in sorted(mc.items()))
+          + f'), every gradient within its tolerance (worst at {worst:.2f} '
+          f'of it), BN stats and parameters after adam_onecycle agree; '
+          f'voxel features the CPU took from the card at a bf16 tie: '
+          f'{ties["n"]} (largest at {ties["largest"]:.2f} of one ulp); '
+          f'ReLU inputs taken on the card\'s side of 0: {signs["flipped"]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5273,6 +5878,7 @@ def main():
                 phase_centerpoint(Path(tmp))
             launches_pvpp, captured_pvpp, captured_pvpp_train = \
                 phase_pvrcnn_plusplus(Path(tmp))
+            launches_caddn = phase_caddn(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -5354,6 +5960,7 @@ def main():
             lambda cfg: tiny_train_batch(cfg, train_proposals=True,
                                          perturb=pvpp_gt_from_rois),
             align_relu=True, align_points=True, align_neighbours=True)
+        phase_caddn_gpu_vs_cpu()
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -5367,7 +5974,7 @@ def main():
                      + launches_weights + launches_single + launches_waymo
                      + launches_three + launches_pv + launches_conv
                      + launches_parta2 + launches_pointrcnn
-                     + launches_center + launches_pvpp),
+                     + launches_center + launches_pvpp + launches_caddn),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -5386,6 +5993,7 @@ def main():
         'launches_pointrcnn': launches_pointrcnn,
         'launches_centerpoint': launches_center,
         'launches_pvrcnn_plusplus': launches_pvpp,
+        'launches_caddn': launches_caddn,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -5473,7 +6081,11 @@ def main():
           f'step; the CLIs: 2 train steps, '
           f'{math.ceil(WAYMO_FRAMES / BATCH)} predicts; the harness: '
           f'{CONV_PVPP_STEPS + CONV_PVPP_TAIL} steps, its BN-refresh '
-          f'forwards and predicts); '
+          f'forwards and predicts) and the CaDDN phase (none: no voxels, no '
+          f'sparse level, checked per call over {N_REQUESTS} predicts and '
+          f'{CADDN_STEPS + 1} steps of CaDDN.yaml, a predict and a step of '
+          f'CaDDN_deeplab.yaml, the CLIs and {CONV_CADDN_STEPS} harness '
+          f'steps); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '

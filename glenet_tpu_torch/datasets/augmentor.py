@@ -1,6 +1,5 @@
 """Data augmentation of the host pipeline (numpy; the port's own copy of
-glenet_tpu/datasets/augmentor.py but its camera and noise_per_object
-items).
+glenet_tpu/datasets/augmentor.py).
 
   - gt_sampling (`DataBaseSampler`): per-class sample groups filtered by
     difficulty and point count, BEV-IoU collision rejection against the
@@ -12,14 +11,19 @@ items).
     random_world_translation;
   - random_local_translation, random_local_rotation, random_local_scaling;
   - random_world_frustum_dropout, random_local_frustum_dropout;
-  - random_local_pyramid_aug (SE-SSD's pyramid dropout, sparsify, swap).
+  - random_local_pyramid_aug (SE-SSD's pyramid dropout, sparsify, swap);
+  - noise_per_object (per-object pose jitter with BEV collision
+    rejection, augmentor_utils.noise_per_object);
+  - random_image_flip (CaDDN, horizontal): image and depth map mirrored,
+    the boxes mirrored through the camera and their headings negated.
+    Like glenet_tpu, and unlike the reference, it mirrors gt_boxes2d too,
+    so the depth loss's foreground mask stays on the flipped image.
 
 Every draw comes from one numpy RandomState that `DataAugmentor` shares
 with its sampler, in the JAX package's order, so the two packages make the
 same items for a seed.  `gt_uncertainty` stays row-aligned with `gt_boxes`
 through every step (the world frustum dropout filters it with the boxes).
-noise_per_object and random_image_flip, which only CaDDN.yaml configures,
-raise NotImplementedError, as does every unknown name.
+Every unknown name raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,7 +40,8 @@ PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
           'random_world_scaling', 'random_world_translation',
           'random_local_translation', 'random_local_rotation',
           'random_local_scaling', 'random_world_frustum_dropout',
-          'random_local_frustum_dropout', 'random_local_pyramid_aug')
+          'random_local_frustum_dropout', 'random_local_pyramid_aug',
+          'noise_per_object', 'random_image_flip')
 
 
 def _bev_iou_np(boxes_a, boxes_b):
@@ -214,6 +219,35 @@ class DataBaseSampler:
 # world-level augmentations
 # ---------------------------------------------------------------------------
 
+def random_image_flip_horizontal(data_dict, rng):
+    """With probability 0.5: the image and depth map flipped left-right,
+    each box centre mirrored in the image through the calibration (u ->
+    W - u at its depth) and back to lidar, its heading negated, and
+    gt_boxes2d mirrored (x1, x2 -> W - x2, W - x1)."""
+    if rng.rand() < 0.5:
+        return data_dict
+    image = data_dict['images']
+    depth = data_dict['depth_maps']
+    calib = data_dict['calib']
+    w = image.shape[1]
+    data_dict['images'] = np.ascontiguousarray(np.fliplr(image))
+    data_dict['depth_maps'] = np.ascontiguousarray(np.fliplr(depth))
+    gt = data_dict['gt_boxes'].copy()
+    if len(gt):
+        img_pts, img_depth = calib.lidar_to_img(gt[:, :3])
+        img_pts[:, 0] = w - img_pts[:, 0]
+        pts_rect = calib.img_to_rect(img_pts[:, 0], img_pts[:, 1], img_depth)
+        gt[:, :3] = calib.rect_to_lidar(pts_rect)
+        gt[:, 6] = -gt[:, 6]
+        data_dict['gt_boxes'] = gt
+    b2d = data_dict.get('gt_boxes2d')
+    if b2d is not None and len(b2d):
+        b2d = b2d.copy()
+        b2d[:, [0, 2]] = w - b2d[:, [2, 0]]
+        data_dict['gt_boxes2d'] = b2d
+    return data_dict
+
+
 def random_world_flip(data_dict, along_axis_list, rng):
     gt_boxes = data_dict['gt_boxes']
     points = data_dict['points']
@@ -281,6 +315,12 @@ class DataAugmentor:
             if cfg.NAME == 'gt_sampling':
                 self.queue.append(DataBaseSampler(root_path, cfg, class_names,
                                                   logger, rng=self.rng))
+            elif cfg.NAME == 'random_image_flip':
+                if list(cfg.ALONG_AXIS_LIST) != ['horizontal']:
+                    raise NotImplementedError(
+                        f'random_image_flip along {cfg.ALONG_AXIS_LIST}')
+                self.queue.append(
+                    lambda d: random_image_flip_horizontal(d, self.rng))
             elif cfg.NAME == 'random_world_flip':
                 axes = cfg.ALONG_AXIS_LIST
                 self.queue.append(
@@ -299,13 +339,25 @@ class DataAugmentor:
                 method = getattr(self, self._METHODS[cfg.NAME])
                 self.queue.append(lambda d, c=cfg, m=method: m(d, c))
 
-    _METHODS = {'random_world_translation': '_world_translation',
+    _METHODS = {'noise_per_object': '_noise_per_object',
+                'random_world_translation': '_world_translation',
                 'random_local_translation': '_local_translation',
                 'random_local_rotation': '_local_rotation',
                 'random_local_scaling': '_local_scaling',
                 'random_world_frustum_dropout': '_world_frustum',
                 'random_local_frustum_dropout': '_local_frustum',
                 'random_local_pyramid_aug': '_pyramid_aug'}
+
+    def _noise_per_object(self, d, cfg):
+        valid = d.get('gt_boxes_mask',
+                      np.ones(d['gt_boxes'].shape[0], bool))
+        rot = cfg.get('GT_ROTATION_NOISE', [-np.pi / 4, np.pi / 4])
+        d['gt_boxes'], d['points'] = au.noise_per_object(
+            d['gt_boxes'], d['points'], valid_mask=valid,
+            rotation_perturb=rot,
+            center_noise_std=cfg.get('GT_LOC_NOISE_STD', [1.0, 1.0, 0.5]),
+            num_try=int(cfg.get('NUM_TRY', 100)), rng=self.rng)
+        return d
 
     def _world_translation(self, d, cfg):
         """NOISE_TRANSLATE_STD (a normal draw per axis) or, as

@@ -1,8 +1,10 @@
 """Host-side augmentation geometry (numpy; the port's own copy of
-glenet_tpu/datasets/augmentor_utils.py but its noise_per_object):
+glenet_tpu/datasets/augmentor_utils.py):
 
   - BEV rectangle corners and their separating-axis overlap test (the host
     library's plain collision test);
+  - noise_per_object: per-object pose jitter, a candidate rejected when
+    its BEV rectangle collides with another box;
   - world and local translations, local rotation and scaling;
   - global and local frustum dropouts;
   - SE-SSD's pyramid dropout / sparsify / swap (convex-hull membership by
@@ -67,6 +69,89 @@ def _sat_overlap(corners_a, corners_b):
         pb = (b[..., None, :, :] * axes[..., :, None, :]).sum(-1)
         sep |= ((pa.max(-1) < pb.min(-1)) | (pb.max(-1) < pa.min(-1))).any(-1)
     return ~sep
+
+
+def noise_per_object(gt_boxes, points, valid_mask=None,
+                     rotation_perturb=(-np.pi / 4, np.pi / 4),
+                     center_noise_std=(1.0, 1.0, 0.5), num_try=100,
+                     rng=None):
+    """Independent per-object pose jitter with collision rejection
+    (reference noise_per_object :155-231 + noise_per_box :256-288).
+
+    Per valid box, the first of `num_try` (gaussian loc, uniform rot) noises
+    whose jittered BEV rectangle collides with no other box (current state)
+    is applied to the box and to the points inside it (rotation about the
+    box center, then translation).  Points are assigned to the first box
+    containing them.
+
+    Returns (gt_boxes, points) copies.
+    """
+    rng = rng or np.random
+    if not isinstance(rotation_perturb, (list, tuple, np.ndarray)):
+        rotation_perturb = (-rotation_perturb, rotation_perturb)
+    n = gt_boxes.shape[0]
+    if valid_mask is None:
+        valid_mask = np.ones(n, bool)
+    valid_mask = np.asarray(valid_mask, bool)
+    gt_boxes = gt_boxes.copy()
+    points = points.copy()
+    if n == 0:
+        return gt_boxes, points
+
+    loc_noises = rng.normal(
+        scale=np.asarray(center_noise_std, np.float64), size=(n, num_try, 3))
+    rot_noises = rng.uniform(rotation_perturb[0], rotation_perturb[1],
+                             size=(n, num_try))
+
+    # point-to-box assignment on the ORIGINAL (slightly enlarged) boxes,
+    # first-match-wins (reference uses convex-hull surfaces of boxes+0.03)
+    grown = gt_boxes.copy()
+    grown[:, 3:6] += 0.03
+    inmask = np.stack([get_points_in_box(points, b) for b in grown], axis=1) \
+        if n else np.zeros((len(points), 0), bool)
+    first = inmask.argmax(axis=1)
+    has_box = inmask.any(axis=1)
+
+    corners = _bev_corners(gt_boxes[:, [0, 1, 3, 4, 6]])     # current state
+    loc_sel = np.zeros((n, 3))
+    rot_sel = np.zeros((n,))
+    for i in range(n):
+        if not valid_mask[i]:
+            continue
+        # all num_try candidates for box i, vectorized
+        base = corners[i] - gt_boxes[i, :2]                  # (4, 2)
+        cs, sn = np.cos(rot_noises[i]), np.sin(rot_noises[i])
+        rot = np.stack([np.stack([cs, sn], -1),
+                        np.stack([-sn, cs], -1)], -2)        # (T, 2, 2)
+        cand = base[None] @ rot + (gt_boxes[i, :2]
+                                   + loc_noises[i, :, :2])[:, None]
+        others = np.delete(corners, i, axis=0)
+        if others.shape[0]:
+            coll = _sat_overlap(cand, others).any(axis=1)    # (T,)
+        else:
+            coll = np.zeros(num_try, bool)
+        ok = np.nonzero(~coll)[0]
+        if ok.size:
+            t = ok[0]
+            loc_sel[i] = loc_noises[i, t]
+            rot_sel[i] = rot_noises[i, t]
+            corners[i] = cand[t]
+
+    # apply to points (first containing valid box wins)
+    move = has_box & valid_mask[first]
+    idx = first[move]
+    centers = gt_boxes[idx, :3]
+    local = points[move, :3] - centers
+    cs, sn = np.cos(rot_sel[idx]), np.sin(rot_sel[idx])
+    rx = local[:, 0] * cs - local[:, 1] * sn
+    ry = local[:, 0] * sn + local[:, 1] * cs
+    points[move, 0] = rx + centers[:, 0] + loc_sel[idx, 0]
+    points[move, 1] = ry + centers[:, 1] + loc_sel[idx, 1]
+    points[move, 2] = local[:, 2] + centers[:, 2] + loc_sel[idx, 2]
+
+    gt_boxes[valid_mask, :3] += loc_sel[valid_mask]
+    gt_boxes[valid_mask, 6] += rot_sel[valid_mask]
+    return gt_boxes, points
 
 
 # ---------------------------------------------------------------------------

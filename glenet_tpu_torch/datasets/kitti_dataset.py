@@ -12,11 +12,19 @@ augmentation, fixed-shape collation, and prediction dicts for evaluation.
     masks; voxelization happens on the device;
   - `generate_prediction_dicts`: lidar boxes -> camera / image-frame KITTI
     annos;
-  - `create_kitti_infos` / `create_groundtruth_database`: data preparation.
+  - `create_kitti_infos` / `create_groundtruth_database`: data preparation;
+  - CaDDN's camera items of GET_ITEM_LIST: `images` (image_2, RGB in
+    [0, 1], zero-padded to IMAGE_PAD_TO, default 376 x 1248, with
+    `image_shape` the frame's own), `depth_maps` (depth_2, metres,
+    padded likewise and block-mean downsampled by downsample_depth_map's
+    DOWNSAMPLE_FACTOR), `calib_matricies` (trans_lidar_to_cam,
+    trans_cam_to_img) and `gt_boxes2d` (the labels' 2-D boxes, kept
+    aligned with gt_boxes through the class and range filters, at the
+    feature map's scale, with gt_boxes2d_mask).  The PNGs are read by
+    utils/png.py.
 
 Every draw comes from numpy RandomStates in the JAX package's order, so
-both packages make the same items for a seed.  Only the `points` item is
-ported: the camera items of GET_ITEM_LIST raise NotImplementedError.
+both packages make the same items for a seed.
 """
 from __future__ import annotations
 
@@ -27,13 +35,29 @@ import numpy as np
 import torch
 
 from ..ops import host_ops
-from ..utils import box_utils, calibration_kitti, object3d_kitti
+from ..utils import box_utils, calibration_kitti, object3d_kitti, png
 from .augmentor import DataAugmentor
 from .processor import find_processor, sample_points_near_far
 
 
+CAMERA_ITEMS = ('images', 'depth_maps', 'calib_matricies', 'gt_boxes2d')
+# the batch keys of the camera items, in collation order
+CAMERA_KEYS = ('images', 'depth_maps', 'trans_lidar_to_cam',
+               'trans_cam_to_img', 'image_shape', 'gt_boxes2d',
+               'gt_boxes2d_mask')
+
+
 def _numpy(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def calib_to_matricies(calib):
+    """Calibration -> (trans_lidar_to_cam (4, 4) = R0 (4 x 4) @ V2C (4 x 4),
+    trans_cam_to_img (3, 4) = P2)."""
+    v2c = np.vstack([calib.V2C, np.array([0, 0, 0, 1], np.float32)])
+    r0 = np.eye(4, dtype=np.float32)
+    r0[:3, :3] = calib.R0
+    return (r0 @ v2c).astype(np.float32), calib.P2.astype(np.float32)
 
 
 class KittiDataset:
@@ -51,8 +75,10 @@ class KittiDataset:
         self.root_split_path = self.root_path / (
             'training' if self.split != 'test' else 'testing')
 
-        for item in dataset_cfg.get('GET_ITEM_LIST', ['points']):
-            if item != 'points':
+        self.get_item_list = list(dataset_cfg.get('GET_ITEM_LIST',
+                                                  ['points']))
+        for item in self.get_item_list:
+            if item not in ('points',) + CAMERA_ITEMS:
                 raise NotImplementedError(
                     f'GET_ITEM_LIST item {item} is not ported yet')
 
@@ -86,6 +112,14 @@ class KittiDataset:
             int(sp.NUM_POINTS['train' if training else 'test'])
             if sp is not None else -1)
 
+        dd = find_processor(dataset_cfg, 'downsample_depth_map')
+        self.depth_ds_factor = (int(dd.DOWNSAMPLE_FACTOR)
+                                if dd is not None else 1)
+        # a static image size (KITTI's frames are 370-376 x 1224-1242),
+        # divisible by the depth network's stride
+        pad_to = dataset_cfg.get('IMAGE_PAD_TO', [376, 1248])
+        self.image_pad_to = (int(pad_to[0]), int(pad_to[1]))
+
         self.augmentor = None
         if training and dataset_cfg.get('DATA_AUGMENTOR', None) is not None:
             self.augmentor = DataAugmentor(
@@ -115,16 +149,41 @@ class KittiDataset:
             return None
         return calibration_kitti.get_road_plane(str(plane_file))
 
+    def get_image(self, idx):
+        """image_2 PNG -> (H, W, 3) float32 RGB in [0, 1]."""
+        img = png.read_png(self.root_split_path / 'image_2' / f'{idx}.png')
+        if img.dtype == np.uint16:
+            img = (img >> 8).astype(np.uint8)
+        if img.ndim == 2:
+            img = np.repeat(img[..., None], 3, axis=2)
+        return img[..., :3].astype(np.float32) / 255.0
+
+    def get_depth_map(self, idx):
+        """depth_2 PNG (uint16, metres x 256) -> (H, W) float32 metres."""
+        return png.read_png(self.root_split_path / 'depth_2'
+                            / f'{idx}.png').astype(np.float32) / 256.0
+
     def get_image_shape(self, idx):
         img_file = self.root_split_path / 'image_2' / f'{idx}.png'
         if img_file.exists():
-            try:
-                from PIL import Image
-                with Image.open(img_file) as im:
-                    return np.array([im.height, im.width], np.int32)
-            except ImportError:
-                pass
+            return np.array(png.png_size(img_file), np.int32)
         return np.array([375, 1242], np.int32)
+
+    def _load_camera_items(self, data_dict, info, sample_idx, calib):
+        """Attach the camera items GET_ITEM_LIST names."""
+        if 'images' in self.get_item_list:
+            data_dict['images'] = self.get_image(sample_idx)
+        if 'depth_maps' in self.get_item_list:
+            data_dict['depth_maps'] = self.get_depth_map(sample_idx)
+        if 'calib_matricies' in self.get_item_list:
+            (data_dict['trans_lidar_to_cam'],
+             data_dict['trans_cam_to_img']) = calib_to_matricies(calib)
+        if 'gt_boxes2d' in self.get_item_list and 'annos' in info:
+            annos = info['annos']
+            mask = annos['name'] != 'DontCare'
+            data_dict['gt_boxes2d'] = np.asarray(
+                annos['bbox'], np.float32)[mask]
+        return data_dict
 
     @staticmethod
     def get_fov_flag(pts_rect, img_shape, calib):
@@ -172,6 +231,8 @@ class KittiDataset:
             road_plane = self.get_road_plane(sample_idx)
             if road_plane is not None:
                 data_dict['road_plane'] = road_plane
+        data_dict = self._load_camera_items(data_dict, info, sample_idx,
+                                            calib)
         return self.prepare_data(data_dict)
 
     @staticmethod
@@ -189,6 +250,7 @@ class KittiDataset:
                 and 'gt_boxes' in data_dict:
             data_dict = self.augmentor(data_dict)
 
+        gt_b2d = data_dict.get('gt_boxes2d')
         if 'gt_boxes' in data_dict:
             keep = np.array([n in self.class_names
                              for n in data_dict['gt_names']], bool)
@@ -197,12 +259,19 @@ class KittiDataset:
             gt_unc = data_dict['gt_uncertainty'][keep] \
                 if 'gt_uncertainty' in data_dict \
                 else -np.ones((keep.sum(), 7), np.float32)
+            if gt_b2d is not None:
+                assert len(gt_b2d) == len(keep), (
+                    'gt_boxes2d misaligned with gt_boxes: camera configs '
+                    'must not use box-adding augmentations (gt_sampling)')
+                gt_b2d = gt_b2d[keep]
             # drop boxes outside the range (train only)
             if self.training and len(gt_boxes):
                 inside = box_utils.mask_boxes_outside_range_numpy(
                     gt_boxes, self.pc_range, min_num_corners=1)
                 gt_boxes, gt_names, gt_unc = (
                     gt_boxes[inside], gt_names[inside], gt_unc[inside])
+                if gt_b2d is not None:
+                    gt_b2d = gt_b2d[inside]
             if self.training and len(gt_boxes) == 0 and retry < 3 \
                     and len(self.kitti_infos) > 1:
                 # no box left: take a random frame instead
@@ -256,6 +325,39 @@ class KittiDataset:
         }
         if 'calib' in data_dict:
             out['calib'] = data_dict['calib']
+        out.update(self._camera_outputs(data_dict, gt_b2d, g, gt_mask))
+        return out
+
+    def _camera_outputs(self, data_dict, gt_b2d, g, gt_mask):
+        """The camera items at their static sizes: the image zero-padded
+        to IMAGE_PAD_TO with its own shape, the depth map padded likewise
+        and block-mean downsampled (so it aligns with the padded image's
+        depth logits), the 2-D boxes at the feature map's scale."""
+        out = {}
+        ph, pw = self.image_pad_to
+        if 'images' in data_dict:
+            img = data_dict['images']
+            assert img.shape[0] <= ph and img.shape[1] <= pw, (
+                img.shape, self.image_pad_to)
+            img_pad = np.zeros((ph, pw, 3), np.float32)
+            img_pad[:img.shape[0], :img.shape[1]] = img
+            out['images'] = img_pad
+            out['image_shape'] = np.array(img.shape[:2], np.int32)
+        if 'depth_maps' in data_dict:
+            f = self.depth_ds_factor
+            dm = data_dict['depth_maps']
+            dm_pad = np.zeros((ph, pw), np.float32)
+            dm_pad[:dm.shape[0], :dm.shape[1]] = dm
+            out['depth_maps'] = dm_pad.reshape(
+                ph // f, f, pw // f, f).mean(axis=(1, 3))
+        if 'trans_lidar_to_cam' in data_dict:
+            out['trans_lidar_to_cam'] = data_dict['trans_lidar_to_cam']
+            out['trans_cam_to_img'] = data_dict['trans_cam_to_img']
+        if gt_b2d is not None:
+            b2d_pad = np.zeros((self.max_gt, 4), np.float32)
+            b2d_pad[:g] = gt_b2d[:g] / float(self.depth_ds_factor)
+            out['gt_boxes2d'] = b2d_pad
+            out['gt_boxes2d_mask'] = gt_mask
         return out
 
     def _raw_item(self, index):
@@ -278,7 +380,7 @@ class KittiDataset:
                     np.float32),
                 'gt_boxes_mask': np.ones(len(gt_names), bool),
             })
-        return d
+        return self._load_camera_items(d, info, sample_idx, calib)
 
     @staticmethod
     def collate_batch(items):
@@ -286,6 +388,9 @@ class KittiDataset:
         for key in ('points', 'points_mask', 'gt_boxes', 'gt_mask',
                     'gt_uncertainty'):
             batch[key] = np.stack([it[key] for it in items])
+        for key in CAMERA_KEYS:
+            if key in items[0]:
+                batch[key] = np.stack([it[key] for it in items])
         batch['frame_id'] = [it['frame_id'] for it in items]
         if 'calib' in items[0]:
             batch['calib'] = [it['calib'] for it in items]

@@ -49,7 +49,11 @@ for these topologies:
     (PillarVFE or DynamicPillarVFE -> PointPillarScatter) at stride 1.  A
     CenterHead also serves VoxelRCNN and PVRCNN as their RPN: its decoded
     boxes (DENSE_HEAD.POST_PROCESSING's MAX_OBJ_PER_SAMPLE and
-    SCORE_THRESH) go into the proposal NMS.
+    SCORE_THRESH) go into the proposal NMS;
+  - CaDDN, camera only: ImageVFE (a depth-distribution network over the
+    image, frustum features, trilinear frustum-to-voxel sampling) ->
+    Conv2DCollapse -> BaseBEVBackbone -> AnchorHeadSingle -> final NMS; its
+    loss adds the depth loss (`loss_depth`).
 
 The dynamic VFEs (DynamicMeanVFE, DynamicPillarVFE) take the points with
 their voxel slots (voxelize_dynamic) instead of the padded voxel table, the
@@ -93,6 +97,7 @@ from . import pfe as pfe_lib
 from . import point_heads
 from . import roi_heads as roi_lib
 from .bev_backbone import SSFA, BaseBEVBackbone
+from .image_vfe import Conv2DCollapse, ImageVFE, ddn_loss
 from .map_to_bev import PointPillarScatter
 from .point_rcnn_head import (PointRCNNHead, canonicalize_pooled,
                               pool_prefix_features)
@@ -112,7 +117,7 @@ def _require(cond, what):
 # the MODEL names the port builds
 FAMILIES = ('VoxelRCNN', 'SECONDNet', 'SECONDNetIoU', 'PointPillar',
             'PVRCNN', 'PVRCNNPlusPlus', 'PartA2Net', 'PointRCNN',
-            'CenterPoint')
+            'CenterPoint', 'CaDDN')
 # topology (_topology: the MODEL name, PointRCNN by its backbone) -> the
 # ROI_HEAD names it builds, None for a topology that may have none (the
 # others: none)
@@ -147,7 +152,7 @@ def _topology(model_cfg):
 class DetectorNet(nn.Module):
     """Neural slots of the VoxelRCNN, SECONDNetIoU, single-stage SECONDNet,
     PointPillar, PVRCNN, PVRCNNPlusPlus, PartA2Net, PartA2-free,
-    point-based PointRCNN or CenterPoint detector."""
+    point-based PointRCNN, CenterPoint or CaDDN detector."""
 
     def __init__(self, model_cfg, grid_size, voxel_size, pc_range,
                  max_voxels_train: int, max_voxels_test: int,
@@ -158,6 +163,8 @@ class DetectorNet(nn.Module):
         name = _topology(mcfg)      # of a MODEL in FAMILIES (Detector)
         self.part_free = name == 'PartA2-free'
         self.point_based = name == 'PointRCNN'
+        # CaDDN: camera only, no points, no 3D backbone
+        self.camera = name == 'CaDDN'
         roi_cfg = mcfg.get('ROI_HEAD')
         roi_name = None if roi_cfg is None else roi_cfg.NAME
         _require(roi_name in _ROI_HEADS.get(name, (None,)),
@@ -177,21 +184,25 @@ class DetectorNet(nn.Module):
         if self.point_based:
             self._build_point_based(mcfg, num_point_features, num_class)
             return
-        pillars = 'BACKBONE_3D' not in mcfg
+        pillars = 'BACKBONE_3D' not in mcfg and not self.camera
         vfe_name = mcfg.VFE.NAME
-        _require(vfe_name in (('PillarVFE',) + DYNAMIC_PILLAR if pillars
+        _require(vfe_name in (('ImageVFE',) if self.camera
+                              else ('PillarVFE',) + DYNAMIC_PILLAR if pillars
                               else ('MeanVFE',) + DYNAMIC_MEAN),
                  f'VFE {vfe_name}')
         _require(pillars == (name == 'PointPillar') or name == 'CenterPoint',
                  f'MODEL {name} with{"out" * pillars} BACKBONE_3D')
         self.dynamic = vfe_name in DYNAMIC_MEAN + DYNAMIC_PILLAR
-        bb3d = None if pillars else mcfg.BACKBONE_3D.NAME
+        bb3d = (mcfg.get('BACKBONE_3D') or {}).get('NAME')
+        _require(bb3d is None or not self.camera, f'BACKBONE_3D {bb3d} in '
+                 f'{name}')
         unet = bb3d == 'UNetV2'
         _require(unet == (name in ('PartA2Net', 'PartA2-free')),
                  f'BACKBONE_3D {bb3d} in {name}')
         if not self.part_free:
             m2b = mcfg.MAP_TO_BEV
-            _require(m2b.NAME == ('PointPillarScatter' if pillars
+            _require(m2b.NAME == ('Conv2DCollapse' if self.camera
+                                  else 'PointPillarScatter' if pillars
                                   else 'HeightCompression'),
                      f'MAP_TO_BEV {m2b.NAME}')
             _require(mcfg.BACKBONE_2D.NAME in ('BaseBEVBackbone', 'SSFA'),
@@ -241,7 +252,13 @@ class DetectorNet(nn.Module):
                 code_size=box_coder.code_size)
         if self.part_free:
             return
-        if pillars:
+        if self.camera:
+            self.vfe = ImageVFE(mcfg.VFE, grid_size, pc_range)
+            self.backbone_3d = None
+            c_bev = int(mcfg.MAP_TO_BEV.NUM_BEV_FEATURES)
+            self.map_to_bev = Conv2DCollapse(
+                int(grid_size[2]) * self.vfe.num_features, c_bev)
+        elif pillars:
             vfe_cfg = mcfg.VFE
             self.vfe = (DynamicPillarVFE if self.dynamic else PillarVFE)(
                 num_point_features, vfe_cfg.NUM_FILTERS, voxel_size,
@@ -401,10 +418,13 @@ class DetectorNet(nn.Module):
 
     def forward(self, points, points_mask, train: bool = False,
                 gt_boxes=None, gt_mask=None, gt_uncertainty=None,
-                generator=None, roi_targets=None):
+                generator=None, roi_targets=None, camera=None):
         """points (B, P, C), points_mask (B, P) -> dict with vox,
         backbone_3d and dense_head outputs; in VoxelRCNN also proposals and
-        rcnn outputs, plus roi_targets in train mode.
+        rcnn outputs, plus roi_targets in train mode.  CaDDN takes
+        `camera` (images, trans_lidar_to_cam, trans_cam_to_img,
+        image_shape) instead of the points and returns dense_head and
+        depth_logits.
 
         Train mode needs gt_boxes (B, M, 8), gt_mask (B, M) and optionally
         gt_uncertainty (B, M, 7); `generator` feeds the RoI sampling and
@@ -415,6 +435,15 @@ class DetectorNet(nn.Module):
             return self._point_forward(points, points_mask, train, gt_boxes,
                                        gt_mask, gt_uncertainty, generator,
                                        roi_targets)
+        if self.camera:
+            vfe_out = self.vfe(camera['images'],
+                               camera['trans_lidar_to_cam'],
+                               camera['trans_cam_to_img'],
+                               camera['image_shape'], train)
+            bev = self.map_to_bev(vfe_out['voxel_features'], train)
+            return {'dense_head': self.dense_head(
+                        self.backbone_2d(bev, train), train),
+                    'depth_logits': vfe_out['depth_logits']}
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
         vox = self.voxelize(points, points_mask, max_voxels)
         out = {'vox': vox}
@@ -693,10 +722,12 @@ class Detector:
         self.device = torch.device(device)
         self.pc_range = tuple(data_cfg.POINT_CLOUD_RANGE)
         proc_cfgs = {p.NAME: p for p in data_cfg.DATA_PROCESSOR}
-        # the dynamic VFEs' configs name it a placeholder
+        # the dynamic VFEs' configs name it a placeholder, CaDDN's grid
+        # comes from calculate_grid_size
         vox_cfg = proc_cfgs.get(
             'transform_points_to_voxels',
-            proc_cfgs.get('transform_points_to_voxels_placeholder'))
+            proc_cfgs.get('transform_points_to_voxels_placeholder',
+                          proc_cfgs.get('calculate_grid_size')))
         self.voxel_size = tuple(vox_cfg.VOXEL_SIZE)
         self.grid_size = vox_ops.compute_grid_size(self.pc_range,
                                                    self.voxel_size)
@@ -754,20 +785,27 @@ class Detector:
     @torch.no_grad()
     def predict(self, batch):
         """batch: points (B, P, C), points_mask (B, P) on the detector's
-        device.  Returns fixed-shape final_boxes (B, K, 7), final_scores
-        (B, K), final_labels (B, K), final_valid (B, K)."""
-        return self.finalize(self.net(batch['points'], batch['points_mask']))
+        device (CaDDN: the camera items of camera_of instead).  Returns
+        fixed-shape final_boxes (B, K, 7), final_scores (B, K), final_labels
+        (B, K), final_valid (B, K)."""
+        return self.finalize(self.net(batch.get('points'),
+                                      batch.get('points_mask'),
+                                      camera=camera_of(batch)))
 
     def loss_fn(self, batch, generator=None):
         """Train forward and loss.  batch: points, points_mask, gt_boxes
         (B, M, 8), gt_mask (B, M), gt_uncertainty (B, M, 7), and optionally
-        roi_targets (fixed RoI targets instead of sampling).  Returns
-        (total loss, metrics); the BN running stats update in place."""
-        out = self.net(batch['points'], batch['points_mask'], train=True,
-                       gt_boxes=batch['gt_boxes'], gt_mask=batch['gt_mask'],
+        roi_targets (fixed RoI targets instead of sampling); CaDDN's the
+        camera items, depth_maps (B, h, w), gt_boxes2d (B, M, 4) at the
+        feature map's scale and gt_boxes2d_mask.  Returns (total loss,
+        metrics); the BN running stats update in place."""
+        out = self.net(batch.get('points'), batch.get('points_mask'),
+                       train=True, gt_boxes=batch['gt_boxes'],
+                       gt_mask=batch['gt_mask'],
                        gt_uncertainty=batch.get('gt_uncertainty'),
                        generator=generator,
-                       roi_targets=batch.get('roi_targets'))
+                       roi_targets=batch.get('roi_targets'),
+                       camera=camera_of(batch))
         return self.compute_loss(out, batch)
 
     def assign_targets(self, gt_boxes, gt_mask, gt_uncertainty):
@@ -859,12 +897,28 @@ class Detector:
             seg = self._pfe_loss(full_out, batch)
             metrics['point_loss_cls'] = seg
             total = total + seg
+        if 'depth_logits' in full_out and 'depth_maps' in batch:
+            metrics['loss_depth'] = self._depth_loss(full_out, batch)
+            total = total + metrics['loss_depth']
         if 'rcnn' in full_out:
             rcnn_total, rcnn_metrics = self._rcnn_loss(full_out)
             total = total + rcnn_total
             metrics.update(rcnn_metrics)
         metrics['loss'] = total
         return total, metrics
+
+    def _depth_loss(self, full_out, batch):
+        """CaDDN's depth loss (ddn_loss) with the config's LOSS.ARGS."""
+        ffn_cfg = self.model_cfg.VFE.FFN
+        args = dict(ffn_cfg.LOSS.get('ARGS', {}))
+        return ddn_loss(
+            full_out['depth_logits'], batch['depth_maps'],
+            batch['gt_boxes2d'], batch['gt_boxes2d_mask'],
+            dict(ffn_cfg.DISCRETIZE), weight=float(args.get('weight', 3.0)),
+            alpha=float(args.get('alpha', 0.25)),
+            gamma=float(args.get('gamma', 2.0)),
+            fg_weight=float(args.get('fg_weight', 13)),
+            bg_weight=float(args.get('bg_weight', 1)))
 
     def _center_loss(self, full_out, batch):
         """CenterPoint: the heatmap's focal loss times cls_weight (loss_cls)
@@ -1139,6 +1193,17 @@ class Detector:
         fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
         return {'final_boxes': fb, 'final_scores': fs, 'final_labels': fl,
                 'final_valid': fv}
+
+
+CAMERA_KEYS = ('images', 'trans_lidar_to_cam', 'trans_cam_to_img',
+               'image_shape')
+
+
+def camera_of(batch):
+    """A batch's camera items (CaDDN's input), or None without images."""
+    if 'images' not in batch:
+        return None
+    return {k: batch[k] for k in CAMERA_KEYS}
 
 
 def build_detector(cfg, device=None):

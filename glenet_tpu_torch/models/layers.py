@@ -51,16 +51,16 @@ class MaskedBatchNorm(nn.Module):
             x32 = x.float()
             axes = [d for d in range(x.dim()) if d != cdim]
             if mask is None:
-                cnt = torch.tensor(x32.numel() / x32.shape[cdim],
-                                   device=x.device)
+                # a Python count: a tensor made from it would be a host
+                # sync per call
+                cnt = max(x32.numel() / x32.shape[cdim], 1.0)
                 total = x32.sum(axes)
                 total_sq = (x32 * x32).sum(axes)
             else:
                 m = mask.float().unsqueeze(cdim)
-                cnt = m.sum()
+                cnt = m.sum().clamp_min(1.0)
                 total = (x32 * m).sum(axes)
                 total_sq = (x32 * x32 * m).sum(axes)
-            cnt = cnt.clamp_min(1.0)
             mean = total / cnt
             var = (total_sq / cnt - mean * mean).clamp_min(0.0)
             with torch.no_grad():

@@ -36,7 +36,11 @@ features; utils/synthetic.py), one warm-up predict, then:
      FPS (the backbone's and the RoI head's apart), each set-abstraction
      level without its FPS, the feature propagation, PointHeadBox, the
      proposal NMS, the RoI point pooling, PointRCNNHead and the final
-     NMS (point_stage_times);
+     NMS (point_stage_times); CaDDN's (CaDDN.yaml, CaDDN_deeplab.yaml:
+     camera batches, utils/synthetic.camera_batches) are the depth
+     network (with DeepLabV3 its channel_reduce block), the frustum
+     volume and its sampling, Conv2DCollapse, the BEV backbone, the dense
+     head and decode + final NMS (camera_stage_times);
   3. a torch.profiler window over 3 requests without those synchronises:
      the device busy share (summed device time of the kernels over the
      window's wall time) and the top 30 device operators.
@@ -255,6 +259,59 @@ def point_stage_times(det, batch):
     return {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
+def camera_hooks(net, marks):
+    """Synchronised marks '<name>>' / '<name><' (appended to `marks`, a
+    dict of lists) around CaDDN's stages; returns the hooks."""
+    def mark(name):
+        def hook(*_):
+            torch.cuda.synchronize()
+            marks.setdefault(name, []).append(time.perf_counter())
+        return hook
+
+    mods = {'ddn': net.vfe.ddn, 'vfe': net.vfe, 'map_to_bev': net.map_to_bev,
+            'backbone_2d': net.backbone_2d, 'dense_head': net.dense_head}
+    if net.vfe.channel_reduce is not None:
+        mods['channel_reduce'] = net.vfe.channel_reduce
+    hooks = []
+    for name, mod in mods.items():
+        hooks += [mod.register_forward_pre_hook(mark(f'{name}>')),
+                  mod.register_forward_hook(mark(f'{name}<'))]
+    return hooks
+
+
+def camera_spans(marks):
+    """{stage: seconds} of CaDDN's forward from camera_hooks' marks."""
+    def span(name):
+        return marks[f'{name}<'][0] - marks[f'{name}>'][0]
+
+    ddn = span('ddn') + (span('channel_reduce') if 'channel_reduce>' in marks
+                         else 0.0)
+    return {'depth network': ddn,
+            'frustum volume + sampling': span('vfe') - ddn,
+            'Conv2DCollapse': span('map_to_bev'),
+            'BEV backbone': span('backbone_2d'),
+            'dense head': span('dense_head')}
+
+
+def camera_stage_times(det, batch):
+    """CaDDN's synchronised stage wall times (ms) of one predict, and the
+    predict's."""
+    marks = {}
+    hooks = camera_hooks(det.net, marks)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det.predict(batch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        for h in hooks:
+            h.remove()
+    spans = camera_spans(marks)
+    spans['decode + final NMS'] = t_end - marks['dense_head<'][0]
+    return {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
+
+
 def _timed(module, attr, label, calls):
     """Shadow module.attr so that each call appends (label, start, end),
     synchronised; returns an undo function."""
@@ -285,7 +342,8 @@ def main(argv=None):
     print(f'card: {card}')
     cfg = cfg_from_yaml_file(args.cfg_file)
     det = seeded_detector(cfg, 'cuda', 0)
-    print(f'{cfg.TAG} predict, B=2, test voxel budget {det.max_voxels_test}')
+    print(f'{cfg.TAG} predict, B=2' + ('' if det.net.camera else
+          f', test voxel budget {det.max_voxels_test}'))
     batches = batches_for(cfg, REQUESTS + 1)
     det.predict(batches[0])
     torch.cuda.synchronize()
@@ -300,7 +358,9 @@ def main(argv=None):
           + f', mean {sum(times) / len(times):.2f}')
 
     totals = {}
-    stage_times = point_stage_times if det.point_based else _stage_times
+    stage_times = (point_stage_times if det.point_based
+                   else camera_stage_times if det.net.camera
+                   else _stage_times)
     for batch in batches[1:]:
         spans, total = stage_times(det, batch)
         for k, v in spans.items():

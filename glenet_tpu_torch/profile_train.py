@@ -35,7 +35,12 @@ One warm-up step, then:
      PointRCNN FPS (the backbone's and the RoI head's apart), each
      set-abstraction level without its FPS, the feature propagation,
      PointHeadBox, the train NMS over the point boxes, RoI sampling, RoI
-     point pooling, PointRCNNHead (point_stage_times);
+     point pooling, PointRCNNHead (point_stage_times); for CaDDN
+     (CaDDN.yaml, CaDDN_deeplab.yaml, camera batches) the depth network,
+     the frustum volume and its sampling, Conv2DCollapse, the BEV
+     backbone, the dense head, targets + loss (the depth loss with them),
+     the backward and, within it, the sampling's (its f32 index_add of
+     the corners' contributions), and the optimizer (camera_stage_times);
   2. a torch.profiler window over 3 steps without those synchronises: the
      device busy share (summed device time of the kernels over the window's
      wall time) and the top 30 device operators;
@@ -303,6 +308,47 @@ def point_stage_times(det, tx, state, train_step, batch):
     return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
 
 
+def camera_stage_times(det, tx, state, train_step, batch):
+    """CaDDN: one train step with a synchronise at every stage boundary
+    -> (state, {stage: ms}, step ms)."""
+    from .models import image_vfe
+    from .profile_predict import camera_hooks, camera_spans
+    marks, dict_marks, sampler = [], {}, []
+    undo = [_wrap(marks, det, 'compute_loss', 'loss>', 'loss<'),
+            _wrap(marks, tx, 'update', 'backward<', 'update<')]
+    hooks = camera_hooks(det.net, dict_marks)
+    real = image_vfe.accumulate_volume_grad
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        sampler.append(time.perf_counter() - start)
+        return out
+
+    image_vfe.accumulate_volume_grad = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = train_step(state, batch)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        image_vfe.accumulate_volume_grad = real
+        for h in hooks:
+            h.remove()
+        for u in undo:
+            u()
+    t = dict(marks)
+    spans = camera_spans(dict_marks)
+    spans.update({'targets + loss': t['loss<'] - t['loss>'],
+                  'backward': t['backward<'] - t['loss<'],
+                  '  of it the sampling\'s': sum(sampler),
+                  'optimizer': t['update<'] - t['backward<']})
+    return state, {k: 1e3 * v for k, v in spans.items()}, 1e3 * (t_end - t0)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--cfg_file', type=str, default=str(
@@ -318,15 +364,17 @@ def main(argv=None):
     batch_size = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     batches = batches_for(cfg, 1 + 2 * STEPS, seed=0, batch=batch_size,
                           train=True)
-    print(f'{cfg.TAG} train step, B={batch_size}, train voxel budget '
-          f'{det.max_voxels_train}, total_steps '
+    print(f'{cfg.TAG} train step, B={batch_size}' + (
+          '' if det.net.camera else
+          f', train voxel budget {det.max_voxels_train}') + ', total_steps '
           f'{total_steps(cfg.OPTIMIZATION, train_frames(cfg))}')
     state, _ = train_step(state, batches[0])
     torch.cuda.synchronize()
 
     totals = {}
     torch.cuda.reset_peak_memory_stats()
-    timed_step = point_stage_times if det.point_based else stage_times
+    timed_step = (point_stage_times if det.point_based
+                  else camera_stage_times if det.net.camera else stage_times)
     for batch in batches[1:1 + STEPS]:
         state, spans, total = timed_step(det, tx, state, train_step, batch)
         spans['step (synchronised stages)'] = total

@@ -16,7 +16,8 @@ model's random initialisation.  Per scan one JSON line {frame,
 boxes_lidar, scores, labels (class names)} of the valid detections goes to
 --output; --html_dir and --ply_dir export the scene the model saw
 (utils/scene_vis.py).  Runs on the GPU unless --device cpu is given;
-without a GPU it raises.
+without a GPU it raises.  A camera config (CaDDN) raises by name: its
+input is an image, which a .bin scan does not carry.
 
 `main(argv)` returns the records.
 """
@@ -74,6 +75,10 @@ def load_scan(path, max_points, device, n_features=4):
 
 def main(argv=None):
     args, cfg = parse_config(argv)
+    if cfg.MODEL.get('VFE', {}).get('NAME') == 'ImageVFE':
+        raise NotImplementedError(
+            f'the demo runs on point clouds: {cfg.MODEL.NAME} (ImageVFE) '
+            f'takes camera images, which a {args.ext} scan does not carry')
     from ..utils.common import resolve_device
     device = resolve_device(args.device)
 

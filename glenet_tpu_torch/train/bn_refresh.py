@@ -12,7 +12,9 @@ variance:
     var   = E_b[var_b] + E_b[mean_b^2] - mean^2
 
 which equals the moments over the pooled data when the batches are equal in
-size.  The inversion and the pooling run in float64.
+size.  The inversion and the pooling run in float64.  Each stat's EMA is
+inverted with its own BN's momentum: CaDDN's DeepLabV3 depth network moves
+its stats by 0.1 (glenet_tpu's refresh inverts every stat with 0.01).
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def refresh_batch_stats(stats, batches, stats_fn, momentum):
     stats_fn: batch -> {name: tensor}, the stats after ONE train-mode
               forward that starts from `stats`.
     momentum: the EMA momentum of the BN layers (new = (1 - m) * old
-              + m * batch).
+              + m * batch), one number or {name: momentum}.
 
     Returns {name: f32 tensor} of exact pooled moments (`stats` itself when
     there are no stats or no batches).
@@ -45,12 +47,14 @@ def refresh_batch_stats(stats, batches, stats_fn, momentum):
 
     # one train-mode forward per batch; invert the EMA update to recover
     # that batch's raw moments (per-channel vectors, cheap to keep)
+    mom = momentum if isinstance(momentum, dict) else \
+        {k: momentum for k in names}
     per_batch = []
     for batch in batches:
         new = stats_fn(batch)
         per_batch.append({
             k: (new[k].detach().cpu().double().numpy()
-                - (1.0 - momentum) * old[k]) / momentum for k in names})
+                - (1.0 - mom[k]) * old[k]) / mom[k] for k in names})
     if not per_batch:
         return stats
 
@@ -75,6 +79,13 @@ def bn_stats(net):
             if k.endswith((_MEAN, _VAR))}
 
 
+def bn_momenta(net, names):
+    """{stat name: the EMA momentum of its BN}: a module's `momentum`
+    (the DeepLabV3 depth network's BatchNorm: 0.1), else BN_MOMENTUM."""
+    return {k: getattr(net.get_submodule(k.rsplit('.', 1)[0]), 'momentum',
+                       BN_MOMENTUM) for k in names}
+
+
 @torch.no_grad()
 def refresh_detector_stats(det, batches):
     """Re-estimate a Detector's BN running stats in place over `batches`
@@ -92,7 +103,8 @@ def refresh_detector_stats(det, batches):
         det.loss_fn(batch, generator=step_generator(calls[0], det.device))
         return live
 
-    refreshed = refresh_batch_stats(start, batches, stats_fn, BN_MOMENTUM)
+    refreshed = refresh_batch_stats(start, batches, stats_fn,
+                                    bn_momenta(det.net, start))
     for k, v in live.items():
         v.copy_(refreshed[k])
     return refreshed

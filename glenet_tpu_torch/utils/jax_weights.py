@@ -20,7 +20,9 @@ module at `mod.(...)`, converted by that module's type:
                         -> conv3d weight (Cout, Cin, kz, ky, kx)
   - sparse convs:       (K, Cin, Cout) kernels kept as they are (subm,
                         strided and inverse)
-  - MaskedBatchNorm:    scale / bias / mean / var -> weight / bias /
+  - MaskedBatchNorm, and the plain BatchNorm of the DeepLabV3 depth
+    network (`<name>.BatchNorm_0`, flax nn.BatchNorm's leaves):
+                        scale / bias / mean / var -> weight / bias /
                         running_mean / running_var
 
 The rules are by module type, so every family's names follow: e.g.
@@ -47,6 +49,13 @@ post_bn<i>}`, `msg_<i>`, `msg_bn<i>`) add one rule:
 
   - VectorPoolAggregation: `separate_w` (G, C_in, D) kept as it is
 
+CaDDN's `vfe.ddn.*` (DDNLite's `ConvBlock_<i>`, `Dense_<i>`, `Conv_<i>`,
+`MaskedBatchNorm_<i>`; DDNDeepLabV3's `backbone.conv1`, `backbone.bn1`,
+`backbone.layer<l>_<b>.{conv<k>, bn<k>, downsample_conv, downsample_bn}`,
+`aspp.{conv<i>, bn<i>, conv_pool, bn_pool, project, project_bn}`,
+`head_conv`, `head_bn`, `head_out`), `vfe.channel_reduce` and
+`map_to_bev.ConvBlock_0` follow the same rules.
+
 It raises on any leaf it does not consume and on any port parameter or
 buffer it does not set.  `port_to_jax_variables` applies the rules the
 other way, the port's net as a JAX variables tree.
@@ -57,12 +66,14 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..models.ddn_deeplab import BatchNorm
 from ..models.layers import ConvBlock, MaskedBatchNorm
 from ..models.spconv_backbone import (DenseConvBN, InverseConvBN,
                                       SparseConvBN, SubMConvBN)
 from ..models.vector_pool import VectorPoolAggregation
 
 _SPARSE = (SubMConvBN, SparseConvBN, InverseConvBN)
+_BATCH_NORMS = (MaskedBatchNorm, BatchNorm)
 
 _BN_NAMES = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',
              'var': 'running_var'}
@@ -78,7 +89,7 @@ def _leaves(tree, prefix=()):
 
 def _convert(module, leaf, value):
     """(port attribute name, torch-layout array) for one JAX leaf."""
-    if isinstance(module, MaskedBatchNorm) and leaf in _BN_NAMES:
+    if isinstance(module, _BATCH_NORMS) and leaf in _BN_NAMES:
         return _BN_NAMES[leaf], value
     if isinstance(module, nn.Linear) and leaf in ('kernel', 'bias'):
         return ('weight', value.T) if leaf == 'kernel' else ('bias', value)
@@ -128,7 +139,7 @@ _BN_LEAVES = {v: ('params' if k in ('scale', 'bias') else 'batch_stats', k)
 def _export(module, name, value):
     """The inverse of _convert: (collection, JAX leaf name, array in the
     JAX layout) for one port tensor."""
-    if isinstance(module, MaskedBatchNorm) and name in _BN_LEAVES:
+    if isinstance(module, _BATCH_NORMS) and name in _BN_LEAVES:
         return (*_BN_LEAVES[name], value)
     if isinstance(module, nn.Linear):
         return ('params', 'kernel', value.T) if name == 'weight' \

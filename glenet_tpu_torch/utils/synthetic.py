@@ -10,10 +10,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..models.ddn_deeplab import BatchNorm
 from ..models.detectors import build_detector
 from ..models.layers import MaskedBatchNorm
 from ..models.spconv_backbone import VARIANTS
-from . import box_utils, calibration_kitti, common
+from . import box_utils, calibration_kitti, common, png
 
 N_POINTS = 32768
 MAX_GT_PER_SCENE = 128      # KITTI's gt slots per scene
@@ -171,7 +172,7 @@ def seeded_detector(cfg, device, seed):
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for m in det.net.modules():
-            if isinstance(m, MaskedBatchNorm):
+            if isinstance(m, (MaskedBatchNorm, BatchNorm)):
                 n = m.weight.shape[0]
                 m.weight.copy_(torch.rand(n, generator=g) + 0.5)
                 m.bias.copy_(torch.randn(n, generator=g) * 0.1)
@@ -649,9 +650,61 @@ def _frame_points(rng, boxes, names, n_points, ground_radius):
     return np.concatenate(parts).astype(np.float32)
 
 
+DEPTH_SCALE = 256.0         # depth_2 PNGs hold metres x 256
+RENDER_DEPTH_MAX = 46.8     # CaDDN's depth_max: the image's depth channel
+
+
+def _kitti_calibration():
+    lines = KITTI_CALIB.splitlines()
+
+    def row(i, shape):
+        return np.array(lines[i].split(' ')[1:], np.float32).reshape(shape)
+    return calibration_kitti.Calibration(
+        {'P2': row(2, (3, 4)), 'P3': row(3, (3, 4)), 'R0': row(4, (3, 3)),
+         'Tr_velo2cam': row(5, (3, 4))})
+
+
+def render_camera(points, calib, image_shape=IMAGE_SHAPE):
+    """Lidar points seen by the left colour camera -> (image (H, W, 3)
+    uint8, depth map (H, W) uint16 of metres x 256, 0 where no point
+    projects).  Each pixel shows its nearest point: the image's channels
+    are its depth over RENDER_DEPTH_MAX, 255 (a return) and its height
+    (-3..1 m), the depth map its depth, as KITTI's depth_2 maps are
+    projected lidar."""
+    h, w = image_shape
+    pts_img, depth = calib.rect_to_img(calib.lidar_to_rect(points[:, :3]))
+    u = np.floor(pts_img[:, 0]).astype(np.int64)
+    v = np.floor(pts_img[:, 1]).astype(np.int64)
+    ok = (depth > 0.1) & (u >= 0) & (u < w) & (v >= 0) & (v < h)
+    pix, d, z = v[ok] * w + u[ok], depth[ok], points[ok, 2]
+    order = np.lexsort((d, pix))            # per pixel, nearest first
+    pix, d, z = pix[order], d[order], z[order]
+    first = np.r_[True, pix[1:] != pix[:-1]]
+    pix, d, z = pix[first], d[first], z[first]
+    image = np.zeros((h * w, 3), np.float32)
+    image[pix, 0] = np.clip(d / RENDER_DEPTH_MAX, 0, 1)
+    image[pix, 1] = 1.0
+    image[pix, 2] = np.clip((z + 3.0) / 4.0, 0, 1)
+    depth_map = np.zeros(h * w, np.float64)
+    depth_map[pix] = np.minimum(np.round(d * DEPTH_SCALE), 65535)
+    return ((image * 255).round().astype(np.uint8).reshape(h, w, 3),
+            depth_map.astype(np.uint16).reshape(h, w))
+
+
+def _frame_names(rng, cars, three_class, first):
+    n_car = rng.randint(cars[0], cars[1] + 1)
+    names = ['Car'] * n_car
+    if three_class:
+        for name in ('Pedestrian', 'Cyclist'):
+            ratio = KITTI_LABEL_COUNTS[name] / KITTI_LABEL_COUNTS['Car']
+            k = int(np.floor(n_car * ratio + rng.uniform()))
+            names += [name] * (max(k, 1) if first else k)
+    return names
+
+
 def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
                      cars=(10, 18), x_range=(6.0, 55.0), y_half=30.0,
-                     ground_radius=70.0, three_class=False):
+                     ground_radius=70.0, three_class=False, camera=False):
     """A synthetic data tree in KITTI's layout under `root` (training/
     {velodyne, label_2, calib, planes}, ImageSets/{train, val}.txt): frames
     of `n_points` lidar points over 360 degrees, between cars[0] and
@@ -659,9 +712,11 @@ def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
     region, KITTI's calibration and a flat road plane.  With three_class,
     each frame also holds Pedestrians and Cyclists at KITTI's ratios to its
     Cars (KITTI_LABEL_COUNTS, rounded stochastically; the first frame at
-    least one of each).  Returns `root`."""
+    least one of each).  With camera, training/image_2 and depth_2 PNGs
+    (render_camera, 375 x 1242) too.  Returns `root`."""
     root = Path(root)
-    for sub in ('velodyne', 'label_2', 'calib', 'planes'):
+    subs = ('velodyne', 'label_2', 'calib', 'planes')
+    for sub in subs + (('image_2', 'depth_2') if camera else ()):
         (root / 'training' / sub).mkdir(parents=True, exist_ok=True)
     (root / 'ImageSets').mkdir(exist_ok=True)
     rng = np.random.RandomState(seed)
@@ -670,13 +725,7 @@ def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
         calib_file = root / 'training/calib' / f'{fid}.txt'
         calib_file.write_text(KITTI_CALIB)
         calib = calibration_kitti.Calibration(str(calib_file))
-        n_car = rng.randint(cars[0], cars[1] + 1)
-        names = ['Car'] * n_car
-        if three_class:
-            for name in ('Pedestrian', 'Cyclist'):
-                ratio = KITTI_LABEL_COUNTS[name] / KITTI_LABEL_COUNTS['Car']
-                k = int(np.floor(n_car * ratio + rng.uniform()))
-                names += [name] * (max(k, 1) if fid == ids[0] else k)
+        names = _frame_names(rng, cars, three_class, fid == ids[0])
         boxes = _place_objects(rng, names, x_range, y_half)
         pts = _frame_points(rng, boxes, names, n_points, ground_radius)
         cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
@@ -693,6 +742,10 @@ def write_kitti_tree(root, n_train, n_val, seed=0, n_points=120_000,
         lines.append(f'DontCare -1 -1 -10 {u:.2f} 170.00 {u + 50:.2f} '
                      f'200.00 -1 -1 -1 -1000 -1000 -1000 -10')
         pts.tofile(str(root / 'training/velodyne' / f'{fid}.bin'))
+        if camera:
+            image, depth = render_camera(pts, calib)
+            png.write_png(root / 'training/image_2' / f'{fid}.png', image)
+            png.write_png(root / 'training/depth_2' / f'{fid}.png', depth)
         (root / 'training/label_2' / f'{fid}.txt').write_text(
             '\n'.join(lines) + '\n')
         (root / 'training/planes' / f'{fid}.txt').write_text(
@@ -997,13 +1050,81 @@ def add_waymo_db_variances(root, split='train'):
     return n
 
 
+CAMERA_FRAME_POINTS = 120_000     # lidar points rendered into each frame
+DEPTH_DS = 4                      # downsample_depth_map's factor
+
+
+def camera_batches(n, seed=0, batch=2, device='cuda', image_pad_to=(376, 1248),
+                   three_class=True):
+    """`n` KITTI-like camera batches of `batch` frames (CaDDN's input at
+    full width): each frame's objects (10-18 Cars, with three_class
+    Pedestrians and Cyclists at KITTI's ratios; _place_objects within
+    46 m) and lidar points rendered through KITTI's calibration
+    (render_camera), the image zero-padded to `image_pad_to` in [0, 1]
+    with image_shape 375 x 1242, the depth map padded likewise in metres
+    and block-mean downsampled by DEPTH_DS, the calibration as
+    trans_lidar_to_cam / trans_cam_to_img, the 2-D boxes at the feature
+    map's scale (1 / DEPTH_DS), gt boxes with labels, masks and label
+    variances in [0.01, 0.2).  `points` is a (B, 1, 4) placeholder."""
+    from ..datasets.kitti_dataset import calib_to_matricies
+    rng = np.random.RandomState(seed)
+    calib = _kitti_calibration()
+    l2c, c2i = calib_to_matricies(calib)
+    ph, pw = image_pad_to
+    h, w = IMAGE_SHAPE
+    out = []
+    for _ in range(n):
+        imgs = np.zeros((batch, ph, pw, 3), np.float32)
+        depths = np.zeros((batch, ph // DEPTH_DS, pw // DEPTH_DS), np.float32)
+        gt = np.zeros((batch, MAX_GT_PER_SCENE, 8), np.float32)
+        gt_mask = np.zeros((batch, MAX_GT_PER_SCENE), bool)
+        unc = np.ones((batch, MAX_GT_PER_SCENE, 7), np.float32)
+        b2d = np.zeros((batch, MAX_GT_PER_SCENE, 4), np.float32)
+        names_all = list(KITTI_LABEL_COUNTS) if three_class else ['Car']
+        for b in range(batch):
+            names = _frame_names(rng, (10, 18), three_class, b == 0)
+            boxes = _place_objects(rng, names, (6.0, 46.0), 30.0)
+            pts = _frame_points(rng, boxes, names, CAMERA_FRAME_POINTS, 70.0)
+            image, depth = render_camera(pts, calib)
+            imgs[b, :h, :w] = image / 255.0
+            dm = np.zeros((ph, pw), np.float32)
+            dm[:h, :w] = depth / DEPTH_SCALE
+            depths[b] = dm.reshape(ph // DEPTH_DS, DEPTH_DS, pw // DEPTH_DS,
+                                   DEPTH_DS).mean(axis=(1, 3))
+            cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
+            k = min(len(boxes), MAX_GT_PER_SCENE)
+            gt[b, :k, :7] = boxes[:k]
+            gt[b, :k, 7] = [names_all.index(nm) + 1 for nm in names[:k]]
+            gt_mask[b, :k] = True
+            unc[b, :k] = rng.uniform(0.01, 0.2, (k, 7))
+            b2d[b, :k] = box_utils.boxes3d_kitti_camera_to_imageboxes(
+                cam, calib, IMAGE_SHAPE)[:k] / DEPTH_DS
+        out.append({k: torch.from_numpy(v).to(device) for k, v in (
+            ('points', np.zeros((batch, 1, 4), np.float32)),
+            ('points_mask', np.zeros((batch, 1), bool)),
+            ('images', imgs), ('depth_maps', depths),
+            ('trans_lidar_to_cam', np.tile(l2c, (batch, 1, 1))),
+            ('trans_cam_to_img', np.tile(c2i, (batch, 1, 1))),
+            ('image_shape', np.tile(np.array(IMAGE_SHAPE, np.int32),
+                                    (batch, 1))),
+            ('gt_boxes', gt), ('gt_mask', gt_mask), ('gt_uncertainty', unc),
+            ('gt_boxes2d', b2d), ('gt_boxes2d_mask', gt_mask))})
+    return out
+
+
 def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
-    """`n` synthetic batches for `cfg`'s dataset: Waymo scenes
+    """`n` synthetic batches for `cfg`'s dataset: camera batches
+    (camera_batches) for CaDDN, Waymo scenes
     (waymo_scene_batches) for a WaymoDataset config, else KITTI-like
     scenes (scene_batches; with train=True three_class_train_batches for
     KITTI's Car, Pedestrian and Cyclist, else train_batches) of N_POINTS
     points, or of the sample_points step's NUM_POINTS where the config
     has one (PointRCNN: 16384)."""
+    if cfg.MODEL.get('NAME') == 'CaDDN':
+        return camera_batches(
+            n, seed, batch, device,
+            tuple(cfg.DATA_CONFIG.get('IMAGE_PAD_TO', (376, 1248))),
+            three_class=len(cfg.CLASS_NAMES) > 1)
     if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
         return waymo_scene_batches(n, seed, batch, device, train=train)
     n_points = N_POINTS

@@ -33,6 +33,11 @@ Layout rules:
       spconv 2.x weight (O, kz, ky, kx, I) -> (K = kz*ky*kx row-major, I, O)
       spconv 1.x weight (kz, ky, kx, I, O) -> (K, I, O)
 
+`convert_ddn_deeplabv3` maps a torchvision deeplabv3_resnet50 / 101 state
+dict (CaDDN's reference depth network) to the port's DDNDeepLabV3 by name
+alone: both are torch layouts.  The full-model converter refuses CaDDN's
+ImageVFE by name, as glenet_tpu's does.
+
 The roi head converts exactly only with ROI_GRID_POOL.POOL_MODE
 voxel_query (configs/kitti_models/GLENet_VR_vq.yaml): the default corner
 pooling is a redesign whose parameters have no reference counterpart, so
@@ -252,6 +257,50 @@ def convert_pfn_layer(sd, prefix=''):
     bn_p, bn_s = t2f_bn(sd, f'{prefix}norm')
     p['MaskedBatchNorm_0'] = bn_p
     return p, {'MaskedBatchNorm_0': bn_s}
+
+
+def convert_ddn_deeplabv3(sd, blocks=(3, 4, 23, 3), prefix=''):
+    """torchvision deeplabv3_resnet{50,101} state dict (backbone.conv1 /
+    bn1, backbone.layer<l>.<b>.conv<k> / bn<k> / downsample.{0,1}, the
+    DeepLabHead at classifier.0 (ASPP: convs.0-3 conv + bn, convs.4 the
+    pool branch, project), classifier.1-2 (3 x 3 conv + bn), classifier.4
+    (1 x 1 conv with bias)) -> {key of models/ddn_deeplab.DDNDeepLabV3:
+    array}, layouts unchanged; num_batches_tracked and the aux classifier
+    are not read."""
+    out = {}
+
+    def conv(dst, src, bias=False):
+        out[f'{dst}.weight'] = np.asarray(sd[f'{prefix}{src}.weight'])
+        if bias:
+            out[f'{dst}.bias'] = np.asarray(sd[f'{prefix}{src}.bias'])
+
+    def bn(dst, src):
+        for leaf in ('weight', 'bias', 'running_mean', 'running_var'):
+            out[f'{dst}.BatchNorm_0.{leaf}'] = np.asarray(
+                sd[f'{prefix}{src}.{leaf}'])
+
+    conv('backbone.conv1', 'backbone.conv1')
+    bn('backbone.bn1', 'backbone.bn1')
+    for li, n in enumerate(blocks, start=1):
+        for bi in range(n):
+            src, dst = f'backbone.layer{li}.{bi}', f'backbone.layer{li}_{bi}'
+            for ci in (1, 2, 3):
+                conv(f'{dst}.conv{ci}', f'{src}.conv{ci}')
+                bn(f'{dst}.bn{ci}', f'{src}.bn{ci}')
+            if bi == 0:
+                conv(f'{dst}.downsample_conv', f'{src}.downsample.0')
+                bn(f'{dst}.downsample_bn', f'{src}.downsample.1')
+    for i in range(4):
+        conv(f'aspp.conv{i}', f'classifier.0.convs.{i}.0')
+        bn(f'aspp.bn{i}', f'classifier.0.convs.{i}.1')
+    conv('aspp.conv_pool', 'classifier.0.convs.4.1')
+    bn('aspp.bn_pool', 'classifier.0.convs.4.2')
+    conv('aspp.project', 'classifier.0.project.0')
+    bn('aspp.project_bn', 'classifier.0.project.1')
+    conv('head_conv', 'classifier.1')
+    bn('head_bn', 'classifier.2')
+    conv('head_out', 'classifier.4', bias=True)
+    return out
 
 
 def convert_fc_stack(sd, prefix, n_layers, our_name, with_final=None):
@@ -482,6 +531,9 @@ def convert_full_model(cfg, state_dict, variables):
     destination (num_batches_tracked left out)."""
     mcfg = cfg.MODEL
     name = mcfg.get('NAME')
+    # CaDDN's camera VFE has no conversion, as in glenet_tpu
+    _require((mcfg.get('VFE') or {}).get('NAME') != 'ImageVFE',
+             'VFE ImageVFE')
     _require(name in _ROI_HEADS, f'MODEL {name}')
     vfe = mcfg.VFE.NAME
     pillars = vfe == 'PillarVFE'

@@ -3,8 +3,9 @@ JAX nor glenet_tpu nor scikit-learn (the machine with the card has none of
 them) nor the repository's root tools (nor the bare convergence_ap,
 convergence_waymo and stage2_recovery those import through sys.path), the
 port never quietly defaults to the CPU, and what
-is not ported yet (augmentations, datasets, camera items, CLI flags)
-raises NotImplementedError naming itself."""
+is not ported yet (datasets, options, CLI flags) raises
+NotImplementedError naming itself; CaDDN, its camera items and its
+augmentations build and load."""
 import pickle
 import subprocess
 import sys
@@ -55,17 +56,25 @@ def test_build_detector_needs_a_device():
             build_detector(cfg)
 
 
-@pytest.mark.parametrize('name,family', [
-    ('CaDDN.yaml', 'CaDDN'), ('CaDDN_deeplab.yaml', 'CaDDN')])
-def test_other_families_raise(name, family):
-    """Families still to port (CaDDN, with either depth network) are
-    refused by name."""
+@pytest.mark.parametrize('name,ddn', [
+    ('CaDDN.yaml', 'DDNLite'), ('CaDDN_deeplab.yaml', 'DDNDeepLabV3')])
+def test_caddn_builds(name, ddn):
+    """CaDDN, with either depth network, builds on the CPU when asked (the
+    camera path: ImageVFE, Conv2DCollapse over the 280 x 376 x 25 grid);
+    without a card the default raises."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import build_detector
 
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / name))
-    with pytest.raises(NotImplementedError, match=family):
-        build_detector(cfg, device='cpu')
+    det = build_detector(cfg, device='cpu')
+    assert det.net.camera and type(det.net.vfe.ddn).__name__ == ddn
+    assert det.net.map_to_bev.ConvBlock_0.Conv_0.weight.shape == (
+        64, 25 * 64, 1, 1)
+    if torch.cuda.is_available():
+        assert build_detector(cfg).device.type == 'cuda'
+    else:
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build_detector(cfg)
 
 
 @pytest.mark.parametrize('name', ['second_multihead.yaml', 'second_iou.yaml',
@@ -151,6 +160,18 @@ def test_clis_need_a_card(cli, tmp_path):
     assert not any(tmp_path.iterdir())
 
 
+@pytest.mark.parametrize('name', ['CaDDN.yaml', 'CaDDN_deeplab.yaml'])
+def test_demo_refuses_camera_configs(name, tmp_path):
+    """The demo runs on .bin scans, which carry no image: a CaDDN config
+    raises naming it before the detector is built or a file written."""
+    from glenet_tpu_torch.tools import demo
+    with pytest.raises(NotImplementedError, match='CaDDN'):
+        demo.main(['--cfg_file', str(ROOT / 'configs/kitti_models' / name),
+                   '--data_path', str(tmp_path), '--output',
+                   str(tmp_path / 'dets.jsonl'), '--device', 'cpu'])
+    assert not any(tmp_path.iterdir())
+
+
 def _cvae_entry_points(tmp_path):
     """name -> a call of each CVAE entry point with its default device."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
@@ -204,18 +225,24 @@ def test_train_cli_refuses_multi_host_flags(flag, tmp_path):
 
 
 @pytest.mark.parametrize('name', ['random_image_flip', 'noise_per_object'])
-def test_unported_augmentations_raise(name, tmp_path):
+def test_camera_augmentations_queue(name, tmp_path):
+    """CaDDN.yaml's random_image_flip and noise_per_object build into the
+    queue (their draws are held against glenet_tpu in
+    test_torch_caddn_data.py); a disabled name is skipped, as in the JAX
+    package; an unknown name still raises naming itself."""
     from glenet_tpu_torch.config import Cfg
     from glenet_tpu_torch.datasets.augmentor import DataAugmentor
     cfg = Cfg({'DISABLE_AUG_LIST': ['placeholder'],
-               'AUG_CONFIG_LIST': [{'NAME': name},
+               'AUG_CONFIG_LIST': [{'NAME': name,
+                                    'ALONG_AXIS_LIST': ['horizontal']},
                                    {'NAME': 'random_world_flip',
                                     'ALONG_AXIS_LIST': ['x']}]})
-    with pytest.raises(NotImplementedError, match=name):
-        DataAugmentor(tmp_path, cfg, ['Car'])
-    # a disabled name is skipped, as in the JAX package
+    assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 2
     cfg.DISABLE_AUG_LIST = [name]
     assert len(DataAugmentor(tmp_path, cfg, ['Car']).queue) == 1
+    cfg.AUG_CONFIG_LIST[0]['NAME'] = f'{name}_v2'
+    with pytest.raises(NotImplementedError, match=f'{name}_v2'):
+        DataAugmentor(tmp_path, cfg, ['Car'])
 
 
 @pytest.mark.parametrize('name', ['random_world_translation',
@@ -273,30 +300,61 @@ def test_unported_datasets_raise(name):
         build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False)
 
 
+_CAMERA_ITEM_KEYS = {'images': ('images', 'image_shape'),
+                     'depth_maps': ('depth_maps',),
+                     'calib_matricies': ('trans_lidar_to_cam',
+                                         'trans_cam_to_img'),
+                     'gt_boxes2d': ('gt_boxes2d', 'gt_boxes2d_mask')}
+
+
+@pytest.fixture(scope='module')
+def camera_tree(tmp_path_factory):
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.datasets.kitti_dataset import create_kitti_infos
+    from glenet_tpu_torch.utils import synthetic
+    root = synthetic.write_kitti_tree(
+        tmp_path_factory.mktemp('guard_camera') / 'kitti', 2, 1, seed=3,
+        n_points=4000, cars=(2, 3), x_range=(6.0, 14.0), y_half=6.0,
+        ground_radius=20.0, camera=True)
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    create_kitti_infos(cfg.DATA_CONFIG, ['Car'], root, root)
+    return root
+
+
 @pytest.mark.parametrize('item', ['images', 'depth_maps', 'calib_matricies',
                                   'gt_boxes2d'])
-def test_camera_items_raise(item, tmp_path):
+def test_camera_items_load(item, camera_tree):
+    """Each camera item of GET_ITEM_LIST loads on its own from a tree with
+    image_2 / depth_2 PNGs, and adds only its own keys; an unknown item
+    still raises naming itself."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.datasets.kitti_dataset import KittiDataset
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     cfg.DATA_CONFIG.GET_ITEM_LIST = ['points', item]
-    with pytest.raises(NotImplementedError, match=item):
+    ds = KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
+                      root_path=camera_tree)
+    keys = {k for ks in _CAMERA_ITEM_KEYS.values() for k in ks}
+    assert set(ds[0]) & keys == set(_CAMERA_ITEM_KEYS[item])
+    cfg.DATA_CONFIG.GET_ITEM_LIST = ['points', f'{item}_v2']
+    with pytest.raises(NotImplementedError, match=f'{item}_v2'):
         KittiDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
-                     root_path=tmp_path)
+                     root_path=camera_tree)
 
 
 @pytest.mark.parametrize('section,name', [
     ('VFE', 'DynamicPillarVFE'), ('VFE', 'DynPillarVFE'),
     ('BACKBONE_3D', 'UNetV2'), ('DENSE_HEAD', 'AnchorHeadMulti'),
     ('BACKBONE_2D', 'BaseBEVResBackbone'), ('ROI_HEAD', 'PartA2FCHead'),
-    ('BACKBONE_3D', 'PointNet2MSG'), ('ROI_HEAD', 'PointRCNNHead')])
+    ('BACKBONE_3D', 'PointNet2MSG'), ('ROI_HEAD', 'PointRCNNHead'),
+    ('VFE', 'ImageVFE')])
 def test_converter_refuses_other_families(section, name):
     """The port's converter of reference checkpoints covers what
     glenet_tpu's covers of the families the port runs (VoxelRCNN,
     SECONDNet, SECOND-IoU's and PV-RCNN's stage 1, PointPillars,
-    CenterPoint); any other module, and AnchorHeadMulti and the dynamic
-    pillar VFE (both spellings), which glenet_tpu does not convert either,
-    raises naming itself, before it reads a key."""
+    CenterPoint); any other module, and AnchorHeadMulti, the dynamic
+    pillar VFE (both spellings) and CaDDN's ImageVFE, which glenet_tpu
+    does not convert either, raises naming itself, before it reads a
+    key."""
     import torch_parity as tp
 
     from glenet_tpu_torch.utils import weight_converter as wc
