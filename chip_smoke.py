@@ -300,7 +300,36 @@ Phases, each of which exits non-zero on failure:
      bf16 gather: a predict and a train step, the CPU taking the card's
      side of ReLU kinks and of bf16 ties of the gather, each within its
      bound;
- 19. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 19. nuScenes, Lyft and Pandaset, [nuscenes] (launches counted from 0
+     just before and read just after each call but the warm-ups): (a) the
+     run-time config nuscenes_centerpoint (config.run_cfg_dict:
+     centerpoint.yaml's model over nuscenes_dataset.yaml, the 10 nuScenes
+     classes in one CenterHead group; VoxelResBackBone8x on the 1024 x
+     1024 x 40 grid, budgets 60000 / 60000) at full width with seeded
+     weights on synthetic nuScenes scenes (a key frame and 9 sweeps of
+     34000 points with their time lags, capped at 262144): a warm-up
+     predict that captures its merge-resolve calls for phase 6, N_REQUESTS
+     predicts at B = 2, a warm-up train step (also captured) and
+     TRAIN_STEPS timed ones at B = 4 (ms, loss terms, active sites against
+     the caps, 4 launches per call, peak memory, host syncs), then the
+     config through `tools.train` (B = 4, 2 epochs x 2 steps) and
+     `tools.test` with the NDS on a 12-frame synthetic nuScenes tree, data
+     ms per batch split into sweeps, gt sampling, world augmentations and
+     the rest; (b) lyft_second_multihead (second_multihead.yaml's model
+     with the sin/cos box coder over lyft_dataset.yaml; 1600 x 1600 x 40):
+     a predict at B = 2 (captured for phase 6) and a train step at B = 4,
+     then the CLIs on an 8-frame Lyft tree with the Lyft mAP, its 3D IoUs
+     on the card; (c) pandaset_second (second.yaml's model over
+     pandaset_dataset.yaml; 2800 x 1600 x 40, 170000 points a frame):
+     `tools.train` for 2 steps at B = 4 and `tools.test` with the
+     KITTI-format AP; (d) the option pieces on the card against the CPU:
+     nms_normal over 4096 boxes, soft_nms in both modes over 1024, MLP,
+     PreviousResidualDecoder and the sin/cos encode / decode; (e) after
+     phase 7, a toy detector with UPSAMPLE_STRIDES [0.5, 1, 2]
+     (fractional_raw) on the card against the CPU, a predict and a train
+     step as phase 7; phase 6 adds the 4 captured calls of the nuScenes
+     predict and train step and of the Lyft predict;
+ 20. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -2024,12 +2053,15 @@ def phase_weights_vq(tmp):
     return launches
 
 
-def predict_and_step(cfg_name, seed, models='kitti_models', launches=4):
-    """`cfg_name` at full width, seeded weights: one predict at B = 2 and one
-    train step at B = BATCH_SIZE_PER_GPU, launches counted from 0 just
-    before and read just after each, `launches` per call.  Returns a dict:
-    det, cfg, pred, predict_ms, n_predict, vals (the step's metrics as
-    floats), step_ms, n_step, b, predict_gib, step_gib (peak memory)."""
+def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
+                     cfg=None, capture=False):
+    """`cfg_name` (or `cfg`, a config built at run time, named `cfg_name`)
+    at full width, seeded weights: one predict at B = 2 and one train step
+    at B = BATCH_SIZE_PER_GPU, launches counted from 0 just before and read
+    just after each, `launches` per call; with capture the predict's
+    merge-resolve calls are captured.  Returns a dict: det, cfg, pred,
+    predict_ms, n_predict, vals (the step's metrics as floats), step_ms,
+    n_step, b, predict_gib, step_gib (peak memory), captured."""
     import math
 
     import torch
@@ -2037,15 +2069,18 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4):
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
+    if cfg is None:
+        cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
     det = seeded_detector(cfg, 'cuda', seed)
     batch = batches_for(cfg, 1, SEED + 2, BATCH)[0]
     mk.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pred = det.predict(batch)
+    captured, pred = (capture_calls(lambda: det.predict(batch)) if capture
+                      else (None, det.predict(batch)))
     torch.cuda.synchronize()
     predict_ms = 1e3 * (time.perf_counter() - t0)
     predict_gib = torch.cuda.max_memory_allocated() / 2**30
@@ -2072,7 +2107,7 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4):
     return {'det': det, 'cfg': cfg, 'pred': pred, 'predict_ms': predict_ms,
             'n_predict': n_predict, 'vals': vals, 'step_ms': step_ms,
             'n_step': n_step, 'b': b, 'predict_gib': predict_gib,
-            'step_gib': step_gib}
+            'step_gib': step_gib, 'captured': captured}
 
 
 def phase_weights_plain():
@@ -5843,6 +5878,417 @@ def phase_caddn_gpu_vs_cpu(tag='caddn] [gpu-vs-cpu'):
           f'ReLU inputs taken on the card\'s side of 0: {signs["flipped"]}')
 
 
+# ---------------------------------------------------------------------------
+# [nuscenes]: the nuScenes, Lyft and Pandaset datasets and the option pieces
+# their models use (sin/cos box coder, fractional upsample strides,
+# PreviousResidualDecoder, nms_normal, soft_nms, MLP)
+# ---------------------------------------------------------------------------
+
+# the CLI trees: frames of train and val, batch, epochs x steps
+NUSC_CLI = (8, 4, 4, 2, 2)
+LYFT_CLI = (4, 4, 4, 1, 1)
+PANDASET_CLI = (8, 4, 4, 1, 2)
+NUSC_KEYS = ('NDS', 'mAP', 'mATE', 'mASE', 'mAOE', 'car_AP_2.0')
+LYFT_KEYS = ('mAP', 'car_mAP', 'pedestrian_mAP', 'bicycle_mAP')
+PANDASET_KEYS = ('Car_3d/moderate_R40', 'Pedestrian_3d/moderate_R40',
+                 'Cyclist_3d/moderate_R40')
+
+
+def phase_nuscenes_full(seed):
+    """[nuscenes] (a): the nuScenes CenterPoint run-time config
+    (config.run_cfg_dict('nuscenes_centerpoint'): centerpoint.yaml's model
+    over nuscenes_dataset.yaml, 10 classes in one CenterHead group) at full
+    width (VoxelResBackBone8x on the 1024 x 1024 x 40 grid, budgets 60000 /
+    60000, a 128 x 128 x 10 heatmap) with seeded weights on synthetic
+    nuScenes scenes (a key frame and 9 sweeps of 34000 points, capped at
+    262144): a warm-up predict that captures its merge-resolve calls,
+    N_REQUESTS predicts at B = 2, a warm-up train step (also captured) and
+    TRAIN_STEPS timed ones at B = 4, then the host syncs of one more of
+    each.  Returns (launches, captured predict calls, captured train-step
+    calls, step ms)."""
+    import torch
+
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.config import Cfg, run_cfg_dict
+    from glenet_tpu_torch.utils import synthetic
+    cfg = Cfg(run_cfg_dict('nuscenes_centerpoint'))
+    det = synthetic.seeded_detector(cfg, 'cuda', seed)
+    check(det.is_center_head and det.net.backbone_3d.residual
+          and tuple(det.grid_size) == (1024, 1024, 40)
+          and (det.max_voxels_train, det.max_voxels_test) == (60000, 60000)
+          and det.net.dense_head.hm_1.weight.shape[0] == 10,
+          f'nuScenes CenterPoint built with grid {det.grid_size}')
+    n_max = int(cfg.DATA_CONFIG.MAX_POINTS_PER_SCENE)
+    t0 = time.perf_counter()
+    batches = synthetic.batches_for(cfg, N_REQUESTS + 1, SEED + 170, BATCH)
+    n_in = batches[1]['points_mask'].sum(1).tolist()
+    print(f'[nuscenes] {N_REQUESTS + 1} batches of B={BATCH} synthetic '
+          f'nuScenes scenes (key frame + 9 sweeps of '
+          f'{synthetic.NUSC_SWEEP_POINTS} points, points in range {n_in} '
+          f'of the {n_max} cap) made in {time.perf_counter() - t0:.1f} s')
+    t0 = time.perf_counter()
+    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    print(f'[nuscenes] nuScenes CenterPoint: warm-up predict '
+          f'{1e3 * (time.perf_counter() - t0):.1f} ms')
+    launches = phase_full_width(det, batches[1:], 'nuscenes',
+                                'nuScenes CenterPoint', n_points=n_max)
+    n, captured_train, times = phase_train(cfg, det, 'nuscenes',
+                                           'nuScenes CenterPoint',
+                                           n_points=n_max)
+    print_syncs(det, cfg, 'nuScenes CenterPoint', tag='nuscenes')
+    del det
+    torch.cuda.empty_cache()
+    return launches + n, captured, captured_train, times
+
+
+def slice_cli_round(tmp, name, label, tree, plan, keys, in_memory_ms=None):
+    """The run-time config `name` through `tools.train` (B, epochs x steps
+    of `plan` = (train frames, val frames, B, epochs, steps)) and
+    `tools.test` at score threshold 0 (random weights score few boxes above
+    the published one) over the tree `tree(root)` writes: data ms per
+    batch split into gt sampling, world augmentations, sweeps (the point
+    files and their transforms) and the rest of the items, collation and
+    the copy; step ms; the detections evaluated, the evaluation's keys
+    `keys` and its seconds; 4 merge-resolve launches per train step and
+    per predict.  Returns the launches."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.config import write_run_cfg
+    from glenet_tpu_torch.datasets import augmentor
+    from glenet_tpu_torch.datasets.nuscenes_dataset import NuScenesDataset
+    from glenet_tpu_torch.datasets.pandaset_dataset import PandasetDataset
+    from glenet_tpu_torch.datasets.waymo_dataset import WaymoDataset
+    from glenet_tpu_torch.models.detectors import Detector
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.tools import test as test_cli
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.train import state as state_lib
+    n_train, n_val, b, epochs, steps = plan
+    root = tmp / name
+    t0 = time.perf_counter()
+    tree(root)
+    cfg_file = write_run_cfg(name, tmp / f'{name}.yaml', root)
+    print(f'[nuscenes] {label}: synthetic tree of {n_train} + {n_val} '
+          f'frames written in {time.perf_counter() - t0:.1f} s')
+    common = ['--cfg_file', str(cfg_file), '--output_dir',
+              str(tmp / f'{name}_out'), '--batch_size', str(b)]
+    step_launches, predict_launches, data = [], [], {}
+    sweeps_cls = (PandasetDataset if name == 'pandaset_second'
+                  else NuScenesDataset)
+    undo = [count_launches(state_lib, 'make_train_step', step_launches),
+            count_launches(Detector, 'predict', predict_launches)]
+    timers = [time_calls(NuScenesDataset, '__getitem__', data, 'items'),
+              time_calls(sweeps_cls, 'get_lidar_with_sweeps', data,
+                         'sweeps'),
+              time_calls(augmentor.DataAugmentor, '__call__', data,
+                         'augment'),
+              time_calls(augmentor.DataBaseSampler, '__call__', data,
+                         'gt_sampling'),
+              time_calls(WaymoDataset, 'collate_batch', data, 'collate'),
+              time_calls(train_cli, 'to_device', data, 'copy')]
+    mk.LAUNCHES = 0
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        run = train_cli.main(common + ['--epochs', str(epochs),
+                                       '--max_steps_per_epoch', str(steps)])
+        peak = torch.cuda.max_memory_allocated()
+        for u in timers:
+            u()
+        # random weights score few boxes above the published threshold
+        results = test_cli.main(common + [
+            '--set', 'MODEL.POST_PROCESSING.SCORE_THRESH', '0.0'])
+    finally:
+        for u in undo + timers:
+            u()
+    launches = mk.LAUNCHES
+    its = [r['it'] for r in run['steps']]
+    check(its == list(range(1, epochs * steps + 1))
+          and step_launches == [4] * len(its),
+          f'{label} CLI steps {its}, launches per step {step_launches}')
+    for r in run['steps']:
+        bad = [k for k, v in r.items() if isinstance(v, float)
+               and not math.isfinite(v)]
+        check(not bad, f'{label} CLI step {r["it"]}: not finite: {bad}')
+        losses = ', '.join(f'{k} {r[k]:.4f}' for k in sorted(r)
+                           if 'loss' in k)
+        print(f'[nuscenes] {label} CLI train step {r["it"]} (epoch '
+              f'{r["epoch"]}) B={b}: data {r["data_ms"]:.1f} ms, step '
+              f'{r["step_ms"]:.1f} ms, {losses}, grad_norm '
+              f'{r["grad_norm"]:.3f}')
+    n = data['collate n']
+    ms = {k: 1e3 * data.get(k, 0.0) / n for k in (
+        'items', 'sweeps', 'augment', 'gt_sampling', 'collate', 'copy')}
+    against = ('' if in_memory_ms is None else
+               f' against the in-memory step '
+               f'{sum(in_memory_ms) / len(in_memory_ms):.1f} ms')
+    print(f'[nuscenes] {label} train through the CLI, B={b}: mean data '
+          f'{sum(r["data_ms"] for r in run["steps"]) / len(its):.1f} ms, '
+          f'step {sum(r["step_ms"] for r in run["steps"]) / len(its):.1f} '
+          f'ms{against}; data per batch (host ms, mean over {n} batches): '
+          f'items {ms["items"] + ms["sweeps"] + ms["augment"] + ms["gt_sampling"]:.1f} '
+          f'= sweeps {ms["sweeps"]:.1f} + gt sampling '
+          f'{ms["gt_sampling"]:.1f} + world augmentations '
+          f'{ms["augment"]:.1f} + class filter, range mask, shuffle and '
+          f'padding {ms["items"]:.1f}; collation {ms["collate"]:.1f}; copy '
+          f'to the card {ms["copy"]:.1f}; max_memory_allocated '
+          f'{peak / 2**30:.2f} GiB')
+    (path, res), = results.items()
+    with open(Path(path).parents[1] / 'eval' / f'epoch_{epochs - 1}'
+              / 'result.pkl', 'rb') as f:
+        n_det = sum(len(a['score']) for a in pickle.load(f))
+    check(res['frames'] == n_val and n_det > 0
+          and all(np.isfinite(res['ap'][k]) for k in keys)
+          and predict_launches == [4] * math.ceil(n_val / b),
+          f'{label} test CLI: {res["frames"]} frames, {sorted(res["ap"])}, '
+          f'launches per predict {predict_launches}')
+    print(f'[nuscenes] {label} test CLI on {Path(path).name} at score '
+          f'threshold 0: {res["frames"]} val frames, {n_det} detections, '
+          f'{res["sec_per_frame"]:.4f} s/frame, evaluation '
+          f'{res["eval_sec"]:.3f} s; merge_resolve launches per '
+          f'predict {predict_launches}; ' + ', '.join(
+              f'{k} {res["ap"][k]:.3f}' for k in keys)
+          + ' (random weights: only the keys are checked)')
+    return launches
+
+
+def phase_nuscenes_cli(tmp, in_memory_ms):
+    """[nuscenes] (a) continued: the nuScenes CenterPoint config through the
+    CLIs on a 12-frame tree (NUSC_CLI), NDS from the test CLI."""
+    from glenet_tpu_torch.utils import synthetic
+    n_train, n_val = NUSC_CLI[:2]
+    return slice_cli_round(
+        tmp, 'nuscenes_centerpoint', 'nuScenes CenterPoint',
+        lambda root: synthetic.write_nuscenes_tree(root, n_train, n_val,
+                                                   seed=SEED + 171),
+        NUSC_CLI, NUSC_KEYS, in_memory_ms)
+
+
+def phase_lyft(tmp):
+    """[nuscenes] (b): the Lyft run-time config (second_multihead.yaml's
+    model with the sin/cos coder over lyft_dataset.yaml; car, pedestrian,
+    bicycle; the 1600 x 1600 x 40 grid, budget 80000) at full width with
+    seeded weights on synthetic Lyft scenes (5 sweeps of 72000 points, 40
+    beams x 1800): one first-call predict at B = 2 that captures its
+    merge-resolve calls and one train
+    step at B = 4, 4 launches each; then the CLIs on a Lyft tree (LYFT_CLI)
+    with the Lyft mAP, its 3D IoUs on the card.  Returns (launches,
+    captured predict calls)."""
+    import torch
+
+    from glenet_tpu_torch.config import Cfg, run_cfg_dict
+    from glenet_tpu_torch.utils import synthetic
+    cfg = Cfg(run_cfg_dict('lyft_second_multihead'))
+    r = predict_and_step('lyft_second_multihead', SEED + 172, cfg=cfg,
+                         capture=True)
+    det = r['det']
+    check(det.box_coder.code_size == 8 and det.box_coder.encode_angle_by_sincos
+          and tuple(det.grid_size) == (1600, 1600, 40)
+          and det.net.dense_head.head0_conv_box.weight.shape[0] == 16,
+          f'Lyft SECOND-multihead built with grid {det.grid_size}, coder '
+          f'{det.box_coder}')
+    check(r['vals']['loss_loc'] > 0 and r['vals']['loss_dir'] > 0,
+          f'Lyft losses {r["vals"]}')
+    valid = r['pred']['final_valid'].sum(1).tolist()
+    print(f'[nuscenes] Lyft SECOND-multihead (sin/cos coder, code size 8): '
+          f'predict B={BATCH} {r["predict_ms"]:.1f} ms (first call, '
+          f'captured), valid final boxes '
+          f'{valid}, peak {r["predict_gib"]:.2f} GiB; train step '
+          f'B={r["b"]} {r["step_ms"]:.1f} ms (first call), peak '
+          f'{r["step_gib"]:.2f} GiB; '
+          + ', '.join(f'{k} {v:.5f}' for k, v in sorted(r['vals'].items()))
+          + f'; merge_resolve launches {r["n_predict"]} / {r["n_step"]}')
+    launches = r['n_predict'] + r['n_step']
+    captured = r['captured']
+    del r, det
+    torch.cuda.empty_cache()
+    n_train, n_val = LYFT_CLI[:2]
+    launches += slice_cli_round(
+        tmp, 'lyft_second_multihead', 'Lyft SECOND-multihead',
+        lambda root: synthetic.write_nuscenes_tree(root, n_train, n_val,
+                                                   seed=SEED + 173,
+                                                   lyft=True),
+        LYFT_CLI, LYFT_KEYS)
+    return launches, captured
+
+
+def phase_pandaset(tmp):
+    """[nuscenes] (c): the Pandaset run-time config (second.yaml's model
+    over pandaset_dataset.yaml, the 2800 x 1600 x 40 grid) through the
+    CLIs on a Pandaset tree (PANDASET_CLI, 170000 points a frame) with the
+    KITTI-format AP.  Returns the launches."""
+    from glenet_tpu_torch.utils import synthetic
+    n_train, n_val = PANDASET_CLI[:2]
+    return slice_cli_round(
+        tmp, 'pandaset_second', 'Pandaset SECOND',
+        lambda root: synthetic.write_pandaset_tree(root, n_train, n_val,
+                                                   seed=SEED + 174),
+        PANDASET_CLI, PANDASET_KEYS)
+
+
+def fractional_raw():
+    """The toy topology as a single-stage SECOND with a three-level
+    BaseBEVBackbone of UPSAMPLE_STRIDES [0.5, 1, 2] (as OpenPCDet's
+    cbgs_pp_multihead.yaml): levels at strides 1, 2, 4 of the 4 x 4 BEV
+    map, each brought to its stride 2 (the 0.5 one by a 2 x 2 conv of
+    stride 2), anchors at feature_map_stride 16."""
+    import copy
+    raw = copy.deepcopy(TINY_CFG)
+    m = raw['MODEL']
+    del m['ROI_HEAD']
+    m['NAME'] = 'SECONDNet'
+    m['BACKBONE_2D'] = {'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [1, 1, 1],
+                        'LAYER_STRIDES': [1, 2, 2],
+                        'NUM_FILTERS': [32, 32, 64],
+                        'UPSAMPLE_STRIDES': [0.5, 1, 2],
+                        'NUM_UPSAMPLE_FILTERS': [16, 16, 16]}
+    m['DENSE_HEAD']['ANCHOR_GENERATOR_CONFIG'][0]['feature_map_stride'] = 16
+    m['POST_PROCESSING']['SCORE_THRESH'] = 0.0
+    return raw
+
+
+def _pieces_boxes(seed, n, spread):
+    """Car-sized boxes within +-spread m and scores, one in 9 tied."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    b = np.zeros((n, 7), np.float32)
+    b[:, :2] = rng.uniform(-spread, spread, (n, 2))
+    b[:, 2] = rng.uniform(-1, 1, n)
+    b[:, 3:6] = rng.uniform([2.5, 1.2, 1.2], [4.5, 2.0, 1.8], (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    s = rng.uniform(0, 1, n).astype(np.float32)
+    s[::9] = s[4]
+    return b, s
+
+
+def phase_nuscenes_pieces():
+    """[nuscenes] (d): the option pieces on the card against the CPU:
+    nms_normal over 4096 boxes; soft_nms (gaussian and linear) over 1024,
+    with the CPU's IoU matrix (the rounds alone: indices exact, scores
+    within 1e-6) and with its own (indices exact, scores within 1e-5); MLP
+    (masked, train-mode BN) within 1e-5; PreviousResidualDecoder and the
+    sin/cos coder's encode / decode within 1e-5; each op's ms on the
+    card."""
+    import numpy as np
+    import torch
+
+    from glenet_tpu_torch.models.layers import MLP
+    from glenet_tpu_torch.ops import iou3d, nms
+    from glenet_tpu_torch.utils import box_coder
+    from glenet_tpu_torch.utils.cuda_timing import event_ms
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        b, s = _pieces_boxes(SEED + 175, 4096, 60.0)
+        cpu = nms.nms_normal(torch.from_numpy(b), torch.from_numpy(s), 0.2,
+                             pre_max=4096, post_max=500,
+                             score_threshold=0.1)
+        tb, ts = torch.from_numpy(b).cuda(), torch.from_numpy(s).cuda()
+        gpu = nms.nms_normal(tb, ts, 0.2, pre_max=4096, post_max=500,
+                             score_threshold=0.1)
+        check(torch.equal(cpu[1], gpu[1].cpu())
+              and torch.equal(cpu[0][cpu[1]], gpu[0].cpu()[cpu[1]]),
+              'nms_normal: card and CPU keep other boxes')
+        ms = event_ms(lambda: nms.nms_normal(tb, ts, 0.2, pre_max=4096,
+                                             post_max=500,
+                                             score_threshold=0.1), 5, 1)
+        print(f'[nuscenes] [gpu-vs-cpu] nms_normal over 4096 boxes: '
+              f'{int(cpu[1].sum())} keeps equal; {ms:.2f} ms on the card')
+        b, s = _pieces_boxes(SEED + 176, 1024, 10.0)
+        tb, ts = torch.from_numpy(b).cuda(), torch.from_numpy(s).cuda()
+        real = iou3d.boxes_iou_bev_blocked
+        for mode in ('gaussian', 'linear'):
+            kw = dict(score_threshold=0.1, soft_sigma=0.3, soft_mode=mode,
+                      pre_max=1024, post_max=256)
+            ref = nms.soft_nms(torch.from_numpy(b), torch.from_numpy(s), **kw)
+            for fed in (True, False):
+                if fed:
+                    iou3d.boxes_iou_bev_blocked = lambda x, y: real(
+                        x.cpu(), y.cpu()).to(x.device)
+                try:
+                    got = [t.cpu() for t in nms.soft_nms(tb, ts, **kw)]
+                finally:
+                    iou3d.boxes_iou_bev_blocked = real
+                err = float((got[2] - ref[2]).abs().max())
+                check(torch.equal(got[0], ref[0])
+                      and torch.equal(got[1], ref[1])
+                      and err <= (1e-6 if fed else 1e-5),
+                      f'soft_nms {mode} ({"CPU IoUs" if fed else "own IoUs"})'
+                      f': card and CPU differ (scores {err:.2e})')
+                print(f'[nuscenes] [gpu-vs-cpu] soft_nms {mode} over 1024 '
+                      f'boxes, {"the CPU's" if fed else "its own"} IoUs: '
+                      f'{int(ref[1].sum())} keeps, indices equal, scores '
+                      f'max_abs_err {err:.2e}')
+            ms = event_ms(lambda: nms.soft_nms(tb, ts, **kw), 3, 1)
+            print(f'[nuscenes] soft_nms {mode}: {ms:.2f} ms on the card '
+                  f'(256 rounds)')
+        rng = np.random.RandomState(SEED + 177)
+        x = torch.from_numpy((rng.randn(3, 4000, 64) * 2).astype(np.float32))
+        mask = torch.from_numpy(rng.rand(3, 4000) > 0.3)
+        torch.manual_seed(SEED + 177)
+        m_cpu = MLP(64, (128, 64))
+        m_gpu = MLP(64, (128, 64)).cuda()
+        m_gpu.load_state_dict(m_cpu.state_dict())
+        with torch.no_grad():
+            ref = m_cpu(x, mask=mask, train=True)
+            got = m_gpu(x.cuda(), mask=mask.cuda(), train=True).cpu()
+        err = float((got - ref).abs().max())
+        stats = max(float((a.cpu() - b_).abs().max()) for a, b_ in zip(
+            m_gpu.buffers(), m_cpu.buffers()))
+        check(err <= 1e-5 * max(1.0, float(ref.abs().max())) and stats <= 1e-5,
+              f'MLP: card and CPU differ by {err:.2e} (BN stats {stats:.2e})')
+        anchors, enc = _pieces_boxes(SEED + 178, 4096, 50.0)[0], \
+            rng.uniform(-0.5, 0.5, (4096, 8)).astype(np.float32)
+        boxes = _pieces_boxes(SEED + 179, 4096, 50.0)[0]
+        coder = box_coder.build_box_coder('ResidualCoder',
+                                          encode_angle_by_sincos=True)
+        prev = box_coder.build_box_coder('PreviousResidualDecoder')
+        errs = {}
+        for what, fn, args in (
+                ('sin/cos encode', coder.encode, (boxes, anchors)),
+                ('sin/cos decode', coder.decode, (enc, anchors)),
+                ('PreviousResidualDecoder', prev.decode,
+                 (enc[:, :7], anchors))):
+            ref = fn(*(torch.from_numpy(a) for a in args))
+            got = fn(*(torch.from_numpy(a).cuda() for a in args)).cpu()
+            errs[what] = float((got - ref).abs().max())
+            check(errs[what] <= 1e-5, f'{what}: card and CPU differ by '
+                                      f'{errs[what]:.2e}')
+        print(f'[nuscenes] [gpu-vs-cpu] MLP 64 -> 128 -> 64 over 3 x 4000 '
+              f'masked rows, train-mode BN: max_abs_err {err:.2e}, BN stats '
+              f'{stats:.2e}; ' + ', '.join(f'{k} {v:.2e}'
+                                          for k, v in errs.items())
+              + ' (4096 boxes each)')
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def phase_nuscenes(tmp):
+    """[nuscenes]: (a) the nuScenes CenterPoint config at full width and
+    through the CLIs, (b) Lyft SECOND-multihead with the sin/cos coder, (c)
+    Pandaset SECOND through the CLIs, (d) the option pieces card against
+    CPU.  The fractional-stride toy detector's card-against-CPU predict and
+    step run after the main paths.  Returns (launches, captured nuScenes
+    predict calls, captured train-step calls, captured Lyft predict
+    calls)."""
+    t0 = time.perf_counter()
+    launches, captured, captured_train, step_ms = phase_nuscenes_full(
+        SEED + 170)
+    launches += phase_nuscenes_cli(tmp, step_ms)
+    n, captured_lyft = phase_lyft(tmp)
+    launches += n + phase_pandaset(tmp)
+    phase_nuscenes_pieces()
+    print(f'[nuscenes] phase {time.perf_counter() - t0:.1f} s, '
+          f'{launches} merge-resolve launches')
+    return launches, captured, captured_train, captured_lyft
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5879,6 +6325,8 @@ def main():
             launches_pvpp, captured_pvpp, captured_pvpp_train = \
                 phase_pvrcnn_plusplus(Path(tmp))
             launches_caddn = phase_caddn(Path(tmp))
+            launches_nusc, captured_nusc, captured_nusc_train, \
+                captured_lyft = phase_nuscenes(Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -5900,6 +6348,10 @@ def main():
         pvpp = check_captured(captured_pvpp, 'PV-RCNN++ predict')
         pvpp_train = check_captured(captured_pvpp_train,
                                     'PV-RCNN++ train step')
+        nusc = check_captured(captured_nusc, 'nuScenes CenterPoint predict')
+        nusc_train = check_captured(captured_nusc_train,
+                                    'nuScenes CenterPoint train step')
+        lyft = check_captured(captured_lyft, 'Lyft SECOND-multihead predict')
         phase_gpu_vs_cpu()
         phase_gpu_vs_cpu_train()
         vq = vq_raw_cfg(TINY_CFG)
@@ -5961,6 +6413,9 @@ def main():
                                          perturb=pvpp_gt_from_rois),
             align_relu=True, align_points=True, align_neighbours=True)
         phase_caddn_gpu_vs_cpu()
+        tag = 'nuscenes] [gpu-vs-cpu fractional strides'
+        phase_gpu_vs_cpu(fractional_raw(), tag)
+        phase_gpu_vs_cpu_train(fractional_raw(), tag, tiny_single_batch)
     except SmokeFailure as e:
         print(f'chip_smoke: FAILED: {type(e).__name__}: {e}',
               file=sys.stderr)
@@ -5974,7 +6429,8 @@ def main():
                      + launches_weights + launches_single + launches_waymo
                      + launches_three + launches_pv + launches_conv
                      + launches_parta2 + launches_pointrcnn
-                     + launches_center + launches_pvpp + launches_caddn),
+                     + launches_center + launches_pvpp + launches_caddn
+                     + launches_nusc),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -5994,6 +6450,7 @@ def main():
         'launches_centerpoint': launches_center,
         'launches_pvrcnn_plusplus': launches_pvpp,
         'launches_caddn': launches_caddn,
+        'launches_nuscenes': launches_nusc,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -6032,7 +6489,10 @@ def main():
                                               center_train),
                                              ('pv_rcnn_plusplus', pvpp),
                                              ('pv_rcnn_plusplus_train',
-                                              pvpp_train))
+                                              pvpp_train),
+                                             ('nuscenes', nusc),
+                                             ('nuscenes_train', nusc_train),
+                                             ('lyft', lyft))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -6085,7 +6545,14 @@ def main():
           f'sparse level, checked per call over {N_REQUESTS} predicts and '
           f'{CADDN_STEPS + 1} steps of CaDDN.yaml, a predict and a step of '
           f'CaDDN_deeplab.yaml, the CLIs and {CONV_CADDN_STEPS} harness '
-          f'steps); '
+          f'steps) and the nuScenes phase (nuScenes CenterPoint: '
+          f'{N_REQUESTS} predicts, {TRAIN_STEPS} train steps, '
+          f'{NUSC_CLI[3] * NUSC_CLI[4]} CLI steps and '
+          f'{math.ceil(NUSC_CLI[1] / NUSC_CLI[2])} test predicts; Lyft: 1 '
+          f'predict, 1 train step, {LYFT_CLI[3] * LYFT_CLI[4]} CLI step, '
+          f'{math.ceil(LYFT_CLI[1] / LYFT_CLI[2])} test predict; Pandaset: '
+          f'{PANDASET_CLI[3] * PANDASET_CLI[4]} CLI steps, '
+          f'{math.ceil(PANDASET_CLI[1] / PANDASET_CLI[2])} test predict); '
           f'single_* per GLENet-C predict, waymo_* per '
           f'Waymo GLENet-S predict, waymo_train_* per Waymo train step, '
           f'second_iou_* per SECOND-IoU predict, second_iou_train_* per '
@@ -6096,7 +6563,9 @@ def main():
           f'Waymo CenterPoint predict, centerpoint_train_* per Waymo '
           f'CenterPoint train step, pv_rcnn_plusplus_* per Waymo PV-RCNN++ '
           f'predict and pv_rcnn_plusplus_train_* per Waymo PV-RCNN++ train '
-          f'step (B = 2)')
+          f'step (B = 2), nuscenes_* per nuScenes CenterPoint predict (B = '
+          f'2), nuscenes_train_* per nuScenes CenterPoint train step (B = 4) '
+          f'and lyft_* per Lyft SECOND-multihead predict (B = 2)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,8 +1,10 @@
 """Dense 2D BEV backbones (torch counterparts of
 glenet_tpu/models/bev_backbone.py):
 
-  - BaseBEVBackbone: multi-level strided conv blocks + transpose-conv
-    up-branches, concatenated;
+  - BaseBEVBackbone: multi-level strided conv blocks + up-branches,
+    concatenated: a transpose conv for an UPSAMPLE_STRIDES entry s >= 1, a
+    conv of kernel and stride 1 / s for a fractional one (0.5 in
+    OpenPCDet's nuScenes PointPillars);
   - SSFA: CIA-SSD's spatial-semantic feature aggregation with softmax
     attention fusion, 128 channels at the input's resolution (GLENet-C).
 """
@@ -25,9 +27,6 @@ class BaseBEVBackbone(nn.Module):
                  upsample_strides: Sequence[int] = (),
                  num_upsample_filters: Sequence[int] = ()):
         super().__init__()
-        if any(s < 1 for s in upsample_strides):
-            raise NotImplementedError('fractional upsample strides are not '
-                                      'ported yet')
         self.levels = []
         n = 0
 
@@ -44,10 +43,15 @@ class BaseBEVBackbone(nn.Module):
             c = num_filters[i]
             names += [block(c, c, 3, 1, padding=1) for _ in range(n_layers)]
             up = None
-            if upsample_strides:
-                s = upsample_strides[i]
+            if upsample_strides and upsample_strides[i] >= 1:
                 # stride == kernel deconvolution (flax ConvTranspose 'SAME')
+                s = int(upsample_strides[i])
                 up = block(c, num_upsample_filters[i], s, s, transpose=True)
+            elif upsample_strides:
+                # a fractional stride 1 / s: a plain conv of kernel and
+                # stride s, no padding
+                s = int(round(1 / upsample_strides[i]))
+                up = block(c, num_upsample_filters[i], s, s, padding=0)
             self.levels.append((names, up))
         self.num_bev_features = (sum(num_upsample_filters)
                                  if num_upsample_filters else num_filters[-1])

@@ -119,3 +119,33 @@ class ConvBlock(nn.Module):
             x = self.Conv_0(x)
         x = self.MaskedBatchNorm_0(x, use_running_average=not train)
         return F.relu(x) if self.use_relu else x
+
+
+class MLP(nn.Module):
+    """Dense layers (no bias with BN) each followed by a MaskedBatchNorm over
+    the last axis, with the optional validity `mask` (x's shape without the
+    feature axis), and a ReLU, except after the last layer unless
+    final_activation.  Children are named Dense_<i> / MaskedBatchNorm_<i>,
+    as in the JAX module."""
+
+    def __init__(self, in_features: int, features, use_bn: bool = True,
+                 final_activation: bool = True):
+        super().__init__()
+        self.n, self.use_bn = len(features), use_bn
+        self.final_activation = final_activation
+        for i, f in enumerate(features):
+            setattr(self, f'Dense_{i}', nn.Linear(in_features, f,
+                                                  bias=not use_bn))
+            if use_bn:
+                setattr(self, f'MaskedBatchNorm_{i}', MaskedBatchNorm(f))
+            in_features = f
+
+    def forward(self, x, mask=None, train: bool = False):
+        for i in range(self.n):
+            x = getattr(self, f'Dense_{i}')(x)
+            if self.use_bn:
+                x = getattr(self, f'MaskedBatchNorm_{i}')(
+                    x, mask=mask, use_running_average=not train)
+            if i < self.n - 1 or self.final_activation:
+                x = F.relu(x)
+        return x

@@ -6,7 +6,9 @@
   2. large counts (proposal NMS): a lazy kept-buffer pass over blocks of 256
      score-ordered candidates (`_greedy_keep_lazy`) that stops once
      `post_max` boxes are kept or the live candidates run out;
-  3. variance voting vectorized after the keep pass.
+  3. variance voting vectorized after the keep pass;
+  4. `nms_normal` (axis-aligned IoU) and `soft_nms` (score rescaling),
+     which glenet_tpu offers beside them; no NMS_TYPE selects them.
 
 Outputs are fixed-shape: (post_max,) indices + validity (+ voted boxes).
 Candidates are ordered by a STABLE descending sort of the scores, so ties
@@ -143,6 +145,66 @@ def nms_bev(boxes, scores, iou_threshold, pre_max: int = 4096,
         keep = _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max)
     keep_idx, keep_valid = _first_k_kept(keep, post_max)
     return order[keep_idx], keep_valid
+
+
+def nms_normal(boxes, scores, iou_threshold, pre_max: int = 4096,
+               post_max: int = 500, score_threshold: float = 0.0):
+    """Greedy NMS on axis-aligned BEV IoU, the headings ignored (the
+    reference's nms_normal_gpu): the (P, P) IoU matrix of the pre_max
+    candidates, then greedy_keep.  Returns keep_idx (post_max,) and
+    keep_valid (post_max,) as nms_bev."""
+    from ..utils import box_utils
+    pre_max = min(pre_max, boxes.shape[0])
+    boxes_s, scores_s, order = _topk_boxes(boxes, scores, pre_max)
+    aligned = torch.cat([boxes_s[:, 0:2] - boxes_s[:, 3:5] / 2,
+                         boxes_s[:, 0:2] + boxes_s[:, 3:5] / 2], dim=1)
+    live = scores_s > score_threshold
+    iou = box_utils.boxes_iou_normal(aligned, aligned)
+    keep = greedy_keep(iou > iou_threshold, live)
+    keep_idx, keep_valid = _first_k_kept(keep, post_max)
+    return order[keep_idx], keep_valid
+
+
+_NEG_INF = -1e9
+
+
+def soft_nms(boxes, scores, score_threshold: float = 0.1,
+             soft_sigma: float = 0.3, soft_mode: str = 'gaussian',
+             pre_max: int = 1024, post_max: int = 256):
+    """Soft-NMS (the reference's softnms, without voting) over the pre_max
+    top-scored boxes: post_max rounds, each keeping the live box of the
+    highest rescaled score (the first on a tie, as argmax) and rescaling the
+    others by exp(-iou^2 / sigma) ('gaussian') or by 1 - iou where iou >=
+    sigma ('linear'), rotated BEV IoU; a box whose score falls below
+    score_threshold leaves.  No host sync.
+
+    Returns keep_idx (post_max,) into the inputs, keep_valid (post_max,)
+    and keep_scores (post_max,), the rescaled score of each keep (0 in an
+    empty slot, whose index is order[0])."""
+    pre_max = min(pre_max, boxes.shape[0])
+    boxes_s, scores_s, order = _topk_boxes(boxes, scores, pre_max)
+    iou_mat = iou3d.boxes_iou_bev_blocked(boxes_s, boxes_s)
+    live = torch.where(scores_s >= score_threshold, scores_s, _NEG_INF)
+    dev = boxes.device
+    keep_idx = torch.zeros(post_max, dtype=torch.int64, device=dev)
+    keep_valid = torch.zeros(post_max, dtype=torch.bool, device=dev)
+    keep_scores = torch.zeros(post_max, dtype=scores.dtype, device=dev)
+    for k in range(post_max):
+        i = torch.argmax(live)
+        cur = live[i]
+        valid = cur > _NEG_INF / 2
+        iou = iou_mat[i]
+        if soft_mode == 'gaussian':
+            scale = torch.exp(-iou ** 2 / soft_sigma)
+        else:
+            scale = torch.where(iou >= soft_sigma, 1.0 - iou, 1.0)
+        live = torch.where(valid, live * scale, live)
+        live = torch.where(live < score_threshold, _NEG_INF, live)
+        live = live.index_fill(0, i.reshape(1), _NEG_INF)
+        keep_idx[k] = torch.where(valid, i, 0)
+        keep_valid[k] = valid
+        keep_scores[k] = torch.where(valid, cur, 0.0)
+    return order[keep_idx], keep_valid, keep_scores
 
 
 def multi_classes_nms(boxes, cls_scores, iou_threshold, num_class: int,

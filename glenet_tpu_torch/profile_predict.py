@@ -6,12 +6,16 @@ configs/kitti_models/GLENet_VR.yaml (or CFG, e.g. a single-stage
 GLENet_S.yaml, GLENet_C.yaml, second.yaml or second_multihead.yaml, the
 two-stage second_iou.yaml, pv_rcnn.yaml, PartA2.yaml, PartA2_free.yaml or
 pointrcnn.yaml, or pointpillar.yaml, or configs/waymo_models/
-centerpoint*.yaml and the CenterHead-RPN configs) at full width, seeded
-random weights,
+centerpoint*.yaml and the CenterHead-RPN configs, or a run-time config's
+yaml as `python -m glenet_tpu_torch.config NAME OUT.yaml` writes it for
+nuscenes_centerpoint, lyft_second_multihead or pandaset_second) at full
+width, seeded random weights,
 B = 2 synthetic KITTI-like scenes of 32768 points (PointRCNN: 16384, its
 sample_points; for a Waymo config,
 configs/waymo_models/*.yaml, Waymo-like scenes of 170000 points with 5
-features; utils/synthetic.py), one warm-up predict, then:
+features; for a nuScenes, Lyft or Pandaset config their scenes of
+lidar_scene_batches, the key frame and its sweeps up to
+MAX_POINTS_PER_SCENE; utils/synthetic.py), one warm-up predict, then:
   1. the wall time of 3 requests as a caller sees it (a device synchronise
      after each request only);
   2. per-stage wall times of the same 3 requests, with a device synchronise

@@ -6,12 +6,17 @@ configs/kitti_models/GLENet_VR.yaml (or CFG: GLENet_VR_vq.yaml for the
 voxel-query RoI pooling, a single-stage GLENet_S.yaml, GLENet_C.yaml,
 second.yaml or second_multihead.yaml, second_iou.yaml, pv_rcnn.yaml,
 PartA2.yaml, PartA2_free.yaml, pointrcnn.yaml, pointrcnn_iou.yaml,
-pointpillar.yaml) at full width, seeded random weights,
+pointpillar.yaml; or a run-time config's yaml as `python -m
+glenet_tpu_torch.config NAME OUT.yaml` writes it for nuscenes_centerpoint,
+lyft_second_multihead or pandaset_second) at full width, seeded random
+weights,
 B = BATCH_SIZE_PER_GPU (4) synthetic KITTI-like training scenes of 32768
 points (PointRCNN: 16384, its sample_points) with gt boxes at their
 clusters (Car; for a Car, Pedestrian and
 Cyclist config objects of the three classes at KITTI's label ratios; for a
-Waymo config, Waymo-like scenes of 170000 points with Vehicle boxes;
+Waymo config, Waymo-like scenes of 170000 points with Vehicle boxes; for a
+nuScenes, Lyft or Pandaset config their scenes, the key frame and its
+sweeps, with boxes of the config's classes, lidar_scene_batches;
 utils/synthetic.py), the train
 voxel budget, adam_onecycle over the schedule of a full run (`total_steps`).
 One warm-up step, then:
@@ -72,11 +77,17 @@ WAYMO_TRAIN_FRAMES = 31617
 STEPS, TOP = 3, 30
 
 
+# nuScenes' train split (700 scenes); Pandaset's: the 61 train sequences of
+# pandaset_dataset.yaml, 80 frames each; Lyft's: assumed
+TRAIN_FRAMES = {'WaymoDataset': WAYMO_TRAIN_FRAMES,
+                'NuScenesDataset': 28130, 'LyftDataset': 18900,
+                'PandasetDataset': 61 * 80}
+
+
 def train_frames(cfg):
     """Frames of a full run's train split for the config's dataset."""
-    return (WAYMO_TRAIN_FRAMES
-            if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset'
-            else KITTI_TRAIN_FRAMES)
+    return TRAIN_FRAMES.get(cfg.DATA_CONFIG.get('DATASET'),
+                            KITTI_TRAIN_FRAMES)
 
 
 def total_steps(opt_cfg, frames=KITTI_TRAIN_FRAMES):

@@ -12,9 +12,11 @@ with --eval_all, every checkpoint of the directory
 as it appears (polling every 30 s, at most --max_waiting_mins without a new
 one).  Per checkpoint: batched predicts on the device, prediction dicts,
 recall telemetry (3D IoU on the device), `result.pkl` and the dataset's
-evaluation: the KITTI AP (overlaps and matcher on the device) or, for a
-Waymo config, Waymo's AP / APH at LEVEL_1 / LEVEL_2 (IoUs on the
-device, matching on the host).  Runs on the GPU unless --device cpu
+evaluation: the KITTI AP (overlaps and matcher on the device; also
+Pandaset's, in KITTI's format), for a Waymo config Waymo's AP / APH at
+LEVEL_1 / LEVEL_2 (IoUs on the device, matching on the host), for
+nuScenes the NDS (numpy on the host) and for Lyft the mAP over 3D IoU
+thresholds (IoUs on the device).  Runs on the GPU unless --device cpu
 is given; without a GPU it raises.
 
 `main(argv)` returns {checkpoint path: eval_one_epoch's result}.
@@ -58,7 +60,7 @@ def parse_config(argv=None):
 def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
                    result_dir=None):
     """Batched predicts -> prediction dicts -> the dataset's evaluation
-    (KITTI AP, or Waymo AP / APH), with the recall of the gt boxes at
+    (KITTI AP, Waymo AP / APH, nuScenes NDS or Lyft mAP), with the recall of the gt boxes at
     RECALL_THRESH_LIST.  Returns {'ap': ret_dict, 'result_str', 'frames',
     'sec_per_frame' (predicts and prediction dicts, per frame), 'eval_sec'
     (the evaluation alone), 'recall'}."""

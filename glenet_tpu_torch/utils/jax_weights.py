@@ -54,7 +54,9 @@ CaDDN's `vfe.ddn.*` (DDNLite's `ConvBlock_<i>`, `Dense_<i>`, `Conv_<i>`,
 `backbone.layer<l>_<b>.{conv<k>, bn<k>, downsample_conv, downsample_bn}`,
 `aspp.{conv<i>, bn<i>, conv_pool, bn_pool, project, project_bn}`,
 `head_conv`, `head_bn`, `head_out`), `vfe.channel_reduce` and
-`map_to_bev.ConvBlock_0` follow the same rules.
+`map_to_bev.ConvBlock_0` follow the same rules, as do `layers.MLP`'s
+`Dense_<i>` / `MaskedBatchNorm_<i>` and the fractional-stride up-branch
+of BaseBEVBackbone (a `ConvBlock_<i>.Conv_0` of kernel and stride 1 / s).
 
 It raises on any leaf it does not consume and on any port parameter or
 buffer it does not set.  `port_to_jax_variables` applies the rules the

@@ -1,7 +1,7 @@
 """Synthetic inputs and seeded random weights for runs on the card
 (chip_smoke.py, profile_predict.py, profile_train.py) and for the CPU
-tests: no trained checkpoint and no KITTI or Waymo data are in the
-repository."""
+tests: no trained checkpoint and no KITTI, Waymo, nuScenes, Lyft or
+Pandaset data are in the repository."""
 from __future__ import annotations
 
 import pickle
@@ -14,6 +14,7 @@ from ..models.ddn_deeplab import BatchNorm
 from ..models.detectors import build_detector
 from ..models.layers import MaskedBatchNorm
 from ..models.spconv_backbone import VARIANTS
+from ..config import DATASET_YAMLS, NUSCENES_CLASSES, repo_yaml
 from . import box_utils, calibration_kitti, common, png
 
 N_POINTS = 32768
@@ -1115,7 +1116,8 @@ def camera_batches(n, seed=0, batch=2, device='cuda', image_pad_to=(376, 1248),
 def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
     """`n` synthetic batches for `cfg`'s dataset: camera batches
     (camera_batches) for CaDDN, Waymo scenes
-    (waymo_scene_batches) for a WaymoDataset config, else KITTI-like
+    (waymo_scene_batches) for a WaymoDataset config, nuScenes, Lyft or
+    Pandaset scenes (lidar_scene_batches) for theirs, else KITTI-like
     scenes (scene_batches; with train=True three_class_train_batches for
     KITTI's Car, Pedestrian and Cyclist, else train_batches) of N_POINTS
     points, or of the sample_points step's NUM_POINTS where the config
@@ -1127,6 +1129,9 @@ def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
             three_class=len(cfg.CLASS_NAMES) > 1)
     if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
         return waymo_scene_batches(n, seed, batch, device, train=train)
+    if cfg.DATA_CONFIG.get('DATASET') in ('NuScenesDataset', 'LyftDataset',
+                                          'PandasetDataset'):
+        return lidar_scene_batches(cfg, n, seed, batch, device, train=train)
     n_points = N_POINTS
     for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
         if proc.NAME == 'sample_points':
@@ -1136,3 +1141,359 @@ def batches_for(cfg, n, seed=0, batch=2, train=False, device='cuda'):
     if train:
         return train_batches(n, seed, batch, device, n_points)
     return scene_batches(n, seed, batch, device, n_points)
+
+
+# ---------------------------------------------------------------------------
+# synthetic nuScenes, Lyft and Pandaset trees in the info-pickle layouts that
+# datasets/{nuscenes,lyft,pandaset}_dataset.py read, and their scenes as
+# the detector takes them
+# ---------------------------------------------------------------------------
+
+# the 10 nuScenes detection classes with OpenPCDet's nuScenes anchor sizes
+# (dx, dy, dz), and each one's share of the boxes of a frame.  The shares
+# are assumed, not taken from a cited count: cars most common, then
+# pedestrians and barriers.
+NUSC_CLASSES = dict(zip(NUSCENES_CLASSES, [
+    ((4.63, 1.97, 1.74), 0.34), ((6.93, 2.51, 2.84), 0.06),
+    ((6.37, 2.85, 3.19), 0.02), ((10.5, 2.94, 3.47), 0.02),
+    ((12.29, 2.90, 3.87), 0.03), ((0.50, 2.53, 0.98), 0.15),
+    ((2.11, 0.77, 1.47), 0.02), ((1.70, 0.60, 1.28), 0.02),
+    ((0.73, 0.67, 1.77), 0.24), ((0.41, 0.41, 1.07), 0.10)]))
+# Lyft's 9 classes: mean sizes of each kind and a mix led by cars, both
+# assumed, not taken from a cited table
+LYFT_CLASSES = {
+    'car': ((4.75, 1.92, 1.71), 0.60),
+    'pedestrian': ((0.81, 0.77, 1.78), 0.15),
+    'motorcycle': ((2.35, 0.96, 1.59), 0.02),
+    'bicycle': ((1.76, 0.63, 1.44), 0.06),
+    'other_vehicle': ((8.20, 2.79, 3.23), 0.08),
+    'bus': ((12.34, 2.96, 3.44), 0.03),
+    'truck': ((10.24, 2.84, 3.44), 0.04),
+    'emergency_vehicle': ((6.52, 2.45, 2.39), 0.01),
+    'animal': ((0.73, 0.36, 0.51), 0.01)}
+# nuScenes' lidar (Caesar et al., "nuScenes", CVPR 2020): a 32-beam
+# Velodyne HDL-32E sweeping at 20 Hz, about 34 000 points a sweep
+NUSC_SWEEP_POINTS = 34_000
+NUSC_SWEEP_DT = 0.05
+# boxes per frame: the nuScenes paper's 1.4M boxes over 40k key frames
+# make a mean of 35; the spread around it is assumed
+NUSC_BOXES = (10, 60)
+# Lyft's roof lidar (Kesten et al., "Lyft Level 5 AV Dataset 2019", its
+# sensor description): 40 beams at 0.2 degrees of azimuth, 10 Hz, so 40 x
+# 1800 points a sweep when every ray returns
+LYFT_SWEEP_POINTS = 40 * 1800
+LYFT_SWEEP_DT = 0.1
+LIDAR_HEIGHT = 1.84          # the sensor above the road, metres
+NUSC_DB_INFO = 'nuscenes_dbinfos_10sweeps_withvelo.pkl'
+LYFT_DB_INFO = 'lyft_dbinfos_10sweeps.pkl'
+PANDASET_DB_INFO = 'pandaset_dbinfos_train.pkl'
+PANDASET_POINTS = 170_000    # points per frame of Pandaset's Pandar64
+PANDASET_CLASSES = {'Car': ((4.5, 1.9, 1.6), 0.7),
+                    'Pedestrian': ((0.8, 0.7, 1.75), 0.2),
+                    'Cyclist': ((1.76, 0.6, 1.73), 0.1)}
+
+
+def _draw_boxes(rng, classes, n, radius, z_ground, velocity=True):
+    """n non-overlapping boxes of `classes` (name -> ((dx, dy, dz), share))
+    within `radius` (x, y half extents), standing on z_ground: (n, 9)
+    [x y z dx dy dz yaw vx vy] (vehicles move at up to 10 m/s, the rest at
+    up to 1.5 m/s, along their heading; zero without velocity) and
+    their names."""
+    names = list(classes)
+    share = np.array([classes[c][1] for c in names])
+    boxes, out_names = [], []
+    while len(boxes) < n:
+        c = names[rng.choice(len(names), p=share / share.sum())]
+        x, y = rng.uniform(-radius[0], radius[0]), rng.uniform(-radius[1],
+                                                               radius[1])
+        size = np.asarray(classes[c][0]) * rng.uniform(0.9, 1.1, 3)
+        if np.hypot(x, y) < 3.0 or any(
+                np.hypot(x - b[0], y - b[1]) < (size[0] + b[3]) / 2 + 0.5
+                for b in boxes):
+            continue
+        yaw = rng.uniform(-np.pi, np.pi)
+        speed = rng.uniform(0, 10.0 if size[0] > 3 else 1.5) * velocity
+        boxes.append([x, y, z_ground + size[2] / 2, *size, yaw,
+                      speed * np.cos(yaw), speed * np.sin(yaw)])
+        out_names.append(c)
+    return np.array(boxes, np.float64).reshape(-1, 9), np.array(out_names)
+
+
+def _scene_points(rng, boxes, n_points, radius, z_ground, shift=None):
+    """(n_points, 3) points in the key frame: a cluster in each box (fewer
+    the farther it is, its xy moved by `shift` (n, 2), the box's motion
+    since the sweep), the rest on the ground or up to 4 m above it, its
+    density falling as 1 / range out to `radius`."""
+    parts = []
+    for i, b in enumerate(boxes):
+        k = int(0.08 * n_points * np.exp(-np.hypot(b[0], b[1]) / 15.0)
+                * min(b[3] * b[4] / 8.0, 1.0)) + 5
+        local = rng.uniform(-0.5, 0.5, (k, 3)) * b[3:6]
+        p = common.rotate_points_along_z_np(local, np.array([b[6]])) + b[:3]
+        if shift is not None:
+            p[:, :2] -= shift[i]
+        parts.append(p)
+    n_rest = max(n_points - sum(len(p) for p in parts), 0)
+    r = rng.uniform(1.5, radius, n_rest)
+    t = rng.uniform(-np.pi, np.pi, n_rest)
+    z = np.where(rng.uniform(0, 1, n_rest) < 0.7,
+                 z_ground + rng.normal(0.0, 0.05, n_rest),
+                 z_ground + rng.uniform(0.0, 4.0, n_rest))
+    parts.append(np.stack([r * np.cos(t), r * np.sin(t), z], 1))
+    return np.concatenate(parts)[:n_points]
+
+
+def _inside(points, box):
+    """Mask of the points of (N, 3+) inside one (7+,) box."""
+    near = np.hypot(points[:, 0] - box[0], points[:, 1] - box[1]) \
+        <= np.hypot(box[3], box[4]) / 2 + 0.1
+    out = np.zeros(len(points), bool)
+    out[near] = box_utils.points_in_boxes_np(
+        points[near, :3], np.asarray(box[None, :7], np.float64))[:, 0]
+    return out
+
+
+def _write_db(root, db_dir, db_file, crops):
+    """Write each crop's points (relative to its box centre) under db_dir
+    and the dbinfos {name: [entries]} to db_file.  box3d_lidar holds the
+    7 box columns: glenet_tpu's gt sampling stacks the sampled boxes with
+    the scene's 7-column ones and refuses the reference's 9 (with
+    velocity)."""
+    (root / db_dir).mkdir(parents=True, exist_ok=True)
+    db = {}
+    for frame_id, i, name, box, pts in crops:
+        path = f'{db_dir}/{frame_id}_{name}_{i}.bin'
+        rel = pts.copy()
+        rel[:, :3] -= box[:3]
+        rel.astype(np.float32).tofile(str(root / path))
+        db.setdefault(name, []).append({
+            'name': name, 'path': path, 'image_idx': frame_id, 'gt_idx': i,
+            'box3d_lidar': np.asarray(box[:7], np.float32),
+            'num_points_in_gt': int(len(pts)), 'difficulty': 0})
+    with open(root / db_file, 'wb') as f:
+        pickle.dump(db, f)
+    return db
+
+
+def write_nuscenes_tree(root, n_train, n_val, seed=0, n_points=None,
+                        lyft=False, scale=1.0, boxes=NUSC_BOXES,
+                        classes=None):
+    """A synthetic tree in the layout of nuscenes_raw.create_nuscenes_info
+    (lyft: create_lyft_info) under `root`:
+
+      - samples/LIDAR_TOP/<token>.bin key frames and sweeps/LIDAR_TOP/
+        <token>.bin sweeps, (N, 5) float32 [x y z intensity ring] in each
+        sweep's own sensor frame (the ego drives along x at 0-12 m/s, so
+        a sweep's transform_matrix is a translation and a small yaw);
+      - the info pickles (nuscenes_infos_10sweeps_{train,val}.pkl, Lyft:
+        lyft_infos_{train,val}.pkl) with lidar_path, token, timestamp,
+        ref_from_car, car_from_global, MAX_SWEEPS - 1 sweeps (lidar_path,
+        transform_matrix, time_lag NUSC_SWEEP_DT or LYFT_SWEEP_DT apart),
+        gt_boxes (M, 9) with
+        velocities (zero for Lyft, as create_lyft_info writes them),
+        gt_names, num_lidar_pts (key-frame points in the box) and
+        num_radar_pts;
+      - the gt database of the train frames (NUSC_DB_INFO or LYFT_DB_INFO)
+        with each box's points of the key frame and its sweeps, 5 features
+        [x y z intensity time_lag] as the reference's multi-sweep
+        database.
+
+    Key frames and sweeps of n_points (NUSC_SWEEP_POINTS, Lyft
+    LYFT_SWEEP_POINTS) each, the dataset yaml's MAX_SWEEPS (nuScenes 10,
+    Lyft 5) per sample, the boxes
+    per frame uniform in `boxes` (nuScenes' classes and mean of 35, Lyft's
+    classes, or `classes` as NUSC_CLASSES gives them), within 50 m
+    (`scale` shrinks distances and the point cloud's radius, for toy
+    trees).  Returns `root`."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    classes = classes or (LYFT_CLASSES if lyft else NUSC_CLASSES)
+    n_points = n_points or (LYFT_SWEEP_POINTS if lyft else NUSC_SWEEP_POINTS)
+    n_sweeps = int(repo_yaml(DATASET_YAMLS['lyft' if lyft
+                                           else 'nuscenes'])['MAX_SWEEPS'])
+    dt = LYFT_SWEEP_DT if lyft else NUSC_SWEEP_DT
+    for d in ('samples/LIDAR_TOP', 'sweeps/LIDAR_TOP'):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    from ..datasets import nuscenes_raw as nr
+    splits = {'train': [], 'val': []}
+    crops = []
+    for f in range(n_train + n_val):
+        split = 'train' if f < n_train else 'val'
+        token = f'{split}{f:05d}'
+        gt, names = _draw_boxes(rng, classes, rng.randint(boxes[0],
+                                                          boxes[1] + 1),
+                                (48.0 * scale, 48.0 * scale), -LIDAR_HEIGHT,
+                                velocity=not lyft)
+        speed, yaw_rate = rng.uniform(0, 12.0), rng.uniform(-0.2, 0.2)
+        sweeps, merged = [], []
+        for k in range(n_sweeps):
+            lag = dt * k
+            xyz = _scene_points(rng, gt, n_points, 70.0 * scale,
+                                -LIDAR_HEIGHT, shift=gt[:, 7:9] * lag)
+            feats = np.stack([rng.uniform(0, 100, len(xyz)),
+                              rng.randint(0, 32, len(xyz))], 1)
+            # the sweep's pose in the key frame: behind by speed * lag
+            tm = nr.transform_matrix(
+                [-speed * lag, 0.0, 0.0],
+                [np.cos(-yaw_rate * lag / 2), 0, 0,
+                 np.sin(-yaw_rate * lag / 2)])
+            local = (np.linalg.inv(tm) @ np.hstack(
+                [xyz, np.ones((len(xyz), 1))]).T)[:3].T
+            pts = np.concatenate([local, feats], 1).astype(np.float32)
+            rel = (f'samples/LIDAR_TOP/{token}.bin' if k == 0
+                   else f'sweeps/LIDAR_TOP/{token}_{k}.bin')
+            pts.tofile(str(root / rel))
+            merged.append(np.concatenate(
+                [xyz, feats[:, :1], np.full((len(xyz), 1), lag)], 1))
+            if k:
+                sweeps.append({'lidar_path': rel,
+                               'sample_data_token': f'{token}_{k}',
+                               'transform_matrix': tm, 'time_lag': lag})
+        key = merged[0]
+        n_lidar = np.array([_inside(key, b).sum() for b in gt], np.int64)
+        pose = np.eye(4)
+        info = {'lidar_path': f'samples/LIDAR_TOP/{token}.bin',
+                'token': token, 'sweeps': sweeps, 'ref_from_car': pose,
+                'car_from_global': pose, 'timestamp': 1.5e9 + 0.5 * f,
+                'gt_boxes': gt.astype(np.float32),
+                'gt_boxes_velocity': np.concatenate(
+                    [gt[:, 7:9], np.zeros((len(gt), 1))], 1).astype(
+                    np.float32),
+                'gt_names': names,
+                'gt_boxes_token': np.array([f'{token}_box{i}'
+                                            for i in range(len(gt))]),
+                'num_lidar_pts': n_lidar,
+                'num_radar_pts': np.zeros(len(gt), np.int64)}
+        splits[split].append(info)
+        if split == 'train':
+            allp = np.concatenate(merged)
+            for i, b in enumerate(gt):
+                inside = _inside(allp, b)
+                crops.append((token, i, names[i], b,
+                              allp[inside].astype(np.float32)))
+    for split, infos in splits.items():
+        name = (f'lyft_infos_{split}.pkl' if lyft
+                else f'nuscenes_infos_10sweeps_{split}.pkl')
+        with open(root / name, 'wb') as fh:
+            pickle.dump(infos, fh)
+    _write_db(root, 'gt_database_10sweeps' if lyft
+              else 'gt_database_10sweeps_withvelo',
+              LYFT_DB_INFO if lyft else NUSC_DB_INFO, crops)
+    return root
+
+
+def write_pandaset_tree(root, n_train, n_val, seed=0,
+                        n_points=PANDASET_POINTS, scale=1.0,
+                        boxes=(10, 40)):
+    """A synthetic tree in the layout pandaset_raw.create_pandaset_infos
+    writes with extract_frames: extracted/<seq>/<ii>.npy frames of
+    (n_points, 4) float32 [x y z intensity] points in the normative ego
+    frame (x forward, y left; the ground 1.8 m below the sensor, the
+    cloud out to 90 m, most of it in the 140 x 80 m range), sequences of
+    4 frames; pandaset_infos_{train,val}.pkl (sequence, frame_idx,
+    lidar_path, gt_boxes (M, 7), gt_names of Car, Pedestrian and Cyclist,
+    num_lidar_pts); and PANDASET_DB_INFO with the train boxes' crops of 5
+    features, the points padded as PandasetDataset pads them (the yaml's
+    4 does not build in glenet_tpu: its gt sampling stacks the crops with
+    the padded points).  `scale` shrinks distances, for toy trees.  Returns
+    `root`."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    splits = {'train': [], 'val': []}
+    crops = []
+    for f in range(n_train + n_val):
+        split = 'train' if f < n_train else 'val'
+        seq, ii = f'{f // 4:03d}', f % 4
+        gt, names = _draw_boxes(rng, PANDASET_CLASSES,
+                                rng.randint(boxes[0], boxes[1] + 1),
+                                (65.0 * scale, 36.0 * scale), -1.8,
+                                velocity=False)
+        xyz = _scene_points(rng, gt, n_points, 90.0 * scale, -1.8)
+        pts = np.concatenate([xyz, rng.uniform(0, 100, (len(xyz), 1))],
+                             1).astype(np.float32)
+        rel = f'extracted/{seq}/{ii:02d}.npy'
+        (root / rel).parent.mkdir(parents=True, exist_ok=True)
+        np.save(str(root / rel), pts)
+        inside = [_inside(pts, b) for b in gt]
+        splits[split].append({
+            'sequence': seq, 'frame_idx': ii, 'lidar_path': rel,
+            'gt_boxes': gt[:, :7].astype(np.float32), 'gt_names': names,
+            'num_lidar_pts': np.array([m.sum() for m in inside], np.int64)})
+        if split == 'train':
+            # 5 features, the zero column PandasetDataset pads the points
+            # with: glenet_tpu's gt sampling stacks the crops with the
+            # padded points and refuses 4
+            pts5 = np.concatenate([pts, np.zeros((len(pts), 1),
+                                                 np.float32)], 1)
+            crops += [(f'{seq}_{ii:02d}', i, names[i], gt[i, :7],
+                       pts5[m]) for i, m in enumerate(inside)]
+    for split, infos in splits.items():
+        with open(root / f'pandaset_infos_{split}.pkl', 'wb') as fh:
+            pickle.dump(infos, fh)
+    _write_db(root, 'gt_database_train', PANDASET_DB_INFO, crops)
+    return root
+
+
+def lidar_scene_batches(cfg, n, seed=0, batch=2, device='cuda', train=False):
+    """`n` batches of `batch` synthetic scenes for a nuScenes, Lyft or
+    Pandaset config as the detector takes them: nuScenes / Lyft the key
+    frame and MAX_SWEEPS - 1 sweeps (write_nuscenes_tree's scenes, in the
+    key frame, time lag as the fifth feature), Pandaset one frame of
+    PANDASET_POINTS; the range mask and MAX_POINTS_PER_SCENE padding of
+    the dataset; with train=True the gt boxes of CLASS_NAMES in
+    MAX_GT_PER_SCENE slots with their 1-based classes, gt_mask and label
+    variances in [0.01, 0.2)."""
+    data = cfg.DATA_CONFIG
+    kind = data.DATASET
+    rng = np.random.RandomState(seed)
+    pc = np.asarray(data.POINT_CLOUD_RANGE, np.float32)
+    n_max, g_max = int(data.MAX_POINTS_PER_SCENE), int(data.MAX_GT_PER_SCENE)
+    n_feat = len(data.POINT_FEATURE_ENCODING['used_feature_list'])
+    names = list(cfg.CLASS_NAMES)
+    out = []
+    for _ in range(n):
+        pts = np.zeros((batch, n_max, n_feat), np.float32)
+        pmask = np.zeros((batch, n_max), bool)
+        gt = np.zeros((batch, g_max, 8), np.float32)
+        gt_mask = np.zeros((batch, g_max), bool)
+        unc = np.ones((batch, g_max, 7), np.float32)
+        for b in range(batch):
+            if kind == 'PandasetDataset':
+                boxes, bn = _draw_boxes(rng, PANDASET_CLASSES,
+                                        rng.randint(10, 41), (65.0, 36.0),
+                                        -1.8, velocity=False)
+                xyz = _scene_points(rng, boxes, PANDASET_POINTS, 90.0, -1.8)
+                cloud = np.concatenate(
+                    [xyz, rng.uniform(0, 100, (len(xyz), 1))], 1)
+            else:
+                lyft = kind == 'LyftDataset'
+                boxes, bn = _draw_boxes(
+                    rng, LYFT_CLASSES if lyft else NUSC_CLASSES,
+                    rng.randint(NUSC_BOXES[0], NUSC_BOXES[1] + 1),
+                    (48.0, 48.0), -LIDAR_HEIGHT, velocity=not lyft)
+                n_sw = int(data.get('MAX_SWEEPS', 1))
+                per = LYFT_SWEEP_POINTS if lyft else NUSC_SWEEP_POINTS
+                dt = LYFT_SWEEP_DT if lyft else NUSC_SWEEP_DT
+                cloud = np.concatenate([np.concatenate([
+                    _scene_points(rng, boxes, per, 70.0, -LIDAR_HEIGHT,
+                                  shift=boxes[:, 7:9] * dt * k),
+                    rng.uniform(0, 100, (per, 1)),
+                    np.full((per, 1), dt * k)], 1)
+                    for k in range(n_sw)])
+            cloud = cloud[:, :n_feat].astype(np.float32)
+            keep = ((cloud[:, :3] >= pc[:3]) & (cloud[:, :3] <= pc[3:])).all(1)
+            cloud = cloud[keep]
+            cloud = cloud[rng.permutation(len(cloud))][:n_max]
+            pts[b, :len(cloud)], pmask[b, :len(cloud)] = cloud, True
+            sel = [i for i, c in enumerate(bn) if c in names][:g_max]
+            k = len(sel)
+            gt[b, :k, :7] = boxes[sel, :7]
+            gt[b, :k, 7] = [names.index(bn[i]) + 1 for i in sel]
+            gt_mask[b, :k] = True
+            unc[b, :k] = rng.uniform(0.01, 0.2, (k, 7))
+        fields = [('points', pts), ('points_mask', pmask)]
+        if train:
+            fields += [('gt_boxes', gt), ('gt_mask', gt_mask),
+                       ('gt_uncertainty', unc)]
+        out.append({k: torch.from_numpy(v).to(device) for k, v in fields})
+    return out

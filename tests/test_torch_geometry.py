@@ -64,12 +64,14 @@ def test_residual_coder_decode():
     got = tcoder.ResidualCoder().decode(torch.from_numpy(enc),
                                         torch.from_numpy(anchors))
     _close(got, ref, atol=1e-4)
-    # PointResidualCoder is ported (tests/test_torch_parta2.py holds it);
-    # the legacy decoder is not
+    # PointResidualCoder is ported (tests/test_torch_parta2.py holds it),
+    # and the legacy decoder decodes as JAX's does
     assert isinstance(tcoder.build_box_coder('PointResidualCoder'),
                       tcoder.PointResidualCoder)
-    with pytest.raises(NotImplementedError):
-        tcoder.build_box_coder('PreviousResidualDecoder')
+    prev = tcoder.build_box_coder('PreviousResidualDecoder')
+    ref = jcoder.PreviousResidualDecoder().decode(enc, anchors)
+    got = prev.decode(torch.from_numpy(enc), torch.from_numpy(anchors))
+    _close(got, ref, atol=1e-4)
 
 
 def test_anchors():

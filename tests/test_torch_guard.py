@@ -291,13 +291,25 @@ def test_single_stage_refusals(section, key, value, match):
 
 @pytest.mark.parametrize('name', ['NuScenesDataset', 'LyftDataset',
                                   'PandasetDataset'])
-def test_unported_datasets_raise(name):
+def test_unported_datasets_raise(name, tmp_path):
+    """The three datasets that once raised here are ported: build_dataset
+    returns each adapter (an empty one over a directory without infos), and
+    an unknown name raises naming itself."""
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.datasets import build_dataset
-    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
-    cfg.DATA_CONFIG.DATASET = name
-    with pytest.raises(NotImplementedError, match=name):
-        build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False)
+    base = {'NuScenesDataset': 'nuscenes', 'LyftDataset': 'lyft',
+            'PandasetDataset': 'pandaset'}[name]
+    cfg = cfg_from_yaml_file(str(
+        ROOT / f'configs/dataset_configs/{base}_dataset.yaml'))
+    assert cfg.DATASET == name
+    ds = build_dataset(cfg, ['car'], training=False, root_path=tmp_path)
+    assert type(ds).__name__ == name and len(ds) == 0
+    assert ds.METRIC == {'NuScenesDataset': 'nuScenes',
+                         'LyftDataset': 'Lyft',
+                         'PandasetDataset': 'KITTI'}[name]
+    cfg.DATASET = name + 'X'
+    with pytest.raises(NotImplementedError, match=name + 'X'):
+        build_dataset(cfg, ['car'], training=False, root_path=tmp_path)
 
 
 _CAMERA_ITEM_KEYS = {'images': ('images', 'image_shape'),
