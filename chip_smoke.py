@@ -329,7 +329,28 @@ Phases, each of which exits non-zero on failure:
      (fractional_raw) on the card against the CPU, a predict and a train
      step as phase 7; phase 6 adds the 4 captured calls of the nuScenes
      predict and train step and of the Lyft predict;
- 20. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 20. training across processes, [parallel] (after the main paths, in
+     the [cli] block): (a) GLENet_VR.yaml at full width, B = 2 per rank on
+     two gloo ranks spawned on cuda:0 (NCCL is tried first with two ranks
+     on the one card and its refusal printed), rank 1 built from other
+     weights than rank 0's until put_replicated; one data-parallel step
+     on phase 3's training scenes against the one-process B = 4 step on
+     the same scenes and start weights, both in f32 with TF32 off: every
+     integer output (anchor targets, proposals, sampled RoIs,
+     reg_valid_mask, merge-resolve tables) equal on the rank's rows, loss
+     terms, gradients, parameters and BN stats within phase 7's bounds,
+     BN buffers bit-equal across the ranks; then one step in the default
+     dtypes per rank, launches counted from 0 just before and read just
+     after: step ms, the gradient all-reduce's ms and bytes, the other
+     all-reduces' count and ms, 4 merge-resolve launches, peak memory;
+     rank 0's captured calls against the plain version as phase 6; (b) the
+     (data, model) mesh (1, 2): one step with half of every large kernel
+     on each rank, against the same reference (or the collective gloo
+     lacks on CUDA tensors, printed); (c) `tools.train` through
+     --coordinator_address / --num_processes 1 / --process_id 0 (NCCL) on
+     the [cli] tree, 1 epoch x 2 steps with --eval_after_train: the
+     checkpoint and the AP keys;
+ 21. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
@@ -6289,6 +6310,499 @@ def phase_nuscenes(tmp):
     return launches, captured, captured_train, captured_lyft
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: training across processes on the one card
+# ---------------------------------------------------------------------------
+
+PAR_B, PAR_SEED = 2, SEED + 190      # scenes per rank; the start weights
+
+
+class pinned_f32:
+    """f32 gathers and dense levels, TF32 off and no RoI-head dropout
+    (phase 7's setting), for the steps that are compared: they take the
+    reference's RoI targets, and with fed targets the dropout would draw
+    where the sampling's draws left the generator."""
+
+    def __init__(self, det):
+        self.head = det.net.roi_head
+
+    def __enter__(self):
+        import torch
+        self.dp_ratio, self.head.dp_ratio = self.head.dp_ratio, 0.0
+
+        from glenet_tpu_torch.models import spconv_backbone
+        from glenet_tpu_torch.ops import sparse
+        self.saved = (sparse.GATHER_COMPUTE_DTYPE,
+                      spconv_backbone.DENSE_MXU_DTYPE,
+                      torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_tf32)
+        sparse.GATHER_COMPUTE_DTYPE = spconv_backbone.DENSE_MXU_DTYPE = None
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        from glenet_tpu_torch.models import spconv_backbone
+        from glenet_tpu_torch.ops import sparse
+        (sparse.GATHER_COMPUTE_DTYPE, spconv_backbone.DENSE_MXU_DTYPE,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = self.saved
+        self.head.dp_ratio = self.dp_ratio
+
+
+def kink_record(net, rel=1e-4):
+    """Hooks on every MaskedBatchNorm of `net` (each feeds a ReLU) keeping,
+    per call, the elements of its output within `rel` of its largest
+    |output| (and not exactly 0): their flat indices and values, and the
+    bound.  Returns (the record, the hook handles)."""
+    import torch
+
+    from glenet_tpu_torch.models.layers import MaskedBatchNorm
+    rec = {}
+
+    def hook(name):
+        def fn(_mod, _inp, y):
+            flat = y.detach().reshape(-1)
+            eps = rel * float(flat.abs().max())
+            idx = torch.nonzero((flat.abs() <= eps) & (flat != 0))[:, 0]
+            rec.setdefault(name, []).append(
+                (idx.cpu(), flat[idx].cpu(), eps))
+        return fn
+
+    return rec, [m.register_forward_hook(hook(n)) for n, m in
+                 net.named_modules() if isinstance(m, MaskedBatchNorm)]
+
+
+def kink_align(net, record, block):
+    """relu_signs for a rank of the data-parallel step, from kink_record's
+    sparse record of the one-process step: where this run's BN output and
+    the record's lie on opposite sides of 0, both within the record's
+    bound, this run takes the record's value (a shift by less than
+    rounding, the gradient path unchanged), so both differentiate one
+    branch of each ReLU.  The rank holds the block-th block of the
+    record's rows.  Returns (a dict counting the shifted elements, the
+    hook handles)."""
+    import torch
+
+    from glenet_tpu_torch.models.layers import MaskedBatchNorm
+    calls = {k: list(v) for k, v in record.items()}
+    seen = {'flipped': 0}
+
+    def hook(name):
+        def fn(_mod, _inp, y):
+            idx, val, eps = calls[name].pop(0)
+            size = y.numel()
+            lo = block * size
+            keep = (idx >= lo) & (idx < lo + size)
+            idx = (idx[keep] - lo).to(y.device)
+            val = val[keep].to(y.device)
+            flat = y.reshape(-1)
+            got = flat[idx]
+            flip = ((got > 0) != (val > 0)) & (got.abs() <= eps)
+            if not bool(flip.any()):
+                return None
+            seen['flipped'] += int(flip.sum())
+            shift = torch.zeros_like(flat)
+            shift[idx[flip]] = (val - got)[flip]
+            return y + shift.reshape(y.shape).detach()
+        return fn
+
+    return seen, [m.register_forward_hook(hook(n)) for n, m in
+                  net.named_modules() if isinstance(m, MaskedBatchNorm)]
+
+
+def par_step(det, train_step, state, batch):
+    """One step recording its integer decisions: each sample's anchor
+    targets, the train forward's proposals and RoI targets, every
+    merge-resolve table.  Returns (state, metrics, decisions on the CPU,
+    the RoI targets on the CPU)."""
+    import torch
+
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    rec = {'merge': [], 'anchor': [], 'out': {}}
+    real = (det.assign_targets, mk.resolve_sorted_queries, det.net.forward)
+
+    def assign(*a):
+        t = real[0](*a)
+        rec['anchor'].append(t.box_cls_labels)
+        return t
+
+    def merge(ids, q):
+        t = real[1](ids, q)
+        rec['merge'].append(t)
+        return t
+
+    def forward(*a, **k):
+        out = real[2](*a, **k)
+        rec['out'] = {
+            'reg_valid_mask': out['roi_targets']['reg_valid_mask'],
+            'roi_labels': out['roi_targets']['roi_labels']}
+        if 'proposals' in out:            # not computed with fed targets
+            rec['out'].update(
+                roi_valid=out['proposals']['roi_valid'],
+                proposal_labels=out['proposals']['roi_labels'])
+        rec['targets'] = {k: v.detach().cpu()
+                          for k, v in out['roi_targets'].items()}
+        return out
+
+    det.assign_targets, mk.resolve_sorted_queries = assign, merge
+    det.net.forward = forward
+    try:
+        state, metrics = train_step(state, batch)
+    finally:
+        del det.assign_targets, det.net.forward
+        mk.resolve_sorted_queries = real[1]
+    dec = {f'merge{i}.{j}': t for i, call in enumerate(rec['merge'])
+           for j, t in enumerate(call)}
+    dec['anchor.box_cls_labels'] = torch.stack(rec['anchor'])
+    dec.update(rec['out'])
+    return (state, metrics, {k: v.long().cpu() for k, v in dec.items()},
+            rec['targets'])
+
+
+def par_snapshot(det, metrics, decisions):
+    return {'metrics': {k: float(v) for k, v in metrics.items()},
+            'params': {k: p.detach().cpu() for k, p in
+                       det.net.named_parameters()},
+            'grads': {k: p.grad.detach().cpu() for k, p in
+                      det.net.named_parameters() if p.grad is not None},
+            'buffers': {k: b.cpu() for k, b in det.net.named_buffers()},
+            'decisions': decisions}
+
+
+def par_compare(tag, got, ref, rows, lr):
+    """Phase 7's bounds: loss terms rtol 1e-4 (+1e-6), each gradient
+    1e-3 of its largest element (+1e-6), parameters after the step 2 lr
+    (+1e-6), BN running stats rtol 1e-4 / atol 1e-5; first the integer
+    decisions, exactly on the rank's rows.  Returns the worst gradient
+    error as a share of its bound."""
+    import torch
+    bad = {k: int((v != ref['decisions'][k][rows]).sum())
+           for k, v in got['decisions'].items()
+           if not torch.equal(v, ref['decisions'][k][rows])}
+    check(not bad, f'{tag}: integer outputs differ (elements): {bad}')
+    for k, v in ref['metrics'].items():
+        err = abs(got['metrics'][k] - v)
+        check(err <= 1e-4 * abs(v) + 1e-6,
+              f'{tag}: {k} {got["metrics"][k]} against {v}')
+    worst = 0.0
+    for k, g_ref in ref['grads'].items():
+        tol = 1e-3 * float(g_ref.abs().max()) + 1e-6
+        err = float((got['grads'][k] - g_ref).abs().max())
+        check(err <= tol, f'{tag}: gradient of {k} off by {err:.3e} > '
+                          f'{tol:.3e}')
+        worst = max(worst, err / tol)
+        step = float((got['params'][k] - ref['params'][k]).abs().max())
+        check(step <= 2 * lr + 1e-6, f'{tag}: {k} after the step')
+    for k, b in ref['buffers'].items():
+        check(torch.allclose(got['buffers'][k], b, rtol=1e-4, atol=1e-5),
+              f'{tag}: BN running stats {k}')
+    return worst
+
+
+def _nccl_probe(rank, port, out):
+    """Two NCCL ranks on cuda:0: NCCL is expected to refuse them."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT))
+    from glenet_tpu_torch.parallel import distributed
+    msg = 'ran'
+    try:
+        distributed.initialize(f'127.0.0.1:{port}', 2, rank, 'cuda',
+                               backend='nccl', timeout_s=60)
+        t = torch.ones(1, device='cuda')
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f'ran: all_reduce gave {float(t)}'
+    except Exception as e:        # noqa: BLE001 - the refusal is the result
+        msg = f'{type(e).__name__}: {e}'
+    Path(out, f'nccl{rank}.txt').write_text(msg)
+
+
+def _parallel_rank(rank, world, port, tmp):
+    """One gloo rank on cuda:0: (a) the data-parallel step at B = PAR_B in
+    f32, compared with the one-process step on the whole global batch
+    (tmp/ref.pt), then the step again in the default dtypes, timed; (b)
+    the (1, 2) (data, model) step, compared.  Writes its results to
+    tmp."""
+    import torch
+    sys.path.insert(0, str(ROOT))
+    from glenet_tpu_torch.bench_merge import capture_calls
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.parallel import distributed
+    from glenet_tpu_torch.parallel import mesh as mesh_lib
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import seeded_detector
+    distributed.initialize(f'127.0.0.1:{port}', world, rank, 'cuda',
+                           backend='gloo', timeout_s=300)
+    payload = torch.load(Path(tmp) / 'payload.pt', weights_only=False)
+    ref = torch.load(Path(tmp) / 'ref.pt', weights_only=False)
+    cfg = payload['cfg']
+    batch = {k: v.cuda() for k, v in payload['batch'].items()}
+    res = {'errors': []}
+
+    def compared(tag, det, train_step, state, local, rows, block,
+                 after=None):
+        """The step in f32 on the reference's RoI targets for the rows (the
+        block-th block of its rows), its ReLU kinks on the reference's
+        side, checked against the reference (after `after(state)`, when
+        given)."""
+        local = dict(local, roi_targets={
+            k: v[rows].cuda() for k, v in ref['roi_targets'].items()})
+        signs, hooks = kink_align(det.net, ref['kinks'], block)
+        try:
+            with pinned_f32(det):
+                state, metrics, dec, _ = par_step(det, train_step, state,
+                                                  local)
+        finally:
+            for h in hooks:
+                h.remove()
+        if after is not None:
+            after(state)
+        got = par_snapshot(det, metrics, dec)
+        try:
+            worst = par_compare(f'{tag} rank {rank}', got, ref, rows,
+                                ref['lr'])
+        except SmokeFailure as e:
+            res['errors'].append(str(e))
+            worst = float('nan')
+        return state, {'buffers': got['buffers'], 'worst': worst,
+                       'flipped': signs['flipped']}
+
+    # (a) ('data',) mesh of the 2 ranks; rank 1 starts from other weights
+    # until put_replicated
+    det = seeded_detector(cfg, 'cuda', PAR_SEED + rank)
+    tx, state, _ = build_training(cfg, det)
+    mesh = mesh_lib.make_mesh('cuda')
+    mesh_lib.put_replicated(state)
+    step = mesh_lib.make_dp_train_step(det, tx, mesh, timing=True)
+    local = mesh_lib.shard_batch(batch, mesh)
+    state, res['a'] = compared('(a)', det, step, state, local,
+                               slice(rank * PAR_B, (rank + 1) * PAR_B), rank)
+    # the main path: the step in the default dtypes, launches from 0
+    calls = {'n': 0, 'ms': 0.0}
+    real = distributed.all_reduce_sum
+
+    def counted(t, group):
+        calls['n'] += 1
+        t0 = time.perf_counter()
+        out = real(t, group)
+        calls['ms'] += 1e3 * (time.perf_counter() - t0)
+        return out
+
+    distributed.all_reduce_sum = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    captured, (state, metrics) = capture_calls(lambda: step(state, local))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    launches = mk.LAUNCHES
+    distributed.all_reduce_sum = real
+    res['timed'] = {
+        'step_ms': step_ms, 'launches': launches,
+        'grad_ms': step.stats['grad_allreduce_ms'],
+        'grad_bytes': step.stats['grad_bytes'],
+        'collectives': calls['n'],
+        'other_ms': calls['ms'] - step.stats['grad_allreduce_ms'],
+        'peak': torch.cuda.max_memory_allocated(),
+        'loss': float(metrics['loss'])}
+    t = res['timed']
+    print(f'[parallel] (a) rank {rank} of {world}, B={PAR_B} on cuda:0, '
+          f'gloo, default dtypes: step {step_ms:.1f} ms, gradient '
+          f'all-reduce {t["grad_ms"]:.1f} ms for '
+          f'{t["grad_bytes"] / 2**20:.1f} MiB, {t["collectives"] - 2} other '
+          f'all-reduces (BN moments, loss normalizers, metrics) '
+          f'{t["other_ms"]:.1f} ms host time, merge_resolve launches '
+          f'{launches}, max_memory_allocated {t["peak"] / 2**30:.2f} GiB, '
+          f'loss {t["loss"]:.4f}', flush=True)
+    if rank == 0:
+        res['kernel'] = check_captured(captured, 'parallel rank 0 step')
+    del det, state, step
+    torch.cuda.empty_cache()
+
+    # (b) (data, model) mesh (1, 2): each rank stores half of the kernels
+    det = seeded_detector(cfg, 'cuda', PAR_SEED + rank)
+    tx, state, _ = build_training(cfg, det)
+    mesh2 = mesh_lib.make_mesh_2d(2, 'cuda')
+    mesh_lib.put_replicated(state)
+    step = mesh_lib.make_dp_tp_train_step(det, tx, mesh2)
+    step.shard(state)
+    mk.LAUNCHES = 0
+    try:
+        state, res['b'] = compared('(b)', det, step, state, batch,
+                                   slice(None), 0, after=step.gather)
+    except RuntimeError as e:
+        if 'backend failed' not in str(e):
+            raise
+        res['b'] = {'skipped': str(e).splitlines()[0]}
+    else:
+        res['b'].update(launches=mk.LAUNCHES, sharded=len(step.sharded))
+    torch.save(res, Path(tmp) / f'rank{rank}.pt')
+    distributed.shutdown()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def par_spawn(fn, args, nprocs, deadline_s):
+    """Start `nprocs` spawned processes of fn(rank, *args); join within
+    deadline_s or kill them and fail."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method='spawn')
+    t_end = time.perf_counter() + deadline_s
+    while not ctx.join(timeout=5):
+        if time.perf_counter() > t_end:
+            for p in ctx.processes:
+                p.kill()
+            raise SmokeFailure(f'{fn.__name__}: not done in {deadline_s} s')
+
+
+def phase_parallel(cli_root, tmp):
+    """[parallel]: (a) two gloo ranks on the one card, the data-parallel
+    GLENet-VR step at full width against the one-process step on the
+    global batch; (b) the (1, 2) (data, model) step against the same; (c)
+    tools.train through the multi-host flags.  Returns the merge-resolve
+    launches and rank 0's kernel check."""
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.ops import merge_kernel as mk
+    from glenet_tpu_torch.parallel.distributed import get_dist_info
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.tools import train as train_cli
+    from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
+    t_start = time.perf_counter()
+    work = tmp / 'parallel'
+    work.mkdir()
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
+    world = 2
+    batch = batches_for(cfg, 1, SEED + 1, world * PAR_B, train=True)[0]
+    # the one-process step on the global batch from rank 0's start weights;
+    # its gt boxes 0.15 m off the first 4 train-mode proposals of each
+    # scene (a throwaway forward: it moves the BN stats), so the sampled
+    # RoIs hold foreground
+    det = seeded_detector(cfg, 'cuda', PAR_SEED)
+    gt = torch.zeros_like(batch['gt_boxes'])
+    with torch.no_grad():
+        prop = det.net(batch['points'], batch['points_mask'], train=True,
+                       gt_boxes=gt, gt_mask=gt[..., 7] > 0,
+                       generator=torch.Generator('cuda').manual_seed(SEED)
+                       )['proposals']
+    det = seeded_detector(cfg, 'cuda', PAR_SEED)
+    for i in range(world * PAR_B):
+        idx = torch.nonzero(prop['roi_valid'][i]).flatten()[:4]
+        gt[i, :len(idx), :7] = prop['rois'][i, idx]
+        gt[i, :len(idx), 0] += 0.15
+        gt[i, :len(idx), 7] = 1
+    batch = dict(batch, gt_boxes=gt, gt_mask=gt[..., 7] > 0)
+    torch.save({'cfg': cfg, 'batch': {k: v.cpu() for k, v in batch.items()}},
+               work / 'payload.pt')
+    tx, state, train_step = build_training(cfg, det)
+    kinks, hooks = kink_record(det.net)
+    with pinned_f32(det):
+        state, metrics, dec, targets = par_step(det, train_step, state,
+                                                batch)
+    for h in hooks:
+        h.remove()
+    ref = dict(par_snapshot(det, metrics, dec), lr=tx.hyperparams(0)[0],
+               roi_targets=targets, kinks=kinks)
+    torch.save(ref, work / 'ref.pt')
+    print(f'[parallel] one-process reference step, B={world * PAR_B} at '
+          f'full width (f32, TF32 off): loss {ref["metrics"]["loss"]:.5f}, '
+          f'grad_norm {ref["metrics"]["grad_norm"]:.5f}, '
+          f'{int(ref["decisions"]["reg_valid_mask"].sum())} foreground '
+          f'RoIs', flush=True)
+    check(bool(ref['decisions']['reg_valid_mask'].any()),
+          'the reference step sampled no foreground RoI')
+    del det, state, train_step, batch
+    torch.cuda.empty_cache()
+
+    par_spawn(_nccl_probe, (free_port(), str(work)), 2, 120)
+    for r in range(2):
+        print(f'[parallel] NCCL with 2 ranks on cuda:0, rank {r}: '
+              f'{Path(work, f"nccl{r}.txt").read_text()[:300]}')
+
+    par_spawn(_parallel_rank, (world, free_port(), str(work)), world, 900)
+    ranks = [torch.load(work / f'rank{r}.pt', weights_only=False)
+             for r in range(world)]
+    launches = 0
+    for r, res in enumerate(ranks):
+        check(not res['errors'], f'rank {r}: {res["errors"]}')
+        check(res['timed']['launches'] == 4,
+              f'(a) rank {r}: {res["timed"]["launches"]} merge-resolve '
+              f'launches, expected 4')
+        launches += res['timed']['launches']
+        print(f'[parallel] (a) rank {r} against the one-process step: loss '
+              f'terms, gradients (worst at {res["a"]["worst"]:.2f} of the '
+              f'bound), parameters and BN stats within phase 7\'s bounds, '
+              f'the anchor targets and merge-resolve tables equal on its '
+              f'rows; ReLU inputs taken on the reference\'s side of 0: '
+              f'{res["a"]["flipped"]}')
+    for k, v in ranks[0]['a']['buffers'].items():
+        check(torch.equal(v, ranks[1]['a']['buffers'][k]),
+              f'(a) BN buffer {k} differs across the ranks')
+    t = ranks[0]['timed']
+    print(f'[parallel] (a) BN buffers bit-equal across the ranks; rank 0\'s '
+          f'gradient all-reduce {t["grad_ms"]:.1f} ms of its '
+          f'{t["step_ms"]:.1f} ms step '
+          f'({100 * t["grad_ms"] / t["step_ms"]:.1f} %), the other '
+          f'all-reduces {t["other_ms"]:.1f} ms '
+          f'({100 * t["other_ms"] / t["step_ms"]:.1f} %)')
+    if 'skipped' in ranks[0]['b']:
+        print(f'[parallel] (b) the (1, 2) mesh does not run on the card: '
+              f'{ranks[0]["b"]["skipped"]}')
+    else:
+        for r, res in enumerate(ranks):
+            check(res['b']['launches'] == 4, f'(b) rank {r}: '
+                  f'{res["b"]["launches"]} merge-resolve launches')
+            launches += res['b']['launches']
+            print(f'[parallel] (b) (data, model) mesh (1, 2), rank {r}: '
+                  f'{res["b"]["sharded"]} kernels stored as halves; against '
+                  f'the one-process step within phase 7\'s bounds (worst '
+                  f'gradient at {res["b"]["worst"]:.2f} of its bound), '
+                  f'integer outputs equal; ReLU inputs taken on the '
+                  f'reference\'s side of 0: {res["b"]["flipped"]}')
+
+    # (c) the train CLI through the multi-host flags: NCCL, world 1
+    out = work / 'cli'
+    mk.LAUNCHES = 0
+    run = train_cli.main([
+        '--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+        '--data_path', str(cli_root), '--output_dir', str(out),
+        '--batch_size', str(CLI_BATCH), '--epochs', '1',
+        '--max_steps_per_epoch', '2', '--eval_after_train',
+        '--coordinator_address', f'127.0.0.1:{free_port()}',
+        '--num_processes', '1', '--process_id', '0'])
+    launches_cli = mk.LAUNCHES
+    check(get_dist_info() == (0, 1), 'the CLI left its process group')
+    ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
+    check(ckpts == ['checkpoint_epoch_0.pth'], f'checkpoints {ckpts}')
+    check(all(math.isfinite(s['loss']) for s in run['steps'])
+          and len(run['steps']) == 2, 'CLI steps')
+    keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
+    check(all(k in run['eval']['ap'] for k in keys),
+          f'AP keys missing: {sorted(run["eval"]["ap"])}')
+    check(launches_cli == 4 * (2 + math.ceil(CLI_VAL / CLI_BATCH)),
+          f'(c) {launches_cli} merge-resolve launches')
+    print(f'[parallel] (c) tools.train --coordinator_address --num_processes '
+          f'1 --process_id 0 (NCCL): 2 steps, loss '
+          f'{run["steps"][-1]["loss"]:.4f}, checkpoint_epoch_0.pth, '
+          f'{run["eval"]["frames"]} val frames evaluated, '
+          + ', '.join(f'{k} {run["eval"]["ap"][k]:.2f}' for k in keys)
+          + f'; merge_resolve launches {launches_cli}')
+    print(f'[parallel] phase {time.perf_counter() - t_start:.1f} s, '
+          f'{launches + launches_cli} merge-resolve launches')
+    return launches + launches_cli, ranks[0]['kernel']
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6327,6 +6841,7 @@ def main():
             launches_caddn = phase_caddn(Path(tmp))
             launches_nusc, captured_nusc, captured_nusc_train, \
                 captured_lyft = phase_nuscenes(Path(tmp))
+            launches_par, par = phase_parallel(cli_root, Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
@@ -6430,7 +6945,7 @@ def main():
                      + launches_three + launches_pv + launches_conv
                      + launches_parta2 + launches_pointrcnn
                      + launches_center + launches_pvpp + launches_caddn
-                     + launches_nusc),
+                     + launches_nusc + launches_par),
         'max_abs_err': merge['max_abs_err'],
         'ms': merge['ms'], 'plain_ms': merge['plain_ms'],
         'bound_ms': merge['bound_ms'], 'bound_by': merge['bound_by'],
@@ -6451,6 +6966,7 @@ def main():
         'launches_pvrcnn_plusplus': launches_pvpp,
         'launches_caddn': launches_caddn,
         'launches_nuscenes': launches_nusc,
+        'launches_parallel': launches_par,
         'train_ms': train['ms'], 'train_device_ms': train['device_ms'],
         'train_plain_ms': train['plain_ms'],
         'train_bound_ms': train['bound_ms'],
@@ -6492,7 +7008,8 @@ def main():
                                               pvpp_train),
                                              ('nuscenes', nusc),
                                              ('nuscenes_train', nusc_train),
-                                             ('lyft', lyft))
+                                             ('lyft', lyft),
+                                             ('parallel_rank0_train', par))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
                      'library_device_ms')}}]
@@ -6565,7 +7082,11 @@ def main():
           f'predict and pv_rcnn_plusplus_train_* per Waymo PV-RCNN++ train '
           f'step (B = 2), nuscenes_* per nuScenes CenterPoint predict (B = '
           f'2), nuscenes_train_* per nuScenes CenterPoint train step (B = 4) '
-          f'and lyft_* per Lyft SECOND-multihead predict (B = 2)')
+          f'and lyft_* per Lyft SECOND-multihead predict (B = 2); the '
+          f'parallel phase: (a) 1 timed step on each of 2 ranks, (b) 1 '
+          f'step on each of 2 ranks (when run), (c) 2 CLI steps and '
+          f'{math.ceil(CLI_VAL / CLI_BATCH)} predict; '
+          f'parallel_rank0_train_* per rank 0 step of (a) (B = {PAR_B})')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

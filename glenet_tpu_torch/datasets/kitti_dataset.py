@@ -396,16 +396,20 @@ class KittiDataset:
             batch['calib'] = [it['calib'] for it in items]
         return batch
 
-    def iter_batches(self, batch_size, shuffle=None, seed=0, drop_last=None):
+    def iter_batches(self, batch_size, shuffle=None, seed=0, drop_last=None,
+                     process_rank=0, process_count=1):
         """Collated numpy batches in an order shuffled from `seed` (when
         training).  A short last batch is dropped (training) or filled from
-        the start of the order.  One process reads every frame: the
-        multi-host striding of the JAX package is not ported."""
+        the start of the order.  With process_count > 1 the process reads
+        every process_count-th frame of the order from process_rank on
+        (the JAX package's per-host striding)."""
         shuffle = self.training if shuffle is None else shuffle
         drop_last = self.training if drop_last is None else drop_last
         order = np.arange(len(self))
         if shuffle:
             np.random.RandomState(seed).shuffle(order)
+        if process_count > 1:
+            order = order[process_rank::process_count]
         n = len(order)
         for s in range(0, n, batch_size):
             idx = order[s:s + batch_size]

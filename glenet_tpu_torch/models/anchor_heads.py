@@ -12,7 +12,9 @@ counterpart of glenet_tpu/models/anchor_heads.py):
 
 The losses: focal classification, direction-bin cross entropy, the
 sin-difference smooth-L1, KL-label, KL and od-IoU regression losses, and
-the IoU branch's smooth-L1 against 2 * IoU3D(pred, gt) - 1.
+the IoU branch's smooth-L1 against 2 * IoU3D(pred, gt) - 1.  Each is
+normalised per sample and over the batch size, the global batch's in the
+data-parallel train step (parallel/distributed.py).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import iou3d
+from ..parallel import distributed as dp
 from ..utils import common, losses
 from .layers import ConvBlock
 
@@ -235,7 +238,7 @@ def cls_loss(cls_preds, box_cls_labels, num_class):
     """Focal classification loss, summed over anchors and classes over the
     batch size (before cls_weight).  cls_preds (B, N, num_class);
     box_cls_labels (B, N) int: -1 ignored, 0 background."""
-    batch_size = cls_preds.shape[0]
+    batch_size = dp.global_batch(cls_preds.shape[0])
     positives = box_cls_labels > 0
     cls_weights = ((box_cls_labels == 0) | positives).to(torch.float32)
     cls_weights = cls_weights / positives.sum(dim=1, keepdim=True).clamp_min(1)
@@ -259,7 +262,7 @@ def get_direction_targets(anchors, box_reg_targets, dir_offset, num_bins):
 def dir_loss(dir_cls_preds, dir_targets, positives, num_bins):
     """Direction-bin cross entropy over positives, normalised per sample by
     their count, over the batch size."""
-    batch_size = dir_cls_preds.shape[0]
+    batch_size = dp.global_batch(dir_cls_preds.shape[0])
     weights = positives.to(torch.float32)
     weights = weights / weights.sum(dim=-1, keepdim=True).clamp_min(1.0)
     one_hot = F.one_hot(dir_targets, num_bins).to(dir_cls_preds.dtype)
@@ -278,7 +281,7 @@ def reg_loss_smooth_l1(box_preds, box_reg_targets, box_cls_labels,
                        code_weights=None):
     """Sin-difference smooth-L1 regression loss over positives, normalised
     per sample by their count, over the batch size."""
-    batch_size = box_preds.shape[0]
+    batch_size = dp.global_batch(box_preds.shape[0])
     reg_weights = _positive_weights(box_cls_labels)
     preds_sin, targets_sin = losses.add_sin_difference(box_preds,
                                                        box_reg_targets)
@@ -292,7 +295,7 @@ def reg_loss_kl_label(box_preds, box_std_preds, box_reg_targets,
     """GLENet's KL-label regression loss over positives (weights normalised
     per sample), over the batch size -> (loss, {loc_loss_src,
     loc_loss_square, loc_loss_log} over the batch size)."""
-    batch_size = box_preds.shape[0]
+    batch_size = dp.global_batch(box_preds.shape[0])
     total, parts = losses.kl_label_reg_loss(
         box_preds, box_std_preds, box_reg_targets,
         _positive_weights(box_cls_labels), label_uncertainty,
@@ -304,7 +307,7 @@ def reg_loss_kl(box_preds, box_std_preds, box_reg_targets, box_cls_labels,
                 code_weights=None):
     """The predicted-variance KL loss without label variances (AnchorHeadKL):
     exp(-s) * smoothL1 + 0.5 * s * w, over the batch size."""
-    batch_size = box_preds.shape[0]
+    batch_size = dp.global_batch(box_preds.shape[0])
     reg_weights = _positive_weights(box_cls_labels)
     preds_sin, targets_sin = losses.add_sin_difference(box_preds,
                                                        box_reg_targets)
@@ -327,7 +330,8 @@ def reg_loss_odiou(box_preds, box_reg_targets, box_cls_labels, flat_anchors,
     with torch.no_grad():
         gt_boxes = box_coder.decode(box_reg_targets, anchors).reshape(-1, 7)
     return losses.odiou_3d_loss(gt_boxes, pred_boxes,
-                                reg_weights.reshape(-1), batch_size)
+                                reg_weights.reshape(-1),
+                                dp.global_batch(batch_size))
 
 
 def iou_branch_loss(iou_preds, box_preds, box_reg_targets, box_cls_labels,
@@ -346,4 +350,5 @@ def iou_branch_loss(iou_preds, box_preds, box_reg_targets, box_cls_labels,
                                         gt_boxes.reshape(-1, 7))
         iou_target = (2.0 * iou - 1.0).reshape(batch_size, -1, 1)
     return losses.weighted_smooth_l1(iou_preds[..., 0:1], iou_target,
-                                     reg_weights).sum() / batch_size
+                                     reg_weights).sum() / dp.global_batch(
+                                         batch_size)

@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as dp
+
 from .layers import MaskedBatchNorm
 
 # elements of one chunk of per-gt gaussian maps (f32): 32 MiB
@@ -164,7 +166,8 @@ def centernet_focal_loss(pred_hm, gt_hm):
     pos_loss = -torch.log(pred) * torch.pow(1 - pred, 2) * pos
     neg_loss = (-torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights
                 * (1 - pos))
-    return (pos_loss.sum() + neg_loss.sum()) / pos.sum().clamp_min(1.0)
+    return (pos_loss.sum() + neg_loss.sum()) / dp.global_count(
+        pos.sum()).clamp_min(1.0)
 
 
 def center_reg_loss(pred_maps, target_boxes, inds, mask):
@@ -176,7 +179,7 @@ def center_reg_loss(pred_maps, target_boxes, inds, mask):
     gathered = torch.gather(pred_maps.reshape(b, h * w, c), 1,
                             inds.long()[..., None].expand(-1, -1, c))
     diff = (gathered - target_boxes).abs() * mask[..., None]
-    return diff.sum() / mask.sum().clamp_min(1.0)
+    return diff.sum() / dp.global_count(mask.sum()).clamp_min(1.0)
 
 
 def decode_center_boxes(out, k, voxel_size, pc_range, feature_map_stride,

@@ -34,6 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as dp
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 RESNET_BLOCKS = {'ResNet50': (3, 4, 6, 3), 'ResNet101': (3, 4, 23, 3)}
@@ -57,8 +59,13 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.dim() - 2)
         if train:
             dims = [0] + list(range(2, x.dim()))
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            mean, mean_sq = x.mean(dims), (x * x).mean(dims)
+            world = dp.data_rows()[1]
+            if world > 1:
+                # the global batch's moments: every rank holds as many rows
+                mean, mean_sq = (t / world for t in
+                                 dp.sum_moments(mean, mean_sq))
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 self.running_mean.mul_(1 - self.momentum).add_(
                     self.momentum * mean)

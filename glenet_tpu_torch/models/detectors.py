@@ -89,6 +89,7 @@ from ..config import Cfg
 from ..ops import nms as nms_ops
 from ..ops import roipoint_pool
 from ..ops import voxelize as vox_ops
+from ..parallel import distributed as dp
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
 from . import anchor_heads, anchors, target_assigner
@@ -669,18 +670,23 @@ class DetectorNet(nn.Module):
     def _sample_roi_targets(self, rois, roi_scores, roi_labels, gt_boxes,
                             gt_mask, gt_uncertainty, generator):
         """Train-time fg/bg roi subsampling and canonical-frame gt targets,
-        per sample, draws from `generator`; carries no gradient."""
+        per sample, draws from `generator`; carries no gradient.  In the
+        data-parallel train step a rank draws for every sample of the
+        global batch and samples with its own rows' draws."""
         tcfg = self.model_cfg.ROI_HEAD.TARGET_CONFIG
         if gt_uncertainty is None:
             gt_uncertainty = gt_boxes.new_ones((*gt_boxes.shape[:2], 7))
         r = int(tcfg.ROI_PER_IMAGE)
+        rank, world = dp.data_rows()
+        b = rois.shape[0]
+        draws = [roi_lib.draw_roi_sampling(rois.shape[1], r, generator,
+                                           rois.device)
+                 for _ in range(b * world)][rank * b:(rank + 1) * b]
         per_sample = []
-        for i in range(rois.shape[0]):
-            draws = roi_lib.draw_roi_sampling(rois.shape[1], r, generator,
-                                              rois.device)
+        for i in range(b):
             t = roi_lib.sample_rois_single(
                 rois[i], roi_scores[i], roi_labels[i], gt_boxes[i],
-                gt_mask[i], gt_uncertainty[i], tcfg, *draws)
+                gt_mask[i], gt_uncertainty[i], tcfg, *draws[i])
             t['gt_of_rois_ct'] = roi_lib.canonical_gt_of_rois(
                 t['rois'], t['gt_of_rois_src'])
             per_sample.append(t)

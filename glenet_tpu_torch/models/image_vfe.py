@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Cfg
+from ..parallel import distributed as dp
 from .layers import ConvBlock, MaskedBatchNorm
 
 GATHER_DTYPE = torch.bfloat16
@@ -337,8 +338,8 @@ def ddn_loss(depth_logits, depth_maps, gt_boxes2d, gt_boxes2d_mask, disc_cfg,
               & (ys >= boxes[..., 1]) & (ys < boxes[..., 3])
               & gt_boxes2d_mask[:, None, None, :])
     fg_mask = inside.any(-1)                                # (B, h, w)
-    num_fg = fg_mask.sum().clamp_min(1)
-    num_bg = (~fg_mask).sum().clamp_min(1)
+    num_fg = dp.global_count(fg_mask.sum()).clamp_min(1)
+    num_bg = dp.global_count((~fg_mask).sum()).clamp_min(1)
     fg = (focal * fg_mask).sum() / num_fg * fg_weight
     bg = (focal * ~fg_mask).sum() / num_bg * bg_weight
     return (fg + bg) / (fg_weight + bg_weight) * weight

@@ -14,6 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as dp
+
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # new = (1 - m) * old + m * batch
 
@@ -43,24 +45,34 @@ class MaskedBatchNorm(nn.Module):
         shape[self.channel_dim] = -1
         return t.reshape(shape)
 
+    @staticmethod
+    def moment_sums(x32, mask, cdim):
+        """(sum, sum of squares, count) over every axis but `cdim`,
+        counting the rows where `mask` is True (a Python count without
+        one)."""
+        axes = [d for d in range(x32.dim()) if d != cdim]
+        if mask is None:
+            return (x32.sum(axes), (x32 * x32).sum(axes),
+                    x32.numel() / x32.shape[cdim])
+        m = mask.float().unsqueeze(cdim)
+        return (x32 * m).sum(axes), (x32 * x32 * m).sum(axes), m.sum()
+
     def forward(self, x, mask=None, use_running_average: bool = True):
         cdim = self.channel_dim % x.dim()
         if use_running_average or BN_FORCE_RUNNING_STATS:
             mean, var = self.running_mean, self.running_var
         else:
-            x32 = x.float()
-            axes = [d for d in range(x.dim()) if d != cdim]
+            # in the data-parallel train step the moments are those of the
+            # global batch: sums over the data group, with their gradient
+            total, total_sq, cnt = self.moment_sums(x.float(), mask, cdim)
             if mask is None:
                 # a Python count: a tensor made from it would be a host
-                # sync per call
-                cnt = max(x32.numel() / x32.shape[cdim], 1.0)
-                total = x32.sum(axes)
-                total_sq = (x32 * x32).sum(axes)
+                # sync per call; every rank holds as many rows
+                cnt = max(cnt * dp.data_rows()[1], 1.0)
+                total, total_sq = dp.sum_moments(total, total_sq)
             else:
-                m = mask.float().unsqueeze(cdim)
-                cnt = m.sum().clamp_min(1.0)
-                total = (x32 * m).sum(axes)
-                total_sq = (x32 * x32 * m).sum(axes)
+                total, total_sq, cnt = dp.sum_moments(total, total_sq, cnt)
+                cnt = cnt.clamp_min(1.0)
             mean = total / cnt
             var = (total_sq / cnt - mean * mean).clamp_min(0.0)
             with torch.no_grad():

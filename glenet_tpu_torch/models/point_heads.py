@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import distributed as dp
+
 from ..utils import box_utils, common, losses
 from .layers import MaskedBatchNorm
 
@@ -142,7 +144,7 @@ def focal_cls_loss(cls_preds, labels, num_class, weight=1.0):
     cared = labels >= 0
     pos = labels > 0
     one_hot = F.one_hot(labels.clamp_min(0), num_class + 1)[:, 1:]
-    w = cared.float() / pos.sum().float().clamp_min(1.0)
+    w = cared.float() / dp.global_count(pos.sum()).float().clamp_min(1.0)
     return losses.sigmoid_focal_loss(
         cls_preds[None], one_hot.to(cls_preds.dtype)[None], w[None]).sum() \
         * weight
@@ -155,7 +157,8 @@ def part_bce_loss(part_preds, part_labels, fg_mask):
     bce = -(part_labels * torch.log(prob.clamp_min(1e-7))
             + (1 - part_labels) * torch.log((1 - prob).clamp_min(1e-7)))
     fg = fg_mask.float()
-    return (bce.mean(dim=-1) * fg).sum() / fg.sum().clamp_min(1.0)
+    return (bce.mean(dim=-1) * fg).sum() / dp.global_count(
+        fg.sum()).clamp_min(1.0)
 
 
 def intra_part_loss(out, seg_labels, part_labels, fg_mask, loss_weights):
@@ -193,7 +196,7 @@ def point_head_loss(out, cls_labels, box_targets, fg_mask, num_class,
     point_box_preds (N, code)."""
     cls_loss = focal_cls_loss(out['point_cls_preds'], cls_labels, num_class,
                                loss_weights.get('point_cls_weight', 1.0))
-    n_pos = (cls_labels > 0).sum().float().clamp_min(1.0)
+    n_pos = dp.global_count((cls_labels > 0).sum()).float().clamp_min(1.0)
     reg = losses.weighted_smooth_l1(out['point_box_preds'][None],
                                     box_targets[None],
                                     fg_mask.float()[None] / n_pos)

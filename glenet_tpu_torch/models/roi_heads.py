@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import iou3d, roiaware_pool
+from ..parallel import distributed as dp
 from ..utils import common, losses
 from .layers import MaskedBatchNorm
 from .pfe import StackSAModuleMSG, bilinear_interpolate
@@ -169,8 +170,12 @@ def canonical_gt_of_rois(rois, gt_of_rois_src):
 def dropout(x, p: float, generator=None):
     """Inverted dropout with the JAX package's semantics (keep with
     probability 1 - p, scale kept values by 1 / (1 - p)); draws from
-    `generator`."""
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    `generator`.  x's rows are sample-major, so in the data-parallel train
+    step a rank draws the global batch's mask and keeps its own rows."""
+    rank, world = dp.data_rows()
+    n = x.shape[0]
+    keep = torch.rand((n * world, *x.shape[1:]), generator=generator,
+                      device=x.device)[rank * n:(rank + 1) * n] >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -805,28 +810,30 @@ def decode_rcnn_boxes(rois, rcnn_reg, box_coder):
 
 
 def rcnn_cls_loss(rcnn_cls, rcnn_cls_labels):
-    """BCE on the IoU-derived soft labels, mean over labels >= 0."""
+    """BCE on the IoU-derived soft labels, mean over labels >= 0 (of the
+    global batch in the data-parallel train step)."""
     logits = rcnn_cls.reshape(-1)
     labels = rcnn_cls_labels.reshape(-1)
     loss = losses.sigmoid_bce_with_logits(logits, labels)
     valid = (labels >= 0).to(torch.float32)
-    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+    return (loss * valid).sum() / dp.global_count(valid.sum()).clamp_min(1.0)
 
 
 def rcnn_reg_loss(rcnn_reg, rcnn_reg_std, rois, gt_of_rois_ct,
                   gt_of_rois_src, gt_unc_of_rois, reg_valid_mask, box_coder,
                   loss_weights, corner_weight=1.0, code_weights=None):
     """Regression loss over fg rois plus the corner loss, both normalised
-    by the fg count.  With rcnn_reg_std (the KL-label head), per fg roi and
-    code dim, s the predicted log variance (clamped >= -50) and t =
-    log(label variance + 1e-10):
+    by the fg count (the global batch's in the data-parallel train step).
+    With rcnn_reg_std (the KL-label head), per fg roi and code dim, s the
+    predicted log variance (clamped >= -50) and t = log(label variance +
+    1e-10):
         exp(-s) * smoothL1 + exp(t - s) - 0.5 * (t - s)
     reported as the terms src, square and log; with rcnn_reg_std None (the
     plain head), the weighted smooth-L1 alone."""
     b, r = rois.shape[:2]
     n = b * r
     fg = reg_valid_mask.reshape(n) > 0
-    fg_sum = fg.sum().clamp_min(1).to(torch.float32)
+    fg_sum = dp.global_count(fg.sum()).clamp_min(1).to(torch.float32)
     gt_src = gt_of_rois_src.reshape(n, -1)[:, :7]
     # background rows take their gt as roi, a zero residual and their own
     # prediction as target, so they add exactly 0 to the losses and to the

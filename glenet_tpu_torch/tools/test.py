@@ -57,31 +57,46 @@ def parse_config(argv=None):
     return args, cfg
 
 
+def interleave_ranks(parts, total):
+    """Per-rank results of strided frames (rank r held r, r + world, ...)
+    -> the `total` results in dataset order."""
+    world = len(parts)
+    return [parts[i % world][i // world] for i in range(total)]
+
+
 def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
                    result_dir=None):
     """Batched predicts -> prediction dicts -> the dataset's evaluation
-    (KITTI AP, Waymo AP / APH, nuScenes NDS or Lyft mAP), with the recall of the gt boxes at
-    RECALL_THRESH_LIST.  Returns {'ap': ret_dict, 'result_str', 'frames',
-    'sec_per_frame' (predicts and prediction dicts, per frame), 'eval_sec'
-    (the evaluation alone), 'recall'}."""
+    (KITTI AP, Waymo AP / APH, nuScenes NDS or Lyft mAP), with the recall
+    of the gt boxes at RECALL_THRESH_LIST.  Across processes each rank
+    predicts every world-th frame and the prediction dicts are gathered
+    back into dataset order before the evaluation, which every rank runs;
+    rank 0 writes result.pkl and the scalars.  Returns {'ap': ret_dict,
+    'result_str', 'frames', 'sec_per_frame' (predicts and prediction dicts,
+    per frame), 'eval_sec' (the evaluation alone), 'recall' (of the rank's
+    frames)}."""
     import torch
 
     from ..ops import iou3d
+    from ..parallel import distributed
     from ..utils.summary import ScalarWriter
     recall_thresh = list(cfg.MODEL.POST_PROCESSING.get(
         'RECALL_THRESH_LIST', [0.3, 0.5, 0.7]))
     recall = {t: 0 for t in recall_thresh}
     total_gt = 0
+    rank, world = distributed.get_dist_info()
+    n_local = (len(dataset) + world - 1 - rank) // world
 
     det_annos = []
     t0 = time.perf_counter()
     n_frames = 0
     for batch in dataset.iter_batches(batch_size, shuffle=False,
-                                      drop_last=False):
+                                      drop_last=False, process_rank=rank,
+                                      process_count=world):
         arrays = to_device(batch, detector.device)
         preds = detector.predict(arrays)
         # wrap-padded tail: only keep real frames
-        n_real = min(batch_size, len(dataset) - n_frames)
+        n_real = min(batch_size, n_local - n_frames)
         det_annos.extend(
             dataset.generate_prediction_dicts(batch, preds)[:n_real])
 
@@ -96,7 +111,7 @@ def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
                 recall[t] += int((best > t).sum())
 
         n_frames += n_real
-        if n_frames >= len(dataset):
+        if n_frames >= n_local:
             break
     sec_per_frame = (time.perf_counter() - t0) / max(len(dataset), 1)
     rates = {t: recall[t] / max(total_gt, 1) for t in recall_thresh}
@@ -104,7 +119,10 @@ def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
         logger.info(f'recall@{t}: {rates[t]:.4f} ({recall[t]}/{total_gt})')
     logger.info(f'eval: {len(det_annos)} frames, {sec_per_frame:.4f} s/frame '
                 f'({1.0 / max(sec_per_frame, 1e-9):.1f} scans/s)')
-    if result_dir is not None:
+    if world > 1:
+        det_annos = interleave_ranks(
+            distributed.all_gather_objects(det_annos), len(dataset))
+    if result_dir is not None and rank == 0:
         result_dir.mkdir(parents=True, exist_ok=True)
         with open(result_dir / 'result.pkl', 'wb') as f:
             pickle.dump(det_annos, f)
@@ -116,7 +134,7 @@ def eval_one_epoch(cfg, detector, dataset, logger, batch_size=4,
     eval_sec = time.perf_counter() - t_eval
     logger.info('\n' + result_str)
     logger.info(f'{dataset.METRIC} evaluation: {eval_sec:.3f} s')
-    if result_dir is not None:
+    if result_dir is not None and rank == 0:
         writer = ScalarWriter(Path(result_dir) / 'tensorboard')
         writer.add_scalars({f'eval/{k}': v for k, v in ret_dict.items()
                             if isinstance(v, (int, float))}, 0)

@@ -12,8 +12,20 @@ telemetry (data ms: `iter_batches` until the batch is on the device; step
 ms: the train step until its results are on the host), a checkpoint per
 epoch (pruned to --max_ckpt_save_num), then optionally the BN-statistics
 refresh and an evaluation of the final model.  Runs on the GPU unless
---device cpu is given; without a GPU it raises.  One process on one device:
-the multi-host flags and data-loading workers raise NotImplementedError.
+--device cpu is given; without a GPU it raises.
+
+Across processes (one per GPU, each started with the same flags):
+    --coordinator_address HOST:PORT --num_processes N --process_id R
+start torch.distributed (NCCL on the GPU, gloo with --device cpu; the
+rendezvous raises after --dist_timeout seconds without every peer), rank R
+on cuda:R % device_count.  Each rank reads every N-th frame of the epoch's
+order (`iter_batches` striding) at --batch_size per rank, and
+parallel/mesh.py's data-parallel step makes one step of the N x
+batch_size global batch; the start state is broadcast from rank 0.  Rank 0
+alone writes checkpoints and tensorboard scalars, each rank its own
+train_rank<R>.log; the BN refresh and --eval_after_train run on every rank
+(the evaluation strided, its results merged).  Data-loading worker
+processes (--workers) raise NotImplementedError.
 
 `main(argv)` returns the run's record: the step it started from, one dict
 per step (epoch, it, data_ms, step_ms, every loss term, grad_norm, lr), the
@@ -30,7 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-MULTI_HOST_FLAGS = ('coordinator_address', 'num_processes', 'process_id')
+from ..parallel.distributed import DEFAULT_TIMEOUT_S
 
 
 def parse_config(argv=None):
@@ -59,11 +71,11 @@ def parse_config(argv=None):
     parser.add_argument('--coordinator_address', type=str, default=None)
     parser.add_argument('--num_processes', type=int, default=None)
     parser.add_argument('--process_id', type=int, default=None)
+    parser.add_argument('--dist_timeout', type=int,
+                        default=DEFAULT_TIMEOUT_S,
+                        help='seconds the rendezvous and each collective '
+                             'may wait for the other processes')
     args = parser.parse_args(argv)
-    for flag in MULTI_HOST_FLAGS:
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f'--{flag}: multi-host training is not ported yet')
     if args.workers:
         raise NotImplementedError(
             '--workers: data-loading worker processes are not ported yet')
@@ -99,11 +111,16 @@ def _start_profiler(device):
 
 def main(argv=None):
     args, cfg = parse_config(argv)
+    from ..parallel import distributed
     from ..utils.common import resolve_device
-    device = resolve_device(args.device)
+    device = distributed.initialize(
+        args.coordinator_address, args.num_processes, args.process_id,
+        resolve_device(args.device), timeout_s=args.dist_timeout)
+    rank, world = distributed.get_dist_info()
 
     from ..datasets import build_dataset
     from ..models.detectors import build_detector
+    from ..parallel import mesh as mesh_lib
     from ..train import checkpoint as ckpt_lib
     from ..train import jax_checkpoint
     from ..train import optim as optim_lib
@@ -117,13 +134,15 @@ def main(argv=None):
               or ckpt_lib.find_latest_checkpoint(ckpt_dir,
                                                  jax_checkpoint.PATTERN))
     output_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(output_dir / 'train.log')
+    logger = create_logger(output_dir / (f'train_rank{rank}.log'
+                                         if world > 1 else 'train.log'))
 
     batch_size = args.batch_size or int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     num_epochs = args.epochs or int(cfg.OPTIMIZATION.NUM_EPOCHS)
     dataset = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=True,
                             logger=logger, seed=0)
-    steps_per_epoch = max(len(dataset) // batch_size, 1)
+    # each rank reads len(dataset) / world frames an epoch
+    steps_per_epoch = max(len(dataset) // world // batch_size, 1)
     if args.max_steps_per_epoch:
         steps_per_epoch = min(steps_per_epoch, args.max_steps_per_epoch)
     total_steps = steps_per_epoch * num_epochs
@@ -133,11 +152,17 @@ def main(argv=None):
     # the JAX CLI draws an example batch to initialise its train state;
     # drawing it here too keeps the dataset's and the augmentor's random
     # streams in step with it
-    next(dataset.iter_batches(batch_size, seed=0))
+    next(dataset.iter_batches(batch_size, seed=0, process_rank=rank,
+                              process_count=world))
     ts = state_lib.create_train_state(detector, tx)
-    train_step = state_lib.make_train_step(detector, tx)
-    logger.info(f'device {device}, batch {batch_size}, {steps_per_epoch} '
-                f'steps/epoch, {num_epochs} epochs')
+    if world > 1:
+        mesh = mesh_lib.make_mesh(device)
+        train_step = mesh_lib.make_dp_train_step(detector, tx, mesh)
+    else:
+        train_step = state_lib.make_train_step(detector, tx)
+    logger.info(f'device {device}, rank {rank} of {world}, batch '
+                f'{batch_size} per rank, {steps_per_epoch} steps/epoch, '
+                f'{num_epochs} epochs')
 
     start_epoch = 0
     if latest:
@@ -149,15 +174,19 @@ def main(argv=None):
             ck = ckpt_lib.load_checkpoint(latest)
             ckpt_lib.restore_train_state(ts, ck)
         start_epoch = int(ck['epoch']) + 1
+    if world > 1:
+        mesh_lib.put_replicated(ts)
 
-    writer = ScalarWriter(output_dir / 'tensorboard')
+    writer = ScalarWriter(output_dir / 'tensorboard', enabled=rank == 0)
     it = ts.step
     run = {'start_step': it, 'steps': [], 'checkpoints': [],
            'detector': detector}
     prof = None
     for epoch in range(start_epoch, num_epochs):
         t_epoch = time.perf_counter()
-        batches = dataset.iter_batches(batch_size, seed=epoch)
+        batches = dataset.iter_batches(batch_size, seed=epoch,
+                                       process_rank=rank,
+                                       process_count=world)
         for step_i in range(steps_per_epoch):
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -198,25 +227,31 @@ def main(argv=None):
                        'meta_data/step_ms': rec['step_ms']}, it)
         logger.info(f'epoch {epoch} done in '
                     f'{time.perf_counter() - t_epoch:.1f}s')
-        run['checkpoints'].append(ckpt_lib.save_checkpoint(
-            ckpt_lib.checkpoint_state(ts, epoch, it), ckpt_dir, epoch,
-            args.max_ckpt_save_num))
+        if rank == 0:
+            run['checkpoints'].append(ckpt_lib.save_checkpoint(
+                ckpt_lib.checkpoint_state(ts, epoch, it), ckpt_dir, epoch,
+                args.max_ckpt_save_num))
     writer.close()
 
     if args.bn_refresh:
         from ..train.bn_refresh import refresh_detector_stats
+        # every rank refreshes over the same unsharded stream, so the
+        # ranks keep equal statistics
         refresh = [to_device(b, device) for b in itertools.islice(
             dataset.iter_batches(batch_size, seed=num_epochs),
             args.bn_refresh)]
         refresh_detector_stats(detector, refresh)
-        run['checkpoints'].append(ckpt_lib.save_checkpoint(
-            ckpt_lib.checkpoint_state(ts, num_epochs - 1, it), ckpt_dir,
-            num_epochs - 1, args.max_ckpt_save_num))
+        if rank == 0:
+            run['checkpoints'].append(ckpt_lib.save_checkpoint(
+                ckpt_lib.checkpoint_state(ts, num_epochs - 1, it), ckpt_dir,
+                num_epochs - 1, args.max_ckpt_save_num))
         logger.info(f'BN stats refreshed over {len(refresh)} batches')
     if args.eval_after_train:
         from .test import eval_checkpoint
         run['eval'] = eval_checkpoint(cfg, detector, output_dir, logger,
                                       batch_size=batch_size)
+    if args.coordinator_address is not None:
+        distributed.shutdown()
     return run
 
 

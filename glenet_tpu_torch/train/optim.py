@@ -100,10 +100,12 @@ def global_norm(tensors):
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """-> (grads, each t / norm * max_norm when norm >= max_norm, as optax
-    rounds it; the norm before the clip); no clip when max_norm <= 0."""
-    norm = global_norm(grads)
+    rounds it; the norm before the clip); no clip when max_norm <= 0.
+    `norm` given (a tensor-parallel step whose grads are slices) is the
+    global norm to clip by."""
+    norm = global_norm(grads) if norm is None else norm
     if max_norm > 0:
         keep = norm < max_norm
         grads = torch._foreach_div(grads, torch.where(keep, 1.0, norm))
@@ -136,10 +138,10 @@ class AdamOneCycle:
         return self.lr_schedule(count), self.b1_schedule(count)
 
     @torch.no_grad()
-    def update(self, params, grads, state):
+    def update(self, params, grads, state, norm=None):
         """Update `params` in place from `grads`; returns the global norm of
-        the gradients before the clip."""
-        grads, norm = clip_by_global_norm(grads, self.max_norm)
+        the gradients before the clip (`norm`, when given)."""
+        grads, norm = clip_by_global_norm(grads, self.max_norm, norm)
         lr, b1 = self.hyperparams(state['count'])
         state['hyperparams'] = (lr, b1)
         state['count'] += 1
@@ -179,8 +181,8 @@ class Adam:
                 'nu': [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
-        grads, norm = clip_by_global_norm(grads, self.max_norm)
+    def update(self, params, grads, state, norm=None):
+        grads, norm = clip_by_global_norm(grads, self.max_norm, norm)
         lr = self.lr_at(state['count'])
         state['count'] += 1
         t = state['count']
@@ -214,8 +216,8 @@ class SGD:
         return {'count': 0, 'trace': [torch.zeros_like(p) for p in params]}
 
     @torch.no_grad()
-    def update(self, params, grads, state):
-        grads, norm = clip_by_global_norm(grads, self.max_norm)
+    def update(self, params, grads, state, norm=None):
+        grads, norm = clip_by_global_norm(grads, self.max_norm, norm)
         state['count'] += 1
         if self.weight_decay:
             grads = torch._foreach_add(grads, params, alpha=self.weight_decay)

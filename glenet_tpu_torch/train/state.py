@@ -38,21 +38,29 @@ def step_generator(step: int, device, seed: int = SEED):
     return gen
 
 
+def loss_and_grads(detector, state: TrainState, batch, seed: int = SEED):
+    """The train forward, every loss term and the backward of one step ->
+    (parameters, their gradients, metrics as detached 0-dim tensors); the
+    gradients are also left in each parameter's .grad."""
+    params = list(state.net.parameters())
+    for p in params:
+        p.grad = None
+    gen = step_generator(state.step, params[0].device, seed)
+    loss, metrics = detector.loss_fn(batch, generator=gen)
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    return params, grads, {k: v.detach() for k, v in metrics.items()}
+
+
 def make_train_step(detector, tx, seed: int = SEED):
     """Returns train_step(state, batch) -> (state, metrics): metrics are
     0-dim tensors on the device (loss, each loss term, grad_norm); the
-    state is updated in place and returned."""
+    state is updated in place and returned.  The steps across processes
+    are parallel/mesh.py's."""
 
     def train_step(state: TrainState, batch):
-        params = list(state.net.parameters())
-        for p in params:
-            p.grad = None
-        gen = step_generator(state.step, params[0].device, seed)
-        loss, metrics = detector.loss_fn(batch, generator=gen)
-        loss.backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        params, grads, metrics = loss_and_grads(detector, state, batch, seed)
         metrics['grad_norm'] = tx.update(params, grads, state.opt_state)
         state.step += 1
         return state, metrics

@@ -163,6 +163,15 @@ def _export(module, name, value):
     raise KeyError(f'no rule for {name!r} of {type(module).__name__}')
 
 
+def jax_path_and_shape(net: nn.Module, key: str, shape):
+    """(JAX path, JAX shape) of the port tensor `key` of `shape`, by the
+    rules of _export, without its values."""
+    *mods, name = key.split('.')
+    coll, leaf, arr = _export(net.get_submodule('.'.join(mods)), name,
+                              np.empty(shape, np.int8))
+    return (coll, *mods, leaf), arr.shape
+
+
 def port_tree_to_jax(net: nn.Module, arrays: dict) -> dict:
     """{port parameter key: array in the port's layout} (e.g. an optimizer
     moment per parameter) -> the JAX params tree of numpy arrays, the

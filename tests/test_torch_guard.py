@@ -33,6 +33,8 @@ bad = sorted(m for m in sys.modules
                                     'convergence_ap', 'convergence_waymo',
                                     'stage2_recovery'))
 print('BAD', bad)
+print('PARALLEL', sorted(m for m in sys.modules
+                         if m.startswith('glenet_tpu_torch.parallel')))
 """
 
 
@@ -42,6 +44,9 @@ def test_port_imports_no_jax():
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
     assert 'BAD []' in out.stdout, out.stdout
+    assert ("PARALLEL ['glenet_tpu_torch.parallel', "
+            "'glenet_tpu_torch.parallel.distributed', "
+            "'glenet_tpu_torch.parallel.mesh']") in out.stdout, out.stdout
 
 
 def test_build_detector_needs_a_device():
@@ -212,16 +217,30 @@ def test_cvae_entry_points_need_a_card(name, tmp_path):
     assert not (tmp_path / 'out').exists()
 
 
-@pytest.mark.parametrize('flag', ['--coordinator_address', '--num_processes',
-                                  '--process_id', '--workers'])
+@pytest.mark.parametrize('flag', ['--workers', '--coordinator_address'])
 def test_train_cli_refuses_multi_host_flags(flag, tmp_path):
+    """--workers is not ported; --coordinator_address with no peer to meet
+    raises once --dist_timeout runs out rather than training alone."""
+    import time
+
+    import torch.distributed as dist
+
     from glenet_tpu_torch.tools import train
-    value = 'localhost:1234' if flag == '--coordinator_address' else '2'
-    with pytest.raises(NotImplementedError, match=flag):
-        train.main(['--cfg_file',
-                    str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
-                    '--output_dir', str(tmp_path), '--device', 'cpu',
-                    flag, value])
+    from torch_dist import free_port
+    argv = ['--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
+            '--output_dir', str(tmp_path), '--device', 'cpu']
+    if flag == '--workers':
+        with pytest.raises(NotImplementedError, match=flag):
+            train.main(argv + [flag, '2'])
+        return
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError, match='(?i)timed out'):
+        train.main(argv + [flag, f'127.0.0.1:{free_port()}',
+                           '--num_processes', '2', '--process_id', '0',
+                           '--dist_timeout', '3'])
+    assert time.perf_counter() - t0 < 60
+    assert not dist.is_initialized()
+    assert not (tmp_path / 'ckpt').exists()
 
 
 @pytest.mark.parametrize('name', ['random_image_flip', 'noise_per_object'])

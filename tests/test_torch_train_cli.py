@@ -177,7 +177,9 @@ def test_test_cli_draws_the_example_batch(tree, tmp_path, monkeypatch):
     test_cli.main(['--cfg_file', str(cfg_path), '--output_dir', str(out),
                    '--device', 'cpu'])
     order = {'shuffle': False, 'drop_last': False}
-    assert calls == [(False, order), (False, order)]
+    # the evaluation strides the split over the processes (one here)
+    assert calls == [(False, order), (False, dict(order, process_rank=0,
+                                                   process_count=1))]
 
 
 def test_synthetic_tree(tree):
