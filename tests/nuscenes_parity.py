@@ -104,14 +104,17 @@ def toy_cfg(name, root):
     return Cfg(raw)
 
 
-def tree_batch(cfg, root, batch_size=2):
+def tree_batch(cfg, root, batch_size=2, seed=0):
     """The first `batch_size` val frames of the tree through glenet_tpu's
     dataset (no augmentation; every port item equals it, test_torch_
     nuscenes.py holds that), collated: numpy points, masks, gt boxes with
     their classes, and label variances in [0.02, 0.3) (the items' -1 would
-    do for these losses, which do not read them)."""
+    do for these losses, which do not read them).  The dataset draws each
+    frame's sweeps at test time too, from its RandomState: `seed` fixes
+    it, so the batch is the same in every run."""
     from glenet_tpu.datasets import build_dataset
-    ds = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False)
+    ds = build_dataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES, training=False,
+                       seed=seed)
     items = [ds[i] for i in range(batch_size)]
     batch = {k: np.stack([it[k] for it in items])
              for k in ('points', 'points_mask', 'gt_boxes', 'gt_mask')}

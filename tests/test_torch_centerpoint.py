@@ -16,7 +16,8 @@ numpy-drawn weights and points, f32 on both sides:
     test_torch_center_head.py says why, target boxes atol 1e-6), every loss
     term rtol 1e-4, every gradient per tensor max |diff| <= 2e-4 max |grad|
     + 1e-6 with the port taking JAX's side of the ReLU kinks within
-    rounding of 0 (as test_torch_waymo_glenet_s.py), but the six CenterHead
+    rounding of 0 (as test_torch_waymo_glenet_s.py), at the BN outputs and
+    at the residual sums h + x of VoxelResBackBone8x, but the six CenterHead
     biases before a BN, whose exact gradient is 0, held to 1e-4 of their
     kernel's largest |gradient| (assert_center_grads), BN running stats rtol
     1e-4 / atol 1e-5, and the parameters after adam_onecycle as
@@ -197,6 +198,7 @@ def assert_center_grads(grads, ref_grads, tdet):
 def test_gradients(runs):
     ref, _, grads, _, tdet = runs[3]
     assert ref['relu_flipped'] <= 8, ref['relu_flipped']
+    assert ref['residual_flipped'] <= 4, ref['residual_flipped']
     assert_center_grads(grads, ref['grads'], tdet)
 
 

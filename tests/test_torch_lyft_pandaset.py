@@ -189,7 +189,8 @@ def lyft_slice(tmp_path_factory):
     code size 8, car / pedestrian / bicycle heads) over a tiny Lyft tree
     whose anchors keep torch_parity.assert_assigner_margin's 1e-3 from the
     matching thresholds (seed 3; seeds 1, 4 and 6 put a car anchor within
-    it), 2 val frames through glenet_tpu's dataset; both packages'
+    it), 2 val frames through glenet_tpu's dataset (their sweeps drawn
+    from seed 0); both packages'
     predicts and one train step, f32 pinned, the port taking JAX's side
     of each ReLU kink within rounding of 0 (align_relu_kinks), as the
     CenterPoint slice does."""

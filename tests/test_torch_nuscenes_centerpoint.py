@@ -10,15 +10,18 @@ through the port's CLIs.
     SECOND (2800 x 1600 x 40);
   - a toy CenterPoint (nuscenes_parity.toy_cfg: the nuScenes run-time
     config on a +-9.6 m range, 512 voxels, a narrow 2D backbone) over 2
-    frames of a tiny nuScenes tree (10 sweeps each), same numpy-drawn
-    weights through utils/jax_weights, f32 on both sides: voxels and every
-    backbone level (integers exactly, features rtol 1e-4 / atol 1e-5), a
-    predict at the published thresholds and at zero thresholds (labels and
-    valid flags exactly, boxes and scores rtol 1e-4 / atol 1e-4), and one
-    train step: the CenterHead targets (as tests/test_torch_centerpoint.
-    py), every loss term rtol 1e-4, every gradient as its
-    assert_center_grads (the port taking JAX's side of ReLU kinks within
-    rounding of 0), BN stats rtol 1e-4 / atol 1e-5;
+    frames of a tiny nuScenes tree (10 sweeps each, drawn from seed 0),
+    same numpy-drawn weights through utils/jax_weights, f32 on both
+    sides: voxels and every backbone level (integers exactly, features
+    rtol 1e-4 / atol 1e-5), a predict at the published thresholds and at
+    zero thresholds (labels and valid flags exactly, boxes and scores rtol
+    1e-4 / atol 1e-4; where two decoded scores tie within rounding,
+    torch_parity.assert_single_stage_predict holds the top-k and the final
+    NMS stage by stage), and one train step: the CenterHead targets (as
+    tests/test_torch_centerpoint.py), every loss term rtol 1e-4, every
+    gradient as its assert_center_grads (the port taking JAX's side of
+    ReLU kinks within rounding of 0, at the BN outputs and at the
+    residual sums h + x), BN stats rtol 1e-4 / atol 1e-5;
   - `tools.train` (1 epoch x 2 steps, B = 2, gt sampling and world
     augmentations) and `tools.test` with --device cpu on tiny trees: the
     NDS keys (nuScenes), the Lyft mAP keys and the KITTI AP keys
@@ -107,6 +110,8 @@ def test_loss_and_gradients(runs):
                                    'grad_norm'}
     tp.assert_loss_terms_equal(metrics, ref['metrics'])
     assert ref['relu_flipped'] <= 8, ref['relu_flipped']
+    # seeds 0-9 of tree_batch flip at most one element of a residual sum
+    assert ref['residual_flipped'] <= 4, ref['residual_flipped']
     assert_center_grads(grads, ref['grads'], tdet)
     tp.assert_bn_stats_equal(tdet, ref['batch_stats'])
 

@@ -11,6 +11,8 @@ resume_msgpack}.py took 428 s on 4 workers instead of 83 s."""
 from __future__ import annotations
 
 import contextlib
+import re
+import warnings
 
 import numpy as np
 import pytest
@@ -640,40 +642,105 @@ def jax_bn_outputs(intermediates):
     call]} (the port names its modules after the flax tree)."""
     from flax import traverse_util
     return {'.'.join(k[:-1]): [np.asarray(o) for o in v]
-            for k, v in traverse_util.flatten_dict(
-                intermediates).items()}
+            for k, v in traverse_util.flatten_dict(intermediates).items()
+            if k[-1] == '__call__'}
 
 
-def align_relu_kinks(net, ref_outputs, rel=1e-5):
+# the two convs of a residual unit of VoxelResBackBone8x in both packages:
+# `<name>a` (conv-BN-ReLU) and `<name>b` (conv-BN), after which the unit
+# adds its input and applies a ReLU
+RESIDUAL_HALF = re.compile(r'conv\d_\d+[ab]')
+
+
+def sow_residual_operands(next_fun, args, kwargs, context):
+    """A flax method interceptor (nn.intercept_methods) that sows, in
+    'intermediates', each residual unit's input x (the input of its
+    `<name>a` conv, as residual_x) and its `<name>b` conv's output h (as
+    residual_h), the two operands of the unit's pre-ReLU sum h + x.
+    flax captures module outputs only, and level 3's first unit takes the
+    densified output of conv3_down, which no module returns."""
+    out = next_fun(*args, **kwargs)
+    mod = context.module
+    if (context.method_name == '__call__'
+            and RESIDUAL_HALF.fullmatch(mod.name or '')):
+        if mod.name.endswith('a'):
+            mod.sow('intermediates', 'residual_x', args[0])
+        else:
+            mod.sow('intermediates', 'residual_h',
+                    out[0] if isinstance(out, tuple) else out)
+    return out
+
+
+def jax_residual_sums(intermediates):
+    """The sown operands (sow_residual_operands) -> {port unit name, as
+    `backbone_3d.conv1_0`: [JAX's pre-ReLU sum h + x of each call]}, each
+    sum one f32 add of the two captured operands, as JAX rounds it."""
+    from flax import traverse_util
+    ops = {}
+    for k, v in traverse_util.flatten_dict(intermediates).items():
+        if k[-1] in ('residual_x', 'residual_h'):
+            unit = '.'.join(k[:-2] + (k[-2][:-1],))
+            ops.setdefault(unit, {})[k[-1]] = v
+    return {unit: [np.asarray(h, np.float32) + np.asarray(x, np.float32)
+                   for x, h in zip(o['residual_x'], o['residual_h'])]
+            for unit, o in ops.items()}
+
+
+class _Functional:
+    """torch.nn.functional with its relu replaced by `relu`."""
+
+    def __init__(self, relu):
+        self.relu = relu
+
+    def __getattr__(self, name):
+        return getattr(torch.nn.functional, name)
+
+
+def align_relu_kinks(net, ref_outputs, rel=1e-5, residual_sums=None):
     """Hooks on every MaskedBatchNorm of the port's `net` (each feeds a
     ReLU).  Where the port's output and JAX's (`ref_outputs`, from
     jax_bn_outputs) lie on opposite sides of 0, the port takes JAX's value
     (a shift by less than rounding, the gradient path unchanged), so both
     packages differentiate one branch of the ReLU.  Only an element whose
     two values both lie within `rel` of the module's largest |output| may
-    flip; any other flip fails.  Returns (a dict whose 'flipped' counts the
-    elements, the hook handles)."""
-    import torch
+    flip; any other flip fails.
 
+    With `residual_sums` (jax_residual_sums) the same rule holds the input
+    of each residual unit's ReLU, the sum h + x of VoxelResBackBone8x's
+    skip, which no BN output is: a hook on the unit's `<name>b` conv marks
+    the next ReLU of glenet_tpu_torch.models.spconv_backbone as that
+    unit's, and that ReLU takes JAX's side of each kink of h + x within
+    `rel` of the sum's largest |value|.
+
+    Returns (a dict whose 'flipped' counts the elements of BN sites and
+    'residual_flipped' those of residual sums, 'residual_sites' the sums
+    aligned; the handles, whose remove() also restores the ReLU)."""
+    import types
+
+    from glenet_tpu_torch.models import spconv_backbone as tbb
     from glenet_tpu_torch.models.layers import MaskedBatchNorm
-    seen = {'flipped': 0}
+    seen = {'flipped': 0, 'residual_flipped': 0, 'residual_sites': 0}
     calls = {name: list(outs) for name, outs in ref_outputs.items()}
+
+    def take_ref_side(name, y, ref, channel_dim, count):
+        ref = torch.from_numpy(np.array(ref)).movedim(-1,
+                                                      channel_dim % y.dim())
+        assert ref.shape == y.shape, (name, ref.shape, y.shape)
+        flip = (y > 0) != (ref > 0)
+        if not bool(flip.any()):
+            return y
+        eps = rel * float(ref.abs().max())
+        near = (y.abs() <= eps) & (ref.abs() <= eps)
+        assert bool(near[flip].all()), (
+            f'{name}: a ReLU input flips sign beyond rounding '
+            f'({float((y - ref)[flip].abs().max()):.3e} > 2 x {eps:.3e})')
+        seen[count] += int(flip.sum())
+        return y + torch.where(flip, ref - y, 0.0).detach()
 
     def hook(name):
         def fn(mod, _inp, y):
-            ref = torch.from_numpy(np.array(calls[name].pop(0))).movedim(
-                -1, mod.channel_dim % y.dim())
-            assert ref.shape == y.shape, (name, ref.shape, y.shape)
-            flip = (y > 0) != (ref > 0)
-            if not bool(flip.any()):
-                return None
-            eps = rel * float(ref.abs().max())
-            near = (y.abs() <= eps) & (ref.abs() <= eps)
-            assert bool(near[flip].all()), (
-                f'{name}: a ReLU input flips sign beyond rounding '
-                f'({float((y - ref)[flip].abs().max()):.3e} > 2 x {eps:.3e})')
-            seen['flipped'] += int(flip.sum())
-            return y + torch.where(flip, ref - y, 0.0).detach()
+            return take_ref_side(name, y, calls[name].pop(0),
+                                 mod.channel_dim, 'flipped')
         return fn
 
     handles = [m.register_forward_hook(hook(n)) for n, m in
@@ -682,6 +749,35 @@ def align_relu_kinks(net, ref_outputs, rel=1e-5):
                                               net.named_modules()
                                               if isinstance(m,
                                                             MaskedBatchNorm))
+    if residual_sums is None:
+        return seen, handles
+    sums = {unit: list(v) for unit, v in residual_sums.items()}
+    halves = {n: m for n, m in net.named_modules()
+              if RESIDUAL_HALF.fullmatch(n.rsplit('.', 1)[-1])
+              and n.endswith('b')}
+    assert {n[:-1] for n in halves} == set(sums), (sorted(halves),
+                                                   sorted(sums))
+    pending = []
+
+    def mark(unit):
+        def fn(mod, _inp, _out):
+            assert not pending, (pending, unit)
+            pending.append((unit, mod.MaskedBatchNorm_0.channel_dim))
+        return fn
+
+    def relu(y, *args, **kwargs):
+        if pending:
+            unit, channel_dim = pending.pop()
+            y = take_ref_side(unit, y, sums[unit].pop(0), channel_dim,
+                              'residual_flipped')
+            seen['residual_sites'] += 1
+        return torch.nn.functional.relu(y, *args, **kwargs)
+
+    handles += [m.register_forward_hook(mark(n[:-1]))
+                for n, m in halves.items()]
+    mp = pytest.MonkeyPatch()
+    mp.setattr(tbb, 'F', _Functional(relu))
+    handles.append(types.SimpleNamespace(remove=mp.undo))
     return seen, handles
 
 
@@ -694,7 +790,10 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     inside pinned_f32().  With
     align_relu, JAX's BN outputs are captured in its train forward and the
     port takes JAX's side of each ReLU kink within rounding of 0
-    (align_relu_kinks); their count is ref['relu_flipped']."""
+    (align_relu_kinks), at the BN outputs and at the pre-ReLU sums of
+    residual units (sow_residual_operands); their counts are
+    ref['relu_flipped'] and ref['residual_flipped']."""
+    import flax.linen as nn
     import jax
     import jax.numpy as jnp
     import optax
@@ -723,11 +822,14 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
     @jax.jit
     def jax_step(v, bt):
         def loss_fn(params):
-            out, new_state = det.net.apply(
-                {'params': params, 'batch_stats': v['batch_stats']},
-                bt['points'], bt['points_mask'], gt_boxes=bt['gt_boxes'],
-                gt_mask=bt['gt_mask'], gt_uncertainty=bt['gt_uncertainty'],
-                train=True, mutable=mutable, capture_intermediates=capture)
+            with (nn.intercept_methods(sow_residual_operands) if align_relu
+                  else contextlib.nullcontext()):
+                out, new_state = det.net.apply(
+                    {'params': params, 'batch_stats': v['batch_stats']},
+                    bt['points'], bt['points_mask'], gt_boxes=bt['gt_boxes'],
+                    gt_mask=bt['gt_mask'],
+                    gt_uncertainty=bt['gt_uncertainty'], train=True,
+                    mutable=mutable, capture_intermediates=capture)
             loss, metrics = det.compute_loss(out, bt)
             return loss, (metrics, new_state)
 
@@ -761,12 +863,18 @@ def run_single_stage_step(cfg, batch, total_steps=100, align_relu=False):
                for k in targets[0]}
     bn_out, hooks = ref.pop('bn_out'), []
     if align_relu:
-        seen, hooks = align_relu_kinks(tdet.net, jax_bn_outputs(bn_out))
-    _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
-    for h in hooks:
-        h.remove()
+        sums = jax_residual_sums(bn_out)
+        seen, hooks = align_relu_kinks(tdet.net, jax_bn_outputs(bn_out),
+                                       residual_sums=sums)
+    try:
+        _, metrics = st.make_train_step(tdet, ttx)(state, tbatch)
+    finally:
+        for h in hooks:
+            h.remove()
     if align_relu:
+        assert seen['residual_sites'] == sum(map(len, sums.values()))
         ref['relu_flipped'] = seen['flipped']
+        ref['residual_flipped'] = seen['residual_flipped']
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
              for n, p in tdet.net.named_parameters()}
     return ref, metrics, grads, targets, tdet
@@ -794,9 +902,13 @@ def assert_params_after_adam(tdet, ref, grads, lr):
 def run_single_stage_predicts(cfg, batch, variables=None):
     """glenet_tpu's and the port's forward stages and predicts on a
     single-stage `cfg`, numpy-drawn weights: at the config's thresholds and
-    at zero thresholds (zero_thresholds).  Returns (JAX's {'stages',
-    'pred', 'pred_zero'}, the port's {'full', 'pred', 'pred_zero'}, the
-    variables); call inside pinned_f32()."""
+    at zero thresholds (zero_thresholds).  Both packages' final-NMS
+    candidates (the decoded boxes, scores, labels, log variances and
+    per-class scores each predict hands its final NMS) are recorded under
+    'candidates', and the port's final NMS is run on JAX's candidates
+    ('fed').  Returns (JAX's {'stages', 'pred', 'pred_zero',
+    'candidates'}, the port's {'full', 'pred', 'pred_zero', 'candidates',
+    'fed'}, the variables); call inside pinned_f32()."""
     import functools
 
     import jax
@@ -841,27 +953,60 @@ def run_single_stage_predicts(cfg, batch, variables=None):
         return {'vox': vox, 'multi_scale': ms, 'bev': sp['bev_features'],
                 'bev_2d': m.backbone_2d(sp['bev_features'], train=False)}
 
+    jax_cands = record_final_nms(det, with_post=True)
+
     @jax.jit
     def run(v, b):
-        return {'stages': det.net_eval.apply(v, b['points'],
-                                             b['points_mask'],
-                                             method=stages),
-                'pred': det.predict(v, b),
-                'pred_zero': det.predict(v, b,
-                                         post_cfg=zero.MODEL.POST_PROCESSING)}
+        jax_cands.clear()
+        out = {'stages': det.net_eval.apply(v, b['points'], b['points_mask'],
+                                            method=stages),
+               'pred': det.predict(v, b),
+               'pred_zero': det.predict(v, b,
+                                        post_cfg=zero.MODEL.POST_PROCESSING)}
+        out['candidates'] = dict(zip(PREDICT_KEYS, jax_cands))
+        return out
 
     pb = {k: jnp.asarray(batch[k]) for k in ('points', 'points_mask')}
     ref = jax.tree.map(np.asarray, run(jax.tree.map(jnp.asarray, variables),
                                        pb))
     tdet = build_detector(to_port_cfg(cfg), device='cpu')
     load_jax_variables(tdet.net, variables)
+    dets = dict(zip(PREDICT_KEYS, (tdet, build_detector(to_port_cfg(zero),
+                                                         device='cpu'))))
+    final_nms = {k: d._final_nms for k, d in dets.items()}
+    got = {'net': tdet.net, 'candidates': {}, 'fed': {}}
     with torch.no_grad():
-        full = tdet.net(torch.from_numpy(batch['points']),
-                        torch.from_numpy(batch['points_mask']))
-        got = {'full': full, 'pred': tdet.finalize(full), 'net': tdet.net,
-               'pred_zero': build_detector(to_port_cfg(zero),
-                                           device='cpu').finalize(full)}
+        got['full'] = tdet.net(torch.from_numpy(batch['points']),
+                               torch.from_numpy(batch['points_mask']))
+        for k, d in dets.items():
+            cands = record_final_nms(d)
+            got[k] = d.finalize(got['full'])
+            got['candidates'][k], = cands
+            fed = {n: None if v is None else torch.from_numpy(np.array(v))
+                   for n, v in ref['candidates'][k].items()}
+            got['fed'][k] = final_nms[k](*(fed[n] for n in CANDIDATES[:4]),
+                                         cls_scores_all=fed['cls_scores'])
     return ref, got, variables
+
+
+PREDICT_KEYS = ('pred', 'pred_zero')
+CANDIDATES = ('boxes', 'scores', 'labels', 'std', 'cls_scores')
+
+
+def record_final_nms(det, with_post=False):
+    """Wrap the final NMS of `det` (a detector of either package; JAX's
+    takes the post-processing config first, `with_post`) so that each call
+    appends its candidates {boxes, scores, labels, std, cls_scores} to the
+    returned list (JAX's as tracers, for the jitted caller to return)."""
+    calls, final_nms = [], det._final_nms
+
+    def recorded(*args, cls_scores_all=None):
+        calls.append(dict(zip(CANDIDATES, args[with_post:] + (
+            cls_scores_all,))))
+        return final_nms(*args, cls_scores_all=cls_scores_all)
+
+    det._final_nms = recorded
+    return calls
 
 
 def single_stage_slice(kind):
@@ -902,11 +1047,133 @@ def assert_single_stage_stages(predicts):
 def assert_single_stage_predict(predicts, key):
     """Final boxes, scores, labels and valid flags of one predict (the
     config's thresholds or zero thresholds): integers equal, floats as
-    assert_predict_equal and rtol 1e-4 / atol 1e-5."""
+    assert_predict_equal and rtol 1e-4 / atol 1e-5.
+
+    Where that fails and JAX's final-NMS candidates hold a near tie
+    (has_near_tie), their order is rounding's to decide, so the predict is
+    held stage by stage instead: (a) the port's candidates against JAX's
+    (assert_candidates_equal: a ranked list, the CenterPoint top-k, may
+    trade slots only within a tie), and (b) the port's final NMS run on
+    JAX's own candidates against JAX's outputs, as above, exactly."""
     ref, got, _ = predicts
-    assert_predict_equal(got[key], ref[key])
+    try:
+        _assert_final_equal(got[key], ref[key])
+    except AssertionError:
+        if not has_near_tie(ref['candidates'][key]['scores']):
+            raise
+        traded, worst = assert_candidates_equal(got['candidates'][key],
+                                                ref['candidates'][key])
+        _assert_final_equal(got['fed'][key], ref[key])
+        slots = ', '.join(f'({b}, {i}, {j}, {sg:.8g}, {sr:.8g})'
+                          for b, i, j, sg, sr in traded)
+        warnings.warn(
+            f'{key}: held stage by stage at a near tie; top-k slots traded '
+            f'(sample, port slot, JAX slot, port score, JAX score): '
+            f'[{slots}]; largest score difference {worst:.3f} of half the '
+            f'tie bound')
+
+
+def _assert_final_equal(pred, ref):
+    assert_predict_equal(pred, ref)
     for k in ('final_boxes', 'final_scores'):
-        assert_close(got[key][k], ref[key][k], err_msg=k)
+        assert_close(pred[k], ref[k], err_msg=k)
+
+
+# The order of two sigmoid scores is rounding's to decide where they lie
+# within twice the most one score can differ between the packages.  Each
+# package's f32 sigmoid lies within 1 ulp of the exact sigmoid of its logit
+# (XLA's and torch's exp differ in the last bit), 2 ulps apart; the two
+# heads' logits agree to LOGIT_ATOL, a few ulps of an O(1) logit, which
+# the sigmoid's slope s (1 - s) carries into the score.
+# assert_candidates_equal holds every matched score to half the bound.
+LOGIT_ATOL = 2.0 ** -22
+
+
+def tie_bound(s):
+    """2 (2 ulp(s) + s (1 - s) LOGIT_ATOL) of f32 score(s) `s`: 6 ulps at
+    s = 0.5, 8 at s = 0.4, the toy heads' range."""
+    s = np.abs(np.asarray(s, np.float32))
+    return 2 * (2 * np.spacing(s) + s * (1 - s) * LOGIT_ATOL)
+
+
+def has_near_tie(scores):
+    """Whether two live (> 0) scores of one sample of (B, N) `scores` lie
+    within tie_bound of each other."""
+    for row in np.asarray(scores, np.float32):
+        live = np.sort(row[row > 0])[::-1]
+        if np.any(live[:-1] - live[1:] <= tie_bound(live[:-1])):
+            return True
+    return False
+
+
+def tie_runs(scores):
+    """The [start, end) runs of a non-increasing (K,) score list in which
+    each score lies within tie_bound of the one before it."""
+    s = np.asarray(scores, np.float32)
+    cut = np.flatnonzero(s[:-1] - s[1:] > tie_bound(s[:-1])) + 1
+    edges = [0, *cut.tolist(), len(s)]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def _slot_close(a, b):
+    """assert_single_stage_predict's tolerances of a final box or score,
+    both at once: atol 1e-4, and rtol 1e-4 / atol 1e-5."""
+    d = np.abs(a - b)
+    return bool(np.all((d <= 1e-4) & (d <= 1e-5 + 1e-4 * np.abs(b))))
+
+
+def assert_candidates_equal(got, ref):
+    """The port's final-NMS candidates (`got`) against JAX's (`ref`), both
+    {boxes (B, K, 7), scores (B, K), labels (B, K), std, cls_scores}
+    (record_final_nms).  A sample whose JAX scores are not ranked (one
+    candidate per anchor) compares slot by slot: labels equal, every float
+    as _slot_close.  A ranked one (non-increasing scores, CenterPoint's
+    top-k decode) may trade slots only within a run of JAX scores each
+    within tie_bound of the one before (tie_runs): there each port slot
+    must match one JAX slot of the run (label equal, box, score and log
+    variances as _slot_close), except that a run ending at slot K may hold,
+    for the candidates the other package cut, ones scored within
+    tie_bound of JAX's last score.  Every matched score must also lie
+    within half of tie_bound of JAX's, the premise of the bound.  A score
+    zeroed under SCORE_THRESH on one side only fails.  Returns the traded
+    slots, (sample, port slot, JAX slot, port score, JAX score) each, and
+    the largest matched score difference as a share of half tie_bound."""
+    got = {k: None if v is None else np.asarray(v) for k, v in got.items()}
+    ref = {k: None if v is None else np.asarray(v) for k, v in ref.items()}
+    assert (got['cls_scores'] is None) == (ref['cls_scores'] is None)
+    if ref['cls_scores'] is not None:
+        assert _slot_close(got['cls_scores'], ref['cls_scores'])
+    traded, worst = [], 0.0
+    for b, s_ref in enumerate(ref['scores']):
+        def same(i, j):
+            return (got['labels'][b, i] == ref['labels'][b, j]
+                    and all(_slot_close(got[k][b, i], ref[k][b, j])
+                            for k in ('boxes', 'scores', 'std')))
+        if np.any(np.diff(s_ref) > 0):
+            bad = [i for i in range(len(s_ref)) if not same(i, i)]
+            assert not bad, f'sample {b}: candidates {bad[:8]} differ'
+            continue
+        s_got = got['scores'][b]
+        for start, end in tie_runs(s_ref):
+            free = list(range(start, end))
+            for i in range(start, end):
+                j = next((j for j in free if same(i, j)), None)
+                if j is None:
+                    assert end == len(s_ref) and abs(
+                        s_got[i] - s_ref[-1]) <= tie_bound(s_ref[-1]), (
+                        f'sample {b}: the port\'s candidate {i} (score '
+                        f'{s_got[i]!r}) is none of JAX\'s slots '
+                        f'{start}..{end - 1} (scores {s_ref[start:end]!r})')
+                    continue
+                free.remove(j)
+                share = abs(s_got[i] - s_ref[j]) / (tie_bound(s_ref[j]) / 2)
+                assert share <= 1, (
+                    f'sample {b}: candidate {i}\'s score {s_got[i]!r} lies '
+                    f'beyond rounding of JAX\'s {s_ref[j]!r}')
+                worst = max(worst, float(share))
+                if i != j:
+                    traded.append((b, i, j, float(s_got[i]), float(s_ref[j])))
+    return traded, worst
 
 
 def assert_single_stage_targets(step):
