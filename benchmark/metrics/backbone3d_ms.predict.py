@@ -1,0 +1,10 @@
+"""`backbone3d_ms.predict`: mean milliseconds of the `backbone3d` span
+over the traced run's span phase (predict calls), the device
+synchronised at each boundary."""
+
+
+def read(ctx):
+    if ctx.get('kind') != 'predict':
+        return None
+    spans = ctx.get('spans', {}).get('backbone3d')
+    return sum(spans) / len(spans) if spans else None

@@ -1,0 +1,10 @@
+"""`backward_optim_ms.train`: mean milliseconds of the `backward_optim` span
+over the traced run's span phase (train calls), the device
+synchronised at each boundary."""
+
+
+def read(ctx):
+    if ctx.get('kind') != 'train':
+        return None
+    spans = ctx.get('spans', {}).get('backward_optim')
+    return sum(spans) / len(spans) if spans else None
