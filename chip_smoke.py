@@ -365,6 +365,30 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+
+
+class LaunchCount:
+    """Launches of the merge-resolve kernel (not of its plain version)
+    since `n` was last set to 0.  The port counts them (`merge_launches`,
+    glenet_tpu_torch/utils/trace.py) only while a profiler records, and the
+    main paths here run without one, so `install` wraps the launch."""
+
+    def __init__(self):
+        self.n = 0
+
+    def install(self):
+        from glenet_tpu_torch.ops import merge_kernel
+        real = merge_kernel._resolve_cuda
+
+        def counted(*args, **kwargs):
+            out = real(*args, **kwargs)
+            self.n += 1
+            return out
+
+        merge_kernel._resolve_cuda = counted
+
+
+LAUNCHES = LaunchCount()
 N_REQUESTS, BATCH, N_POINTS = 3, 2, 32768
 TRAIN_STEPS = 3
 # the CLI phase's synthetic KITTI-layout tree and batch
@@ -987,7 +1011,6 @@ def phase_full_width(det, batches, tag='full', label='GLENet-VR',
     `min_valid` final boxes."""
     import torch
 
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.ops import sparse
     caps = sparse.level_caps(det.max_voxels_test)
     k = int(det.model_cfg.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
@@ -1000,18 +1023,18 @@ def phase_full_width(det, batches, tag='full', label='GLENet-VR',
     if det.net.roi_head is not None:
         hooks.append(det.net.register_forward_hook(record_proposals))
     times, per_request = [], []
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     for r, batch in enumerate(batches):
-        before = mk.LAUNCHES
+        before = LAUNCHES.n
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = det.predict(batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        per_request.append((pred, mk.LAUNCHES - before,
+        per_request.append((pred, LAUNCHES.n - before,
                             torch.cuda.max_memory_allocated(), dict(sites)))
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     for h in hooks:
         h.remove()
     for r, (pred, n_launch, mem, st) in enumerate(per_request):
@@ -1065,7 +1088,6 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
     import torch
 
     from glenet_tpu_torch.bench_merge import capture_calls
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.profile_train import (build_training, total_steps,
                                                 train_frames)
@@ -1091,9 +1113,9 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
              if n.endswith(('running_mean', 'running_var'))}
     times, sites = [], {}
     hook = watch_sites(det, sites)
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     for i, batch in enumerate(batches[1:]):
-        before = mk.LAUNCHES
+        before = LAUNCHES.n
         count = state.opt_state['count']
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
@@ -1101,7 +1123,7 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
         state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n_launch = mk.LAUNCHES - before
+        n_launch = LAUNCHES.n - before
         peak = torch.cuda.max_memory_allocated()
         vals = {k: float(v) for k, v in metrics.items()}
         for k, v in vals.items():
@@ -1119,7 +1141,7 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
               f'active sites {sites_line(sites, caps)}; merge_resolve '
               f'launches {n_launch}; max_memory_allocated '
               f'{peak / 2**30:.2f} GiB')
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     hook.remove()
     # adam_onecycle moves every parameter except one that is zero with zero
     # gradients (weight decay keeps it at zero)
@@ -1145,14 +1167,13 @@ def count_launches(obj, attr, counts):
     """Shadow obj.attr (a train-step factory or a predict method) so that
     each call it makes appends its merge-resolve launches to `counts`;
     returns an undo function."""
-    from glenet_tpu_torch.ops import merge_kernel as mk
     real = getattr(obj, attr)
 
     def counted(fn):
         def call(*args, **kwargs):
-            before = mk.LAUNCHES
+            before = LAUNCHES.n
             out = fn(*args, **kwargs)
-            counts.append(mk.LAUNCHES - before)
+            counts.append(LAUNCHES.n - before)
             return out
         return call
 
@@ -1336,7 +1357,6 @@ def phase_cli(in_memory_ms, tmp):
     from glenet_tpu_torch.datasets.kitti_dataset import (KittiDataset,
                                                          create_kitti_infos)
     from glenet_tpu_torch.models.detectors import Detector, build_detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import checkpoint as ck
@@ -1373,7 +1393,7 @@ def phase_cli(in_memory_ms, tmp):
                          'gt_sampling'),
               time_calls(KittiDataset, 'collate_batch', data, 'collate'),
               time_calls(train_cli, 'to_device', data, 'copy')]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         torch.cuda.reset_peak_memory_stats()
         first = train_cli.main(common + ['--epochs', '2'])
@@ -1386,7 +1406,7 @@ def phase_cli(in_memory_ms, tmp):
     finally:
         for u in undo + timers:
             u()
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
 
     ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
     check(ckpts == [f'checkpoint_epoch_{e}.pth' for e in range(3)],
@@ -1627,7 +1647,6 @@ def phase_cvae_cli(root, tmp):
     import torch
 
     from glenet_tpu_torch.cvae import analysis, pipeline
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import cvae_analysis, cvae_train
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import state as state_lib
@@ -1688,7 +1707,7 @@ def phase_cvae_cli(root, tmp):
         return real_copy(batch, device)
 
     train_cli.to_device = copy
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         run = train_cli.main([
             '--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
@@ -1701,7 +1720,7 @@ def phase_cvae_cli(root, tmp):
     finally:
         undo()
         train_cli.to_device = real_copy
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     check(len(run['steps']) == 2 and step_launches == [4, 4],
           f'detector steps on the _wconf infos: {len(run["steps"])}, '
           f'merge-resolve launches {step_launches}')
@@ -1992,7 +2011,6 @@ def phase_weights_vq(tmp):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_cvae import _syncs
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import scene_batches, train_batches
@@ -2008,18 +2026,18 @@ def phase_weights_vq(tmp):
         det.predict(batches[0])                                # warm-up
     launches = 0
     p_times, per_call = [], []
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     for batch in batches[1:]:
-        before = mk.LAUNCHES
+        before = LAUNCHES.n
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = det.predict(batch)
         torch.cuda.synchronize()
         p_times.append(1e3 * (time.perf_counter() - t0))
-        per_call.append((pred, mk.LAUNCHES - before,
+        per_call.append((pred, LAUNCHES.n - before,
                          torch.cuda.max_memory_allocated()))
-    launches += mk.LAUNCHES
+    launches += LAUNCHES.n
     k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     for i, (pred, n, mem) in enumerate(per_call):
         check(tuple(pred['final_boxes'].shape) == (BATCH, k, 7)
@@ -2042,16 +2060,16 @@ def phase_weights_vq(tmp):
     state, _ = train_step(state, tbatches[0])                  # warm-up
     torch.cuda.synchronize()
     times = []
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     for i, batch in enumerate(tbatches[1:TRAIN_STEPS + 1]):
-        before = mk.LAUNCHES
+        before = LAUNCHES.n
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES - before
+        n = LAUNCHES.n - before
         vals = {k: float(v) for k, v in metrics.items()}
         check(all(math.isfinite(v) for v in vals.values()),
               f'vq train step {i}: {vals}')
@@ -2061,7 +2079,7 @@ def phase_weights_vq(tmp):
               f', grad_norm {vals["grad_norm"]:.3f}; merge_resolve launches '
               f'{n}; max_memory_allocated '
               f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    launches += mk.LAUNCHES
+    launches += LAUNCHES.n
     syncs = _syncs(lambda: train_step(state, tbatches[-1]))
     bn = sum(v for k, v in syncs.items() if k.startswith('layers.py'))
     print(f'[weights] vq train step: {sum(syncs.values())} host syncs, '
@@ -2088,7 +2106,6 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
@@ -2096,7 +2113,7 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
         cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
     det = seeded_detector(cfg, 'cuda', seed)
     batch = batches_for(cfg, 1, SEED + 2, BATCH)[0]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2105,7 +2122,7 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
     torch.cuda.synchronize()
     predict_ms = 1e3 * (time.perf_counter() - t0)
     predict_gib = torch.cuda.max_memory_allocated() / 2**30
-    n_predict = mk.LAUNCHES
+    n_predict = LAUNCHES.n
     check(n_predict == launches
           and bool(torch.isfinite(pred['final_boxes']).all())
           and bool(torch.isfinite(pred['final_scores']).all()),
@@ -2113,7 +2130,7 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
     _, state, train_step = build_training(cfg, det)
     b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tbatch = batches_for(cfg, 1, SEED + 3, b, train=True)[0]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2121,7 +2138,7 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
     step_gib = torch.cuda.max_memory_allocated() / 2**30
-    n_step = mk.LAUNCHES
+    n_step = LAUNCHES.n
     vals = {k: float(v) for k, v in metrics.items()}
     check(n_step == launches and all(math.isfinite(v) for v in vals.values()),
           f'{cfg_name} train step: {n_step} launches, {vals}')
@@ -2163,7 +2180,6 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.models.detectors import Detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import convert_weights
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.utils import synthetic
@@ -2188,7 +2204,7 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
           f'convert_weights: {path}, {report}')
     predicts = []
     undo = count_launches(Detector, 'predict', predicts)
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         results = test_cli.main(['--cfg_file', cfg_file, '--data_path',
                                  str(cli_root), '--ckpt', path,
@@ -2196,7 +2212,7 @@ def phase_weights_cli(cli_root, tmp, cfg_name='GLENet_VR_vq.yaml',
                                  str(CLI_BATCH)])
     finally:
         undo()
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     (_, res), = results.items()
     keys = [f'Car_3d/{d}_R40' for d in ('easy', 'moderate', 'hard')]
     check(res['frames'] == CLI_VAL and predicts == [4] * math.ceil(
@@ -2425,7 +2441,6 @@ def phase_waymo_cli(tmp, in_memory_ms):
     from glenet_tpu_torch.datasets.waymo_dataset import (
         WaymoDataset, create_waymo_gt_database)
     from glenet_tpu_torch.models.detectors import Detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import state as state_lib
@@ -2467,7 +2482,7 @@ def phase_waymo_cli(tmp, in_memory_ms):
                          'gt_sampling'),
               time_calls(WaymoDataset, 'collate_batch', data, 'collate'),
               time_calls(train_cli, 'to_device', data, 'copy')]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         torch.cuda.reset_peak_memory_stats()
         first = train_cli.main(common + ['--epochs', '1'] + every_frame)
@@ -2480,7 +2495,7 @@ def phase_waymo_cli(tmp, in_memory_ms):
         for u in undo + timers:
             u()
         augmentor.DataBaseSampler.__call__ = sample
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     steps = first['steps'] + resumed['steps']
     check(resumed['start_step'] == 2
           and [r['it'] for r in steps] == [1, 2, 3, 4],
@@ -2565,7 +2580,6 @@ def phase_waymo_pointpillar():
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import (seeded_detector,
                                                   waymo_scene_batches)
@@ -2583,14 +2597,14 @@ def phase_waymo_pointpillar():
     budget = det.max_voxels_test
     batches = waymo_scene_batches(2, SEED + 94, BATCH)
     det.predict(batches[0])
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred = det.predict(batches[1])
     torch.cuda.synchronize()
     predict_ms = 1e3 * (time.perf_counter() - t0)
-    n = mk.LAUNCHES
+    n = LAUNCHES.n
     k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     check(n == 0 and tuple(pred['final_boxes'].shape) == (BATCH, k, 7)
           and bool(torch.isfinite(pred['final_boxes']).all()),
@@ -2608,14 +2622,14 @@ def phase_waymo_pointpillar():
     b = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
     tbatches = waymo_scene_batches(2, SEED + 95, b, train=True)
     state, _ = train_step(state, tbatches[0])
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics = train_step(state, tbatches[1])
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
-    n_step = mk.LAUNCHES
+    n_step = LAUNCHES.n
     hook.remove()
     vals = {key: float(v) for key, v in metrics.items()}
     check(n_step == 0 and all(math.isfinite(v) for v in vals.values()),
@@ -2640,7 +2654,6 @@ def phase_waymo_msgpack(tmp, root):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import checkpoint as ck
     from glenet_tpu_torch.train import jax_checkpoint as jc
@@ -2655,10 +2668,10 @@ def phase_waymo_msgpack(tmp, root):
     tx, _ = optim.build_optimizer(cfg.OPTIMIZATION, n_total)
     ts = state_lib.create_train_state(det, tx)
     step = state_lib.make_train_step(det, tx)
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     for batch in waymo_scene_batches(2, SEED + 96, WAYMO_BATCH, train=True):
         ts, _ = step(ts, batch)
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     out = tmp / 'waymo_msgpack'
     t0 = time.perf_counter()
     path = jc.save_checkpoint(jc.checkpoint_state(ts, tx, 0, 2),
@@ -2674,13 +2687,13 @@ def phase_waymo_msgpack(tmp, root):
                 for k, v in ts.net.state_dict().items())
     check(same and back.step == 2 and back.opt_state['count'] == 2,
           'the .msgpack round trip changed the train state')
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     run = train_cli.main(['--cfg_file', cfg_file, '--data_path', str(root),
                           '--output_dir', str(out), '--batch_size',
                           str(WAYMO_BATCH), '--max_steps_per_epoch', '2',
                           '--epochs', '2', '--set',
                           'DATA_CONFIG.SAMPLED_INTERVAL.train', '1'])
-    launches += mk.LAUNCHES
+    launches += LAUNCHES.n
     saved = ck.load_checkpoint(out / 'ckpt' / 'checkpoint_epoch_1.pth')
     lr, b1 = saved['optimizer_state']['hyperparams']
     lr_x, b1_x = tx.hyperparams(3)
@@ -2912,7 +2925,6 @@ def phase_three_class_full(cfg_name, seed, capture=False):
 
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
@@ -2956,7 +2968,7 @@ def phase_three_class_full(cfg_name, seed, capture=False):
         saved = post.SCORE_THRESH
         if zero:
             post.SCORE_THRESH = 0.0
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2966,7 +2978,7 @@ def phase_three_class_full(cfg_name, seed, capture=False):
         finally:
             post.SCORE_THRESH = saved
         ms = 1e3 * (time.perf_counter() - t0)
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == per_call, f'{cfg.TAG} predict {r}: {n} merge-resolve '
                              f'launches, expected {per_call}')
@@ -3012,14 +3024,14 @@ def phase_three_class_full(cfg_name, seed, capture=False):
              if n.endswith(('running_mean', 'running_var'))}
     times = []
     for i, batch in enumerate(tbatches[1:]):
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         vals = {k: float(v) for k, v in metrics.items()}
         check(all(math.isfinite(v) for v in vals.values()),
@@ -3071,7 +3083,6 @@ def phase_three_class_cli(tmp):
     from glenet_tpu_torch.datasets import augmentor
     from glenet_tpu_torch.datasets.kitti_dataset import (KittiDataset,
                                                          create_kitti_infos)
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.utils import synthetic
@@ -3114,7 +3125,7 @@ def phase_three_class_cli(tmp):
                              'gt_sampling'),
                   time_calls(KittiDataset, 'collate_batch', data, 'collate'),
                   time_calls(train_cli, 'to_device', data, 'copy')]
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         try:
             torch.cuda.reset_peak_memory_stats()
             run = train_cli.main(common + ['--epochs', '1',
@@ -3127,8 +3138,8 @@ def phase_three_class_cli(tmp):
             for u in timers:
                 u()
             augmentor.DataBaseSampler.__call__ = sample
-        launches += mk.LAUNCHES
-        check(mk.LAUNCHES == 0, f'{name}: {mk.LAUNCHES} merge-resolve '
+        launches += LAUNCHES.n
+        check(LAUNCHES.n == 0, f'{name}: {LAUNCHES.n} merge-resolve '
                                 f'launches (PointPillars has no sparse '
                                 f'backbone)')
         for r in run['steps']:
@@ -3350,7 +3361,6 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
 
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / 'pv_rcnn.yaml'))
@@ -3373,7 +3383,7 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
         saved = post.SCORE_THRESH
         if zero:
             post.SCORE_THRESH = 0.0
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3383,7 +3393,7 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
         finally:
             post.SCORE_THRESH = saved
         ms = 1e3 * (time.perf_counter() - t0)
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == 4, f'{tag} predict {r}: {n} merge-resolve launches')
         k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
@@ -3423,7 +3433,7 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
     times, captured_train = [], None
     for i, batch in enumerate(tbatches):
         label = 'warm-up step' if i == 0 else f'step {i - 1}'
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3434,7 +3444,7 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == 4, f'{tag} train {label}: {n} merge-resolve launches')
         vals = {k: float(v) for k, v in metrics.items()}
@@ -3548,7 +3558,6 @@ def phase_pv_rcnn_cli(root, tmp):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     cfg_file = str(ROOT / 'configs/kitti_models/pv_rcnn.yaml')
@@ -3557,12 +3566,12 @@ def phase_pv_rcnn_cli(root, tmp):
     out = tmp / f'out_{cfg.TAG}'
     common = ['--cfg_file', cfg_file, '--data_path', str(root),
               '--output_dir', str(out), '--batch_size', str(b)]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     run = train_cli.main(common + ['--epochs', '1',
                                    '--max_steps_per_epoch', '2'])
     peak = torch.cuda.max_memory_allocated()
-    n_train = mk.LAUNCHES
+    n_train = LAUNCHES.n
     check(n_train == 4 * 2, f'pv_rcnn CLI train: {n_train} merge-resolve '
                             f'launches over 2 steps')
     for r in run['steps']:
@@ -3577,9 +3586,9 @@ def phase_pv_rcnn_cli(root, tmp):
               f'rcnn_loss_cls {r["rcnn_loss_cls"]:.4f}, grad_norm '
               f'{r["grad_norm"]:.3f}; max_memory_allocated '
               f'{peak / 2**30:.2f} GiB')
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     results = test_cli.main(common)
-    n_test = mk.LAUNCHES
+    n_test = LAUNCHES.n
     (path, res), = results.items()
     keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
     check(res['frames'] == TC_VAL and n_test == 4 * math.ceil(TC_VAL / b)
@@ -3718,7 +3727,6 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
 
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
@@ -3740,7 +3748,7 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
         saved = post.SCORE_THRESH
         if zero:
             post.SCORE_THRESH = 0.0
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3750,7 +3758,7 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
         finally:
             post.SCORE_THRESH = saved
         ms = 1e3 * (time.perf_counter() - t0)
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == UNET_LAUNCHES, f'{tag} predict {r}: {n} merge-resolve '
                                   f'launches')
@@ -3791,7 +3799,7 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
     times, captured_train = [], None
     for i, batch in enumerate(tbatches):
         label = 'warm-up step' if i == 0 else f'step {i - 1}'
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3802,7 +3810,7 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == UNET_LAUNCHES, f'{tag} train {label}: {n} merge-resolve '
                                   f'launches')
@@ -3854,7 +3862,6 @@ def phase_parta2_cli(root, tmp):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     cfg_file = str(ROOT / 'configs/kitti_models/PartA2.yaml')
@@ -3863,12 +3870,12 @@ def phase_parta2_cli(root, tmp):
     out = tmp / f'out_{cfg.TAG}'
     common = ['--cfg_file', cfg_file, '--data_path', str(root),
               '--output_dir', str(out), '--batch_size', str(b)]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     run = train_cli.main(common + ['--epochs', '1',
                                    '--max_steps_per_epoch', '2'])
     peak = torch.cuda.max_memory_allocated()
-    n_train = mk.LAUNCHES
+    n_train = LAUNCHES.n
     check(n_train == UNET_LAUNCHES * 2, f'PartA2 CLI train: {n_train} '
                                         f'merge-resolve launches over 2 steps')
     for r in run['steps']:
@@ -3881,9 +3888,9 @@ def phase_parta2_cli(root, tmp):
               f'point_loss_part {r["point_loss_part"]:.4f}, rcnn_loss_cls '
               f'{r["rcnn_loss_cls"]:.4f}, grad_norm {r["grad_norm"]:.3f}; '
               f'max_memory_allocated {peak / 2**30:.2f} GiB')
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     results = test_cli.main(common)
-    n_test = mk.LAUNCHES
+    n_test = LAUNCHES.n
     (path, res), = results.items()
     keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
     check(res['frames'] == TC_VAL
@@ -4139,7 +4146,6 @@ def phase_pointrcnn_full(cfg_name, seed, n_predicts, n_steps):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
@@ -4168,7 +4174,7 @@ def phase_pointrcnn_full(cfg_name, seed, n_predicts, n_steps):
             saved = post.SCORE_THRESH
             if zero:
                 post.SCORE_THRESH = 0.0
-            mk.LAUNCHES = 0
+            LAUNCHES.n = 0
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4178,7 +4184,7 @@ def phase_pointrcnn_full(cfg_name, seed, n_predicts, n_steps):
             finally:
                 post.SCORE_THRESH = saved
             ms = 1e3 * (time.perf_counter() - t0)
-            n = mk.LAUNCHES
+            n = LAUNCHES.n
             launches += n
             check(n == 0, f'{tag} predict {r}: {n} merge-resolve launches')
             k = int(post.NMS_CONFIG.NMS_POST_MAXSIZE)
@@ -4216,14 +4222,14 @@ def phase_pointrcnn_full(cfg_name, seed, n_predicts, n_steps):
         times = []
         for i, batch in enumerate(tbatches):
             label = 'warm-up step' if i == 0 else f'step {i - 1}'
-            mk.LAUNCHES = 0
+            LAUNCHES.n = 0
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = train_step(state, batch)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
-            n = mk.LAUNCHES
+            n = LAUNCHES.n
             launches += n
             check(n == 0, f'{tag} train {label}: {n} merge-resolve launches')
             vals = {k: float(v) for k, v in metrics.items()}
@@ -4272,7 +4278,6 @@ def phase_pointrcnn_cli(root, tmp):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     cfg_file = str(ROOT / 'configs/kitti_models/pointrcnn.yaml')
@@ -4281,12 +4286,12 @@ def phase_pointrcnn_cli(root, tmp):
     out = tmp / f'out_{cfg.TAG}'
     common = ['--cfg_file', cfg_file, '--data_path', str(root),
               '--output_dir', str(out), '--batch_size', str(b)]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     run = train_cli.main(common + ['--epochs', '1',
                                    '--max_steps_per_epoch', '2'])
     peak = torch.cuda.max_memory_allocated()
-    n_train = mk.LAUNCHES
+    n_train = LAUNCHES.n
     check(n_train == 0 and len(run['steps']) == 2,
           f'PointRCNN CLI train: {len(run["steps"])} steps, {n_train} '
           f'merge-resolve launches')
@@ -4300,9 +4305,9 @@ def phase_pointrcnn_cli(root, tmp):
               f'{r["loss_loc"]:.4f}, rcnn_loss_cls {r["rcnn_loss_cls"]:.4f}, '
               f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
               f'{peak / 2**30:.2f} GiB')
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     results = test_cli.main(common)
-    n_test = mk.LAUNCHES
+    n_test = LAUNCHES.n
     (path, res), = results.items()
     keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
     check(res['frames'] == TC_VAL and n_test == 0
@@ -4507,7 +4512,6 @@ def waymo_cli_round(tmp, in_memory_ms, cfg_name, tag, label, batch):
     import torch
 
     from glenet_tpu_torch.models.detectors import Detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import state as state_lib
@@ -4518,7 +4522,7 @@ def waymo_cli_round(tmp, in_memory_ms, cfg_name, tag, label, batch):
     step_launches, predict_launches = [], []
     undo = [count_launches(state_lib, 'make_train_step', step_launches),
             count_launches(Detector, 'predict', predict_launches)]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         torch.cuda.reset_peak_memory_stats()
         run = train_cli.main(common + ['--epochs', '1', '--set',
@@ -4529,7 +4533,7 @@ def waymo_cli_round(tmp, in_memory_ms, cfg_name, tag, label, batch):
     finally:
         for u in undo:
             u()
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     check([r['it'] for r in run['steps']] == [1, 2]
           and step_launches == [4, 4],
           f'{label} CLI steps {[r["it"] for r in run["steps"]]}, '
@@ -4925,7 +4929,6 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
 
     from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models' / cfg_name))
@@ -4951,14 +4954,14 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
     for r, batch in enumerate(batches[int(warmup):]):
         if flips and r == 0:
             rec['nn_calls'] = []
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = det.predict(batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == 4, f'{tag} predict {r}: {n} merge-resolve launches')
         for key, shape in (('final_boxes', (BATCH, k, 7)),
@@ -4995,7 +4998,7 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
     for i, batch in enumerate(tbatches):
         label = 'warm-up step' if warmup and i == 0 else \
             f'step {i - int(warmup)}'
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -5006,7 +5009,7 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         step_times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         check(n == 4, f'{tag} train {label}: {n} merge-resolve launches')
         vals = {k: float(v) for k, v in metrics.items()}
@@ -5141,12 +5144,11 @@ def run_tool(tag, main, argv):
     import contextlib
 
     from glenet_tpu_torch.models.detectors import Detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     per_call = {'predict': [], 'loss_fn': []}
     undo = [count_launches(Detector, name, calls)
             for name, calls in per_call.items()]
     tee = _Tee(sys.stdout)
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(tee):
@@ -5154,7 +5156,7 @@ def run_tool(tag, main, argv):
     finally:
         for u in undo:
             u()
-    n = mk.LAUNCHES
+    n = LAUNCHES.n
     text = tee.text()
     print(f'[convergence] {tag}: {time.perf_counter() - t0:.1f} s of '
           f'command time; merge_resolve launches {n} over '
@@ -5462,7 +5464,6 @@ def phase_caddn_full():
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/CaDDN.yaml'))
@@ -5478,14 +5479,14 @@ def phase_caddn_full():
     launches, times = 0, []
     k = int(cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     for r, batch in enumerate(batches[1:]):
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pred = det.predict(batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         peak = torch.cuda.max_memory_allocated()
         check(n == 0, f'CaDDN predict {r}: {n} merge-resolve launches')
@@ -5510,14 +5511,14 @@ def phase_caddn_full():
     # published SCORE_THRESH: one more predict at 0 keeps boxes
     post = det.model_cfg.POST_PROCESSING
     saved, post.SCORE_THRESH = post.SCORE_THRESH, 0.0
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         pred = det.predict(batches[1])
     finally:
         post.SCORE_THRESH = saved
-    launches += mk.LAUNCHES
-    check(mk.LAUNCHES == 0 and int(pred['final_valid'].sum(1).min()) > 0,
-          f'CaDDN predict at zero thresholds: {mk.LAUNCHES} launches, '
+    launches += LAUNCHES.n
+    check(LAUNCHES.n == 0 and int(pred['final_valid'].sum(1).min()) > 0,
+          f'CaDDN predict at zero thresholds: {LAUNCHES.n} launches, '
           f'detections {pred["final_valid"].sum(1).tolist()}')
     print(f'[caddn] CaDDN predict at zero thresholds: detections '
           f'{pred["final_valid"].sum(1).tolist()} ('
@@ -5532,14 +5533,14 @@ def phase_caddn_full():
     times = []
     for i, batch in enumerate(tbatches):
         label = 'warm-up step' if i == 0 else f'step {i - 1}'
-        mk.LAUNCHES = 0
+        LAUNCHES.n = 0
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         vals = {key: float(v) for key, v in metrics.items()}
         check(n == 0, f'CaDDN train {label}: {n} merge-resolve launches')
@@ -5584,7 +5585,6 @@ def phase_caddn_deeplab():
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT /
@@ -5592,14 +5592,14 @@ def phase_caddn_deeplab():
     det = seeded_detector(cfg, 'cuda', SEED + 163)
     batches = batches_for(cfg, 2, SEED + 164, BATCH)
     det.predict(batches[0])
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pred = det.predict(batches[1])
     torch.cuda.synchronize()
     pred_ms = 1e3 * (time.perf_counter() - t0)
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     check(launches == 0 and bool(torch.isfinite(pred['final_boxes']).all()),
           f'CaDDN-DeepLab predict: {launches} launches or boxes not finite')
     print(f'[caddn] CaDDN-DeepLab (ResNet-101) predict B={BATCH}: '
@@ -5614,7 +5614,7 @@ def phase_caddn_deeplab():
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            mk.LAUNCHES = 0
+            LAUNCHES.n = 0
             state, metrics = train_step(state, batch)
             torch.cuda.synchronize()
         except torch.cuda.OutOfMemoryError:
@@ -5624,7 +5624,7 @@ def phase_caddn_deeplab():
             torch.cuda.empty_cache()
             continue
         step_ms = 1e3 * (time.perf_counter() - t0)
-        n = mk.LAUNCHES
+        n = LAUNCHES.n
         launches += n
         vals = {key: float(v) for key, v in metrics.items()}
         check(n == 0 and all(math.isfinite(v) for v in vals.values()),
@@ -5657,7 +5657,6 @@ def phase_caddn_cli(tmp):
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.datasets.kitti_dataset import create_kitti_infos
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.utils import synthetic
@@ -5676,11 +5675,11 @@ def phase_caddn_cli(tmp):
     out = tmp / 'out_caddn'
     common = ['--cfg_file', cfg_file, '--data_path', str(root),
               '--output_dir', str(out), '--batch_size', str(b)]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     torch.cuda.reset_peak_memory_stats()
     run = train_cli.main(common + ['--epochs', '1',
                                    '--max_steps_per_epoch', '2'])
-    n_train = mk.LAUNCHES
+    n_train = LAUNCHES.n
     check(n_train == 0 and len(run['steps']) == 2,
           f'CaDDN CLI train: {len(run["steps"])} steps, {n_train} launches')
     for r in run['steps']:
@@ -5694,9 +5693,9 @@ def phase_caddn_cli(tmp):
               f'{r["loss"]:.4f}, loss_depth {r["loss_depth"]:.4f}, '
               f'grad_norm {r["grad_norm"]:.3f}; max_memory_allocated '
               f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     results = test_cli.main(common)
-    n_test = mk.LAUNCHES
+    n_test = LAUNCHES.n
     (path, res), = results.items()
     keys = [f'{c}_3d/moderate_R40' for c in cfg.CLASS_NAMES]
     check(res['frames'] == CADDN_VAL and n_test == 0
@@ -5984,7 +5983,6 @@ def slice_cli_round(tmp, name, label, tree, plan, keys, in_memory_ms=None):
     from glenet_tpu_torch.datasets.pandaset_dataset import PandasetDataset
     from glenet_tpu_torch.datasets.waymo_dataset import WaymoDataset
     from glenet_tpu_torch.models.detectors import Detector
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.tools import test as test_cli
     from glenet_tpu_torch.tools import train as train_cli
     from glenet_tpu_torch.train import state as state_lib
@@ -6011,7 +6009,7 @@ def slice_cli_round(tmp, name, label, tree, plan, keys, in_memory_ms=None):
                          'gt_sampling'),
               time_calls(WaymoDataset, 'collate_batch', data, 'collate'),
               time_calls(train_cli, 'to_device', data, 'copy')]
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         torch.cuda.reset_peak_memory_stats()
         run = train_cli.main(common + ['--epochs', str(epochs),
@@ -6025,7 +6023,7 @@ def slice_cli_round(tmp, name, label, tree, plan, keys, in_memory_ms=None):
     finally:
         for u in undo + timers:
             u()
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     its = [r['it'] for r in run['steps']]
     check(its == list(range(1, epochs * steps + 1))
           and step_launches == [4] * len(its),
@@ -6529,11 +6527,11 @@ def _parallel_rank(rank, world, port, tmp):
     import torch
     sys.path.insert(0, str(ROOT))
     from glenet_tpu_torch.bench_merge import capture_calls
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.parallel import distributed
     from glenet_tpu_torch.parallel import mesh as mesh_lib
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import seeded_detector
+    LAUNCHES.install()
     distributed.initialize(f'127.0.0.1:{port}', world, rank, 'cuda',
                            backend='gloo', timeout_s=300)
     payload = torch.load(Path(tmp) / 'payload.pt', weights_only=False)
@@ -6576,7 +6574,7 @@ def _parallel_rank(rank, world, port, tmp):
     tx, state, _ = build_training(cfg, det)
     mesh = mesh_lib.make_mesh('cuda')
     mesh_lib.put_replicated(state)
-    step = mesh_lib.make_dp_train_step(det, tx, mesh, timing=True)
+    step = mesh_lib.make_dp_train_step(det, tx, mesh)
     local = mesh_lib.shard_batch(batch, mesh)
     state, res['a'] = compared('(a)', det, step, state, local,
                                slice(rank * PAR_B, (rank + 1) * PAR_B), rank)
@@ -6594,19 +6592,21 @@ def _parallel_rank(rank, world, port, tmp):
     distributed.all_reduce_sum = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     t0 = time.perf_counter()
     captured, (state, metrics) = capture_calls(lambda: step(state, local))
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
-    launches = mk.LAUNCHES
+    launches = LAUNCHES.n
     distributed.all_reduce_sum = real
+    # the gradient all-reduce's glenet::grad_allreduce span, in one more
+    # step under the profiler
+    grad_ms = span_ms(lambda: step(state, local), 'grad_allreduce')
     res['timed'] = {
-        'step_ms': step_ms, 'launches': launches,
-        'grad_ms': step.stats['grad_allreduce_ms'],
+        'step_ms': step_ms, 'launches': launches, 'grad_ms': grad_ms,
         'grad_bytes': step.stats['grad_bytes'],
         'collectives': calls['n'],
-        'other_ms': calls['ms'] - step.stats['grad_allreduce_ms'],
+        'other_ms': calls['ms'] - grad_ms,
         'peak': torch.cuda.max_memory_allocated(),
         'loss': float(metrics['loss'])}
     t = res['timed']
@@ -6630,7 +6630,7 @@ def _parallel_rank(rank, world, port, tmp):
     mesh_lib.put_replicated(state)
     step = mesh_lib.make_dp_tp_train_step(det, tx, mesh2)
     step.shard(state)
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     try:
         state, res['b'] = compared('(b)', det, step, state, batch,
                                    slice(None), 0, after=step.gather)
@@ -6639,9 +6639,23 @@ def _parallel_rank(rank, world, port, tmp):
             raise
         res['b'] = {'skipped': str(e).splitlines()[0]}
     else:
-        res['b'].update(launches=mk.LAUNCHES, sharded=len(step.sharded))
+        res['b'].update(launches=LAUNCHES.n, sharded=len(step.sharded))
     torch.save(res, Path(tmp) / f'rank{rank}.pt')
     distributed.shutdown()
+
+
+def span_ms(fn, name):
+    """Host milliseconds of the port's spans `name` (utils/trace.py) in
+    one call of fn under a torch.profiler session."""
+    import torch
+    from glenet_tpu_torch.utils import trace
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.name == trace.PREFIX + name)
 
 
 def free_port():
@@ -6674,7 +6688,6 @@ def phase_parallel(cli_root, tmp):
     import torch
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
-    from glenet_tpu_torch.ops import merge_kernel as mk
     from glenet_tpu_torch.parallel.distributed import get_dist_info
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.tools import train as train_cli
@@ -6773,7 +6786,7 @@ def phase_parallel(cli_root, tmp):
 
     # (c) the train CLI through the multi-host flags: NCCL, world 1
     out = work / 'cli'
-    mk.LAUNCHES = 0
+    LAUNCHES.n = 0
     run = train_cli.main([
         '--cfg_file', str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'),
         '--data_path', str(cli_root), '--output_dir', str(out),
@@ -6781,7 +6794,7 @@ def phase_parallel(cli_root, tmp):
         '--max_steps_per_epoch', '2', '--eval_after_train',
         '--coordinator_address', f'127.0.0.1:{free_port()}',
         '--num_processes', '1', '--process_id', '0'])
-    launches_cli = mk.LAUNCHES
+    launches_cli = LAUNCHES.n
     check(get_dist_info() == (0, 1), 'the CLI left its process group')
     ckpts = sorted(p.name for p in (out / 'ckpt').iterdir())
     check(ckpts == ['checkpoint_epoch_0.pth'], f'checkpoints {ckpts}')
@@ -6813,6 +6826,7 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    LAUNCHES.install()
     t_start = time.perf_counter()
     try:
         card = phase_setup(['merge_resolve'])

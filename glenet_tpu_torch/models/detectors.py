@@ -92,6 +92,7 @@ from ..ops import voxelize as vox_ops
 from ..parallel import distributed as dp
 from ..utils import box_coder as box_coder_lib
 from ..utils import common
+from ..utils import trace
 from . import anchor_heads, anchors, target_assigner
 from . import center_head as center_lib
 from . import pfe as pfe_lib
@@ -446,12 +447,15 @@ class DetectorNet(nn.Module):
                         self.backbone_2d(bev, train), train),
                     'depth_logits': vfe_out['depth_logits']}
         max_voxels = self.max_voxels_train if train else self.max_voxels_test
-        vox = self.voxelize(points, points_mask, max_voxels)
+        with trace.span('voxelize'):
+            vox = self.voxelize(points, points_mask, max_voxels)
         out = {'vox': vox}
-        feats = self.voxel_features(points, vox, train)
+        with trace.span('vfe'):
+            feats = self.voxel_features(points, vox, train)
         if self.part_free:
-            sp_out = self.backbone_3d(feats, vox['voxel_coords'],
-                                      vox['voxel_mask'], train)
+            with trace.span('backbone_3d'):
+                sp_out = self.backbone_3d(feats, vox['voxel_coords'],
+                                          vox['voxel_mask'], train)
             out['backbone_3d'] = sp_out
             out['part_head'] = self._part_head(sp_out, train)
             if roi_targets is None or not train:
@@ -467,15 +471,19 @@ class DetectorNet(nn.Module):
             out['rcnn']['rois'] = roi_in
             return out
         if self.backbone_3d is None:
-            bev = self.map_to_bev(feats, vox['voxel_coords'],
-                                  vox['voxel_mask'])
+            with trace.span('backbone_2d'):
+                bev = self.map_to_bev(feats, vox['voxel_coords'],
+                                      vox['voxel_mask'])
         else:
-            sp_out = self.backbone_3d(feats, vox['voxel_coords'],
-                                      vox['voxel_mask'], train)
+            with trace.span('backbone_3d'):
+                sp_out = self.backbone_3d(feats, vox['voxel_coords'],
+                                          vox['voxel_mask'], train)
             out['backbone_3d'] = sp_out
             bev = sp_out['bev_features']
-        spatial_2d = self.backbone_2d(bev, train)
-        out['dense_head'] = self.dense_head(spatial_2d, train)
+        with trace.span('backbone_2d'):
+            spatial_2d = self.backbone_2d(bev, train)
+        with trace.span('dense_head'):
+            out['dense_head'] = self.dense_head(spatial_2d, train)
         if self.part_head is not None:
             out['part_head'] = self._part_head(sp_out, train)
         if self.roi_head is None:
@@ -794,9 +802,10 @@ class Detector:
         device (CaDDN: the camera items of camera_of instead).  Returns
         fixed-shape final_boxes (B, K, 7), final_scores (B, K), final_labels
         (B, K), final_valid (B, K)."""
-        return self.finalize(self.net(batch.get('points'),
-                                      batch.get('points_mask'),
-                                      camera=camera_of(batch)))
+        with trace.call_span('predict'):
+            return self.finalize(self.net(batch.get('points'),
+                                          batch.get('points_mask'),
+                                          camera=camera_of(batch)))
 
     def loss_fn(self, batch, generator=None):
         """Train forward and loss.  batch: points, points_mask, gt_boxes
@@ -839,12 +848,17 @@ class Detector:
             return self._point_loss(full_out, batch)
         if self.is_center_head:
             return self._center_loss(full_out, batch)
-        with torch.no_grad():
+        with trace.span('targets'), torch.no_grad():
             per_sample = [self.assign_targets(gb, gm, gu) for gb, gm, gu in
                           zip(batch['gt_boxes'], batch['gt_mask'],
                               batch['gt_uncertainty'])]
-        targets = target_assigner.TargetDict(
-            *(torch.stack(t) for t in zip(*per_sample)))
+            targets = target_assigner.TargetDict(
+                *(torch.stack(t) for t in zip(*per_sample)))
+        with trace.span('loss'):
+            return self._anchor_loss(full_out, batch, targets)
+
+    def _anchor_loss(self, full_out, batch, targets):
+        """compute_loss of the anchor heads past the targets."""
         flat = anchor_heads._flatten_preds(full_out['dense_head'])
         lw = self.loss_weights
         metrics = {}
@@ -934,15 +948,24 @@ class Detector:
         out = full_out['dense_head']
         ta = self.model_cfg.DENSE_HEAD.TARGET_ASSIGNER_CONFIG
         h, w = out['hm'].shape[1:3]
-        with torch.no_grad():
+        with trace.span('targets'), torch.no_grad():
             per_sample = [center_lib.assign_targets_single(
                 gb, gm, self.num_class, (w, h),
                 int(ta.FEATURE_MAP_STRIDE), self.voxel_size, self.pc_range,
                 gaussian_overlap=float(ta.get('GAUSSIAN_OVERLAP', 0.1)),
                 min_radius=int(ta.get('MIN_RADIUS', 2)))
                 for gb, gm in zip(batch['gt_boxes'], batch['gt_mask'])]
-        heatmaps, tboxes, inds, masks = (torch.stack(t)
-                                         for t in zip(*per_sample))
+            heatmaps, tboxes, inds, masks = (torch.stack(t)
+                                             for t in zip(*per_sample))
+        with trace.span('loss'):
+            return self._center_loss_terms(
+                full_out, batch, (heatmaps, tboxes, inds, masks))
+
+    def _center_loss_terms(self, full_out, batch, targets):
+        """_center_loss past the targets (heatmaps, boxes, cell indices,
+        masks)."""
+        out = full_out['dense_head']
+        heatmaps, tboxes, inds, masks = targets
         lw = self.loss_weights
         c_loss = center_lib.centernet_focal_loss(
             out['hm'].permute(0, 3, 1, 2), heatmaps) * lw.get('cls_weight',
@@ -1111,10 +1134,20 @@ class Detector:
         the final NMS; CenterPoint's top-k decode (POST_PROCESSING's
         MAX_OBJ_PER_SAMPLE, SCORE_THRESH) with zero variances."""
         if self.is_center_head:
-            boxes, scores, labels = self.net.decode_center(
-                head_out, self.model_cfg.POST_PROCESSING)
+            with trace.span('decode'):
+                boxes, scores, labels = self.net.decode_center(
+                    head_out, self.model_cfg.POST_PROCESSING)
             return self._final_nms(boxes, scores, labels,
                                    torch.zeros_like(boxes))
+        with trace.span('decode'):
+            boxes, best_scores, best_labels, std, scores = \
+                self._decode_anchors(head_out)
+        return self._final_nms(boxes, best_scores, best_labels, std,
+                               cls_scores_all=scores)
+
+    def _decode_anchors(self, head_out):
+        """The anchor heads' decoded boxes (B, N, 7), best scores and
+        labels, log variances and per-class scores."""
         decoded = anchor_heads.decode_predictions(
             head_out, self.net.flat_anchors, self.box_coder,
             dir_offset=self.net.dir_offset,
@@ -1133,8 +1166,7 @@ class Detector:
         best_scores, best_labels = scores.max(dim=-1)
         boxes = decoded['batch_box_preds']
         std = decoded.get('batch_box_std_preds', torch.zeros_like(boxes))
-        return self._final_nms(boxes[..., :7], best_scores, best_labels + 1,
-                               std, cls_scores_all=scores)
+        return boxes[..., :7], best_scores, best_labels + 1, std, scores
 
     def _final_nms(self, boxes_all, best_scores, best_labels, std_all,
                    cls_scores_all=None):
@@ -1158,47 +1190,48 @@ class Detector:
         multi = (nms_cfg.get('MULTI_CLASSES_NMS', False)
                  and cls_scores_all is not None
                  and cls_scores_all.shape[-1] > 1)
-        res = []
-        for i in range(boxes_all.shape[0]):
-            boxes_s = boxes_all[i]
-            if multi:
-                idx, valid, labels, scores = nms_ops.multi_classes_nms(
-                    boxes_s, cls_scores_all[i], thresh, self.num_class,
-                    pre_max=pre_max, post_max=post_max,
-                    score_threshold=score_thresh)
-                idx, valid = idx[:post_max], valid[:post_max]
-                final_boxes = boxes_s[idx]
-                final_scores = torch.where(valid, scores[:post_max], 0.0)
-                final_labels = torch.where(valid, labels[:post_max], 0)
-            elif use_voting:
-                boxes_wrapped = torch.cat([
-                    boxes_s[:, :6],
-                    common.limit_period(boxes_s[:, 6:7], 0.5, 2 * math.pi)],
-                    dim=1)
-                idx, valid, final_boxes, final_scores = \
-                    nms_ops.variance_voting_nms(
-                        boxes_wrapped, best_scores[i],
-                        torch.exp(std_all[i, :, :7]), thresh,
+        with trace.span('nms'):
+            res = []
+            for i in range(boxes_all.shape[0]):
+                boxes_s = boxes_all[i]
+                if multi:
+                    idx, valid, labels, scores = nms_ops.multi_classes_nms(
+                        boxes_s, cls_scores_all[i], thresh, self.num_class,
                         pre_max=pre_max, post_max=post_max,
                         score_threshold=score_thresh)
-            else:
-                masked = torch.where(best_scores[i] >= score_thresh,
-                                     best_scores[i], 0.0)
-                idx, valid = nms_ops.nms_bev(
-                    boxes_s, masked, thresh, pre_max=pre_max,
-                    post_max=post_max, score_threshold=score_thresh)
-                final_boxes = boxes_s[idx]
-                final_scores = torch.where(valid, best_scores[i][idx], 0.0)
-            if not multi:
-                final_labels = torch.where(valid, best_labels[i][idx], 0)
-            if post_score_thresh > 0:
-                keep = final_scores > post_score_thresh
-                valid = valid & keep
-                final_scores = torch.where(keep, final_scores, 0.0)
-            res.append((final_boxes, final_scores, final_labels, valid))
-        fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
-        return {'final_boxes': fb, 'final_scores': fs, 'final_labels': fl,
-                'final_valid': fv}
+                    idx, valid = idx[:post_max], valid[:post_max]
+                    final_boxes = boxes_s[idx]
+                    final_scores = torch.where(valid, scores[:post_max], 0.0)
+                    final_labels = torch.where(valid, labels[:post_max], 0)
+                elif use_voting:
+                    boxes_wrapped = torch.cat([
+                        boxes_s[:, :6],
+                        common.limit_period(boxes_s[:, 6:7], 0.5,
+                                            2 * math.pi)], dim=1)
+                    idx, valid, final_boxes, final_scores = \
+                        nms_ops.variance_voting_nms(
+                            boxes_wrapped, best_scores[i],
+                            torch.exp(std_all[i, :, :7]), thresh,
+                            pre_max=pre_max, post_max=post_max,
+                            score_threshold=score_thresh)
+                else:
+                    masked = torch.where(best_scores[i] >= score_thresh,
+                                         best_scores[i], 0.0)
+                    idx, valid = nms_ops.nms_bev(
+                        boxes_s, masked, thresh, pre_max=pre_max,
+                        post_max=post_max, score_threshold=score_thresh)
+                    final_boxes = boxes_s[idx]
+                    final_scores = torch.where(valid, best_scores[i][idx], 0.0)
+                if not multi:
+                    final_labels = torch.where(valid, best_labels[i][idx], 0)
+                if post_score_thresh > 0:
+                    keep = final_scores > post_score_thresh
+                    valid = valid & keep
+                    final_scores = torch.where(keep, final_scores, 0.0)
+                res.append((final_boxes, final_scores, final_labels, valid))
+            fb, fs, fl, fv = (torch.stack(t) for t in zip(*res))
+            return {'final_boxes': fb, 'final_scores': fs, 'final_labels': fl,
+                    'final_valid': fv}
 
 
 CAMERA_KEYS = ('images', 'trans_lidar_to_cam', 'trans_cam_to_img',

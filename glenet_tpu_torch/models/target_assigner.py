@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import iou3d
-from ..utils import box_utils, common
+from ..utils import box_utils, common, trace
 
 
 class TargetDict(NamedTuple):
@@ -86,6 +86,7 @@ def assign_targets(anchor_set, gt_boxes_with_cls, gt_mask, gt_uncertainty,
     gt_boxes = gt_boxes_with_cls[:, :7]
     gt_cls = gt_boxes_with_cls[:, 7].to(torch.int32)
     anchors_hw = torch.as_tensor(anchor_set.anchors, device=dev)  # (H,W,A,7)
+    trace.count('host_waits')           # the anchors copied to the card
     labels_c, targets_c, unc_c = [], [], []
     for ci, name in enumerate(anchor_set.class_names):
         sl = anchor_set.class_slices[ci]
@@ -129,6 +130,7 @@ def atss_assign_targets(anchor_set, gt_boxes_with_cls, gt_mask,
     dev = gt_boxes_with_cls.device
     anchors = torch.as_tensor(anchor_set.flat_anchors, dtype=torch.float32,
                               device=dev)                      # (N, 7)
+    trace.count('host_waits')           # the anchors copied to the card
     n = anchors.shape[0]
     gt_boxes = gt_boxes_with_cls[:, :7]
     gt_cls = gt_boxes_with_cls[:, 7].to(torch.int32)

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 _EPS = 1e-8
 _INSIDE_EPS = 1e-6
 
@@ -21,6 +23,7 @@ def box_to_bev_corners(boxes):
     """(..., 7) -> (..., 4, 2) BEV corners in CCW order."""
     template = torch.tensor([[1, 1], [-1, 1], [-1, -1], [1, -1]],
                             dtype=boxes.dtype, device=boxes.device) / 2.0
+    trace.count('host_waits')           # a pageable host-to-device copy
     corners = boxes[..., None, 3:5] * template                 # (..., 4, 2)
     cosa = torch.cos(boxes[..., 6])[..., None]
     sina = torch.sin(boxes[..., 6])[..., None]

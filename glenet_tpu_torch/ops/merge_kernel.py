@@ -16,7 +16,9 @@ one warp-wide search, stages it in shared memory, each warp narrows it to
 its own 128 queries, and each lane runs its 4 searches branch-free in
 lockstep there.  Tiles whose window is wider than the shared buffer resolve
 per warp, exactly, from a per-warp buffer or from global memory
-(`resolve_sorted_queries_counted` counts them).  The wrapper is kept lean,
+(`resolve_sorted_queries_counted` counts them, as do the counters
+`merge_wide_tiles` and `merge_global_groups` of utils/trace.py while
+tracing is on, beside `merge_launches`).  The wrapper is kept lean,
 since at these sizes the host's cost per call is of the kernel's order: the
 C function is resolved once, the four outputs are one allocation, and the
 stream is read without entering a device context.
@@ -31,13 +33,12 @@ import ctypes
 
 import torch
 
+from ..utils import trace
 from . import cuda_lib
 
 _POS_BITS = 20
-
-# Launches of the CUDA kernel (not of the plain version); chip_smoke.py
-# resets and reads it to show that the main path went through the kernel.
-LAUNCHES = 0
+# the kernel's slow-path counts, as utils/trace.py counters
+_STAT_NAMES = ('merge_wide_tiles', 'merge_global_groups')
 
 _SIGNATURES = {
     'merge_resolve': ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 4
@@ -87,10 +88,11 @@ def _load():
     return _launch
 
 
-def _resolve_cuda(ids, queries, stats_ptr=None):
+def _resolve_cuda(ids, queries, stats=None):
     """Launch the kernel on checked CUDA tensors; returns the four views of
-    one (4, B, G, Vq) output."""
-    global LAUNCHES
+    one (4, B, G, Vq) output.  `stats`: None, or a (2,) int32 tensor the
+    kernel adds its two slow-path counts to; by default, while tracing,
+    the counters merge_wide_tiles and merge_global_groups."""
     if not ids.is_cuda:
         raise ValueError(f'unsupported device {ids.device}')
     if not (ids.is_contiguous() and queries.is_contiguous()):
@@ -99,11 +101,14 @@ def _resolve_cuda(ids, queries, stats_ptr=None):
     b, v = ids.shape
     _, g, vq = queries.shape
     out = ids.new_empty((4, b, g, vq))       # int32, on ids' device
+    if stats is None:
+        stats = trace.device_slots(_STAT_NAMES, ids.device)
     dev = ids.get_device()
     # the raw handle: torch.cuda.current_stream() builds a Stream object,
     # several microseconds of host time per call
     args = (ids.data_ptr(), queries.data_ptr(), out.data_ptr(), b, g, v, vq,
-            stats_ptr, torch._C._cuda_getCurrentRawStream(dev))
+            None if stats is None else stats.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev))
     if dev == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -111,7 +116,7 @@ def _resolve_cuda(ids, queries, stats_ptr=None):
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f'merge_resolve launch failed: CUDA error {err}')
-    LAUNCHES += 1
+    trace.count('merge_launches')
     return out.unbind(0)
 
 
@@ -142,6 +147,6 @@ def resolve_sorted_queries_counted(ids, queries):
     read the counts."""
     _check(ids, queries)
     stats = torch.zeros(2, dtype=torch.int32, device=ids.device)
-    outs = _resolve_cuda(ids, queries, stats.data_ptr())
+    outs = _resolve_cuda(ids, queries, stats)
     wide, glob = stats.tolist()
     return outs, wide, glob

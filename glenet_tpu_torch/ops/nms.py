@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from ..utils import trace
 from . import iou3d
 
 
@@ -40,12 +41,14 @@ def _fixpoint_keep(a, live):
     undecided = live.clone()
     keep = torch.zeros_like(live)
     while bool(undecided.any()):
+        trace.count('host_waits')
         for _ in range(8):
             blocked = (a & undecided[:, None]).any(dim=0)
             new_keep = undecided & ~blocked
             keep = keep | new_keep
             new_supp = (a & new_keep[:, None]).any(dim=0)
             undecided = undecided & ~new_keep & ~new_supp
+    trace.count('host_waits')           # the read that ended the loop
     return keep
 
 
@@ -91,6 +94,7 @@ def _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max: int):
     slots = torch.arange(k, device=dev)
     # the candidates are score-sorted, so the live ones are a prefix: no
     # block past it keeps a box
+    trace.count('host_waits')
     for b in range(-(-int(live.sum()) // blk)):
         sl = slice(b * blk, (b + 1) * blk)
         c_blk, a_blk, live_blk = corners[sl], areas[sl], live[sl]
@@ -111,6 +115,7 @@ def _greedy_keep_lazy(boxes_s, live, iou_threshold, post_max: int):
         buf_a[slot] = a_blk
         keep[sl] = keep_blk
         n_kept = n_kept + keep_blk.sum()
+        trace.count('host_waits')
         if int(n_kept) >= k:
             break
     return keep[:p0]

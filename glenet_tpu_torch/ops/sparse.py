@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import merge_kernel
 
 # Compute dtype of the gather + tap contraction (glenet_tpu's
@@ -329,11 +330,16 @@ def strided_output_sites(ids, mask, grid, kernel_size, stride, padding,
     # f32 division, as the JAX package's: `out_cap / tensor` would multiply
     # by the reciprocal, which rounds differently and moves sites
     cap = torch.tensor(out_cap, dtype=torch.float32, device=dev)
+    trace.count('host_waits')           # a pageable host-to-device copy
     ratio = cap / torch.maximum(n_active.to(torch.float32), cap)
     pos = torch.floor(rank.to(torch.float32) * ratio).long()
     pos = pos.clamp(0, out_cap - 1)
     prev = torch.floor((rank - 1).to(torch.float32) * ratio).long()
     keep = first & ((rank == 0) | (pos > prev))
+    if trace.enabled():     # active sites against the level's cap
+        level = f'{onx}x{ony}x{onz}'
+        trace.count(f'sites_active.{level}', n_active)
+        trace.count(f'sites_kept.{level}', keep)
     # kept sites have unique slots; the rest go to the dump slot out_cap
     out_ids = torch.full((out_cap + 1,), n_out_cells, dtype=torch.int64,
                          device=dev)
@@ -382,6 +388,7 @@ def to_dense_expand(features, ids, mask, grid, out_dtype=None):
     dense[flat] = rows.reshape(-1, c)
     occ = torch.zeros(b * (n_cells + 1), dtype=torch.bool, device=ids.device)
     occ[flat] = True
+    trace.count('host_waits')           # the value True copied to the card
     dense = dense.reshape(b, n_cells + 1, c)[:, :n_cells]
     occ = occ.reshape(b, n_cells + 1)[:, :n_cells]
     return dense.reshape(b, nz, ny, nx, c), occ.reshape(b, nz, ny, nx)

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import trace
+
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -39,6 +41,9 @@ def _select_voxels_first_occurrence(vid_sorted, sort_idx, n_cells: int,
     priority = torch.where(valid_run, first_occ, n)
     order = torch.argsort(priority, stable=True)[:max_voxels]
     chosen = torch.where(valid_run[order], run_vid[order], n_cells)
+    if trace.enabled():     # occupied voxels against the budget
+        trace.count('voxels_offered', valid_run)
+        trace.count('voxels_kept', chosen < n_cells)
     if chosen.shape[0] < max_voxels:        # fewer points than voxel slots
         chosen = torch.cat([chosen, torch.full(
             (max_voxels - chosen.shape[0],), n_cells, dtype=chosen.dtype,
@@ -65,6 +70,7 @@ def voxelize(points, points_mask, voxel_size, pc_range, grid_size,
     n = points.shape[0]
     vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
     origin = torch.tensor(pc_range[:3], dtype=torch.float32, device=dev)
+    trace.count('host_waits', 2)        # two pageable host-to-device copies
 
     coords = torch.floor((points[:, :3] - origin) / vsize).to(torch.int64)
     in_range = ((coords >= 0).all(dim=1) & (coords[:, 0] < nx)
@@ -137,6 +143,7 @@ def voxelize_dynamic(points, points_mask, voxel_size, pc_range, grid_size,
     dev = points.device
     vsize = torch.tensor(voxel_size, dtype=torch.float32, device=dev)
     origin = torch.tensor(pc_range[:3], dtype=torch.float32, device=dev)
+    trace.count('host_waits', 2)        # two pageable host-to-device copies
     coords = torch.floor((points[:, :3] - origin) / vsize).to(torch.int64)
     in_range = ((coords >= 0).all(dim=1) & (coords[:, 0] < nx)
                 & (coords[:, 1] < ny) & (coords[:, 2] < nz) & points_mask)

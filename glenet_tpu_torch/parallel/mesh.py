@@ -28,8 +28,6 @@ identical per-host copies.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -40,6 +38,7 @@ from ..models.layers import ConvBlock
 from ..models.spconv_backbone import InverseConvBN, SparseConvBN, SubMConvBN
 from ..models.vector_pool import VectorPoolAggregation
 from ..train import state as state_lib
+from ..utils import trace
 from ..utils.jax_weights import jax_path_and_shape
 from . import distributed as dp
 
@@ -161,29 +160,22 @@ class _StepBase:
     """Shared by the two steps: the forward and backward inside the data
     group's context, the gradient and metric sums over it."""
 
-    def __init__(self, detector, tx, mesh, seed, timing):
+    def __init__(self, detector, tx, mesh, seed):
         self.detector, self.tx = detector, tx
-        self.seed, self.timing = seed, timing
+        self.seed = seed
         self.data_group = mesh.get_group(DATA_AXIS)
         self.device = detector.device
-        # per step: bytes of the gradient sum and its ms (device work
-        # before it finished first when timing)
+        # per step: bytes of the gradient sum (its time: the
+        # glenet::grad_allreduce span, utils/trace.py)
         self.stats = {}
-
-    def _sync(self):
-        if self.timing and self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
 
     def _loss_and_grads(self, state, batch):
         with dp.data_parallel(self.data_group):
             params, grads, metrics = state_lib.loss_and_grads(
                 self.detector, state, batch, self.seed)
-        self._sync()
-        t0 = time.perf_counter()
-        self.stats['grad_bytes'] = _coalesced(
-            grads, lambda flat: dp.all_reduce_sum(flat, self.data_group))
-        self._sync()
-        self.stats['grad_allreduce_ms'] = 1e3 * (time.perf_counter() - t0)
+        with trace.span('grad_allreduce'):
+            self.stats['grad_bytes'] = _coalesced(
+                grads, lambda flat: dp.all_reduce_sum(flat, self.data_group))
         for p, g in zip(params, grads):
             p.grad = g
         names = sorted(metrics)
@@ -198,8 +190,11 @@ class DataParallelTrainStep(_StepBase):
     batch's loss terms and grad_norm."""
 
     def __call__(self, state, batch):
-        params, grads, metrics = self._loss_and_grads(state, batch)
-        metrics['grad_norm'] = self.tx.update(params, grads, state.opt_state)
+        with trace.call_span('train_step'):
+            params, grads, metrics = self._loss_and_grads(state, batch)
+            with trace.span('optim'):
+                metrics['grad_norm'] = self.tx.update(params, grads,
+                                                      state.opt_state)
         state.step += 1
         return state, metrics
 
@@ -211,7 +206,7 @@ class DpTpTrainStep(_StepBase):
     full tensors back (on every rank), e.g. for a checkpoint."""
 
     def __init__(self, detector, tx, mesh, seed):
-        super().__init__(detector, tx, mesh, seed, timing=False)
+        super().__init__(detector, tx, mesh, seed)
         self.mp = axis_size(mesh, MODEL_AXIS)
         self.m = mesh.get_local_rank(MODEL_AXIS)
         self.model_group = mesh.get_group(MODEL_AXIS)
@@ -263,32 +258,33 @@ class DpTpTrainStep(_StepBase):
         return state
 
     def __call__(self, state, batch):
-        self.gather(state, params_only=True)
-        params, grads, metrics = self._loss_and_grads(state, batch)
-        with torch.no_grad():
-            rep = [g for i, g in enumerate(grads) if i not in self.sharded]
-            for i, axis in self.sharded.items():
-                grads[i] = self._slice(grads[i], axis)
-                params[i].data = self._slice(params[i].data, axis)
-                params[i].grad = grads[i]
-            # each replicated leaf once, the sharded ones summed over the
-            # slices of the 'model' group
-            sq_sh = torch.zeros(1, device=self.device)
-            for i in self.sharded:
-                sq_sh += grads[i].float().square().sum()
-            dp.all_reduce_sum(sq_sh, self.model_group)
-            sq_rep = sum(g.float().square().sum() for g in rep)
-            norm = torch.sqrt(sq_rep + sq_sh[0])
-        metrics['grad_norm'] = self.tx.update(params, grads, state.opt_state,
-                                              norm=norm)
+        with trace.call_span('train_step'):
+            self.gather(state, params_only=True)
+            params, grads, metrics = self._loss_and_grads(state, batch)
+            with torch.no_grad():
+                rep = [g for i, g in enumerate(grads) if i not in self.sharded]
+                for i, axis in self.sharded.items():
+                    grads[i] = self._slice(grads[i], axis)
+                    params[i].data = self._slice(params[i].data, axis)
+                    params[i].grad = grads[i]
+                # each replicated leaf once, the sharded ones summed over the
+                # slices of the 'model' group
+                sq_sh = torch.zeros(1, device=self.device)
+                for i in self.sharded:
+                    sq_sh += grads[i].float().square().sum()
+                dp.all_reduce_sum(sq_sh, self.model_group)
+                sq_rep = sum(g.float().square().sum() for g in rep)
+                norm = torch.sqrt(sq_rep + sq_sh[0])
+            with trace.span('optim'):
+                metrics['grad_norm'] = self.tx.update(
+                    params, grads, state.opt_state, norm=norm)
         state.step += 1
         return state, metrics
 
 
-def make_dp_train_step(detector, tx, mesh, seed: int = state_lib.SEED,
-                       timing: bool = False):
+def make_dp_train_step(detector, tx, mesh, seed: int = state_lib.SEED):
     """The data-parallel step (JAX: jit_train_step on a 1-D mesh)."""
-    return DataParallelTrainStep(detector, tx, mesh, seed, timing)
+    return DataParallelTrainStep(detector, tx, mesh, seed)
 
 
 def make_dp_tp_train_step(detector, tx, mesh, seed: int = state_lib.SEED):

@@ -15,6 +15,8 @@ import dataclasses
 import torch
 from torch import nn
 
+from ..utils import trace
+
 SEED = 17
 
 
@@ -47,7 +49,8 @@ def loss_and_grads(detector, state: TrainState, batch, seed: int = SEED):
         p.grad = None
     gen = step_generator(state.step, params[0].device, seed)
     loss, metrics = detector.loss_fn(batch, generator=gen)
-    loss.backward()
+    with trace.span('backward'):
+        loss.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in params]
     return params, grads, {k: v.detach() for k, v in metrics.items()}
@@ -60,8 +63,12 @@ def make_train_step(detector, tx, seed: int = SEED):
     are parallel/mesh.py's."""
 
     def train_step(state: TrainState, batch):
-        params, grads, metrics = loss_and_grads(detector, state, batch, seed)
-        metrics['grad_norm'] = tx.update(params, grads, state.opt_state)
+        with trace.call_span('train_step'):
+            params, grads, metrics = loss_and_grads(detector, state, batch,
+                                                    seed)
+            with trace.span('optim'):
+                metrics['grad_norm'] = tx.update(params, grads,
+                                                 state.opt_state)
         state.step += 1
         return state, metrics
 

@@ -10,7 +10,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import box_utils
+from . import box_utils, trace
 
 
 def sigmoid_bce_with_logits(logits, targets):
@@ -47,6 +47,8 @@ def weighted_smooth_l1(preds, targets, weights=None, beta: float = 1.0 / 9.0,
     targets = torch.where(torch.isnan(targets), preds, targets)
     diff = preds - targets
     if code_weights is not None:
+        if not isinstance(code_weights, torch.Tensor):
+            trace.count('host_waits')   # a pageable host-to-device copy
         diff = diff * torch.as_tensor(code_weights, dtype=torch.float32,
                                       device=diff.device)
     loss = smooth_l1(diff, beta)

@@ -14,6 +14,7 @@ from glenet_tpu.ops import merge_kernel as jmk  # noqa: E402
 from glenet_tpu.ops import sparse as jsp  # noqa: E402
 
 from glenet_tpu_torch.ops import merge_kernel as tmk  # noqa: E402
+from glenet_tpu_torch.utils import trace  # noqa: E402
 
 
 def _case(rng, v, n_active, g, vq, n_cells):
@@ -141,6 +142,9 @@ def test_wrapper_checks_inputs():
             torch.zeros((1, 1 << 20), dtype=torch.int32), q)
     with pytest.raises(ValueError, match='unsupported device'):
         tmk.resolve_sorted_queries_counted(ids, q)
-    before = tmk.LAUNCHES
-    tmk.resolve_sorted_queries(ids, q)
-    assert tmk.LAUNCHES == before, 'the CPU path launches no kernel'
+    trace.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        tmk.resolve_sorted_queries(ids, q)
+    assert 'merge_launches' not in trace.counters(), \
+        'the CPU path launches no kernel'

@@ -389,6 +389,24 @@ def dp_cases(rank, world, payload):
     return out
 
 
+def dp_spans(rank, world, payload):
+    """payload: {'cfg': port cfg, 'batch': global batch} -> the port's
+    spans [(name, start, end)] of one data-parallel step of this rank under
+    a CPU profiler."""
+    from glenet_tpu_torch.parallel import mesh as mesh_lib
+    from glenet_tpu_torch.utils import trace
+    mesh = mesh_lib.make_mesh('cpu')
+    det, tx, state = build(payload['cfg'])
+    mesh_lib.put_replicated(state)
+    step = mesh_lib.make_dp_train_step(det, tx, mesh)
+    local = mesh_lib.shard_batch(to_tensors(payload['batch']), mesh)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(state, local)
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.name.startswith(trace.PREFIX)]
+
+
 def dp_tp_case(rank, world, payload):
     """payload: {'case': (name, cfg, weights, batch, BN outputs), 'mp',
     'ckpt'} -> this rank's snapshot after one (data, model) step, taken
