@@ -350,12 +350,35 @@ Phases, each of which exits non-zero on failure:
      --coordinator_address / --num_processes 1 / --process_id 0 (NCCL) on
      the [cli] tree, 1 epoch x 2 steps with --eval_after_train: the
      checkpoint and the AP keys;
- 21. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
+ 21. the x-block gather-GEMM kernel, [xblock] (csrc/xblock_gemm.cu, after
+     phase 6): the kernel against its plain version
+     (ops/sparse.py::gather_gemm_xblocks_plain) on synthetic tables, Cin
+     3 / 4 / 5 / 16 / 32 / 128 x Cout 16 / 32 / 64 at B = 1 and 4 (a
+     ragged last tile), Cin 64 with Cout 128 and the float32 switch,
+     tables with every tap missing, isolated sites, a full table and q at
+     its last rows (hits past V read as zeros), an unaligned feature
+     pointer, an odd Cout and a strided table; both autograd Functions'
+     forward, d_features and d_weights against the plain composition;
+     then the captured calls of a Waymo CenterPoint predict at B = 1 and a
+     Waymo GLENet-S train step at B = 4 (full width, seeded weights): each
+     against the plain version, the kernel's device and back-to-back ms,
+     the plain version's ms and the byte bound, and the launches (11 a
+     request, 9 a step).  Tolerance: both sides sum the same exact
+     products (bf16 times bf16 fits float32) in float32, each in its own
+     order, so they lie within 2 gamma_n S, S the sum of the products'
+     magnitudes; the gap's norm besides within 2^-5 of the reference's.
+     Besides, every warm-up predict or train step that captures
+     merge-resolve calls for phase 6 (every sparse family of phases 2-20,
+     the parallel ranks' step included) runs inside XBLOCK.checked: each
+     of its kernel launches is held against the plain version as it
+     happens, and their count against the x-block convs the model ran;
+ 22. one `{"kernels": [...]}` line; last line `{"ok": true, "device": ...}`.
 
 Needs one CUDA device and the repository checkout around this file.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import sys
@@ -389,6 +412,88 @@ class LaunchCount:
 
 
 LAUNCHES = LaunchCount()
+
+
+class XBlockLaunches:
+    """Launches of the x-block gather-GEMM kernel since `n` was last set to
+    0.  The port counts them (`xblock_gemm_launches`) only while a profiler
+    records, so `install` wraps the launch, ops/xblock_gemm.py's
+    gather_gemm.  Inside `checked(what)` each launch is also held against
+    the plain version (xblock_check), and the launches against the x-block
+    convs the model ran: one per SubMConvBN or 3^3 SparseConvBN call, and
+    one more per SubMConvBN whose input takes a gradient (its d_features
+    in the backward)."""
+
+    def __init__(self):
+        self.n = 0
+        self.window = None      # the label of the checked window
+        self.first = 0          # n when that window opened
+        self.worst = 0.0        # the worst gap ratio of a checked launch
+        self.windows = {}       # label -> launches in that window
+        self.installed = False
+
+    def install(self):
+        if self.installed:
+            return
+        from glenet_tpu_torch.ops import xblock_gemm
+        real = xblock_gemm.gather_gemm
+
+        def counted(features, q, tbl, weights, round_bf16):
+            out = real(features, q, tbl, weights, round_bf16)
+            self.n += 1
+            if self.window is not None:
+                self.worst = max(self.worst, xblock_check(
+                    f'{self.window} launch {self.n - self.first}', features,
+                    q, tbl, weights, f32=not round_bf16, got=out))
+            return out
+
+        xblock_gemm.gather_gemm = counted
+        self.installed = True
+
+    @contextlib.contextmanager
+    def checked(self, what):
+        import torch
+
+        from glenet_tpu_torch.models.spconv_backbone import (SparseConvBN,
+                                                             SubMConvBN)
+        convs = [0]
+
+        def pre(module, args):
+            if isinstance(module, SubMConvBN):
+                convs[0] += 1 + (torch.is_grad_enabled()
+                                 and args[0].requires_grad)
+            elif (isinstance(module, SparseConvBN)
+                  and module.kernel_size == (3, 3, 3)):
+                convs[0] += 1
+
+        self.install()
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(pre)
+        self.window, self.first = what, self.n
+        try:
+            yield
+        finally:
+            hook.remove()
+            self.window = None
+        n = self.n - self.first
+        print(f'[xblock] {what}: {n} launches, each == plain within 2 '
+              f'gamma_n S ({convs[0]} x-block contractions of the convs)')
+        check(n == convs[0],
+              f'xblock_gemm {what}: {n} launches for {convs[0]} x-block '
+              f'contractions of the convs')
+        self.windows[what] = n
+
+
+XBLOCK = XBlockLaunches()
+
+
+def capture_calls(fn, what):
+    """bench_merge.capture_calls (the merge-resolve calls of fn(), which
+    phase 6 checks) inside XBLOCK.checked(what): each x-block kernel
+    launch of fn() held against its plain version, their count against the
+    convs fn() ran."""
+    from glenet_tpu_torch import bench_merge
+    with XBLOCK.checked(what):
+        return bench_merge.capture_calls(fn)
 N_REQUESTS, BATCH, N_POINTS = 3, 2, 32768
 TRAIN_STEPS = 3
 # the CLI phase's synthetic KITTI-layout tree and batch
@@ -642,6 +747,351 @@ def phase_merge_check(captured, captured_train, captured_single):
     return {'max_abs_err': max_err, **check_captured(captured, 'predict'),
             'train': check_captured(captured_train, 'train step'),
             'single': check_captured(captured_single, 'GLENet-C predict')}
+
+
+XBLOCK_U = 2.0 ** -24        # float32's unit roundoff
+# the gap's norm against the reference's: a gradient summed in bf16 in
+# another order lies within ~2^-8 of it; a zeroed, halved or sign-flipped
+# one is 0.5 to 2 of it away
+XBLOCK_REL = 2.0 ** -5
+
+
+def xblock_tables(seed, b, v, grid=(160, 160, 12), density=0.3,
+                  sentinel=0.1):
+    """(ids, mask) of `b` samples on the card: v slots, the first
+    v (1 - sentinel) holding active cells drawn at `density` from the first
+    cells of the grid (whole x rows, so taps hit), the rest the sentinel."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    nx, ny, nz = grid
+    n_cells = nx * ny * nz
+    n_act = int(v * (1 - sentinel))
+    span = min(n_cells, max(n_act, int(n_act / density)))
+    ids = torch.full((b, v), n_cells, dtype=torch.int32)
+    for i in range(b):
+        ids[i, :n_act] = torch.randperm(span, generator=g)[:n_act].sort(
+        ).values.to(torch.int32)
+    return ids.cuda(), (ids < n_cells).cuda()
+
+
+def xblock_bound(n, s, u=XBLOCK_U):
+    """Two sums of the same n products, each in its own order, lie within
+    2 gamma_n S of each other (gamma_n = n u / (1 - n u), S the sum of the
+    products' magnitudes, u the unit roundoff of the sums): the tolerance
+    of the kernel against its plain version.  With bf16 operands the
+    products are exact in float32 (8-bit significands); with float32 ones
+    each is rounded once: n + 1 terms."""
+    gamma = (n + 1) * u / (1 - (n + 1) * u)
+    return 2 * gamma * s
+
+
+def xblock_compare(what, got, ref, s, n, u=XBLOCK_U, round_u=0.0):
+    """|got - ref| <= xblock_bound(n, s, u) everywhere (plus, where both
+    sums are then rounded to a unit roundoff round_u, round_u (|got| +
+    |ref|)), and the gap's norm within XBLOCK_REL of the reference's ->
+    the worst ratio of the gap to (n + 1) u S."""
+    gap = (got - ref).abs()
+    bound = xblock_bound(n, s, u) + round_u * (got.abs() + ref.abs())
+    bad = int((gap > bound).sum())
+    check(bad == 0, f'xblock_gemm {what}: {bad} elements past 2 gamma_n S '
+                    f'(worst gap {float(gap.max()):.3e})')
+    rel = float(gap.norm()) / max(float(ref.norm()), 1e-30)
+    check(rel <= XBLOCK_REL, f'xblock_gemm {what}: |gap| {rel:.3e} of '
+                             f'|reference|')
+    scale = (n + 1) * u * s
+    live = scale > 0
+    check(bool((gap[~live] == 0).all()),
+          f'xblock_gemm {what}: nonzero where every product is zero')
+    return float((gap[live] / scale[live]).max()) if live.any() else 0.0
+
+
+def xblock_check(what, f, q, tbl, w, f32=False, got=None):
+    """The kernel against the plain version on one call, both in the bf16
+    operands of the main path (or float32 with f32); `got`, the kernel's
+    output, if it has already run."""
+    import torch
+
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.ops import xblock_gemm as xg
+    saved = sparse.GATHER_COMPUTE_DTYPE
+    sparse.GATHER_COMPUTE_DTYPE = None if f32 else torch.bfloat16
+    try:
+        if got is None:
+            got = xg.gather_gemm(f, q, tbl, w, not f32)
+        ref = sparse.gather_gemm_xblocks_plain(f, q, tbl, w)
+        s = sparse.gather_gemm_xblocks_plain(f.abs(), q, tbl, w.abs())
+    finally:
+        sparse.GATHER_COMPUTE_DTYPE = saved
+    torch.cuda.synchronize()
+    check(got.dtype == torch.float32 and got.shape == ref.shape,
+          f'xblock_gemm {what}: {got.dtype} {tuple(got.shape)}')
+    return xblock_compare(what, got, ref, s, 27 * f.shape[-1])
+
+
+def xblock_adversarial():
+    """The kernel against its plain version on synthetic tables: every
+    Cin of the families but 64 (3, 4 and 5 of conv_input, 16, 32, 128)
+    times Cout 16 / 32 / 64 at B = 1 and 4, Cin 64 in the edge cases.
+    Returns the worst gap ratio."""
+    import torch
+
+    from glenet_tpu_torch.ops import sparse
+    worst, n = 0.0, 0
+    grid = (160, 160, 12)
+    gen = torch.Generator().manual_seed(SEED + 23)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    for b in (1, 4):
+        for cin in (3, 4, 5, 16, 32, 128):
+            for cout in (16, 32, 64):
+                v = 3001 if cin <= 5 else 2048    # a ragged last tile too
+                ids, mask = xblock_tables(SEED + cin + cout + b, b, v, grid)
+                q, tbl = sparse.subm_xblock_table_b(ids, mask, grid)
+                r = xblock_check(f'B={b} Cin={cin} Cout={cout}',
+                                 rand(b, v, cin), q, tbl,
+                                 rand(27, cin, cout, scale=0.1))
+                worst, n = max(worst, r), n + 1
+    ids, mask = xblock_tables(SEED + 1, 2, 4000, grid)
+    q, tbl = sparse.subm_xblock_table_b(ids, mask, grid)
+    f, w = rand(2, 4000, 32), rand(27, 32, 32, scale=0.1)
+    # every tap missing: the sums are exactly zero
+    zero = sparse._xblock_contract(f, q, torch.zeros_like(tbl), w)
+    check(bool((zero == 0).all()), 'xblock_gemm: nonzero output with no '
+                                   'hit')
+    cases = {
+        # the f32 switch, at the widths of the UNetV2 merge convs' backward
+        'f32 Cin=64 Cout=128': (rand(2, 4000, 64), q, tbl,
+                                rand(27, 64, 128, scale=0.1), True),
+        'f32 Cin=128 Cout=64': (rand(2, 4000, 128), q, tbl,
+                                rand(27, 128, 64, scale=0.1), True),
+        'bf16 Cin=64 Cout=128': (rand(2, 4000, 64), q, tbl,
+                                 rand(27, 64, 128, scale=0.1), False),
+        'f32 Cin=5 Cout=16': (rand(2, 4000, 5), q, tbl,
+                              rand(27, 5, 16, scale=0.1), True),
+        # a feature pointer off 16 bytes: the 4-byte gather
+        'unaligned features': (torch.empty(2 * 4000 * 32 + 1, device='cuda')
+                               [1:].copy_(f.reshape(-1)).view(2, 4000, 32),
+                               q, tbl, w, False),
+        # odd Cout: the scalar stores of the epilogue
+        'Cout=3': (f, q, tbl, rand(27, 32, 3, scale=0.1), False),
+    }
+    # sparse sites: almost every neighbour missing
+    ids, mask = xblock_tables(SEED + 2, 2, 4000, grid, density=0.002)
+    cases['isolated sites'] = (f, *sparse.subm_xblock_table_b(ids, mask,
+                                                              grid), w, False)
+    # a full table (no sentinel slot), and q at its last rows with random
+    # bits, so that a hit's rank points past V: those rows read as zero
+    ids, mask = xblock_tables(SEED + 3, 2, 4000, grid, sentinel=0.0)
+    qf, tf = sparse.subm_xblock_table_b(ids, mask, grid)
+    cases['full table'] = (f, qf, tf, w, False)
+    qe = (4000 - 1 - torch.randint(0, 3, qf.shape, generator=gen)).to(
+        torch.int32).cuda()
+    te = torch.randint(0, 32, qf.shape, generator=gen).to(torch.int32).cuda()
+    cases['q at the last rows'] = (f, qe, te, w, False)
+    # a strided table: 16 -> 32 channels into a coarser grid
+    ids, mask = xblock_tables(SEED + 4, 2, 4000, grid)
+    sites = [sparse.strided_output_sites(ids[i], mask[i], grid, 3, 2, 1,
+                                         3000) for i in range(2)]
+    oi = torch.stack([s_[0] for s_ in sites])
+    om = torch.stack([s_[1] for s_ in sites])
+    qs, ts = sparse.strided_xblock_table_b(ids, mask, oi, om, grid, 2, 1)
+    cases['strided 16 -> 32'] = (rand(2, 4000, 16), qs, ts,
+                                 rand(27, 16, 32, scale=0.1), False)
+    for what, (f_, q_, t_, w_, f32) in cases.items():
+        worst = max(worst, xblock_check(what, f_, q_, t_, w_, f32))
+        n += 1
+    print(f'[xblock] kernel == plain within 2 gamma_n S on {n} synthetic '
+          f'cases and an all-miss table (exact zeros); worst gap '
+          f'{worst:.3f} of (n + 1) u S')
+    return worst
+
+
+def xblock_grads():
+    """Both autograd Functions on the card against the plain composition,
+    same inputs.  The submanifold one against the plain version of its own
+    backward (d_features the contraction of g with the flipped taps,
+    d_weights per_tap^T g of bf16 operands); the strided one against
+    autograd of the plain composition, whose d_features sums bf16 rows with
+    index_add_ (atomics, in no fixed order): its bound takes bf16's unit
+    roundoff and its count of adds; its d_weights are float32 sums rounded
+    to bf16 (the weights' operand dtype), one rounding more on each side.
+    S from the same computations on the magnitudes; every gap's norm is
+    besides within XBLOCK_REL of the reference's, which a zeroed, halved
+    or sign-flipped gradient is not."""
+    import torch
+
+    from glenet_tpu_torch.ops import sparse
+    gen = torch.Generator().manual_seed(SEED + 29)
+    grid = (160, 160, 12)
+    ids, mask = xblock_tables(SEED + 5, 2, 4000, grid)
+    sites = [sparse.strided_output_sites(ids[i], mask[i], grid, 3, 2, 1,
+                                         3000) for i in range(2)]
+    oi = torch.stack([s_[0] for s_ in sites])
+    om = torch.stack([s_[1] for s_ in sites])
+    tables = {'subm': sparse.subm_xblock_table_b(ids, mask, grid),
+              'strided': sparse.strided_xblock_table_b(ids, mask, oi, om,
+                                                       grid, 2, 1)}
+
+    def autograd(fn, f, q, tbl, w, g):
+        f, w = f.clone().requires_grad_(), w.clone().requires_grad_()
+        out = fn(f, q, tbl, w)
+        out.backward(g)
+        return out.detach(), f.grad, w.grad
+
+    def subm_plain(f, q, tbl, w, g):
+        per_tap = sparse._xblock_per_tap_b(f, q, tbl)
+        dw = sparse._contract('bgvk,bvo->gko', per_tap, g.to(per_tap.dtype))
+        return (sparse.gather_gemm_xblocks_plain(f, q, tbl, w),
+                sparse.gather_gemm_xblocks_plain(g, q, tbl,
+                                                 sparse.flip_tap_weights(w)),
+                dw.reshape(w.shape))
+
+    worst = 0.0
+    for kind, (q, tbl) in tables.items():
+        for cin, cout in ((16, 32), (32, 16)):
+            f = torch.randn(2, 4000, cin, generator=gen).cuda()
+            w = (torch.randn(27, cin, cout, generator=gen) * 0.1).cuda()
+            g = torch.randn(2, q.shape[2], cout, generator=gen).cuda()
+            if kind == 'subm':
+                got = autograd(sparse.subm_gather_gemm_xblocks_b, f, q, tbl,
+                               w, g)
+                ref = subm_plain(f, q, tbl, w, g)
+                mag = subm_plain(f.abs(), q, tbl, w.abs(), g.abs())
+                u_df, round_dw = XBLOCK_U, 0.0
+            else:
+                got = autograd(sparse.gather_gemm_xblocks_b, f, q, tbl, w, g)
+                plain = sparse.gather_gemm_xblocks_plain
+                ref = autograd(plain, f, q, tbl, w, g)
+                mag = autograd(plain, f.abs(), q, tbl, w.abs(), g.abs())
+                u_df = round_dw = 2.0 ** -8
+            # the bf16 scatter adds at most 27 reads and 2 shifted copies
+            # into an element
+            n_df = 27 * cout if kind == 'subm' else 29
+            torch.cuda.synchronize()
+            tag = f'{kind} Cin={cin} Cout={cout}'
+            worst = max(worst,
+                        xblock_compare(f'{tag} out', got[0], ref[0], mag[0],
+                                       27 * cin),
+                        xblock_compare(f'{tag} d_features', got[1], ref[1],
+                                       mag[1], n_df, u_df),
+                        xblock_compare(f'{tag} d_weights', got[2], ref[2],
+                                       mag[2], 2 * q.shape[2],
+                                       round_u=round_dw))
+    print(f'[xblock] both autograd Functions (subm, strided) == the plain '
+          f'composition: out, d_features, d_weights within 2 gamma_n S '
+          f'and within {XBLOCK_REL} of the reference in norm; '
+          f'worst gap {worst:.3f} of (n + 1) u S')
+    return worst
+
+
+def capture_xblock(fn):
+    """Run fn() and record the (features, q, tbl, weights) of each x-block
+    contraction it makes -> (calls, kernel launches, fn's result)."""
+    from glenet_tpu_torch.ops import sparse
+    XBLOCK.install()
+    calls, real = [], sparse._xblock_contract
+
+    def recorder(features, q, tbl, weights):
+        calls.append((features.detach(), q, tbl, weights.detach()))
+        return real(features, q, tbl, weights)
+
+    sparse._xblock_contract = recorder
+    before = XBLOCK.n
+    try:
+        out = fn()
+    finally:
+        sparse._xblock_contract = real
+    return calls, XBLOCK.n - before, out
+
+
+def xblock_bytes(f, q, w):
+    """Bytes the contraction needs: the features, q and tbl, the weights
+    read once and the float32 output written once."""
+    b, v, cin = f.shape
+    return 4 * (b * v * cin + 2 * q.numel() + w.numel()
+                + b * q.shape[2] * w.shape[2])
+
+
+def xblock_times(what, calls):
+    """Kernel against plain on each captured call, and their times: the
+    kernel's device time (torch.profiler), back to back (CUDA events), the
+    plain version's, and the byte bound at 3.35 TB/s.  Returns the sums."""
+    from glenet_tpu_torch.bench_merge import fmt
+    from glenet_tpu_torch.ops import sparse
+    from glenet_tpu_torch.ops import xblock_gemm as xg
+    from glenet_tpu_torch.utils import cuda_timing as ct
+    tot = dict.fromkeys(('device_ms', 'ms', 'plain_ms', 'bound_ms'), 0.0)
+    worst = 0.0
+    for i, (f, q, tbl, w) in enumerate(calls):
+        worst = max(worst, xblock_check(f'{what} call {i}', f, q, tbl, w))
+        r = {'device_ms': ct.device_ms(
+                 lambda: xg.gather_gemm(f, q, tbl, w, True), 'xblock_gemm'),
+             'ms': ct.event_ms(lambda: xg.gather_gemm(f, q, tbl, w, True),
+                               iters=50, warmup=5),
+             'plain_ms': ct.event_ms(
+                 lambda: sparse.gather_gemm_xblocks_plain(f, q, tbl, w),
+                 iters=5, warmup=1),
+             'bound_ms': xblock_bytes(f, q, w) / 3.35e12 * 1e3}
+        print(f'[xblock] {what} call {i}: features {tuple(f.shape)} -> '
+              f'{tuple(q.shape)} x {w.shape[2]}; kernel device '
+              f'{fmt(r["device_ms"])} ms, back-to-back {fmt(r["ms"])}; plain '
+              f'{fmt(r["plain_ms"])}; bound {r["bound_ms"]:.4f} (bytes)')
+        for k in tot:
+            tot[k] = None if tot[k] is None or r[k] is None else tot[k] + r[k]
+    print(f'[xblock] {what}, {len(calls)} calls: '
+          + ', '.join(f'{k} {fmt(v)}' for k, v in tot.items())
+          + f'; worst gap {worst:.3f} of (n + 1) u S')
+    return tot
+
+
+XBLOCK_LAUNCHES = {'predict': 11, 'step': 9}
+
+
+def phase_xblock():
+    """[xblock]: the x-block gather-GEMM kernel against its plain version
+    (ops/sparse.py gather_gemm_xblocks_plain) on the card: synthetic
+    tables over every Cin / Cout / B the families use and the edge cases,
+    both autograd Functions' gradients, then the captured calls of a Waymo
+    CenterPoint predict at B = 1 and a Waymo GLENet-S train step at B = 4
+    (full width, seeded weights), with their launches and times."""
+    import torch
+
+    from glenet_tpu_torch.config import cfg_from_yaml_file
+    from glenet_tpu_torch.profile_train import build_training
+    from glenet_tpu_torch.utils.synthetic import (batches_for,
+                                                  seeded_detector,
+                                                  waymo_scene_batches)
+    worst = max(xblock_adversarial(), xblock_grads())
+    cfg = cfg_from_yaml_file(str(ROOT /
+                                 'configs/waymo_models/centerpoint.yaml'))
+    det = seeded_detector(cfg, 'cuda', SEED + 31)
+    batch = waymo_scene_batches(1, SEED + 37, 1)[0]
+    with torch.no_grad():
+        det.predict(batch)                              # warm-up
+        calls, n_predict, _ = capture_xblock(lambda: det.predict(batch))
+    predict = xblock_times('CenterPoint predict, B = 1', calls)
+    del det, calls
+    cfg = cfg_from_yaml_file(str(ROOT / 'configs/waymo_models/GLENet_S.yaml'))
+    det = seeded_detector(cfg, 'cuda', SEED + 41)
+    _, state, train_step = build_training(cfg, det)
+    batches = batches_for(cfg, 2, SEED + 43, 4, train=True)
+    state, _ = train_step(state, batches[0])            # warm-up
+    calls, n_step, _ = capture_xblock(lambda: train_step(state, batches[1]))
+    step = xblock_times('GLENet-S train step, B = 4', calls)
+    del det, calls, state
+    torch.cuda.empty_cache()
+    print(f'[xblock] launches: {n_predict} a CenterPoint request, {n_step} a '
+          f'GLENet-S train step')
+    check((n_predict, n_step) == (XBLOCK_LAUNCHES['predict'],
+                                  XBLOCK_LAUNCHES['step']),
+          f'xblock_gemm launches {n_predict} / {n_step}, expected '
+          f'{XBLOCK_LAUNCHES}')
+    return {'worst_gap': worst, 'launches_predict': n_predict,
+            'launches_step': n_step,
+            **{f'predict_{k}': v for k, v in predict.items()},
+            **{f'step_{k}': v for k, v in step.items()}}
 
 
 def phase_gpu_vs_cpu(raw=TINY_CFG, tag='gpu-vs-cpu', align_points=False,
@@ -969,14 +1419,14 @@ def prepare_full_width():
     """GLENet_VR.yaml at full width on the card: seeded detector, the
     requests' scenes, and one warm-up predict that captures the inputs of
     the four merge-resolve calls."""
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.utils.synthetic import scene_batches, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models/GLENet_VR.yaml'))
     det = seeded_detector(cfg, 'cuda', SEED)
     batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
     t0 = time.perf_counter()
-    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    captured = capture_calls(lambda: det.predict(batches[0]),
+                             'full-width GLENet-VR predict')[0]
     print(f'[kernel] warm-up full-width predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     return cfg, det, batches[1:], captured
@@ -1087,7 +1537,6 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
 
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.profile_train import (build_training, total_steps,
                                                 train_frames)
@@ -1101,7 +1550,7 @@ def phase_train(cfg, det, tag='train', label='GLENet-VR', n_points=N_POINTS):
     n_gt = batches[0]['gt_mask'].sum(1).tolist()
     t0 = time.perf_counter()
     captured, (state, metrics) = capture_calls(
-        lambda: train_step(state, batches[0]))
+        lambda: train_step(state, batches[0]), f'{label} train step')
     print(f'[{tag}] {label} train step, B={b} x {n_points} points, train '
           f'voxel budget {det.max_voxels_train}, gt boxes {n_gt}, '
           f'adam_onecycle total_steps {n_total} ({opt_cfg.NUM_EPOCHS} epochs x '
@@ -2107,7 +2556,6 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
 
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.profile_train import build_training
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
     if cfg is None:
         cfg = cfg_from_yaml_file(str(ROOT / 'configs' / models / cfg_name))
@@ -2117,7 +2565,8 @@ def predict_and_step(cfg_name, seed, models='kitti_models', launches=4,
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    captured, pred = (capture_calls(lambda: det.predict(batch)) if capture
+    captured, pred = (capture_calls(lambda: det.predict(batch),
+                                    f'{cfg_name} predict') if capture
                       else (None, det.predict(batch)))
     torch.cuda.synchronize()
     predict_ms = 1e3 * (time.perf_counter() - t0)
@@ -2303,14 +2752,14 @@ def phase_single_full(cfg_name, seed):
     (launches, the captured calls)."""
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.utils.synthetic import scene_batches, seeded_detector
     cfg = cfg_from_yaml_file(str(ROOT / 'configs/kitti_models' / cfg_name))
     det = seeded_detector(cfg, 'cuda', seed)
     batches = scene_batches(N_REQUESTS + 1, SEED, BATCH)
     t0 = time.perf_counter()
-    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    captured = capture_calls(lambda: det.predict(batches[0]),
+                             f'{cfg.TAG} predict')[0]
     print(f'[single] {cfg.TAG}: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     launches = phase_full_width(det, batches[1:], 'single', cfg.TAG)
@@ -2382,7 +2831,6 @@ def phase_waymo_full(seed):
     captured predict calls, the captured train-step calls, step ms)."""
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.utils.synthetic import (WAYMO_N_POINTS,
@@ -2404,7 +2852,8 @@ def phase_waymo_full(seed):
           f'{sparse.level_caps(det.max_voxels_test)}, at the train budget '
           f'{sparse.level_caps(det.max_voxels_train)}')
     t0 = time.perf_counter()
-    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    captured = capture_calls(lambda: det.predict(batches[0]),
+                             'Waymo GLENet-S predict')[0]
     print(f'[waymo] GLENet-S Waymo: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     label = 'GLENet-S Waymo'
@@ -2923,7 +3372,6 @@ def phase_three_class_full(cfg_name, seed, capture=False):
 
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.ops import sparse
     from glenet_tpu_torch.profile_train import build_training
@@ -2956,7 +3404,8 @@ def phase_three_class_full(cfg_name, seed, capture=False):
 
     batches = batches_for(cfg, N_REQUESTS + 1, SEED + 5, BATCH)
     t0 = time.perf_counter()
-    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    captured, _ = capture_calls(lambda: det.predict(batches[0]),
+                                f'{cfg.TAG} predict')
     print(f'[three_class] {cfg.TAG}: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     check(len(captured) == per_call, f'{cfg.TAG}: {len(captured)} '
@@ -3014,7 +3463,7 @@ def phase_three_class_full(cfg_name, seed, capture=False):
     gt_labels = tbatches[0]['gt_boxes'][..., 7][tbatches[0]['gt_mask']]
     t0 = time.perf_counter()
     captured_train, (state, _) = capture_calls(
-        lambda: train_step(state, tbatches[0]))
+        lambda: train_step(state, tbatches[0]), f'{cfg.TAG} train step')
     print(f'[three_class] {cfg.TAG} train step B={b}: gt boxes per class '
           + per_class(gt_labels, torch.ones_like(gt_labels, dtype=bool),
                       names)
@@ -3359,7 +3808,6 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
 
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
@@ -3370,7 +3818,8 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
     rec, undo = watch_pvrcnn(det)
     batches = batches_for(cfg, n_predicts + 1, SEED + 7, BATCH)
     t0 = time.perf_counter()
-    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    captured, _ = capture_calls(lambda: det.predict(batches[0]),
+                                f'{tag} predict')
     print(f'[pv_rcnn] {tag}: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     rec['empty'].clear()
@@ -3439,7 +3888,7 @@ def phase_pv_rcnn_full(models, seed, n_predicts, n_steps, capture=False):
         t0 = time.perf_counter()
         if i == 0:
             captured_train, (state, metrics) = capture_calls(
-                lambda: train_step(state, batch))
+                lambda: train_step(state, batch), f'{tag} train step')
         else:
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
@@ -3725,7 +4174,6 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
 
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
@@ -3736,7 +4184,8 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
     rec, undo = watch_unet(det)
     batches = batches_for(cfg, n_predicts + 1, SEED + 9, BATCH)
     t0 = time.perf_counter()
-    captured, _ = capture_calls(lambda: det.predict(batches[0]))
+    captured, _ = capture_calls(lambda: det.predict(batches[0]),
+                                f'{tag} predict')
     print(f'[parta2] {tag}: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     check(len(captured) == UNET_LAUNCHES, f'{tag}: {len(captured)} '
@@ -3805,7 +4254,7 @@ def phase_parta2_full(models, cfg_name, seed, n_predicts, n_steps,
         t0 = time.perf_counter()
         if i == 0:
             captured_train, (state, metrics) = capture_calls(
-                lambda: train_step(state, batch))
+                lambda: train_step(state, batch), f'{tag} train step')
         else:
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
@@ -4421,7 +4870,6 @@ def phase_centerpoint_full(seed):
     calls, captured train-step calls, mean step ms)."""
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.utils.synthetic import (WAYMO_N_POINTS,
                                                   seeded_detector,
@@ -4435,7 +4883,8 @@ def phase_centerpoint_full(seed):
           f'CenterPoint built with grid {det.grid_size}')
     batches = waymo_scene_batches(N_REQUESTS + 1, SEED + 160, BATCH)
     t0 = time.perf_counter()
-    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    captured = capture_calls(lambda: det.predict(batches[0]),
+                             'Waymo CenterPoint predict')[0]
     print(f'[centerpoint] CenterPoint: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     launches = phase_full_width(det, batches[1:], 'centerpoint',
@@ -4927,7 +5376,6 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
 
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import cfg_from_yaml_file
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import batches_for, seeded_detector
@@ -4942,7 +5390,8 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
     captured = None
     if warmup:
         t0 = time.perf_counter()
-        captured, _ = capture_calls(lambda: det.predict(batches[0]))
+        captured, _ = capture_calls(lambda: det.predict(batches[0]),
+                                    f'{tag} predict')
         print(f'[pvrcnn_plusplus] {tag}: warm-up predict '
               f'{1e3 * (time.perf_counter() - t0):.1f} ms')
         check(len(captured) == 4, f'{tag}: {len(captured)} merge-resolve '
@@ -5004,7 +5453,7 @@ def phase_pvpp_full(cfg_name, seed, n_predicts, n_steps, warmup=True,
         t0 = time.perf_counter()
         if warmup and i == 0:
             captured_train, (state, metrics) = capture_calls(
-                lambda: train_step(state, batch))
+                lambda: train_step(state, batch), f'{tag} train step')
         else:
             state, metrics = train_step(state, batch)
         torch.cuda.synchronize()
@@ -5928,7 +6377,6 @@ def phase_nuscenes_full(seed):
     calls, step ms)."""
     import torch
 
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.config import Cfg, run_cfg_dict
     from glenet_tpu_torch.utils import synthetic
     cfg = Cfg(run_cfg_dict('nuscenes_centerpoint'))
@@ -5947,7 +6395,8 @@ def phase_nuscenes_full(seed):
           f'{synthetic.NUSC_SWEEP_POINTS} points, points in range {n_in} '
           f'of the {n_max} cap) made in {time.perf_counter() - t0:.1f} s')
     t0 = time.perf_counter()
-    captured = capture_calls(lambda: det.predict(batches[0]))[0]
+    captured = capture_calls(lambda: det.predict(batches[0]),
+                             'nuScenes CenterPoint predict')[0]
     print(f'[nuscenes] nuScenes CenterPoint: warm-up predict '
           f'{1e3 * (time.perf_counter() - t0):.1f} ms')
     launches = phase_full_width(det, batches[1:], 'nuscenes',
@@ -6526,12 +6975,12 @@ def _parallel_rank(rank, world, port, tmp):
     tmp."""
     import torch
     sys.path.insert(0, str(ROOT))
-    from glenet_tpu_torch.bench_merge import capture_calls
     from glenet_tpu_torch.parallel import distributed
     from glenet_tpu_torch.parallel import mesh as mesh_lib
     from glenet_tpu_torch.profile_train import build_training
     from glenet_tpu_torch.utils.synthetic import seeded_detector
     LAUNCHES.install()
+    XBLOCK.install()
     distributed.initialize(f'127.0.0.1:{port}', world, rank, 'cuda',
                            backend='gloo', timeout_s=300)
     payload = torch.load(Path(tmp) / 'payload.pt', weights_only=False)
@@ -6594,7 +7043,8 @@ def _parallel_rank(rank, world, port, tmp):
     torch.cuda.reset_peak_memory_stats()
     LAUNCHES.n = 0
     t0 = time.perf_counter()
-    captured, (state, metrics) = capture_calls(lambda: step(state, local))
+    captured, (state, metrics) = capture_calls(lambda: step(state, local),
+                                               f'parallel rank {rank} step')
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
     launches = LAUNCHES.n
@@ -6827,9 +7277,10 @@ def main():
         return 2
     sys.path.insert(0, str(ROOT))
     LAUNCHES.install()
+    XBLOCK.install()
     t_start = time.perf_counter()
     try:
-        card = phase_setup(['merge_resolve'])
+        card = phase_setup(['merge_resolve', 'xblock_gemm'])
         cfg, det, batches, captured = prepare_full_width()
         launches = phase_full_width(det, batches)
         launches_train, captured_train, train_ms = phase_train(cfg, det)
@@ -6857,6 +7308,7 @@ def main():
                 captured_lyft = phase_nuscenes(Path(tmp))
             launches_par, par = phase_parallel(cli_root, Path(tmp))
         merge = phase_merge_check(captured, captured_train, captured_single)
+        xblock = phase_xblock()
         waymo = check_captured(captured_waymo, 'Waymo GLENet-S predict')
         waymo_train = check_captured(captured_waymo_train,
                                      'Waymo GLENet-S train step')
@@ -7026,7 +7478,11 @@ def main():
                                              ('parallel_rank0_train', par))
            for k in ('ms', 'device_ms', 'host_ms', 'cold_ms', 'plain_ms',
                      'bound_ms', 'bound_by', 'library_ms',
-                     'library_device_ms')}}]
+                     'library_device_ms')}}, {
+        'name': 'xblock_gemm', 'route': 'cuda',
+        'source': 'glenet_tpu_torch/csrc/xblock_gemm.cu', 'replaces': None,
+        'launches': XBLOCK.n, 'checked_launches': XBLOCK.windows,
+        'checked_worst_gap': XBLOCK.worst, **xblock}]
     print(f'[done] all phases passed in {time.perf_counter() - t_start:.1f} '
           f's; kernel times are per predict (sum of its 4 calls), train_* '
           f'per train step (sum of its 4 calls); launches are counted over '
@@ -7100,7 +7556,13 @@ def main():
           f'parallel phase: (a) 1 timed step on each of 2 ranks, (b) 1 '
           f'step on each of 2 ranks (when run), (c) 2 CLI steps and '
           f'{math.ceil(CLI_VAL / CLI_BATCH)} predict; '
-          f'parallel_rank0_train_* per rank 0 step of (a) (B = {PAR_B})')
+          f'parallel_rank0_train_* per rank 0 step of (a) (B = {PAR_B}); '
+          f'xblock_gemm: predict_* per Waymo CenterPoint request (B = 1, '
+          f'its {XBLOCK_LAUNCHES["predict"]} calls), step_* per Waymo '
+          f'GLENet-S train step (B = 4, its {XBLOCK_LAUNCHES["step"]} '
+          f'calls), launches over the main process, checked_launches '
+          f'those of each checked warm-up (every one held against the '
+          f'plain version; the parallel ranks print their own)')
     print(card)
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

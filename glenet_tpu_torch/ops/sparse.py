@@ -12,6 +12,9 @@ sorted query stream of each group with the merge-resolve kernel
 (ops/merge_kernel.py) — always in the kernel-path form of the JAX package:
 raw shifted queries, no sentinel substitution (that would break the
 sortedness); spurious hits at out-of-range taps are masked by `valid_c`.
+The contraction over an x-block table runs on the card in the x-block
+gather-GEMM kernel (ops/xblock_gemm.py), on the CPU in its plain version
+`gather_gemm_xblocks_plain`.
 
 Convolutions off the x-block form (the (3, 1, 1) strided conv_out of UNetV2
 and the inverse convs of its decoder) use row tables, (K, Vout) slots with
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import trace
-from . import merge_kernel
+from . import merge_kernel, xblock_gemm
 
 # Compute dtype of the gather + tap contraction (glenet_tpu's
 # GATHER_COMPUTE_DTYPE): bf16 gathers and bf16 operands, contracted with an
@@ -220,18 +223,106 @@ def _contract(equation, a, b):
     return torch.einsum(equation, a.float(), b.float())
 
 
-def gather_gemm_xblocks_b(features, q, tbl, weights):
-    """Sparse-conv contraction over an x-block table: features (B, V, Cin),
-    q/tbl (B, 9, Vo), weights (27, Cin, Cout) in (dz, dy)-major dx-minor tap
-    order -> (B, Vo, Cout) in the features' dtype.  Autograd differentiates
-    the row gathers into index_add_ scatters (the strided convs keep that,
-    as the JAX package keeps default AD there)."""
+def gather_gemm_xblocks_plain(features, q, tbl, weights):
+    """The plain PyTorch version of the x-block contraction: features
+    (B, V, Cin), q/tbl (B, 9, Vo), weights (27, Cin, Cout) in (dz, dy)-major
+    dx-minor tap order -> (B, Vo, Cout) in the features' dtype.  CPU tensors
+    take it; the card runs ops/xblock_gemm.py's kernel."""
     cin = features.shape[-1]
     g = q.shape[1]
     gdtype = _gather_dtype(features)
     per_tap = _xblock_per_tap_b(features, q, tbl)
     w = weights.reshape(g, 3 * cin, -1).to(gdtype)
     return _contract('bgvk,gko->bvo', per_tap, w).to(features.dtype)
+
+
+def _xblock_contract(features, q, tbl, weights):
+    """The x-block contraction with no autograd: the kernel on CUDA tensors
+    (or raise), the plain version on CPU tensors."""
+    xblock_gemm.check(features, q, tbl, weights)
+    if features.device.type == 'cpu':
+        return gather_gemm_xblocks_plain(features, q, tbl, weights)
+    gdtype = _gather_dtype(features)
+    if gdtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'the kernel takes bf16 or float32 operands, not '
+                        f'{gdtype}')
+    return xblock_gemm.gather_gemm(features, q, tbl, weights,
+                                   gdtype == torch.bfloat16)
+
+
+class _GradientAt(torch.autograd.Function):
+    """A zero scalar whose gradient at `x` is `grad`: it feeds a gradient
+    into a graph without grad_outputs, which would have torch import
+    torch.fx's symbolic shapes (sympy) at its first use, seconds of a
+    run's set-up."""
+
+    @staticmethod
+    def forward(ctx, x, grad):
+        ctx.save_for_backward(grad)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _):
+        return ctx.saved_tensors[0], None
+
+
+class _XBlockGatherGemm(torch.autograd.Function):
+    """gather_gemm_xblocks_b of a STRIDED conv (in and out sites differ).
+    It saves only its inputs; the backward rebuilds the per-tap operand
+    and takes the plain composition's gradients (the JAX package's default
+    AD there) without its forward product:
+
+        d_per_tap = g @ W^T        d_weights = per_tap^T @ g
+
+    float32 products of the operands, each rounded to its operand's dtype
+    as autograd rounds it; the row gathers of per_tap carry d_per_tap back
+    to the features as index_add_ scatters."""
+
+    @staticmethod
+    def forward(ctx, features, q, tbl, weights):
+        ctx.save_for_backward(features, q, tbl, weights)
+        return _xblock_contract(features, q, tbl, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, q, tbl, weights = ctx.saved_tensors
+        want = ctx.needs_input_grad
+        b, n_g, vo = q.shape
+        k = 3 * features.shape[-1]
+        g2 = g.float().reshape(b * vo, -1)                  # (B Vo, Cout)
+        with torch.enable_grad():
+            f = features.detach().requires_grad_(want[0])
+            w = weights.detach().requires_grad_(want[3])
+            per_tap = _xblock_per_tap_b(f, q, tbl)          # (B, 9, Vo, K)
+            wg = w.reshape(n_g, k, -1).to(per_tap.dtype)
+            fed = []
+            if want[0]:
+                d_per_tap = torch.empty_like(per_tap)
+                for i in range(n_g):
+                    d_per_tap[:, i] = (g2 @ wg[i].detach().float().T).view(
+                        b, vo, k)
+                fed.append(_GradientAt.apply(per_tap, d_per_tap))
+            if want[3]:
+                # the sites' rows (B Vo, 9 K): one product over every site
+                rows = torch.empty((b, vo, n_g, k), dtype=torch.float32,
+                                   device=g.device)
+                rows.copy_(per_tap.detach().transpose(1, 2))
+                d_wg = (rows.reshape(b * vo, -1).T @ g2).to(wg.dtype)
+                del rows
+                fed.append(_GradientAt.apply(wg, d_wg.view(wg.shape)))
+            obj = sum(fed)
+        inputs = [t for t in (f, w) if t.requires_grad]
+        grads = iter(torch.autograd.grad(obj, inputs))
+        return (next(grads) if want[0] else None, None, None,
+                next(grads) if want[3] else None)
+
+
+def gather_gemm_xblocks_b(features, q, tbl, weights):
+    """Sparse-conv contraction over an x-block table: features (B, V, Cin),
+    q/tbl (B, 9, Vo), weights (27, Cin, Cout) in (dz, dy)-major dx-minor tap
+    order -> (B, Vo, Cout) in the features' dtype.  Differentiable, with
+    the backward of _XBlockGatherGemm."""
+    return _XBlockGatherGemm.apply(features, q, tbl, weights)
 
 
 def flip_tap_weights(weights):
@@ -248,16 +339,17 @@ class _SubmGatherGemm(torch.autograd.Function):
     flipped: output row o reads input i = o + off_t exactly when input row i
     reads o = i + off_flip(t), and both hits mean "both sites active".
 
-        d_features = gather_gemm_xblocks_b(g, q, tbl, flip_tap_weights(W))
+        d_features = the contraction of (g, q, tbl, flip_tap_weights(W))
         d_weights  = per_tap(features)^T @ g
 
     Two gather passes and no scatter; the saved q and tbl mean the backward
-    builds no table and launches no merge-resolve kernel."""
+    builds no table and launches no merge-resolve kernel.  The forward and
+    d_features run in the x-block kernel on the card."""
 
     @staticmethod
     def forward(ctx, features, q, tbl, weights):
         ctx.save_for_backward(features, q, tbl, weights)
-        return gather_gemm_xblocks_b(features, q, tbl, weights)
+        return _xblock_contract(features, q, tbl, weights)
 
     @staticmethod
     def backward(ctx, g):
@@ -265,8 +357,8 @@ class _SubmGatherGemm(torch.autograd.Function):
         cin = features.shape[-1]
         d_features = d_weights = None
         if ctx.needs_input_grad[0]:
-            d_features = gather_gemm_xblocks_b(
-                g.to(features.dtype), q, tbl, flip_tap_weights(weights))
+            d_features = _xblock_contract(g.to(features.dtype), q, tbl,
+                                          flip_tap_weights(weights))
         if ctx.needs_input_grad[3]:
             per_tap = _xblock_per_tap_b(features, q, tbl)   # (B, 9, V, 3Cin)
             d_weights = _contract('bgvk,bvo->gko', per_tap,
